@@ -1,0 +1,51 @@
+"""Sampler state as numpy arrays, both ways.
+
+The "weights" of this system are the sampler's state. These functions move
+it between the port's tensors and plain numpy arrays keyed by the field
+names the JAX package's ``SamplerState`` / ``SamplerAccum`` /
+``SamplerResult`` use, so one state can start both packages. The JAX
+state's PRNG ``key`` has no counterpart: the generators differ.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .sampler import SamplerAccum, SamplerResult, SamplerState
+
+_INT_FIELDS = ("tau", "star_tau", "tau_star")
+
+
+def _tensor(name: str, x, device) -> torch.Tensor:
+    dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+    return torch.as_tensor(np.array(x), device=device).to(dtype).contiguous()
+
+
+def state_from_numpy(d: Mapping, device="cpu") -> SamplerState:
+    """Port state from a mapping of SamplerState fields (extra keys such as
+    ``key`` are ignored)."""
+    return SamplerState(**{f: _tensor(f, d[f], device)
+                           for f in SamplerState._fields})
+
+
+def accum_from_numpy(d: Mapping, device="cpu") -> SamplerAccum:
+    return SamplerAccum(**{f: _tensor(f, d[f], device)
+                           for f in SamplerAccum._fields})
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def state_to_numpy(state: SamplerState) -> dict:
+    return {f: _to_numpy(getattr(state, f)) for f in SamplerState._fields}
+
+
+def accum_to_numpy(accum: SamplerAccum) -> dict:
+    return {f: _to_numpy(getattr(accum, f)) for f in SamplerAccum._fields}
+
+
+def result_to_numpy(res: SamplerResult) -> dict:
+    return {f: _to_numpy(getattr(res, f)) for f in SamplerResult._fields}

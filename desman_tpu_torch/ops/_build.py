@@ -1,0 +1,121 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one shared
+library with a plain C interface, named by a hash of the sources and flags:
+``build/desman_tpu_torch/libdesman_kernels.<hash>.so`` at the repository
+root. The build happens at first use, writes to a temporary name and renames
+it into place, so concurrent processes never load a half-written library.
+A missing nvcc or a failed compile raises with the compiler's output.
+Beside the build: the checks every wrapper makes before it hands pointers
+to the library, and the error check after each launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "desman_tpu_torch"
+# No --use_fast_math: logf must stay the IEEE logf, or tau stops matching the
+# plain version beyond float near-ties.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_library = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    # PyTorch's own search: CUDA_HOME / CUDA_PATH, then the default install
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME or "", "bin", "nvcc")
+    if CUDA_HOME and os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found: building the CUDA kernels needs the CUDA toolkit "
+        "(put nvcc on PATH or set CUDA_HOME)")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libdesman_kernels.{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first call, with its C signatures set."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+        lib.desman_tau_sweep.restype = i32
+        lib.desman_swap.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+        lib.desman_swap.restype = i32
+        lib.desman_error_string.argtypes = [i32]
+        lib.desman_error_string.restype = ctypes.c_char_p
+        _library = lib
+    return _library
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err:
+        raise RuntimeError(
+            f"{what} launch failed: CUDA error {err} "
+            f"({lib.desman_error_string(err).decode()})")
+
+
+def require(name: str, t, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous tensor of this dtype, shape and device.
+
+    A -1 in `shape` matches any size."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            want not in (-1, got) for want, got in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned for the kernel")

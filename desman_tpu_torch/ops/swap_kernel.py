@@ -1,0 +1,104 @@
+"""The strain-pair swap move: CUDA kernel wrapper, its plain PyTorch version,
+and the move's proposal.
+
+``swap`` runs ``csrc/swap_kernel.cu`` on CUDA tensors and the plain version
+``swap_reference`` on CPU tensors; on any other device it raises. The
+proposal ``(g, h, logu)`` is drawn outside (``draw_swap_proposal``) and
+stays on the device: g and h are 0-d int32 tensors the kernel reads by
+pointer, so the sweep never waits for the host to pass them.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils import NBASES, one_hot_tau, safe_log
+from ._build import check, load_library, require
+
+
+def _check(n, tau, mix, gamma, eta, g, h, logu):
+    dev = n.device
+    require("n", n, torch.float32, (-1, -1, NBASES), dev)
+    V, S, _ = n.shape
+    require("tau", tau, torch.int32, (V, -1), dev)
+    G = tau.shape[1]
+    require("mix", mix, torch.float32, (V, S, NBASES), dev)
+    require("gamma", gamma, torch.float32, (S, G), dev)
+    require("eta", eta, torch.float32, (NBASES, NBASES), dev)
+    require("g", g, torch.int32, (), dev)
+    require("h", h, torch.int32, (), dev)
+    require("logu", logu, torch.float32, (V,), dev)
+    return V, S, G
+
+
+def swap(n, tau, mix, gamma, eta, g, h, logu):
+    """Per-position swap MH of strains g and h: (tau [V,G] i32, mix [V,S,4]).
+
+    g, h: 0-d int32 tensors in [0, G); logu: [V] log-uniform thresholds
+    (already divided by any tempering beta). A position accepts where
+    logu < dll; g == h never accepts. Inputs are not modified.
+    """
+    V, S, G = _check(n, tau, mix, gamma, eta, g, h, logu)
+    if n.device.type == "cpu":
+        return swap_reference(n, tau, mix, gamma, eta, g, h, logu)
+    if n.device.type != "cuda":
+        raise ValueError(f"swap: no kernel for device {n.device}")
+    lib = load_library()
+    tau_out = torch.empty_like(tau)
+    mix_out = torch.empty_like(mix)
+    with torch.cuda.device(n.device):
+        err = lib.desman_swap(
+            n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
+            eta.data_ptr(), g.data_ptr(), h.data_ptr(), logu.data_ptr(),
+            tau_out.data_ptr(), mix_out.data_ptr(), V, S, G,
+            torch.cuda.current_stream(n.device).cuda_stream)
+    check(lib, err, "swap")
+    swap.launches += 1
+    return tau_out, mix_out
+
+
+swap.launches = 0
+
+
+def swap_reference(n, tau, mix, gamma, eta, g, h, logu):
+    """Plain PyTorch swap move (the JAX package's ``tau_swap_move`` with the
+    proposal pre-drawn). The proposal is rank-1 in the mixture, so the MH
+    log-ratio is one pass of sum n * (log p' - log p)."""
+    V, G = tau.shape
+    gi = g.long().reshape(1)
+    hi = h.long().reshape(1)
+    tau_g = tau.index_select(1, gi)[:, 0]
+    tau_h = tau.index_select(1, hi)[:, 0]
+    dgam = gamma.index_select(1, gi)[:, 0] - gamma.index_select(1, hi)[:, 0]
+    doh = one_hot_tau(tau_h) - one_hot_tau(tau_g)                 # [V,4]
+    w = doh @ eta                                                 # [V,4]
+    p = torch.einsum("vsa,ab->vsb", mix, eta)
+    p_prop = p + dgam[None, :, None] * w[:, None, :]
+    dll = torch.sum(n * (safe_log(p_prop) - safe_log(p)), dim=(1, 2))
+    accept = (logu < dll) & (g != h)                              # [V]
+
+    cols = torch.arange(G, device=tau.device)[None, :]
+    swapped = torch.where(cols == g, tau_h[:, None],
+                          torch.where(cols == h, tau_g[:, None], tau))
+    tau = torch.where(accept[:, None], swapped, tau)
+    mix = mix + accept.to(mix.dtype)[:, None, None] * (
+        dgam[None, :, None] * doh[:, None, :])
+    return tau, mix
+
+
+def draw_swap_proposal(generator: torch.Generator, V: int, G: int):
+    """(g, h, logu [V]) on the generator's device: a uniformly random
+    unordered pair g != h and per-position log-uniform thresholds.
+
+    G == 1 has no pair to swap: g == h and +inf thresholds never accept.
+    """
+    dev = generator.device
+    if G < 2:
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return zero, zero.clone(), torch.full((V,), float("inf"), device=dev)
+    g = torch.randint(0, G, (), generator=generator, device=dev,
+                      dtype=torch.int32)
+    off = torch.randint(1, G, (), generator=generator, device=dev,
+                        dtype=torch.int32)
+    h = (g + off) % G
+    logu = safe_log(torch.rand((V,), generator=generator, device=dev))
+    return g, h, logu

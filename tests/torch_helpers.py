@@ -1,0 +1,87 @@
+"""Shared pieces of the PyTorch port's tests (tests/test_torch_*.py).
+
+- Caps torch's CPU threads: the suite runs in several worker processes at
+  once, and each would otherwise take every core.
+- ``ReplayNoise``: a noise source for the port's sweep that rebuilds the
+  JAX package's exact random streams from a chain key, with the key layout
+  of ``desman_tpu.sampler.make_sweep_fn``, so one sweep of each package can
+  be compared draw for draw.
+- Small helpers that move data between the two packages as numpy arrays.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from desman_tpu.ops.swap_pallas import draw_swap_proposal
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTDATA = os.path.join(REPO, "TestData")
+
+
+def to_torch(x, dtype=None):
+    """A JAX or numpy array as a CPU tensor (dtype kept unless given)."""
+    t = torch.as_tensor(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def to_jax(t):
+    return jnp.asarray(t.detach().cpu().numpy())
+
+
+def jax_state_numpy(state) -> dict:
+    """A JAX SamplerState/SamplerAccum as a dict of numpy arrays."""
+    return {k: np.asarray(v) for k, v in state._asdict().items()}
+
+
+class ReplayNoise:
+    """The JAX sweep's streams for chain key `key`.
+
+    make_sweep_fn folds the sweep index into the chain key and splits it
+    into (k_tau, k_gamma, k_eta): Gumbel noise per strain from
+    fold_in(k_tau, g), the swap proposal from fold_in(k_tau, 12345), the
+    gamma and eta proposals from split(k_gamma) / split(k_eta) into
+    (k_prop, k_u). The Dirichlet alphas come from the port, as tensors.
+    """
+
+    def __init__(self, key):
+        self.key = key
+
+    def _keys(self, it):
+        return jax.random.split(jax.random.fold_in(self.key, it), 3)
+
+    def gumbel(self, it, V, G):
+        k_tau = self._keys(it)[0]
+        gz = [np.asarray(jax.random.gumbel(jax.random.fold_in(k_tau, g), (V, 4)))
+              for g in range(G)]
+        return torch.as_tensor(np.stack(gz, axis=1))
+
+    def swap(self, it, V, G):
+        k_tau = self._keys(it)[0]
+        g, h, logu = draw_swap_proposal(jax.random.fold_in(k_tau, 12345), V, G)
+        return (torch.tensor(int(g), dtype=torch.int32),
+                torch.tensor(int(h), dtype=torch.int32), to_torch(logu))
+
+    def _prop(self, k, alpha):
+        k_prop, _ = jax.random.split(k)
+        return to_torch(jax.random.gamma(k_prop, to_jax(alpha)))
+
+    def _u(self, k, shape):
+        _, k_u = jax.random.split(k)
+        return to_torch(jax.random.uniform(k_u, shape))
+
+    def gamma_prop(self, it, alpha):
+        return self._prop(self._keys(it)[1], alpha)
+
+    def gamma_u(self, it, S):
+        return self._u(self._keys(it)[1], (S,))
+
+    def eta_prop(self, it, alpha):
+        return self._prop(self._keys(it)[2], alpha)
+
+    def eta_u(self, it):
+        return self._u(self._keys(it)[2], ())
