@@ -9,15 +9,22 @@ Phases, each printing its own '# ...' lines:
    power limit as nvidia-smi reports them;
 2. build: compile the CUDA kernels from desman_tpu_torch/csrc;
 3. kernels vs their plain PyTorch versions on the card at V=1e4, S=64,
-   G=8: agreement, mixture consistency, median times;
-4. the main path: the `desman` CLI on TestData's true-variant half, held to
-   the quickstart's accuracy gates, counting the kernel launches it made;
-5. a V=1e4, S=64, G=8 run() of 400 sweeps with the kernels and with the
-   plain versions, printing sweeps/s and the final loglik.
+   G=8: agreement, mixture consistency, per-sample loglik sums to rtol
+   1e-5, the fused front-half kernel bitwise equal to the staged kernels
+   and to itself from run to run, median times;
+4. the main paths, each with the launch counts set to 0 just before it and
+   read just after: the `desman` CLI on TestData's true-variant half with
+   `--kernel cuda` and with `--kernel cuda_resident`, each held to the
+   quickstart's accuracy gates, and a one-strain `--kernel cuda_resident`
+   run (the path without a swap to fuse);
+5. a V=1e4, S=64, G=8 run() of 400 sweeps with each kernel choice
+   (cuda, cuda_resident, torch), printing sweeps/s and the final loglik.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
-repository the imports fail and nothing runs. On success the last two
-lines are the kernels' JSON record and {"ok": true, "device": {...}}.
+repository the imports fail and nothing runs. On success the last three
+lines are the kernels' JSON record (each kernel's launches counted on its
+own path in phase 4), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -144,56 +151,229 @@ def phase_kernels():
         source="desman_tpu_torch/csrc/swap_kernel.cu",
         replaces="desman_tpu/ops/swap_pallas.py:54", max_abs_err=err,
         agreement=agree, ms=ms, plain_ms=plain_ms))
-    return records
+    emit, more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz,
+                                  rng)
+    records[-1].update(emit)   # kernel 2's emit_ll mode
+    return records + more
 
 
-def phase_cli(tmp):
-    """The desman CLI on the card, gated like tests/test_quickstart.py."""
-    data = io.read_counts_csv(os.path.join(TESTDATA, "variant_counts.csv"))
-    data = data.select(np.flatnonzero(data.positions < 1000))
-    csv = os.path.join(tmp, "variants.csv")
-    io.write_counts_csv(csv, data)
-    out = os.path.join(tmp, "quickstart")
+def ll_err(got, want, agree=1.0):
+    """Max |got - want| after gating got == want to rtol 1e-5 (f32 sums in
+    another order: a lane tree against torch's reduction). Where tau
+    differs at a float near-tie (agree < 1) the sums are of other terms:
+    they are not compared, and there is no error to report (None)."""
+    if agree < 1.0:
+        print("# per-sample loglik not compared: tau differs at a near-tie")
+        return None
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    gate(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
+         f"per-sample loglik within rtol 1e-5 (max rel {rel:.3e})")
+    return (got - want).abs().max().item()
+
+
+def worst(*errs) -> float:
+    return max(e for e in errs if e is not None)
+
+
+def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
+    """The resident sweep's kernels against their plain versions: the swap
+    with emit_ll, gamma_ll (both with_old), gamma_apply_eta (both
+    with_eta) and the fused front half."""
+    dev = n.device
+    gp = torch.as_tensor(rng.dirichlet(np.ones(G), size=S), dtype=torch.float32,
+                         device=dev)
+    accept = torch.as_tensor(rng.random(S) < 0.5, device=dev)
+    eta_prop = eta.flip(0).contiguous()
+    records = []
+
+    # kernel 2': the swap's post-swap per-sample loglik
+    args = (n, tau, mix, gamma, eta, gt, ht, logu)
+    tau_k, mix_k, ll_k = ops.swap(*args, emit_ll=True)
+    tau_p, mix_p, ll_p = ops.swap_reference(*args, emit_ll=True)
+    torch.cuda.synchronize()
+    same = (tau_k == tau_p).all(dim=1)
+    agree = same.float().mean().item()
+    print(f"# swap emit_ll: position agreement {agree:.6f}")
+    gate(agree >= 0.99, "swap(emit_ll) agrees with its plain version on >= 99% "
+         "of positions")
+    gate(torch.allclose(mix_k[same], mix_p[same], rtol=1e-5, atol=1e-6),
+         "swap(emit_ll) mix within rtol 1e-5 / atol 1e-6 on agreeing positions")
+    err = worst(ll_err(ll_k, ll_p, agree),
+                (mix_k[same] - mix_p[same]).abs().max().item())
+    ms = median_ms(lambda: ops.swap(*args, emit_ll=True))
+    plain_ms = median_ms(lambda: ops.swap_reference(*args, emit_ll=True))
+    print(f"# swap emit_ll median ms: kernel {ms:.4f}  plain {plain_ms:.4f}")
+    emit = dict(emit_ll_max_abs_err=err, emit_ll_ms=ms, emit_ll_plain_ms=plain_ms,
+                emit_ll_replaces="desman_tpu/ops/swap_pallas.py:111")
+
+    # kernel 3: the gamma-MH loglik pair
+    err, times = 0.0, {}
+    for with_old in (True, False):
+        ll_k = ops.gamma_ll(n, mix, tau, gp, eta, with_old=with_old)
+        ll_p = ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old)
+        torch.cuda.synchronize()
+        if with_old:
+            err = ll_err(ll_k, ll_p)
+        else:
+            ll_err(ll_k[1], ll_p[1])
+            gate(torch.equal(ll_k[0], torch.zeros_like(ll_k[0])),
+                 "gamma_ll(with_old=False) row 0 is exactly zero")
+        times[with_old] = (
+            median_ms(lambda: ops.gamma_ll(n, mix, tau, gp, eta, with_old=with_old)),
+            median_ms(lambda: ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old)))
+        print(f"# gamma_ll with_old={with_old} median ms: kernel "
+              f"{times[with_old][0]:.4f}  plain {times[with_old][1]:.4f}")
+    records.append(dict(
+        name="gamma_ll", route="cuda", source="desman_tpu_torch/csrc/gamma_kernel.cu",
+        replaces="desman_tpu/ops/gamma_pallas.py:78", max_abs_err=err,
+        ms=times[True][0], plain_ms=times[True][1],
+        without_old_ms=times[False][0], without_old_plain_ms=times[False][1]))
+
+    # kernel 4: accepted gamma applied + the eta proposal's loglik
+    times = {}
+    for with_eta in (True, False):
+        a = (n, mix, tau, gp, accept, eta_prop)
+        mix_k, ll_k = ops.gamma_apply_eta(*a, with_eta=with_eta)
+        mix_p, ll_p = ops.gamma_apply_eta_reference(*a, with_eta=with_eta)
+        torch.cuda.synchronize()
+        gate(torch.allclose(mix_k, mix_p, rtol=1e-5, atol=1e-7),
+             f"gamma_apply_eta(with_eta={with_eta}) mix within rtol 1e-5 / atol 1e-7")
+        if with_eta:
+            err = worst(ll_err(ll_k, ll_p), (mix_k - mix_p).abs().max().item())
+        else:
+            gate(torch.equal(ll_k, torch.zeros_like(ll_k)),
+                 "gamma_apply_eta(with_eta=False) returns zeros")
+        times[with_eta] = (
+            median_ms(lambda: ops.gamma_apply_eta(*a, with_eta=with_eta)),
+            median_ms(lambda: ops.gamma_apply_eta_reference(*a, with_eta=with_eta)))
+        print(f"# gamma_apply_eta with_eta={with_eta} median ms: kernel "
+              f"{times[with_eta][0]:.4f}  plain {times[with_eta][1]:.4f}")
+    records.append(dict(
+        name="gamma_apply_eta", route="cuda",
+        source="desman_tpu_torch/csrc/gamma_kernel.cu",
+        replaces="desman_tpu/ops/gamma_pallas.py:134", max_abs_err=err,
+        ms=times[True][0], plain_ms=times[True][1],
+        without_eta_ms=times[False][0], without_eta_plain_ms=times[False][1]))
+
+    # kernel 5: the fused front half, from the random tau of phase 3's start
+    tau0 = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32,
+                           device=dev)
+    fargs = (n, tau0, mixture(one_hot_tau(tau0), gamma), gamma, eta, gz, gt, ht,
+             logu, gp)
+    tau_f, mix_f, ll_f = ops.fused_sweep(*fargs)
+    tau_p, mix_p, ll_p = ops.fused_sweep_reference(*fargs)
+    t1, m1 = ops.tau_sweep(*fargs[:6])
+    t1, m1, ll_old = ops.swap(n, t1, m1, gamma, eta, gt, ht, logu, emit_ll=True)
+    ll2 = ops.gamma_ll(n, m1, t1, gp, eta, with_old=False)
+    again = ops.fused_sweep(*fargs)
+    torch.cuda.synchronize()
+    same = (tau_f == tau_p).all(dim=1)
+    agree = same.float().mean().item()
+    print(f"# fused_sweep: position agreement {agree:.6f}")
+    gate(agree >= 0.99, "fused_sweep agrees with its plain version on >= 99% "
+         "of positions")
+    gate(torch.allclose(mix_f[same], mix_p[same], rtol=1e-4, atol=1e-5),
+         "fused_sweep mix within rtol 1e-4 / atol 1e-5 on agreeing positions")
+    err = worst(ll_err(ll_f, ll_p, agree),
+                (mix_f[same] - mix_p[same]).abs().max().item())
+    gate(torch.equal(tau_f, t1) and torch.equal(mix_f, m1)
+         and torch.equal(ll_f[0], ll_old) and torch.equal(ll_f[1], ll2[1]),
+         "fused_sweep is bitwise equal to tau_sweep -> swap(emit_ll) -> "
+         "gamma_ll(with_old=False) on the card")
+    gate(all(torch.equal(a, b) for a, b in zip(again, (tau_f, mix_f, ll_f))),
+         "fused_sweep is bitwise the same from run to run")
+
+    def staged():
+        t, m = ops.tau_sweep(*fargs[:6])
+        t, m, _ = ops.swap(n, t, m, gamma, eta, gt, ht, logu, emit_ll=True)
+        ops.gamma_ll(n, m, t, gp, eta, with_old=False)
+
+    ms = median_ms(lambda: ops.fused_sweep(*fargs))
+    plain_ms = median_ms(lambda: ops.fused_sweep_reference(*fargs))
+    staged_ms = median_ms(staged)
+    print(f"# fused_sweep median ms: kernel {ms:.4f}  plain {plain_ms:.4f}  "
+          f"staged kernels {staged_ms:.4f}")
+    records.append(dict(
+        name="fused_sweep", route="cuda", source="desman_tpu_torch/csrc/fused_sweep.cu",
+        replaces="desman_tpu/ops/fused_sweep.py:41", max_abs_err=err,
+        agreement=agree, ms=ms, plain_ms=plain_ms, staged_kernels_ms=staged_ms))
+    return emit, records
+
+
+LAUNCHED = ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta", "fused_sweep")
+OUTPUTS = ("fit.txt", "Gamma_mean.csv", "Gamma_star.csv", "Eta_mean.csv",
+           "Eta_star.csv", "Filtered_Tau_star.csv", "Tau_mean.csv",
+           "metrics.json", "loglik_trace.csv")
+
+
+def drive_cli(argv, out):
+    """One `desman` CLI run with the launch counts set to 0 just before it
+    and read just after; gates rc 0, every output file, a finite fit.txt."""
     ops.reset_launches()
     t0 = time.time()
-    rc = cli.main(["desman", csv, "-g", "5", "-e",
-                   os.path.join(TESTDATA, "true_eta.csv"), "-o", out,
-                   "-i", "150", "-s", "0"])
+    rc = cli.main(["desman", *argv, "-o", out])
     wall = time.time() - t0
-    launches = {"tau_sweep": ops.tau_sweep.launches, "swap": ops.swap.launches}
-    print(f"# cli: rc {rc}, {wall:.2f} s wall, kernel launches {launches}")
+    launches = {k: getattr(ops, k).launches for k in LAUNCHED}
+    print(f"# cli {' '.join(argv[1:])}: rc {rc}, {wall:.2f} s wall, kernel "
+          f"launches {launches}")
     gate(rc == 0, "desman CLI exits 0")
-    for f in ("fit.txt", "Gamma_mean.csv", "Gamma_star.csv", "Eta_mean.csv",
-              "Eta_star.csv", "Filtered_Tau_star.csv", "Tau_mean.csv",
-              "metrics.json", "loglik_trace.csv"):
+    for f in OUTPUTS:
         gate(os.path.exists(os.path.join(out, f)), f"{f} written")
     fit = io.read_fit_txt(os.path.join(out, "fit.txt"))
     gate(all(np.isfinite(fit[k]) for k in
              ("mean_deviance", "star_deviance", "star_loglik")),
          f"fit.txt finite: {fit}")
-    pred, pc, pp = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
-    true, tc, tp = io.read_tau_star_csv(os.path.join(TESTDATA, "true_tau.csv"))
-    rep = compare_tau(pred, true, list(zip(map(str, pc), map(int, pp))),
-                      list(zip(map(str, tc), map(int, tp))))
-    gmae, _ = match_gamma_perm(
-        io.read_gamma_csv(os.path.join(TESTDATA, "true_gamma.csv")),
-        io.read_gamma_csv(os.path.join(out, "Gamma_mean.csv")))
-    with open(os.path.join(out, "metrics.json")) as f:
-        metrics = json.load(f)
-    print(f"# cli: SNP error rate {rep.error_rate:.6f}, gamma MAE {gmae:.6f}, "
-          f"star deviance {fit['star_deviance']:.6f}, "
-          f"{metrics['sweeps_per_s']:.2f} sweeps/s on {metrics['device']}")
-    gate(rep.error_rate < 0.02, "SNP error rate < 0.02")
-    gate(gmae < 0.02, "gamma MAE < 0.02")
-    gate(launches["tau_sweep"] > 0 and launches["swap"] > 0,
-         "the main path launched both kernels")
-    return launches
+    return launches, fit
+
+
+def phase_cli(tmp):
+    """The desman CLI on the card through each kernel path, gated like
+    tests/test_quickstart.py. Returns each kernel's launches on its path."""
+    data = io.read_counts_csv(os.path.join(TESTDATA, "variant_counts.csv"))
+    data = data.select(np.flatnonzero(data.positions < 1000))
+    csv = os.path.join(tmp, "variants.csv")
+    io.write_counts_csv(csv, data)
+    true_tau = io.read_tau_star_csv(os.path.join(TESTDATA, "true_tau.csv"))
+    true_gamma = io.read_gamma_csv(os.path.join(TESTDATA, "true_gamma.csv"))
+    eta = os.path.join(TESTDATA, "true_eta.csv")
+    path_launches = {}
+    for kernel, path_kernels in (("cuda", ("tau_sweep", "swap")),
+                                 ("cuda_resident", ("fused_sweep", "gamma_apply_eta"))):
+        out = os.path.join(tmp, f"quickstart_{kernel}")
+        launches, fit = drive_cli([csv, "-g", "5", "-e", eta, "-i", "150", "-s", "0",
+                                   "--kernel", kernel], out)
+        pred, pc, pp = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+        true, tc, tp = true_tau
+        rep = compare_tau(pred, true, list(zip(map(str, pc), map(int, pp))),
+                          list(zip(map(str, tc), map(int, tp))))
+        gmae, _ = match_gamma_perm(true_gamma,
+                                   io.read_gamma_csv(os.path.join(out, "Gamma_mean.csv")))
+        with open(os.path.join(out, "metrics.json")) as f:
+            metrics = json.load(f)
+        print(f"# cli --kernel {kernel}: SNP error rate {rep.error_rate:.6f}, gamma "
+              f"MAE {gmae:.6f}, star deviance {fit['star_deviance']:.6f}, "
+              f"{metrics['sweeps_per_s']:.2f} sweeps/s on {metrics['device']}")
+        gate(rep.error_rate < 0.02, f"--kernel {kernel}: SNP error rate < 0.02")
+        gate(gmae < 0.02, f"--kernel {kernel}: gamma MAE < 0.02")
+        gate(all(launches[k] > 0 for k in path_kernels),
+             f"--kernel {kernel} launched {', '.join(path_kernels)}")
+        path_launches.update({k: launches[k] for k in path_kernels})
+
+    # one strain: no swap to fuse, so the resident path takes the tau kernel
+    # and gamma_ll with the carried mixture's term
+    launches, _ = drive_cli([csv, "-g", "1", "-i", "40", "-s", "0",
+                             "--kernel", "cuda_resident"],
+                            os.path.join(tmp, "one_strain"))
+    gate(launches["gamma_ll"] > 0 and launches["fused_sweep"] == 0,
+         "-g 1 --kernel cuda_resident launched gamma_ll and not fused_sweep")
+    path_launches["gamma_ll"] = launches["gamma_ll"]
+    return path_launches
 
 
 def phase_north_star(tmp):
-    """run() at the metric configuration, with and without the kernels."""
+    """run() at the metric configuration with each kernel choice."""
     t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
-    for kernel in ("cuda", "torch"):
+    for kernel in ops.KERNELS:
         out = os.path.join(tmp, f"north_star_{kernel}")
         rc = run.RunConfig(G=G, iterations=400, burn_frac=0.0, seed=0,
                            out_dir=out)

@@ -86,10 +86,14 @@ def _desman(argv) -> int:
                     help="error-matrix MH (only 'joint' is ported)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the sampler runs; cuda never falls back to cpu")
-    ap.add_argument("--kernel", choices=["cuda", "torch"], default="cuda",
+    ap.add_argument("--kernel", choices=["cuda", "cuda_resident", "torch"],
+                    default="cuda",
                     help="cuda: the hand-written tau-sweep and swap kernels; "
-                    "torch: their plain PyTorch versions (on a cpu device the "
-                    "two are the same)")
+                    "cuda_resident: the whole sweep's [V]-sized work in two "
+                    "kernel launches (the tau sweep, swap and gamma-MH "
+                    "likelihoods fused, then gamma apply + eta likelihood); "
+                    "torch: the plain PyTorch versions (on a cpu device "
+                    "cuda and torch are the same)")
     args = ap.parse_args(argv)
     if args.eta_update != "joint":
         print("desman: --eta_update rows is not ported to desman_tpu_torch yet "

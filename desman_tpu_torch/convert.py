@@ -8,12 +8,13 @@ state's PRNG ``key`` has no counterpart: the generators differ.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from .sampler import SamplerAccum, SamplerResult, SamplerState
+from .utils import NBASES
 
 _INT_FIELDS = ("tau", "star_tau", "tau_star")
 
@@ -23,9 +24,25 @@ def _tensor(name: str, x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device).to(dtype).contiguous()
 
 
-def state_from_numpy(d: Mapping, device="cpu") -> SamplerState:
+def state_from_numpy(d: Mapping, device="cpu", V: Optional[int] = None
+                     ) -> SamplerState:
     """Port state from a mapping of SamplerState fields (extra keys such as
-    ``key`` are ignored)."""
+    ``key`` are ignored).
+
+    Also takes the JAX package's resident state, whose ``mix`` is the
+    base-major [Vp, 4S] mixture (lane a*S + s) and whose ``mix`` and
+    ``tau`` carry pad rows past V: give V, and the mixture comes back as
+    [V,S,4] and both without the pad rows.
+    """
+    d = dict(d)
+    mix = np.asarray(d["mix"])
+    if mix.ndim == 2:
+        if V is None:
+            raise ValueError("a base-major [Vp, 4S] mixture needs V")
+        Vp, lanes = mix.shape
+        S = lanes // NBASES
+        d["mix"] = mix.reshape(Vp, NBASES, S).transpose(0, 2, 1)[:V]
+        d["tau"] = np.asarray(d["tau"])[:V]
     return SamplerState(**{f: _tensor(f, d[f], device)
                            for f in SamplerState._fields})
 

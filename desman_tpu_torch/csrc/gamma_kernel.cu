@@ -1,0 +1,151 @@
+// The gamma-MH likelihood pair, and the accepted-gamma apply fused with the
+// joint-eta likelihood: the resident sweep's two [V]-sized passes around the
+// [S]-sized MH decisions. One warp per position.
+//
+// Replaces desman_tpu/ops/gamma_pallas.py:
+//
+// - _gamma_ll_kernel (gamma_ll_bmajor's pallas_call): per-sample loglik
+//   [2,S]. Row 1 is sum_{v,b} n * log max(mp @ eta, 1e-12) of the proposal
+//   mixture mp[v,s,a] = sum_g [tau[v,g]==a] * gamma_prop[s,g], rebuilt in
+//   registers and never stored; row 0 is the same on the carried mixture
+//   (with_old), else zeros.
+// - _apply_eta_kernel (gamma_apply_eta_bmajor's pallas_call):
+//   mix_new = mix + accept[s] * (mp - mix), the Pallas formula (accepted
+//   samples take the mixture the MH ratio was evaluated on), and, with
+//   with_eta, ll_eta[s] = sum_{v,b} n * log max(mix_new @ eta_prop, 1e-12).
+//   Without with_eta (fixed eta) it takes no logs and reduces nothing.
+//
+// What bounds them on an H100: bytes. Each reads n, mix and tau once (the
+// apply also writes mix once), about 20-30 MB a call at V=1e4, S=64, G=8,
+// against 4 or 8 logs per (v,s). The design reads n[v,s,:] and mix[v,s,:]
+// as one float4 each, keeps gamma_prop (a few KB) in cache, rebuilds mp in
+// registers, and writes nothing [V]-sized but the apply's new mixture. The
+// [S] sums go through the deterministic per-block reduction of warp.cuh,
+// the one the swap's emit_ll and the fused kernel use.
+#include <cuda_runtime.h>
+
+#include "position.cuh"
+
+namespace desman {
+namespace {
+
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+gamma_ll_kernel(const float4* __restrict__ n, const float4* __restrict__ mix,
+                const int* __restrict__ tau, const float* __restrict__ gamma_prop,
+                const float* __restrict__ eta, float* __restrict__ partial, int V, int S,
+                int G, int with_old) {
+  extern __shared__ float slots[];
+  const long v = warp_position(V);
+  const int lane = threadIdx.x % kWarp;
+  float* slot_old = warp_slot(slots, 0, S);
+  float* slot_new = warp_slot(slots, 1, S);
+  if (v >= 0) {
+    float e[4][4];
+    load_eta(eta, e);
+    const float4* n_row = n + v * S;
+    const float4* mix_row = mix + v * S;
+    for (int s = lane; s < S; s += kWarp)
+      slot_old[s] = with_old ? cell_loglik(n_row[s], mix_row[s], e) : 0.f;
+    proposal_loglik(n_row, tau + v * G, gamma_prop, e, S, G, lane, slot_new);
+  } else {
+    zero_slot(slot_old, S);
+    zero_slot(slot_new, S);
+  }
+  write_block_partial(slots, 2, S, partial);
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+apply_eta_kernel(const float4* __restrict__ n, const float4* __restrict__ mix,
+                 const int* __restrict__ tau, const float* __restrict__ gamma_prop,
+                 const bool* __restrict__ accept, const float* __restrict__ eta_prop,
+                 float4* __restrict__ mix_out, float* __restrict__ partial, int V, int S,
+                 int G, int with_eta) {
+  extern __shared__ float slots[];
+  const long v = warp_position(V);
+  if (!with_eta && v < 0) return;
+  const int lane = threadIdx.x % kWarp;
+  float* slot = warp_slot(slots, 0, S);
+  if (v >= 0) {
+    float e[4][4];
+    load_eta(eta_prop, e);
+    const float4* n_row = n + v * S;
+    const float4* mix_row = mix + v * S;
+    float4* out_row = mix_out + v * S;
+    const int* tau_row = tau + v * G;
+    for (int s = lane; s < S; s += kWarp) {
+      const float acc = accept[s] ? 1.f : 0.f;
+      const float4 m = mix_row[s];
+      const float4 mp = proposal_mix(tau_row, gamma_prop, s, G);
+      float4 r;
+      r.x = m.x + acc * (mp.x - m.x);
+      r.y = m.y + acc * (mp.y - m.y);
+      r.z = m.z + acc * (mp.z - m.z);
+      r.w = m.w + acc * (mp.w - m.w);
+      out_row[s] = r;
+      if (with_eta) slot[s] = cell_loglik(n_row[s], r, e);
+    }
+  } else {
+    zero_slot(slot, S);
+  }
+  if (with_eta) write_block_partial(slots, 1, S, partial);
+}
+
+}  // namespace
+}  // namespace desman
+
+// n, mix: [V,S,4] f32; tau: [V,G] i32; gamma_prop: [S,G] f32; eta: [4,4]
+// f32; ll: [2,S] f32 (row 0 zeros unless with_old); partial: the
+// [desman_partial_rows(V), 2, S] f32 scratch of its reduction. Launches on
+// `stream`, does not synchronise, allocates nothing; returns the first
+// failing call's cudaError_t.
+extern "C" int desman_gamma_ll(const void* n, const void* mix, const void* tau,
+                               const void* gamma_prop, const void* eta, void* partial,
+                               void* ll, int V, int S, int G, int with_old, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V <= 0) return static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * 2 * S, st));
+  cudaError_t err = desman::allow_slots(desman::gamma_ll_kernel, S);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = desman::launch_blocks(V);
+  desman::gamma_ll_kernel<<<blocks, desman::kWarpsPerBlock * desman::kWarp,
+                            desman::slot_bytes(S), st>>>(
+      static_cast<const float4*>(n), static_cast<const float4*>(mix),
+      static_cast<const int*>(tau), static_cast<const float*>(gamma_prop),
+      static_cast<const float*>(eta), static_cast<float*>(partial), V, S, G, with_old);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),
+                                blocks, 2 * S, st);
+  return static_cast<int>(err);
+}
+
+// n, mix, mix_out: [V,S,4] f32; tau: [V,G] i32; gamma_prop: [S,G] f32;
+// accept: [S] bool; eta_prop: [4,4] f32. With with_eta, ll: [S] f32 and
+// partial: the [desman_partial_rows(V), 1, S] f32 scratch; without, both
+// are ignored (the wrapper returns zeros). Launches on `stream`, does not
+// synchronise, allocates nothing; returns the first failing call's
+// cudaError_t.
+extern "C" int desman_gamma_apply_eta(const void* n, const void* mix, const void* tau,
+                                      const void* gamma_prop, const void* accept,
+                                      const void* eta_prop, void* mix_out, void* partial,
+                                      void* ll, int V, int S, int G, int with_eta,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V <= 0) {
+    return with_eta ? static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * S, st))
+                    : static_cast<int>(cudaSuccess);
+  }
+  cudaError_t err = with_eta ? desman::allow_slots(desman::apply_eta_kernel, S) : cudaSuccess;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = desman::launch_blocks(V);
+  desman::apply_eta_kernel<<<blocks, desman::kWarpsPerBlock * desman::kWarp,
+                             with_eta ? desman::slot_bytes(S) : 0, st>>>(
+      static_cast<const float4*>(n), static_cast<const float4*>(mix),
+      static_cast<const int*>(tau), static_cast<const float*>(gamma_prop),
+      static_cast<const bool*>(accept), static_cast<const float*>(eta_prop),
+      static_cast<float4*>(mix_out), static_cast<float*>(partial), V, S, G, with_eta);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && with_eta)
+    err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),
+                                blocks, S, st);
+  return static_cast<int>(err);
+}

@@ -2,15 +2,14 @@
 // position.
 //
 // Replaces desman_tpu/ops/swap_pallas.py::_kernel (reached through
-// _swap_bmajor's pallas_call) with emit_ll=False. Same function, stated at
-// the [V,S,4] layout, for one proposed pair (g, h):
-//   dgam = gamma[:,g] - gamma[:,h]
-//   doh  = onehot(tau[:,h]) - onehot(tau[:,g])
-//   p    = mix @ eta,   p' = p + dgam (x) (doh @ eta)
-//   dll  = sum_{s,b} n * (log max(p',1e-12) - log max(p,1e-12))
-//   accept where logu < dll (logu already divided by the tempering beta)
-// and where accepted, swap tau columns g <-> h and set mix += dgam (x) doh.
-// g == h (a one-strain model) never accepts.
+// _swap_bmajor's pallas_call), both of its modes. The move, stated at the
+// [V,S,4] layout, is desman::swap_position (position.cuh): for one proposed
+// pair (g, h), an MH log-ratio per position from the rank-1 proposal
+// p' = p + dgam (x) (doh @ eta), and where accepted, tau columns g <-> h
+// swapped and mix += dgam (x) doh. g == h (a one-strain model) never
+// accepts. With emit_ll it also returns the post-swap per-sample loglik
+// ll[S] (the resident sweep's gamma-MH ll_old), through the deterministic
+// per-block reduction of warp.cuh.
 //
 // What bounds it on an H100: bytes. It reads n and mix once and writes mix
 // and tau once (about 30 MB a call at V=1e4, S=64, G=8), against 8*V*S logs.
@@ -21,80 +20,38 @@
 // the proposal means p' is never stored: each lane evaluates both logs of
 // its samples in registers, the warp reduces dll with a shuffle butterfly,
 // and every lane then applies the same decision to the samples it owns.
+// Without emit_ll a warp past the ragged edge returns at once; with it, it
+// writes zeros into its block's reduction slot.
 #include <cuda_runtime.h>
 
-#include "warp.cuh"
+#include "position.cuh"
 
 namespace desman {
 namespace {
 
+template <bool kEmit>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 swap_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
             const float4* __restrict__ mix_in, const float* __restrict__ gamma,
             const float* __restrict__ eta, const int* __restrict__ g_ptr,
             const int* __restrict__ h_ptr, const float* __restrict__ logu,
-            int* __restrict__ tau_out, float4* __restrict__ mix_out, int V, int S,
-            int G) {
+            int* __restrict__ tau_out, float4* __restrict__ mix_out, float* partial, int V,
+            int S, int G) {
+  extern __shared__ float slots[];
   const long v = warp_position(V);
-  if (v < 0) return;
+  if (!kEmit && v < 0) return;
   const int lane = threadIdx.x % kWarp;
-  const int g = *g_ptr;
-  const int h = *h_ptr;
-
-  float e[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) e[a][b] = eta[a * 4 + b];
-
-  const int tg = tau_in[v * G + g];
-  const int th = tau_in[v * G + h];
-  float doh[4], w[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) doh[a] = (a == th ? 1.f : 0.f) - (a == tg ? 1.f : 0.f);
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    w[b] = doh[0] * e[0][b] + doh[1] * e[1][b] + doh[2] * e[2][b] + doh[3] * e[3][b];
-
-  const float4* n_row = n + v * S;
-  const float4* mix_row = mix_in + v * S;
-  // gamma[s,g] = gam_g[s * G]
-  const float* gam_g = gamma + g;
-  const float* gam_h = gamma + h;
-
-  float part = 0.f;
-  for (int s = lane; s < S; s += kWarp) {
-    const float dg = gam_g[s * G] - gam_h[s * G];
-    const float4 m = mix_row[s];
-    const float4 cnt = n_row[s];
-    const float nb[4] = {cnt.x, cnt.y, cnt.z, cnt.w};
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const float p = m.x * e[0][b] + m.y * e[1][b] + m.z * e[2][b] + m.w * e[3][b];
-      part += nb[b] * (safe_log(p + dg * w[b]) - safe_log(p));
-    }
+  float* slot_a = kEmit ? warp_slot(slots, 0, S) : nullptr;
+  float* slot_c = kEmit ? warp_slot(slots, 1, S) : nullptr;
+  if (v >= 0) {
+    float e[4][4];
+    load_eta(eta, e);
+    swap_position<kEmit>(n + v * S, tau_in, mix_in + v * S, gamma, e, *g_ptr, *h_ptr, logu[v],
+                         tau_out, mix_out + v * S, v, S, G, lane, slot_a, slot_c);
+  } else if (kEmit) {
+    zero_slot(slot_a, S);
   }
-  const float dll = warp_sum(part);
-  const bool accept = (g != h) && (logu[v] < dll);
-
-  float4* out_row = mix_out + v * S;
-  for (int s = lane; s < S; s += kWarp) {
-    float4 m = mix_row[s];
-    if (accept) {
-      const float dg = gam_g[s * G] - gam_h[s * G];
-      m.x += dg * doh[0];
-      m.y += dg * doh[1];
-      m.z += dg * doh[2];
-      m.w += dg * doh[3];
-    }
-    out_row[s] = m;
-  }
-  for (int k = lane; k < G; k += kWarp) {
-    int t = tau_in[v * G + k];
-    if (accept && k == g) t = th;
-    else if (accept && k == h) t = tg;
-    tau_out[v * G + k] = t;
-  }
+  if (kEmit) write_block_partial(slots, 1, S, partial);
 }
 
 }  // namespace
@@ -102,22 +59,40 @@ swap_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
 
 // n, mix_in, mix_out: [V,S,4] f32; tau_in, tau_out: [V,G] i32; gamma:
 // [S,G] f32; eta: [4,4] f32; g, h: device int32 scalars; logu: [V] f32.
+// ll: null, or the [S] f32 post-swap per-sample loglik, with partial the
+// [desman_partial_rows(V), 1, S] f32 scratch of its reduction.
 // Launches on `stream`, does not synchronise, allocates nothing; returns the
-// launch's cudaError_t.
+// first failing call's cudaError_t.
 extern "C" int desman_swap(const void* n, const void* tau_in, const void* mix_in,
                            const void* gamma, const void* eta, const void* g,
                            const void* h, const void* logu, void* tau_out, void* mix_out,
-                           int V, int S, int G, void* stream) {
-  if (V <= 0) return static_cast<int>(cudaSuccess);
-  desman::swap_kernel<<<desman::launch_blocks(V), desman::kWarpsPerBlock * desman::kWarp, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+                           void* partial, void* ll, int V, int S, int G, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V <= 0) {
+    return ll ? static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * S, st))
+              : static_cast<int>(cudaSuccess);
+  }
+  const int blocks = desman::launch_blocks(V);
+  const int threads = desman::kWarpsPerBlock * desman::kWarp;
+  const bool emit = ll != nullptr;
+  auto kernel = emit ? desman::swap_kernel<true> : desman::swap_kernel<false>;
+  cudaError_t err = emit ? desman::allow_slots(kernel, S) : cudaSuccess;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, threads, emit ? desman::slot_bytes(S) : 0, st>>>(
       static_cast<const float4*>(n), static_cast<const int*>(tau_in),
       static_cast<const float4*>(mix_in), static_cast<const float*>(gamma),
-      static_cast<const float*>(eta), static_cast<const int*>(g),
-      static_cast<const int*>(h), static_cast<const float*>(logu),
-      static_cast<int*>(tau_out), static_cast<float4*>(mix_out), V, S, G);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(eta), static_cast<const int*>(g), static_cast<const int*>(h),
+      static_cast<const float*>(logu), static_cast<int*>(tau_out),
+      static_cast<float4*>(mix_out), static_cast<float*>(partial), V, S, G);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && emit)
+    err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),
+                                blocks, S, st);
+  return static_cast<int>(err);
 }
+
+// Rows of the per-block partial scratch of every kernel with an [S] output.
+extern "C" int desman_partial_rows(int V) { return desman::launch_blocks(V); }
 
 extern "C" const char* desman_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -4,29 +4,61 @@ PyTorch versions.
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors; it keeps a ``launches`` count of kernel launches.
 """
+from typing import Callable, NamedTuple
+
+from .fused_sweep import fused_sweep, fused_sweep_reference
+from .gamma_kernel import (
+    gamma_apply_eta, gamma_apply_eta_reference, gamma_ll, gamma_ll_reference,
+)
 from .swap_kernel import draw_swap_proposal, swap, swap_reference
 from .tau_kernel import draw_gumbel, tau_sweep, tau_sweep_reference
 
+KERNELS = ("cuda", "cuda_resident", "torch")
 
-def resolve(kernel: str):
-    """Kernel choice -> (tau sweep fn, swap fn).
 
-    ``cuda``: the kernel wrappers (their plain versions on CPU tensors).
+class Kernels(NamedTuple):
+    """The sweep's [V]-sized steps for one kernel choice."""
+
+    tau_sweep: Callable
+    swap: Callable
+    gamma_ll: Callable
+    gamma_apply_eta: Callable
+    fused_sweep: Callable
+    resident: bool   # the sweep's front half runs on the resident kernels
+
+
+_WRAPPERS = (tau_sweep, swap, gamma_ll, gamma_apply_eta, fused_sweep)
+_PLAIN = (tau_sweep_reference, swap_reference, gamma_ll_reference,
+          gamma_apply_eta_reference, fused_sweep_reference)
+
+
+def resolve(kernel: str) -> Kernels:
+    """Kernel choice -> the sweep's steps.
+
+    ``cuda``: the kernel wrappers (their plain versions on CPU tensors),
+    with gamma and eta MH as plain PyTorch ops. ``cuda_resident``: the same
+    wrappers, with the sweep's front half on the resident kernels (fused
+    tau + swap + gamma-MH loglik, then gamma apply + eta loglik).
     ``torch``: the plain versions on every device.
     """
     if kernel == "cuda":
-        return tau_sweep, swap
+        return Kernels(*_WRAPPERS, resident=False)
+    if kernel == "cuda_resident":
+        return Kernels(*_WRAPPERS, resident=True)
     if kernel == "torch":
-        return tau_sweep_reference, swap_reference
-    raise ValueError(f"unknown kernel {kernel!r}; one of 'cuda', 'torch'")
+        return Kernels(*_PLAIN, resident=False)
+    raise ValueError(f"unknown kernel {kernel!r}; one of {', '.join(KERNELS)}")
 
 
 def reset_launches() -> None:
-    tau_sweep.launches = 0
-    swap.launches = 0
+    for wrapper in _WRAPPERS:
+        wrapper.launches = 0
 
 
 __all__ = [
-    "draw_gumbel", "draw_swap_proposal", "reset_launches",
-    "resolve", "swap", "swap_reference", "tau_sweep", "tau_sweep_reference",
+    "KERNELS", "Kernels", "draw_gumbel", "draw_swap_proposal",
+    "fused_sweep", "fused_sweep_reference", "gamma_apply_eta",
+    "gamma_apply_eta_reference", "gamma_ll", "gamma_ll_reference",
+    "reset_launches", "resolve", "swap", "swap_reference", "tau_sweep",
+    "tau_sweep_reference",
 ]

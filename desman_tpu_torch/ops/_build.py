@@ -1,11 +1,13 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one shared
-library with a plain C interface, named by a hash of the sources and flags:
-``build/desman_tpu_torch/libdesman_kernels.<hash>.so`` at the repository
-root. The build happens at first use, writes to a temporary name and renames
-it into place, so concurrent processes never load a half-written library.
-A missing nvcc or a failed compile raises with the compiler's output.
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``), one nvcc
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface, named by a hash of the sources
+and flags: ``build/desman_tpu_torch/libdesman_kernels.<hash>.so`` at the
+repository root. The build happens at first use, writes to a temporary name
+and renames it into place, so concurrent processes never load a
+half-written library. A missing nvcc or a failed compile raises with the
+compiler's output.
 Beside the build: the checks every wrapper makes before it hands pointers
 to the library, and the error check after each launch.
 """
@@ -26,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "desman_tpu_torch"
 # No --use_fast_math: logf must stay the IEEE logf, or tau stops matching the
 # plain version beyond float near-ties.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _library = None
 
@@ -55,26 +57,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdesman_kernels.{h.hexdigest()[:16]}.so"
 
 
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _wait(proc: subprocess.Popen, cmd) -> None:
+    """Wait for one nvcc process; raise with its output if it failed."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{stdout}{stderr}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = []
+        try:
+            procs = [_start(cmd) for cmd in cmds]
+            for proc, cmd in zip(procs, cmds):
+                _wait(proc, cmd)
+        finally:  # a failed compile leaves no nvcc running
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _wait(_start(link), link)
+        os.replace(lib, out)
     return out
 
 
@@ -86,8 +108,16 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
         lib.desman_tau_sweep.restype = i32
-        lib.desman_swap.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+        lib.desman_swap.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
         lib.desman_swap.restype = i32
+        lib.desman_gamma_ll.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.desman_gamma_ll.restype = i32
+        lib.desman_gamma_apply_eta.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+        lib.desman_gamma_apply_eta.restype = i32
+        lib.desman_fused_sweep.argtypes = [ptr] * 14 + [i32] * 3 + [ptr]
+        lib.desman_fused_sweep.restype = i32
+        lib.desman_partial_rows.argtypes = [i32]
+        lib.desman_partial_rows.restype = i32
         lib.desman_error_string.argtypes = [i32]
         lib.desman_error_string.restype = ctypes.c_char_p
         _library = lib
@@ -100,6 +130,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(
             f"{what} launch failed: CUDA error {err} "
             f"({lib.desman_error_string(err).decode()})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the C entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def partial_scratch(lib: ctypes.CDLL, V: int, rows: int, S: int,
+                    device) -> torch.Tensor:
+    """Scratch for the per-block partial rows of an [rows, S] output
+    (warp.cuh's deterministic reduction)."""
+    return torch.empty((max(lib.desman_partial_rows(V), 1), rows, S),
+                       dtype=torch.float32, device=device)
 
 
 def require(name: str, t, dtype, shape, device) -> None:

@@ -1,0 +1,122 @@
+"""The resident sweep's gamma-MH passes: CUDA kernel wrappers and their plain
+PyTorch versions.
+
+- ``gamma_ll``: the per-sample loglik pair [2,S] of the gamma MH, row 0 of
+  the carried mixture (``with_old``; zeros otherwise), row 1 of the
+  proposal mixture rebuilt from (tau, gamma_prop) and never stored.
+- ``gamma_apply_eta``: the accepted samples take the proposal mixture
+  (``mix + accept * (mp - mix)``, the Pallas formula), and, with
+  ``with_eta``, the per-sample loglik [S] of the joint eta proposal against
+  the new mixture (zeros without it: fixed-eta runs take no logs).
+
+Each runs ``csrc/gamma_kernel.cu`` on CUDA tensors and its plain version on
+CPU tensors; on any other device it raises. ``accept`` stays an [S] bool
+device tensor, so the sweep never waits for the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..likelihood import mixture
+from ..utils import NBASES, one_hot_tau, safe_log
+from ._build import check, load_library, partial_scratch, require, stream_of
+
+
+def _check(n, mix, tau, gamma_prop, eta):
+    dev = n.device
+    require("n", n, torch.float32, (-1, -1, NBASES), dev)
+    V, S, _ = n.shape
+    require("mix", mix, torch.float32, (V, S, NBASES), dev)
+    require("tau", tau, torch.int32, (V, -1), dev)
+    G = tau.shape[1]
+    require("gamma_prop", gamma_prop, torch.float32, (S, G), dev)
+    require("eta", eta, torch.float32, (NBASES, NBASES), dev)
+    return V, S, G
+
+
+def _sample_loglik(n, mix, eta):
+    """[S]: sum over (v, b) of n * log max(mix @ eta, 1e-12)."""
+    return torch.sum(n * safe_log(torch.einsum("vsa,ab->vsb", mix, eta)),
+                     dim=(0, 2))
+
+
+def gamma_ll(n, mix, tau, gamma_prop, eta, with_old=True):
+    """Per-sample loglik [2,S] of the carried mixture (row 0, zeros unless
+    with_old) and of the gamma proposal (row 1).
+
+    n, mix: [V,S,4] f32; tau: [V,G] int32; gamma_prop: [S,G]; eta: [4,4].
+    """
+    V, S, G = _check(n, mix, tau, gamma_prop, eta)
+    if n.device.type == "cpu":
+        return gamma_ll_reference(n, mix, tau, gamma_prop, eta, with_old)
+    if n.device.type != "cuda":
+        raise ValueError(f"gamma_ll: no kernel for device {n.device}")
+    lib = load_library()
+    ll = torch.empty((2, S), dtype=torch.float32, device=n.device)
+    partial = partial_scratch(lib, V, 2, S, n.device)
+    with torch.cuda.device(n.device):
+        err = lib.desman_gamma_ll(
+            n.data_ptr(), mix.data_ptr(), tau.data_ptr(), gamma_prop.data_ptr(),
+            eta.data_ptr(), partial.data_ptr(), ll.data_ptr(), V, S, G,
+            int(with_old), stream_of(n))
+    check(lib, err, "gamma_ll")
+    gamma_ll.launches += 1
+    return ll
+
+
+gamma_ll.launches = 0
+
+
+def gamma_ll_reference(n, mix, tau, gamma_prop, eta, with_old=True):
+    """Plain PyTorch gamma_ll: the two likelihood terms gamma_step stacks."""
+    new = _sample_loglik(n, mixture(one_hot_tau(tau), gamma_prop), eta)
+    old = _sample_loglik(n, mix, eta) if with_old else torch.zeros_like(new)
+    return torch.stack([old, new])
+
+
+def gamma_apply_eta(n, mix, tau, gamma_prop, accept, eta_prop, with_eta=True):
+    """(mix [V,S,4], ll_eta [S]): the accepted samples' proposal mixture
+    applied, and the joint eta proposal's per-sample loglik against it
+    (zeros unless with_eta).
+
+    accept: [S] bool; eta_prop: [4,4]. Inputs are not modified.
+    """
+    V, S, G = _check(n, mix, tau, gamma_prop, eta_prop)
+    require("accept", accept, torch.bool, (S,), n.device)
+    if n.device.type == "cpu":
+        return gamma_apply_eta_reference(n, mix, tau, gamma_prop, accept,
+                                         eta_prop, with_eta)
+    if n.device.type != "cuda":
+        raise ValueError(f"gamma_apply_eta: no kernel for device {n.device}")
+    lib = load_library()
+    mix_out = torch.empty_like(mix)
+    if with_eta:
+        ll = torch.empty(S, dtype=torch.float32, device=n.device)
+        partial = partial_scratch(lib, V, 1, S, n.device)
+    else:
+        ll = torch.zeros(S, dtype=torch.float32, device=n.device)
+        partial = None
+    with torch.cuda.device(n.device):
+        err = lib.desman_gamma_apply_eta(
+            n.data_ptr(), mix.data_ptr(), tau.data_ptr(), gamma_prop.data_ptr(),
+            accept.data_ptr(), eta_prop.data_ptr(), mix_out.data_ptr(),
+            partial.data_ptr() if with_eta else None,
+            ll.data_ptr() if with_eta else None, V, S, G, int(with_eta),
+            stream_of(n))
+    check(lib, err, "gamma_apply_eta")
+    gamma_apply_eta.launches += 1
+    return mix_out, ll
+
+
+gamma_apply_eta.launches = 0
+
+
+def gamma_apply_eta_reference(n, mix, tau, gamma_prop, accept, eta_prop,
+                              with_eta=True):
+    """Plain PyTorch gamma_apply_eta."""
+    mp = mixture(one_hot_tau(tau), gamma_prop)
+    mix = mix + accept.to(mix.dtype)[None, :, None] * (mp - mix)
+    if not with_eta:
+        return mix, torch.zeros(n.shape[1], dtype=torch.float32,
+                                device=n.device)
+    return mix, _sample_loglik(n, mix, eta_prop)

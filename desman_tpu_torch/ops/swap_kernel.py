@@ -5,14 +5,18 @@ and the move's proposal.
 ``swap_reference`` on CPU tensors; on any other device it raises. The
 proposal ``(g, h, logu)`` is drawn outside (``draw_swap_proposal``) and
 stays on the device: g and h are 0-d int32 tensors the kernel reads by
-pointer, so the sweep never waits for the host to pass them.
+pointer, so the sweep never waits for the host to pass them. With
+``emit_ll`` both also return the post-swap per-sample loglik, the oracle of
+the fused front-half kernel's ll_old row.
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
-from ._build import check, load_library, require
+from ._build import (
+    check, load_library, partial_scratch, require, stream_of,
+)
 
 
 def _check(n, tau, mix, gamma, eta, g, h, logu):
@@ -30,8 +34,9 @@ def _check(n, tau, mix, gamma, eta, g, h, logu):
     return V, S, G
 
 
-def swap(n, tau, mix, gamma, eta, g, h, logu):
-    """Per-position swap MH of strains g and h: (tau [V,G] i32, mix [V,S,4]).
+def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
+    """Per-position swap MH of strains g and h: (tau [V,G] i32, mix [V,S,4]),
+    and with emit_ll also ll [S], the post-swap per-sample loglik.
 
     g, h: 0-d int32 tensors in [0, G); logu: [V] log-uniform thresholds
     (already divided by any tempering beta). A position accepts where
@@ -39,30 +44,35 @@ def swap(n, tau, mix, gamma, eta, g, h, logu):
     """
     V, S, G = _check(n, tau, mix, gamma, eta, g, h, logu)
     if n.device.type == "cpu":
-        return swap_reference(n, tau, mix, gamma, eta, g, h, logu)
+        return swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll)
     if n.device.type != "cuda":
         raise ValueError(f"swap: no kernel for device {n.device}")
     lib = load_library()
     tau_out = torch.empty_like(tau)
     mix_out = torch.empty_like(mix)
+    ll = torch.empty(S, dtype=torch.float32, device=n.device) if emit_ll else None
+    partial = partial_scratch(lib, V, 1, S, n.device) if emit_ll else None
     with torch.cuda.device(n.device):
         err = lib.desman_swap(
             n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), g.data_ptr(), h.data_ptr(), logu.data_ptr(),
-            tau_out.data_ptr(), mix_out.data_ptr(), V, S, G,
-            torch.cuda.current_stream(n.device).cuda_stream)
+            tau_out.data_ptr(), mix_out.data_ptr(),
+            partial.data_ptr() if emit_ll else None,
+            ll.data_ptr() if emit_ll else None, V, S, G, stream_of(n))
     check(lib, err, "swap")
     swap.launches += 1
-    return tau_out, mix_out
+    return (tau_out, mix_out, ll) if emit_ll else (tau_out, mix_out)
 
 
 swap.launches = 0
 
 
-def swap_reference(n, tau, mix, gamma, eta, g, h, logu):
+def swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
     """Plain PyTorch swap move (the JAX package's ``tau_swap_move`` with the
     proposal pre-drawn). The proposal is rank-1 in the mixture, so the MH
-    log-ratio is one pass of sum n * (log p' - log p)."""
+    log-ratio is one pass of sum n * (log p' - log p). emit_ll: also the
+    post-swap per-sample loglik from those logs, sum over (v, b) of
+    n*log p + accept * n*(log p' - log p) (swap_pallas's emit_ll)."""
     V, G = tau.shape
     gi = g.long().reshape(1)
     hi = h.long().reshape(1)
@@ -73,16 +83,21 @@ def swap_reference(n, tau, mix, gamma, eta, g, h, logu):
     w = doh @ eta                                                 # [V,4]
     p = torch.einsum("vsa,ab->vsb", mix, eta)
     p_prop = p + dgam[None, :, None] * w[:, None, :]
-    dll = torch.sum(n * (safe_log(p_prop) - safe_log(p)), dim=(1, 2))
+    logp = safe_log(p)
+    term = n * (safe_log(p_prop) - logp)
+    dll = torch.sum(term, dim=(1, 2))
     accept = (logu < dll) & (g != h)                              # [V]
+    acc_f = accept.to(mix.dtype)
 
     cols = torch.arange(G, device=tau.device)[None, :]
     swapped = torch.where(cols == g, tau_h[:, None],
                           torch.where(cols == h, tau_g[:, None], tau))
     tau = torch.where(accept[:, None], swapped, tau)
-    mix = mix + accept.to(mix.dtype)[:, None, None] * (
-        dgam[None, :, None] * doh[:, None, :])
-    return tau, mix
+    mix = mix + acc_f[:, None, None] * (dgam[None, :, None] * doh[:, None, :])
+    if not emit_ll:
+        return tau, mix
+    t_fin = n * logp + acc_f[:, None, None] * term
+    return tau, mix, torch.sum(t_fin, dim=(0, 2))
 
 
 def draw_swap_proposal(generator: torch.Generator, V: int, G: int):

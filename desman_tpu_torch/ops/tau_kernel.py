@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
-from ._build import check, load_library, require
+from ._build import check, load_library, require, stream_of
 
 
 def _check(n, tau, mix, gamma, eta, gz):
@@ -48,8 +48,7 @@ def tau_sweep(n, tau, mix, gamma, eta, gz):
         err = lib.desman_tau_sweep(
             n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
-            mix_out.data_ptr(), V, S, G,
-            torch.cuda.current_stream(n.device).cuda_stream)
+            mix_out.data_ptr(), V, S, G, stream_of(n))
     check(lib, err, "tau_sweep")
     tau_sweep.launches += 1
     return tau_out, mix_out

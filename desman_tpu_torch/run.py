@@ -112,8 +112,10 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
         nmf_iters: Optional[int] = None) -> SamplerResult:
     """Run one chain on `device` and write the output directory.
 
-    kernel: "cuda" (the CUDA kernels; their plain versions on a CPU device)
-    or "torch" (the plain versions). nmf_iters overrides the NMF start's
+    kernel: "cuda" (the tau-sweep and swap kernels; their plain versions
+    on a CPU device), "cuda_resident" (the resident sweep's kernels, see
+    ``resident``) or "torch" (the plain versions). nmf_iters overrides the
+    NMF start's
     iteration count (benchmarks use a short start). Returns the result,
     its tensors still on the device.
     """

@@ -18,6 +18,10 @@ whatever depends on device state (accept masks, the star snapshot, the swap
 pair) stays on the device through ``torch.where``, so a sweep never waits
 for the device. All randomness comes from a noise source passed to the
 sweep: ``TorchNoise`` draws from the chain's ``torch.Generator``.
+
+With ``kernel="cuda_resident"`` steps 1-3 run as two kernel launches a
+sweep (``resident.front``), with the same draws in the same order; only
+the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops.
 """
 from __future__ import annotations
 
@@ -173,6 +177,32 @@ def _eta_prior(cfg: SamplerConfig, device) -> torch.Tensor:
             * (cfg.eta_prior_diag - cfg.eta_prior_off))
 
 
+def _gamma_proposal(cfg: SamplerConfig, gamma, kappa, noise, it: int):
+    """The per-sample Dirichlet random-walk proposal:
+    (gamma_prop, alpha_fwd, alpha_rev)."""
+    alpha_fwd = kappa * gamma + cfg.proposal_floor                    # [S,G]
+    gamma_prop = _dirichlet(noise.gamma_prop(it, alpha_fwd))
+    alpha_rev = kappa * gamma_prop + cfg.proposal_floor
+    return gamma_prop, alpha_fwd, alpha_rev
+
+
+def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
+                  noise, it: int):
+    """The per-sample MH decisions from the per-sample likelihood pair:
+    (accept [S] bool, gamma, loglik). The old/new terms of the ratio
+    already give the post-update total loglik."""
+    # symmetric Dirichlet(1) prior on gamma rows -> prior ratio = 0
+    log_ratio = (
+        (ll_new - ll_old)
+        + _dirichlet_logpdf(gamma, alpha_rev)
+        - _dirichlet_logpdf(gamma_prop, alpha_fwd)
+    )
+    accept = safe_log(noise.gamma_u(it, gamma.shape[0])) < log_ratio
+    gamma = torch.where(accept[:, None], gamma_prop, gamma)
+    loglik = torch.sum(torch.where(accept, ll_new, ll_old))
+    return accept, gamma, loglik
+
+
 def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
                it: int):
     """Parallel per-sample Dirichlet-random-walk MH on gamma.
@@ -181,39 +211,33 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
     likelihood terms of the MH ratio already give the post-update total
     loglik, so the sweep needs no separate likelihood pass.
     """
-    S = gamma.shape[0]
-    alpha_fwd = kappa * gamma + cfg.proposal_floor                    # [S,G]
-    gamma_prop = _dirichlet(noise.gamma_prop(it, alpha_fwd))
-    alpha_rev = kappa * gamma_prop + cfg.proposal_floor
-
+    gamma_prop, alpha_fwd, alpha_rev = _gamma_proposal(cfg, gamma, kappa,
+                                                       noise, it)
     mix_prop = mixture(one_hot_tau(tau), gamma_prop)                  # [V,S,4]
     both = torch.stack([mix, mix_prop])                               # [2,V,S,4]
     ll = torch.sum(
         n[None] * safe_log(torch.einsum("kvsa,ab->kvsb", both, eta)),
         dim=(1, 3))                                                   # [2,S]
-    ll_old, ll_new = ll[0], ll[1]
-    # symmetric Dirichlet(1) prior on gamma rows -> prior ratio = 0
-    log_ratio = (
-        (ll_new - ll_old)
-        + _dirichlet_logpdf(gamma, alpha_rev)
-        - _dirichlet_logpdf(gamma_prop, alpha_fwd)
-    )
-    accept = safe_log(noise.gamma_u(it, S)) < log_ratio
-    gamma = torch.where(accept[:, None], gamma_prop, gamma)
+    accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd,
+                                          alpha_rev, ll[0], ll[1], noise, it)
     mix = torch.where(accept[None, :, None], mix_prop, mix)
-    loglik = torch.sum(torch.where(accept, ll_new, ll_old))
     return gamma, mix, accept.to(torch.float32).mean(), loglik
 
 
-def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise,
-                   it: int):
-    """Blocked MH on the whole 4x4 error matrix: all four rows proposed at
-    once, one accept/reject, one likelihood pass."""
-    prior_alpha = _eta_prior(cfg, eta.device)
+def _eta_proposal(cfg: SamplerConfig, eta, kappa, noise, it: int):
+    """The joint Dirichlet proposal of all four rows:
+    (eta_prop, alpha_fwd, alpha_rev)."""
     alpha_fwd = kappa * eta + cfg.proposal_floor                      # [4,4]
     eta_prop = _dirichlet(noise.eta_prop(it, alpha_fwd))
     alpha_rev = kappa * eta_prop + cfg.proposal_floor
-    ll_new = _loglik(n, mix, eta_prop)
+    return eta_prop, alpha_fwd, alpha_rev
+
+
+def _eta_accept(cfg: SamplerConfig, eta, eta_prop, alpha_fwd, alpha_rev,
+                ll_new, loglik, noise, it: int):
+    """The one MH decision of the joint eta step: (eta, loglik, accepted
+    as f32)."""
+    prior_alpha = _eta_prior(cfg, eta.device)
     log_ratio = (
         (ll_new - loglik)
         + torch.sum((prior_alpha - 1.0) * (safe_log(eta_prop) - safe_log(eta)))
@@ -226,17 +250,72 @@ def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise,
     return eta, loglik, accept.to(torch.float32)
 
 
+def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise,
+                   it: int):
+    """Blocked MH on the whole 4x4 error matrix: all four rows proposed at
+    once, one accept/reject, one likelihood pass."""
+    eta_prop, alpha_fwd, alpha_rev = _eta_proposal(cfg, eta, kappa, noise, it)
+    return _eta_accept(cfg, eta, eta_prop, alpha_fwd, alpha_rev,
+                       _loglik(n, mix, eta_prop), loglik, noise, it)
+
+
+def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
+                  noise, temp: float):
+    """The sweep's tau, gamma and eta updates as separate steps: the tau
+    sweep and swap kernels (or their plain versions), then gamma_step and
+    eta_step_joint as plain PyTorch ops.
+
+    Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta).
+    """
+    V, S, _ = n.shape
+    G = cfg.G
+    if cfg.fix_tau:
+        tau, mix = state.tau, state.mix
+    else:
+        gz = noise.gumbel(it, V, G)
+        if temp != 1.0:
+            gz = gz * temp
+        tau, mix = ks.tau_sweep(n, state.tau, state.mix, state.gamma,
+                                state.eta, gz)
+        if cfg.swap_moves and G > 1:
+            g, h, logu = noise.swap(it, V, G)
+            tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu)
+    if cfg.fix_gamma:
+        gamma, acc_g = state.gamma, torch.zeros((), device=n.device)
+        loglik = _loglik(n, mix, state.eta)
+    else:
+        gamma, mix, acc_g, loglik = gamma_step(
+            cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
+            noise, it)
+    if cfg.fix_eta:
+        eta, acc_e = state.eta, torch.zeros((), device=n.device)
+    else:
+        eta, loglik, acc_e = eta_step_joint(
+            cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it)
+    return tau, mix, gamma, eta, loglik, acc_g, acc_e
+
+
 def make_sweep_fn(cfg: SamplerConfig, kernel: str = "cuda"):
     """Build the (n, state, accum, it, noise) -> (state, accum, loglik) step.
 
     kernel: "cuda" runs the tau sweep and the swap move through the CUDA
-    kernel wrappers (their plain versions on CPU tensors); "torch" runs the
-    plain versions everywhere.
+    kernel wrappers (their plain versions on CPU tensors); "cuda_resident"
+    runs the whole front half of the sweep on the resident kernels
+    (``resident.front``: two launches a sweep); "torch" runs the plain
+    versions everywhere. The kernel choice changes only the front half:
+    adaptation and accumulators are this function's, for every choice.
     """
-    if cfg.eta_update != "joint":
+    ks = resolve(kernel)
+    if ks.resident:
+        from . import resident
+
+        resident.check_supported(cfg)
+        front = resident.front
+    else:
+        front = _staged_front
+    if cfg.eta_update != "joint" and not cfg.fix_eta:
         raise NotImplementedError(
             "eta_update='rows' is not ported yet (ROADMAP queue 1 item 3)")
-    tau_fn, swap_fn = resolve(kernel)
     anneal = cfg.anneal_temp0 > 1.0 and cfg.burn > 0
     anneal_sweeps = max(int(cfg.burn * cfg.anneal_frac), 1)
 
@@ -250,33 +329,8 @@ def make_sweep_fn(cfg: SamplerConfig, kernel: str = "cuda"):
         return max(1.0, float(t))
 
     def sweep(n, state: SamplerState, accum: SamplerAccum, it: int, noise):
-        V, S, _ = n.shape
-        G = cfg.G
-        if cfg.fix_tau:
-            tau, mix = state.tau, state.mix
-        else:
-            gz = noise.gumbel(it, V, G)
-            temp = temperature(it)
-            if temp != 1.0:
-                gz = gz * temp
-            tau, mix = tau_fn(n, state.tau, state.mix, state.gamma, state.eta,
-                              gz)
-            if cfg.swap_moves and G > 1:
-                g, h, logu = noise.swap(it, V, G)
-                tau, mix = swap_fn(n, tau, mix, state.gamma, state.eta,
-                                   g, h, logu)
-        if cfg.fix_gamma:
-            gamma, acc_g = state.gamma, torch.zeros((), device=n.device)
-            loglik = _loglik(n, mix, state.eta)
-        else:
-            gamma, mix, acc_g, loglik = gamma_step(
-                cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
-                noise, it)
-        if cfg.fix_eta:
-            eta, acc_e = state.eta, torch.zeros((), device=n.device)
-        else:
-            eta, loglik, acc_e = eta_step_joint(
-                cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it)
+        tau, mix, gamma, eta, loglik, acc_g, acc_e = front(
+            cfg, ks, n, state, it, noise, temperature(it))
 
         # diminishing adaptation, burn-in only: larger kappa -> smaller
         # Dirichlet steps -> higher acceptance (frozen post-burn)
@@ -420,13 +474,13 @@ def run_chain(
     The loglik trace is preallocated on the device and filled sweep by
     sweep; nothing is fetched to the host until the caller asks.
     """
+    sweep = make_sweep_fn(cfg, kernel)   # the resident path's refusals first
     if cfg.store_samples:
         raise NotImplementedError(
             "store_samples (desman --store_every) is not ported yet "
             "(ROADMAP queue 1 item 3)")
     n = n.to(torch.float32)
     V, S, _ = n.shape
-    sweep = make_sweep_fn(cfg, kernel)
     state = init_state(n, cfg, generator, eta_init, tau_init, gamma_init)
     accum = init_accum(V, S, cfg.G, n.device)
     noise = TorchNoise(generator) if noise is None else noise

@@ -78,6 +78,110 @@ def test_swap_kernel_matches_plain(cuda, V, S, G):
             assert torch.equal(tau_k, tau) and torch.equal(mix_k, mix)
 
 
+def _resident_inputs(V, S, G, seed, device):
+    """The tau-sweep inputs plus a swap proposal and a gamma proposal."""
+    n, tau, mix, gamma, eta, gz = _inputs(V, S, G, seed, device)
+    rng = np.random.default_rng(seed + 100)
+    g, h = (0, 0) if G == 1 else (G - 1, 0)
+    logu = torch.as_tensor(np.log(rng.uniform(size=V)), dtype=torch.float32)
+    gp = torch.as_tensor(rng.dirichlet(np.ones(G), size=S), dtype=torch.float32)
+    extra = (torch.tensor(g, dtype=torch.int32), torch.tensor(h, dtype=torch.int32),
+             logu, gp)
+    return (n, tau, mix, gamma, eta, gz) + tuple(x.to(device) for x in extra)
+
+
+def _assert_ll_close(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("V,S,G", SHAPES)
+def test_swap_emit_ll_matches_plain(cuda, V, S, G):
+    n, tau, mix, gamma, eta, _, g, h, logu, _ = _resident_inputs(V, S, G, 3, cuda)
+    tau_k, mix_k, ll_k = ops.swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=True)
+    tau_p, mix_p, ll_p = ops.swap_reference(n, tau, mix, gamma, eta, g, h, logu,
+                                            emit_ll=True)
+    tau_0, mix_0 = ops.swap(n, tau, mix, gamma, eta, g, h, logu)
+    torch.cuda.synchronize()
+    same = (tau_k == tau_p).all(dim=1)
+    assert same.float().mean().item() >= 0.99
+    torch.testing.assert_close(mix_k[same], mix_p[same], rtol=1e-5, atol=1e-6)
+    if bool(same.all()):
+        _assert_ll_close(ll_k, ll_p)
+    # emit_ll=False makes the same move
+    assert (tau_0 == tau_k).all(dim=1).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("with_old", [True, False])
+@pytest.mark.parametrize("V,S,G", SHAPES)
+def test_gamma_ll_kernel_matches_plain(cuda, V, S, G, with_old):
+    n, tau, mix, _, eta, _, _, _, _, gp = _resident_inputs(V, S, G, 4, cuda)
+    before = ops.gamma_ll.launches
+    ll_k = ops.gamma_ll(n, mix, tau, gp, eta, with_old=with_old)
+    torch.cuda.synchronize()
+    assert ops.gamma_ll.launches == before + 1
+    _assert_ll_close(ll_k, ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old))
+    if not with_old:
+        assert torch.equal(ll_k[0], torch.zeros_like(ll_k[0]))
+
+
+@pytest.mark.parametrize("with_eta", [True, False])
+@pytest.mark.parametrize("V,S,G", SHAPES)
+def test_gamma_apply_eta_kernel_matches_plain(cuda, V, S, G, with_eta):
+    n, tau, mix, _, eta, _, _, _, _, gp = _resident_inputs(V, S, G, 5, cuda)
+    accept = torch.as_tensor(np.random.default_rng(V).random(S) < 0.5, device=cuda)
+    eta_prop = eta.flip(0).contiguous()
+    mix_k, ll_k = ops.gamma_apply_eta(n, mix, tau, gp, accept, eta_prop, with_eta)
+    mix_p, ll_p = ops.gamma_apply_eta_reference(n, mix, tau, gp, accept, eta_prop,
+                                                with_eta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mix_k, mix_p, rtol=1e-5, atol=1e-7)
+    if with_eta:
+        _assert_ll_close(ll_k, ll_p)
+    else:
+        assert torch.equal(ll_k, torch.zeros_like(ll_k))
+
+
+def _staged(n, tau, mix, gamma, eta, gz, g, h, logu, gp):
+    t, m = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
+    t, m, ll_old = ops.swap(n, t, m, gamma, eta, g, h, logu, emit_ll=True)
+    return t, m, ll_old, ops.gamma_ll(n, m, t, gp, eta, with_old=False)
+
+
+@pytest.mark.parametrize("V,S,G", [s for s in SHAPES if s[2] > 1])
+def test_fused_sweep_is_bitwise_the_staged_kernels(cuda, V, S, G):
+    args = _resident_inputs(V, S, G, 6, cuda)
+    tau_f, mix_f, ll_f = ops.fused_sweep(*args)
+    tau_s, mix_s, ll_old, ll2 = _staged(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(tau_f, tau_s)
+    assert torch.equal(mix_f, mix_s)
+    assert torch.equal(ll_f[0], ll_old)
+    assert torch.equal(ll_f[1], ll2[1])
+    # and against the plain versions
+    tau_p, mix_p, ll_p = ops.fused_sweep_reference(*args)
+    same = (tau_f == tau_p).all(dim=1)
+    assert same.float().mean().item() >= 0.99
+    torch.testing.assert_close(mix_f[same], mix_p[same], rtol=1e-4, atol=1e-5)
+    if bool(same.all()):
+        _assert_ll_close(ll_f, ll_p)
+
+
+def test_kernels_are_bitwise_repeatable(cuda):
+    args = _resident_inputs(1000, 64, 8, 7, cuda)
+    n, tau, mix, gamma, eta, gz, g, h, logu, gp = args
+    accept = torch.arange(64, device=cuda) % 3 == 0
+    runs = [(ops.fused_sweep(*args),
+             ops.gamma_ll(n, mix, tau, gp, eta),
+             ops.gamma_apply_eta(n, mix, tau, gp, accept, eta),
+             ops.swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    flat = [[x for out in run for x in (out if isinstance(out, tuple) else (out,))]
+            for run in runs]
+    for a, b in zip(*flat):
+        assert torch.equal(a, b)
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     n, tau, mix, gamma, eta, gz = _inputs(16, 4, 2, 2, cuda)
     with pytest.raises(ValueError, match="gz"):
@@ -104,3 +208,43 @@ def test_sampler_runs_through_kernels(cuda):
     from desman_tpu_torch.utils import snp_distance_perm
 
     assert snp_distance_perm(t.tau_idx, res.tau_star.cpu().numpy()) <= 4
+
+
+def test_resident_sampler_runs_through_its_kernels(cuda):
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain
+    from desman_tpu_torch.utils import snp_distance_perm
+
+    t = synth.generate(V=200, S=8, G=3, coverage=60.0, seed=5)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=3, burn=30, samples=30, nmf_iters=100)
+    results = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        ops.reset_launches()
+        results.append(run_chain(n, cfg, gen, kernel="cuda_resident"))
+        torch.cuda.synchronize()
+        assert (ops.fused_sweep.launches, ops.gamma_apply_eta.launches) == (60, 60)
+        assert (ops.tau_sweep.launches, ops.swap.launches,
+                ops.gamma_ll.launches) == (0, 0, 0)
+    a, b = results
+    for x, y in zip(a, b):   # same seed, same bits: no atomics anywhere
+        assert torch.equal(x, y)
+    assert torch.isfinite(a.loglik_trace).all()
+    assert snp_distance_perm(t.tau_idx, a.tau_star.cpu().numpy()) <= 4
+
+
+def test_resident_one_strain_takes_gamma_ll(cuda):
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain
+
+    t = synth.generate(V=150, S=6, G=1, coverage=40.0, seed=2)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    ops.reset_launches()
+    res = run_chain(torch.as_tensor(t.data.counts, device=cuda),
+                    SamplerConfig(G=1, burn=5, samples=5, nmf_iters=20), gen,
+                    kernel="cuda_resident")
+    torch.cuda.synchronize()
+    assert (ops.tau_sweep.launches, ops.gamma_ll.launches,
+            ops.gamma_apply_eta.launches, ops.fused_sweep.launches) == (10, 10, 10, 0)
+    assert torch.isfinite(res.loglik_trace).all()

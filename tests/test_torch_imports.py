@@ -17,8 +17,10 @@ MODULES = [
     "desman_tpu_torch.diagnostics", "desman_tpu_torch.validation",
     "desman_tpu_torch.nmf", "desman_tpu_torch.ops",
     "desman_tpu_torch.ops._build", "desman_tpu_torch.ops.tau_kernel",
-    "desman_tpu_torch.ops.swap_kernel", "desman_tpu_torch.sampler",
-    "desman_tpu_torch.convert", "desman_tpu_torch.run", "desman_tpu_torch.cli",
+    "desman_tpu_torch.ops.swap_kernel", "desman_tpu_torch.ops.gamma_kernel",
+    "desman_tpu_torch.ops.fused_sweep", "desman_tpu_torch.sampler",
+    "desman_tpu_torch.resident", "desman_tpu_torch.convert",
+    "desman_tpu_torch.run", "desman_tpu_torch.cli",
 ]
 
 

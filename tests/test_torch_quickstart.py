@@ -10,15 +10,13 @@ from desman_tpu import io as jio
 from desman_tpu.run import RunConfig as JaxRunConfig
 from desman_tpu.run import run as jax_run
 from desman_tpu_torch import cli, io
-from desman_tpu_torch.utils import match_gamma_perm
-from desman_tpu_torch.validation import compare_tau
 
-from torch_helpers import TESTDATA
+from torch_helpers import TESTDATA, TRUE_ETA as ETA
+from torch_helpers import check_quickstart_gates as _gates
 
 OUTPUTS = ("fit.txt", "Gamma_mean.csv", "Gamma_star.csv", "Eta_mean.csv",
            "Eta_star.csv", "Filtered_Tau_star.csv", "Tau_mean.csv",
            "metrics.json", "loglik_trace.csv")
-ETA = os.path.join(TESTDATA, "true_eta.csv")
 
 
 @pytest.fixture(scope="module")
@@ -30,18 +28,6 @@ def variant_half(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("qs") / "variants.csv")
     io.write_counts_csv(path, data)
     return path
-
-
-def _gates(out):
-    pred, pc, pp = jio.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
-    true, tc, tp = jio.read_tau_star_csv(os.path.join(TESTDATA, "true_tau.csv"))
-    rep = compare_tau(pred, true, pred_keys=list(zip(map(str, pc), map(int, pp))),
-                      true_keys=list(zip(map(str, tc), map(int, tp))))
-    gmae, _ = match_gamma_perm(
-        jio.read_gamma_csv(os.path.join(TESTDATA, "true_gamma.csv")),
-        jio.read_gamma_csv(os.path.join(out, "Gamma_mean.csv")))
-    assert rep.error_rate < 0.02, f"SNP error rate {rep.error_rate}"
-    assert gmae < 0.02, f"gamma MAE {gmae}"
 
 
 @pytest.fixture(scope="module")

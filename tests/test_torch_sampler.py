@@ -15,7 +15,9 @@ from desman_tpu.geneassign import assign_gene_tau
 from desman_tpu_torch import convert, nmf, sampler, synth
 from desman_tpu_torch.utils import snp_distance_perm
 
-from torch_helpers import ReplayNoise, jax_state_numpy, to_torch
+from torch_helpers import (
+    ReplayNoise, check_replayed_sweep, jax_state_numpy, to_torch,
+)
 
 
 def test_nmf_updates_match_jax():
@@ -70,27 +72,9 @@ def test_sweep_replays_the_jax_sweep(fix_eta):
         paccum = convert.accum_from_numpy(jax_state_numpy(jaccum))
         pnew, pacc_new, pll = psweep(n_p, pstate, paccum, it,
                                      ReplayNoise(jstate.key))
-        want = jax_state_numpy(jnew)
-        got = convert.state_to_numpy(pnew)
-
-        same = (got["tau"] == want["tau"]).all(axis=1)
-        assert same.mean() >= 0.99, f"sweep {it}: tau agreement {same.mean()}"
-        old = jax_state_numpy(jstate)
-        dec_j = ((want["gamma"] != old["gamma"]).any(1),
-                 (want["eta"] != old["eta"]).any())
-        dec_p = ((got["gamma"] != old["gamma"]).any(1),
-                 (got["eta"] != old["eta"]).any())
-        if all(np.array_equal(a, b) for a, b in zip(dec_j, dec_p)):
-            same_decisions += 1
-            for k in ("gamma", "eta", "loglik", "kappa_gamma", "kappa_eta"):
-                np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
-                                           err_msg=f"sweep {it}: {k}")
-            np.testing.assert_allclose(got["mix"][same], want["mix"][same],
-                                       rtol=1e-4, atol=1e-6)
-            np.testing.assert_allclose(float(pll), float(jll), rtol=1e-5)
-            np.testing.assert_allclose(
-                convert.accum_to_numpy(pacc_new)["star_loglik"],
-                np.asarray(jacc_new.star_loglik), rtol=1e-5)
+        same_decisions += check_replayed_sweep(
+            it, jax_state_numpy(jstate), jax_state_numpy(jnew),
+            convert.state_to_numpy(pnew), jll, pll, jacc_new, pacc_new)
         jstate, jaccum = jnew, jacc_new
     assert same_decisions >= 9, same_decisions
 

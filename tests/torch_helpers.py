@@ -6,6 +6,9 @@
   JAX package's exact random streams from a chain key, with the key layout
   of ``desman_tpu.sampler.make_sweep_fn``, so one sweep of each package can
   be compared draw for draw.
+- ``check_replayed_sweep``: the gates one replayed sweep is held to;
+  ``check_quickstart_gates``: tests/test_quickstart.py's accuracy gates on
+  an output directory from TestData's true-variant half.
 - Small helpers that move data between the two packages as numpy arrays.
 """
 import os
@@ -15,12 +18,16 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from desman_tpu import io as jio
 from desman_tpu.ops.swap_pallas import draw_swap_proposal
+from desman_tpu_torch.utils import match_gamma_perm
+from desman_tpu_torch.validation import compare_tau
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "TestData")
+TRUE_ETA = os.path.join(TESTDATA, "true_eta.csv")
 
 
 def to_torch(x, dtype=None):
@@ -85,3 +92,44 @@ class ReplayNoise:
 
     def eta_u(self, it):
         return self._u(self._keys(it)[2], ())
+
+
+def check_replayed_sweep(it, old, want, got, jll, pll, jaccum, paccum) -> bool:
+    """Hold one port sweep against the JAX sweep from the same state `old`.
+
+    want/got: the new states as numpy dicts ([V,S,4] mixtures); jll/pll
+    and jaccum/paccum: each sweep's loglik and new accumulators. Tau must
+    agree on >= 99% of positions (float near-ties). Returns whether the
+    gamma and eta MH decisions agree; where they do, gamma, eta, kappa and
+    loglik must match to rtol 1e-5 and the mixture to rtol 1e-4.
+    """
+    same = (got["tau"] == want["tau"]).all(axis=1)
+    assert same.mean() >= 0.99, f"sweep {it}: tau agreement {same.mean()}"
+    dec_j = ((want["gamma"] != old["gamma"]).any(1),
+             (want["eta"] != old["eta"]).any())
+    dec_p = ((got["gamma"] != old["gamma"]).any(1),
+             (got["eta"] != old["eta"]).any())
+    if not all(np.array_equal(a, b) for a, b in zip(dec_j, dec_p)):
+        return False
+    for k in ("gamma", "eta", "loglik", "kappa_gamma", "kappa_eta"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                   err_msg=f"sweep {it}: {k}")
+    np.testing.assert_allclose(got["mix"][same], want["mix"][same],
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(float(pll), float(jll), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(paccum.star_loglik),
+                               np.asarray(jaccum.star_loglik), rtol=1e-5)
+    return True
+
+
+def check_quickstart_gates(out):
+    """SNP error rate < 0.02 and gamma MAE < 0.02 against TestData's truth."""
+    pred, pc, pp = jio.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+    true, tc, tp = jio.read_tau_star_csv(os.path.join(TESTDATA, "true_tau.csv"))
+    rep = compare_tau(pred, true, pred_keys=list(zip(map(str, pc), map(int, pp))),
+                      true_keys=list(zip(map(str, tc), map(int, tp))))
+    gmae, _ = match_gamma_perm(
+        jio.read_gamma_csv(os.path.join(TESTDATA, "true_gamma.csv")),
+        jio.read_gamma_csv(os.path.join(out, "Gamma_mean.csv")))
+    assert rep.error_rate < 0.02, f"SNP error rate {rep.error_rate}"
+    assert gmae < 0.02, f"gamma MAE {gmae}"
