@@ -11,21 +11,39 @@ Phases, each printing its own '# ...' lines:
 3. kernels vs their plain PyTorch versions on the card at V=1e4, S=64,
    G=8: agreement, mixture consistency, per-sample loglik sums to rtol
    1e-5, the fused front-half kernel bitwise equal to the staged kernels
-   and to itself from run to run, median times;
+   and to itself from run to run, the top-2 tau kernel (on biallelic,
+   error-free counts) bitwise equal to the tau kernel and to itself from
+   run to run, median times;
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: the `desman` CLI on TestData's true-variant half with
    `--kernel cuda` and with `--kernel cuda_resident`, each held to the
    quickstart's accuracy gates, and a one-strain `--kernel cuda_resident`
-   run (the path without a swap to fuse);
-5. a V=1e4, S=64, G=8 run() of 400 sweeps with each kernel choice
-   (cuda, cuda_resident, torch), printing sweeps/s and the final loglik.
+   run (the path without a swap to fuse); `--kernel cuda_topk` on TestData
+   (cells of 3-4 observed bases) must exit non-zero and say why;
+5. a V=1e4, S=64, G=8 run() of 400 sweeps with each kernel choice that
+   takes such counts (cuda, cuda_resident, torch), printing sweeps/s and
+   the final loglik;
+6. the strain-count grid at the `--paper` scale of the JAX package's
+   examples/complete_example.py (7000 variant + 7000 monomorphic positions,
+   S=64, true G=5; G=1..8 x seeds 0-4, 250 sweeps, eta fixed from the
+   filter) through `pipeline`, twice: (a) error rate 0.005 with `kernel:
+   cuda_resident`, (b) error rate 0 with `kernel: cuda_topk`; each must
+   select G=5 with SNP error rate < 0.02 and gamma MAE < 0.02; `resolvenhap`
+   on (a)'s run dirs must pick best.txt's run; (b) must launch the top-2
+   kernel and never the tau kernel; and a G=5 chain on (b)'s selected
+   counts must have a loglik trace with `cuda_topk` equal to the one with
+   `cuda`.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
-lines are the kernels' JSON record (each kernel's launches counted on its
-own path in phase 4), the card's name and power limit, and
+lines are the kernels' JSON record, one record per TPU kernel (each
+kernel's launches counted on its own path in phases 4 and 6; the swap's
+emit_ll mode runs inside fused_sweep there and carries its launches), the
+card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
+import contextlib
+import io as stdio
 import json
 import os
 import subprocess
@@ -36,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from desman_tpu_torch import cli, io, ops, run, synth
+from desman_tpu_torch import cli, io, ops, run, sampler, synth
 from desman_tpu_torch.likelihood import mixture
 from desman_tpu_torch.ops import _build
 from desman_tpu_torch.utils import match_gamma_perm, one_hot_tau
@@ -151,10 +169,59 @@ def phase_kernels():
         source="desman_tpu_torch/csrc/swap_kernel.cu",
         replaces="desman_tpu/ops/swap_pallas.py:54", max_abs_err=err,
         agreement=agree, ms=ms, plain_ms=plain_ms))
-    emit, more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz,
-                                  rng)
-    records[-1].update(emit)   # kernel 2's emit_ll mode
-    return records + more
+    more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz, rng)
+    return records + more + [topk_kernel(rng)]
+
+
+def topk_kernel(rng):
+    """The top-2 tau kernel on biallelic, error-free counts (every cell
+    observes at most two bases): against its plain version, against the
+    full tau kernel (bitwise), and against itself (bitwise)."""
+    dev = torch.device("cuda")
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, error_rate=0.0,
+                       max_alleles=2, seed=0)
+    n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
+    layout = ops.tau_topk.topk_layout(t.data.counts, dev)
+    gamma = torch.as_tensor(t.gamma, dtype=torch.float32, device=dev)
+    # a non-trivial error matrix: with the data's own eta (the identity)
+    # most logs would sit at the 1e-12 floor
+    eta = torch.as_tensor(synth.make_eta(0.01), dtype=torch.float32, device=dev)
+    tau = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32,
+                          device=dev)
+    mix = mixture(one_hot_tau(tau), gamma)
+    gz = torch.as_tensor(rng.gumbel(size=(V, G, 4)), dtype=torch.float32,
+                         device=dev)
+    args = (layout.n_val, layout.b_idx, tau, mix, gamma, eta, gz)
+    tau_k, mix_k = ops.tau_sweep_topk(*args)
+    tau_p, mix_p = ops.tau_sweep_topk_reference(*args)
+    tau_f, mix_f = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
+    again = ops.tau_sweep_topk(*args)
+    torch.cuda.synchronize()
+    same = (tau_k == tau_p).all(dim=1)
+    agree = same.float().mean().item()
+    err = (mix_k[same] - mix_p[same]).abs().max().item()
+    print(f"# tau_sweep_topk: position agreement {agree:.6f}, max |mix kernel - "
+          f"plain| on agreeing positions {err:.3e}")
+    gate(agree >= 0.99, "tau_sweep_topk agrees with its plain version on >= 99% "
+         "of positions")
+    gate(torch.allclose(mix_k, mixture(one_hot_tau(tau_k), gamma), rtol=1e-5,
+                        atol=1e-6),
+         "tau_sweep_topk mix == mixture(onehot(tau), gamma) within rtol 1e-5 / "
+         "atol 1e-6")
+    gate(torch.equal(tau_k, tau_f) and torch.equal(mix_k, mix_f),
+         "tau_sweep_topk is bitwise equal to tau_sweep on <=2-base counts")
+    gate(torch.equal(again[0], tau_k) and torch.equal(again[1], mix_k),
+         "tau_sweep_topk is bitwise the same from run to run")
+    ms = median_ms(lambda: ops.tau_sweep_topk(*args))
+    plain_ms = median_ms(lambda: ops.tau_sweep_topk_reference(*args))
+    full_ms = median_ms(lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz))
+    print(f"# tau_sweep_topk median ms: kernel {ms:.4f}  plain {plain_ms:.4f}  "
+          f"tau_sweep on the same counts {full_ms:.4f}")
+    return dict(
+        name="tau_sweep_topk", route="cuda",
+        source="desman_tpu_torch/csrc/tau_topk.cu",
+        replaces="desman_tpu/ops/tau_topk.py:81", max_abs_err=err,
+        agreement=agree, ms=ms, plain_ms=plain_ms, tau_sweep_ms=full_ms)
 
 
 def ll_err(got, want, agree=1.0):
@@ -203,8 +270,12 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
     ms = median_ms(lambda: ops.swap(*args, emit_ll=True))
     plain_ms = median_ms(lambda: ops.swap_reference(*args, emit_ll=True))
     print(f"# swap emit_ll median ms: kernel {ms:.4f}  plain {plain_ms:.4f}")
-    emit = dict(emit_ll_max_abs_err=err, emit_ll_ms=ms, emit_ll_plain_ms=plain_ms,
-                emit_ll_replaces="desman_tpu/ops/swap_pallas.py:111")
+    # kernel 2': on the main path its step runs inside each fused_sweep
+    # launch (swap_position<true>), so its launches are fused_sweep's
+    records.append(dict(
+        name="swap_emit_ll", route="cuda", source="desman_tpu_torch/csrc/swap_kernel.cu",
+        replaces="desman_tpu/ops/swap_pallas.py:111", max_abs_err=err,
+        agreement=agree, ms=ms, plain_ms=plain_ms, launched_in="fused_sweep"))
 
     # kernel 3: the gamma-MH loglik pair
     err, times = 0.0, {}
@@ -297,10 +368,11 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
         name="fused_sweep", route="cuda", source="desman_tpu_torch/csrc/fused_sweep.cu",
         replaces="desman_tpu/ops/fused_sweep.py:41", max_abs_err=err,
         agreement=agree, ms=ms, plain_ms=plain_ms, staged_kernels_ms=staged_ms))
-    return emit, records
+    return records
 
 
-LAUNCHED = ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta", "fused_sweep")
+LAUNCHED = ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta", "fused_sweep",
+            "tau_sweep_topk")
 OUTPUTS = ("fit.txt", "Gamma_mean.csv", "Gamma_star.csv", "Eta_mean.csv",
            "Eta_star.csv", "Filtered_Tau_star.csv", "Tau_mean.csv",
            "metrics.json", "loglik_trace.csv")
@@ -367,6 +439,22 @@ def phase_cli(tmp):
     gate(launches["gamma_ll"] > 0 and launches["fused_sweep"] == 0,
          "-g 1 --kernel cuda_resident launched gamma_ll and not fused_sweep")
     path_launches["gamma_ll"] = launches["gamma_ll"]
+
+    # the top-2 kernel refuses counts with 3-4 observed bases in a cell, and
+    # nothing falls back to the full kernel
+    ops.reset_launches()
+    err = stdio.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["desman", os.path.join(TESTDATA, "variant_counts.csv"),
+                       "-g", "5", "-i", "10", "--kernel", "cuda_topk",
+                       "-o", os.path.join(tmp, "topk_refused")])
+    said = err.getvalue().strip()
+    print(f"# cli --kernel cuda_topk on TestData: rc {rc}: {said}")
+    gate(rc != 0 and ">2 observed bases" in said,
+         "--kernel cuda_topk on TestData exits non-zero naming the cells with "
+         "more than 2 observed bases")
+    gate(all(getattr(ops, k).launches == 0 for k in LAUNCHED),
+         "--kernel cuda_topk on TestData launched no kernel")
     return path_launches
 
 
@@ -374,6 +462,8 @@ def phase_north_star(tmp):
     """run() at the metric configuration with each kernel choice."""
     t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
     for kernel in ops.KERNELS:
+        if kernel == "cuda_topk":   # 3-4 observed bases per cell here
+            continue
         out = os.path.join(tmp, f"north_star_{kernel}")
         rc = run.RunConfig(G=G, iterations=400, burn_frac=0.0, seed=0,
                            out_dir=out)
@@ -387,6 +477,98 @@ def phase_north_star(tmp):
               f"{m['star_deviance']:.6f}")
         gate(trace.shape == (400,) and bool(np.isfinite(trace).all()),
              f"--kernel {kernel}: 400 finite logliks")
+
+
+PAPER = dict(V=7000, S=64, G=5, seeds=[0, 1, 2, 3, 4], g_max=8, iterations=250)
+
+
+def phase_grid(tmp):
+    """The strain-count grid at complete_example.py's --paper scale through
+    the pipeline CLI, (a) with cuda_resident at error rate 0.005 and (b)
+    with cuda_topk at error rate 0. Returns the top-2 kernel's launches on
+    path (b)."""
+    topk_launches = None
+    for tag, error_rate, kernel in (("a", 0.005, "cuda_resident"),
+                                    ("b", 0.0, "cuda_topk")):
+        truth, data = synth.mock_community(V=PAPER["V"], S=PAPER["S"], G=PAPER["G"],
+                                           error_rate=error_rate, seed=2017)
+        counts = os.path.join(tmp, f"core_counts_{tag}.csv")
+        io.write_counts_csv(counts, data)
+        out = os.path.join(tmp, f"grid_{tag}")
+        config = os.path.join(tmp, f"pipeline_{tag}.json")
+        with open(config, "w") as f:
+            json.dump({"counts": counts, "output_dir": out,
+                       "grid": {"g_min": 1, "g_max": PAPER["g_max"],
+                                "seeds": PAPER["seeds"],
+                                "iterations": PAPER["iterations"],
+                                "kernel": kernel}}, f)
+        ops.reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(stdio.StringIO()):
+            rc = cli.main(["pipeline", config])
+        wall = time.time() - t0
+        launches = {k: getattr(ops, k).launches for k in LAUNCHED}
+        gate(rc == 0, f"pipeline ({tag}) exits 0")
+        with open(os.path.join(out, "pipeline_summary.json")) as f:
+            summary = json.load(f)
+        best = summary["best_run_dir"]
+        pred, pc, pp = io.read_tau_star_csv(os.path.join(best, "Filtered_Tau_star.csv"))
+        rep = compare_tau(pred, truth.tau_idx,
+                          list(zip(map(str, pc), map(int, pp))),
+                          [("synth", i) for i in range(PAPER["V"])])
+        gmae, _ = match_gamma_perm(truth.gamma,
+                                   io.read_gamma_csv(os.path.join(best, "Gamma_mean.csv")))
+        print(f"# grid ({tag}) error rate {error_rate} kernel {kernel}: "
+              f"{summary['V_selected']}/{summary['V_total']} positions selected, "
+              f"G={summary['selected_G']} (seed {summary['best_seed']}), SNP error "
+              f"rate {rep.error_rate:.6f}, gamma MAE {gmae:.6f}; pipeline wall "
+              f"{wall:.2f} s, grid {summary['grid_wall_s']:.2f} s for "
+              f"{summary['grid_sweeps']} sweeps = "
+              f"{summary['grid_sweeps'] / summary['grid_wall_s']:.2f} sweeps/s; "
+              f"launches {launches}")
+        gate(summary["selected_G"] == PAPER["G"],
+             f"grid ({tag}) selects G={PAPER['G']}")
+        gate(rep.error_rate < 0.02, f"grid ({tag}) SNP error rate < 0.02")
+        gate(gmae < 0.02, f"grid ({tag}) gamma MAE < 0.02")
+        if tag == "a":
+            gate(launches["fused_sweep"] > 0 and launches["gamma_apply_eta"] > 0,
+                 "grid (a) launched fused_sweep and gamma_apply_eta")
+            picked = os.path.join(tmp, "resolvenhap_a.csv")
+            with contextlib.redirect_stdout(stdio.StringIO()):
+                rc = cli.main(["resolvenhap", os.path.join(out, "run_*"), "-o", picked])
+            with open(picked) as f, open(os.path.join(out, "best.txt")) as g:
+                same = rc == 0 and f.read() == g.read()
+            gate(same, "resolvenhap on grid (a)'s run dirs picks best.txt's run")
+        else:
+            gate(launches["tau_sweep_topk"] > 0 and launches["tau_sweep"] == 0,
+                 "grid (b) launched tau_sweep_topk and never tau_sweep")
+            topk_launches = launches["tau_sweep_topk"]
+            same_chain(out)
+    return topk_launches
+
+
+def same_chain(out):
+    """A G=5 seed-0 chain on grid (b)'s selected counts and eta: its loglik
+    trace with cuda_topk is the one with cuda, bit for bit."""
+    dev = torch.device("cuda")
+    sel = io.read_counts_csv(os.path.join(out, "sel_var.csv"))
+    n = torch.as_tensor(sel.counts, dtype=torch.float32, device=dev)
+    eta = torch.as_tensor(io.read_eta_csv(os.path.join(out, "tran_df.csv")),
+                          dtype=torch.float32, device=dev)
+    burn = PAPER["iterations"] // 2
+    cfg = sampler.SamplerConfig(G=PAPER["G"], burn=burn,
+                                samples=PAPER["iterations"] - burn, fix_eta=True)
+    traces = {}
+    for kernel in ("cuda_topk", "cuda"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        traces[kernel] = sampler.run_chain(n, cfg, gen, eta_init=eta,
+                                           kernel=kernel).loglik_trace
+    torch.cuda.synchronize()
+    print(f"# G={PAPER['G']} seed-0 chain on grid (b)'s counts: final loglik cuda_topk "
+          f"{traces['cuda_topk'][-1].item():.6f}, cuda {traces['cuda'][-1].item():.6f}")
+    gate(torch.equal(traces["cuda_topk"], traces["cuda"]),
+         "a cuda_topk chain's loglik trace is torch.equal to the cuda chain's")
 
 
 def main() -> int:
@@ -410,11 +592,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             launches = phase_cli(tmp)
             phase_north_star(tmp)
+            launches["tau_sweep_topk"] = phase_grid(tmp)
     except GateFailed as e:
         print(f"chip_smoke: gate failed: {e}", file=sys.stderr)
         return 1
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r.get("launched_in", r["name"])]
     print(json.dumps({"kernels": records}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,27 @@ def state_from_numpy(d: Mapping, device="cpu", V: Optional[int] = None
                            for f in SamplerState._fields})
 
 
+def topk_layout_from_numpy(n_val, b_idx, device="cpu"):
+    """The top-2 kernel's layout (``ops.tau_topk.TopkLayout``: [V,S,2] per
+    cell, slots in ascending base order) from the JAX package's slot-major
+    ``compress_counts`` arrays (n_val/b_idx [V, 2S], lane = k*S + s, slots
+    by descending count)."""
+    from .ops.tau_topk import K_SLOTS, TopkLayout
+
+    n_val = np.asarray(n_val, np.float32)
+    b_idx = np.asarray(b_idx, np.int32)
+    V, lanes = n_val.shape
+    S = lanes // K_SLOTS
+    vals = n_val.reshape(V, K_SLOTS, S).transpose(0, 2, 1)       # [V,S,2]
+    idx = b_idx.reshape(V, K_SLOTS, S).transpose(0, 2, 1)
+    order = np.argsort(idx, axis=2, kind="stable")
+    vals = np.take_along_axis(vals, order, axis=2)
+    idx = np.take_along_axis(idx, order, axis=2)
+    return TopkLayout(
+        n_val=torch.as_tensor(np.ascontiguousarray(vals), device=device),
+        b_idx=torch.as_tensor(np.ascontiguousarray(idx), device=device))
+
+
 def accum_from_numpy(d: Mapping, device="cpu") -> SamplerAccum:
     return SamplerAccum(**{f: _tensor(f, d[f], device)
                            for f in SamplerAccum._fields})

@@ -1,9 +1,11 @@
 // The per-position steps of a sweep, shared by the staged kernels
 // (tau_kernel.cu, swap_kernel.cu, gamma_kernel.cu) and the fused front-half
-// kernel (fused_sweep.cu). One warp runs each step for one position v; the
-// lane that owns sample s handles s = lane, lane + 32, ... Because the
-// staged and the fused kernels run the same code on the same values, the
-// fused kernel is bitwise equal to the staged chain.
+// kernel (fused_sweep.cu), and the top-2 tau kernel (tau_topk.cu). One warp
+// runs each step for one position v; the lane that owns sample s handles
+// s = lane, lane + 32, ... Because the staged and the fused kernels run the
+// same code on the same values, the fused kernel is bitwise equal to the
+// staged chain; the top-2 kernel runs the same sweep with each cell's terms
+// taken at its observed bases only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,6 +53,71 @@ __device__ __forceinline__ float4 proposal_mix(const int* tau_row, const float* 
   return mp;
 }
 
+// The four candidate terms of cell (v, s) in the tau sweep, from the cell's
+// counts, the rest mixture r = mix - gamma[s,g] onehot(tau[v,g]) and
+// gs = gamma[s,g]:
+//   t[c] = sum_b n[b] * log(max(q[b] + gs * eta[c,b], 1e-12)),  q = r @ eta.
+// AllBases takes the four bases of [V,S,4] counts (tau_pallas._kernel).
+struct AllBases {
+  const float4* n_row;  // n[v, :, :]
+
+  __device__ __forceinline__ void operator()(int s, const float r[4], float gs,
+                                             const float e[4][4], float t[4]) const {
+    float q[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      q[b] = r[0] * e[0][b] + r[1] * e[1][b] + r[2] * e[2][b] + r[3] * e[3][b];
+    const float4 cnt = n_row[s];
+    const float nb[4] = {cnt.x, cnt.y, cnt.z, cnt.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc += nb[b] * safe_log(q[b] + gs * e[c][b]);
+      t[c] = acc;
+    }
+  }
+};
+
+// eta[a, b] for a base b known only at run time, by selects (a register
+// array indexed by a run-time value would go to local memory).
+__device__ __forceinline__ float eta_at(const float e[4][4], int a, int b) {
+  return b == 0 ? e[a][0] : b == 1 ? e[a][1] : b == 2 ? e[a][2] : e[a][3];
+}
+
+// TwoBases takes the cell's at most two observed bases (tau_topk._kernel):
+// slot k holds count n_val[s].k of base b_idx[s].k, the two slots in
+// ascending base order; an unused slot has count 0 and base 0. Each term is
+// the same expression as AllBases' for that base, added in the same (base)
+// order, and AllBases' other terms add an exact 0 (n = 0 times a finite
+// log): so t[c] is bitwise AllBases' t[c] whenever the cell observes at most
+// two bases, with 2 logs per candidate instead of 4.
+struct TwoBases {
+  const float2* n_val;  // [S] slot counts of position v
+  const int2* b_idx;    // [S] slot bases of position v
+
+  __device__ __forceinline__ void operator()(int s, const float r[4], float gs,
+                                             const float e[4][4], float t[4]) const {
+    const float2 nv = n_val[s];
+    const int2 bi = b_idx[s];
+    float e0[4], e1[4];  // eta[:, b] at each slot's base
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      e0[a] = eta_at(e, a, bi.x);
+      e1[a] = eta_at(e, a, bi.y);
+    }
+    const float q0 = r[0] * e0[0] + r[1] * e0[1] + r[2] * e0[2] + r[3] * e0[3];
+    const float q1 = r[0] * e1[0] + r[1] * e1[1] + r[2] * e1[2] + r[3] * e1[3];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float acc = 0.f;
+      acc += nv.x * safe_log(q0 + gs * e0[c]);
+      acc += nv.y * safe_log(q1 + gs * e1[c]);
+      t[c] = acc;
+    }
+  }
+};
+
 // Tau Gibbs sweep over all strains of position v (tau_pallas._kernel):
 // for each strain g in order,
 //   rest = mix - gamma[:,g] (x) onehot(tau[:,g])
@@ -58,13 +125,15 @@ __device__ __forceinline__ float4 proposal_mix(const int* tau_row, const float* 
 //   cand[c] = sum_{s,b} n * log(max(q + gamma[s,g] * eta[c,b], 1e-12))
 //   new  = first argmax_c (cand + gz[v,g,:])        (gz already * temperature)
 //   mix  = rest + gamma[:,g] (x) onehot(new)
+// with the per-sample terms of cand from `terms` (AllBases or TwoBases).
 // The row is rewritten after every strain by the lanes that own it and read
 // back by the same lanes, so out_row may be the row being read.
-__device__ __forceinline__ void tau_position(const float4* n_row, const int* tau_in,
-                                             const float4* mix_row, const float* gamma,
-                                             const float e[4][4], const float4* gz,
-                                             int* tau_out, float4* out_row, long v, int S,
-                                             int G, int lane) {
+template <class Terms>
+__device__ __forceinline__ void tau_position_terms(const Terms& terms, const int* tau_in,
+                                                   const float4* mix_row, const float* gamma,
+                                                   const float e[4][4], const float4* gz,
+                                                   int* tau_out, float4* out_row, long v,
+                                                   int S, int G, int lane) {
   const float4* src = mix_row;
   for (int g = 0; g < G; ++g) {
     const float* gam = gamma + g;  // gamma[s,g] = gam[s * G]
@@ -74,24 +143,10 @@ __device__ __forceinline__ void tau_position(const float4* n_row, const int* tau
     for (int s = lane; s < S; s += kWarp) {
       const float gs = gam[s * G];
       const float4 m = src[s];
-      const float4 cnt = n_row[s];
-      const float r0 = m.x - (old == 0 ? gs : 0.f);
-      const float r1 = m.y - (old == 1 ? gs : 0.f);
-      const float r2 = m.z - (old == 2 ? gs : 0.f);
-      const float r3 = m.w - (old == 3 ? gs : 0.f);
-      float q[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        q[b] = r0 * e[0][b] + r1 * e[1][b] + r2 * e[2][b] + r3 * e[3][b];
-      const float nb[4] = {cnt.x, cnt.y, cnt.z, cnt.w};
+      const float r[4] = {m.x - (old == 0 ? gs : 0.f), m.y - (old == 1 ? gs : 0.f),
+                          m.z - (old == 2 ? gs : 0.f), m.w - (old == 3 ? gs : 0.f)};
       float t[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float acc = 0.f;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc += nb[b] * safe_log(q[b] + gs * e[c][b]);
-        t[c] = acc;
-      }
+      terms(s, r, gs, e, t);
       c0 += t[0];
       c1 += t[1];
       c2 += t[2];
@@ -123,6 +178,17 @@ __device__ __forceinline__ void tau_position(const float4* n_row, const int* tau
     if (lane == 0) tau_out[v * G + g] = pick;
     src = out_row;
   }
+}
+
+// The full tau sweep of position v on [V,S,4] counts (the staged tau kernel
+// and the fused front-half kernel).
+__device__ __forceinline__ void tau_position(const float4* n_row, const int* tau_in,
+                                             const float4* mix_row, const float* gamma,
+                                             const float e[4][4], const float4* gz,
+                                             int* tau_out, float4* out_row, long v, int S,
+                                             int G, int lane) {
+  tau_position_terms(AllBases{n_row}, tau_in, mix_row, gamma, e, gz, tau_out, out_row, v, S,
+                     G, lane);
 }
 
 // Swap MH of strains (g, h) at position v (swap_pallas._kernel):

@@ -1,10 +1,15 @@
 """MCMC convergence diagnostics on host numpy (counterpart of
 ``desman_tpu.diagnostics``): split-R-hat and bulk effective sample size over
-post-burn scalar traces, and per-parameter ESS of stored draws.
+post-burn scalar traces, replicate agreement of tau-stars, and per-parameter
+ESS of stored draws.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+
+from .utils import snp_distance_perm
 
 
 def split_rhat(chains: np.ndarray) -> float:
@@ -51,6 +56,18 @@ def ess_bulk(chains: np.ndarray, max_lag: int = 200) -> float:
             break
         tau += 2 * pair
     return float(m * n / tau)
+
+
+def replicate_agreement(tau_stars: Sequence[np.ndarray]) -> np.ndarray:
+    """Pairwise permutation-matched SNP distances between replicate
+    tau-stars [V,G] (the reference's taucomp.py check). Returns [R,R]."""
+    R = len(tau_stars)
+    out = np.zeros((R, R), dtype=np.int64)
+    for i in range(R):
+        for j in range(i + 1, R):
+            d = snp_distance_perm(np.asarray(tau_stars[i]), np.asarray(tau_stars[j]))
+            out[i, j] = out[j, i] = d
+    return out
 
 
 def draws_diagnostics(draws: dict) -> dict:

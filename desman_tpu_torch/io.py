@@ -67,7 +67,8 @@ def _read_rows(path: str) -> list:
         return list(csv.reader(f))
 
 
-def _write_rows(path: str, header: list, rows) -> None:
+def write_rows(path: str, header: list, rows) -> None:
+    """A CSV file: the header row, then the rows (each a list of strings)."""
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(header)
@@ -145,9 +146,18 @@ def write_counts_csv(path: str, data: CountsData) -> None:
         f"{name}-{base}" for name in data.samples for base in BASES]
     V = data.V
     flat = np.asarray(data.counts).reshape(V, -1)
-    _write_rows(path, header, (
+    write_rows(path, header, (
         [str(c), str(p), *map(str, row)]
         for c, p, row in zip(data.contigs, data.positions, flat)))
+
+
+def write_position_csv(path: str, data: CountsData, name: str, values) -> None:
+    """Contig,Position,<name>: one value per position of data (the filter's
+    p_df.csv / q_df.csv), each float printed as Python prints it (pandas'
+    format)."""
+    write_rows(path, ["Contig", "Position", name], (
+        [str(c), str(p), repr(float(x))]
+        for c, p, x in zip(data.contigs, data.positions, values)))
 
 
 def read_eta_csv(path: str) -> np.ndarray:
@@ -159,7 +169,7 @@ def read_eta_csv(path: str) -> np.ndarray:
 
 
 def write_eta_csv(path: str, eta: np.ndarray) -> None:
-    _write_rows(path, ["", *BASES], _labelled_rows(BASES, np.asarray(eta)))
+    write_rows(path, ["", *BASES], _labelled_rows(BASES, np.asarray(eta)))
 
 
 def write_gamma_csv(path: str, gamma: np.ndarray, samples=None) -> None:
@@ -167,7 +177,7 @@ def write_gamma_csv(path: str, gamma: np.ndarray, samples=None) -> None:
     gamma = np.asarray(gamma)
     S, G = gamma.shape
     idx = samples if samples is not None else [f"S{i}" for i in range(S)]
-    _write_rows(path, ["", *(f"H{g + 1}" for g in range(G))],
+    write_rows(path, ["", *(f"H{g + 1}" for g in range(G))],
                 _labelled_rows(idx, gamma))
 
 
@@ -189,7 +199,7 @@ def write_tau_star_csv(path: str, tau_idx: np.ndarray, contigs, positions) -> No
     tau_idx = np.asarray(tau_idx)
     V, G = tau_idx.shape
     onehot = np.eye(NBASES, dtype=np.int64)[tau_idx].reshape(V, G * NBASES)
-    _write_rows(path, _tau_header(G), (
+    write_rows(path, _tau_header(G), (
         [str(c), str(p), *map(str, row)]
         for c, p, row in zip(contigs, positions, onehot)))
 
@@ -210,9 +220,17 @@ def write_tau_mean_csv(path: str, tau_mean: np.ndarray, contigs, positions) -> N
     tau_mean = np.asarray(tau_mean)
     V, G, _ = tau_mean.shape
     flat = tau_mean.reshape(V, G * NBASES)
-    _write_rows(path, _tau_header(G), (
+    write_rows(path, _tau_header(G), (
         [str(c), str(p), *map(str, row)]
         for c, p, row in zip(contigs, positions, flat)))
+
+
+def read_tau_mean_csv(path: str) -> np.ndarray:
+    """Read a Tau_mean.csv back to posterior base probabilities [V,G,4]."""
+    rows = [r for r in _read_rows(path)[1:] if r]
+    flat = np.asarray([r[2:] for r in rows], dtype=np.float64)
+    G = flat.shape[1] // NBASES if rows else 0
+    return flat.reshape(len(rows), G, NBASES)
 
 
 def write_fit_txt(

@@ -81,3 +81,12 @@ def total_coeff_host_f64(counts) -> float:
 
 def deviance_from_loglik(loglik: float, coeff: float) -> float:
     return -2.0 * (loglik + coeff)
+
+
+def snv_uncertainty(tau_mean: torch.Tensor, threshold: float = 0.9) -> torch.Tensor:
+    """Fraction of (position, strain) posterior base calls below `threshold`
+    (0-d f32): a call is uncertain when its posterior mode probability is
+    below the threshold. Model selection pairs this with the posterior mean
+    deviance."""
+    conf = torch.amax(tau_mean, dim=-1)                     # [V,G]
+    return torch.mean((conf < threshold).to(torch.float32))

@@ -108,6 +108,8 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
         lib.desman_tau_sweep.restype = i32
+        lib.desman_tau_sweep_topk.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
+        lib.desman_tau_sweep_topk.restype = i32
         lib.desman_swap.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
         lib.desman_swap.restype = i32
         lib.desman_gamma_ll.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]

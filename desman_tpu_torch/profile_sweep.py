@@ -9,7 +9,10 @@ clock (synchronised at both ends), then traces 20 sweeps with
 torch.profiler and prints one JSON line per choice: ms/sweep unprofiled,
 device-busy ms/sweep (the sum of the device ops' own times), device ops per
 sweep, and the idle share 1 - busy / unprofiled sweep time, followed by
-the 12 largest device items. Needs a CUDA device; it does not fall back.
+the 12 largest device items. cuda, cuda_resident and torch run on the
+default synth counts (3-4 observed bases in most cells); cuda_topk, which
+refuses those, runs on biallelic error-free counts, and cuda runs again on
+the same counts beside it. Needs a CUDA device; it does not fall back.
 """
 from __future__ import annotations
 
@@ -29,16 +32,18 @@ V, S, G = 10_000, 64, 8          # the port's metric configuration
 WARM, WALL, TRACED, TOP = 220, 200, 20, 12
 
 
-def profile_kernel(kernel: str) -> dict:
+def profile_kernel(kernel: str, biallelic: bool = False) -> dict:
     dev = torch.device("cuda")
-    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    t = (synth.generate(V=V, S=S, G=G, coverage=50.0, error_rate=0.0,
+                        max_alleles=2, seed=0) if biallelic else
+         synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0))
     n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
     cfg = SamplerConfig(G=G, burn=0, samples=WARM + WALL + TRACED, nmf_iters=50)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     state = init_state(n, cfg, gen)
     accum = init_accum(V, S, G, dev)
-    sweep = make_sweep_fn(cfg, kernel)
+    sweep = make_sweep_fn(cfg, ops.resolve(kernel, n))
     noise = TorchNoise(gen)
     it = 0
 
@@ -63,7 +68,8 @@ def profile_kernel(kernel: str) -> dict:
     n_ops = sum(e.count for e in items) / TRACED
     items.sort(key=lambda e: -e.self_device_time_total)
     return {
-        "kernel": kernel, "V": V, "S": S, "G": G,
+        "kernel": kernel, "counts": "biallelic" if biallelic else "synth",
+        "V": V, "S": S, "G": G,
         "ms_per_sweep": ms_sweep, "device_busy_ms_per_sweep": busy,
         "device_ops_per_sweep": n_ops, "idle_share": 1.0 - busy / ms_sweep,
         "top": [(e.key[:80], e.self_device_time_total / 1e3 / TRACED,
@@ -76,7 +82,10 @@ def main() -> int:
         print("profile_sweep: needs a CUDA device", file=sys.stderr)
         return 2
     for kernel in ops.KERNELS:
-        print(json.dumps(profile_kernel(kernel)))
+        if kernel != "cuda_topk":
+            print(json.dumps(profile_kernel(kernel)))
+    for kernel in ("cuda", "cuda_topk"):
+        print(json.dumps(profile_kernel(kernel, biallelic=True)))
     return 0
 
 

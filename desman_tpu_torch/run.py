@@ -1,11 +1,12 @@
 """End-to-end run: counts -> sampler -> DESMAN-format output dir
-(counterpart of the plain branch of ``desman_tpu.run``).
+(counterpart of the plain and ``--chains`` branches of ``desman_tpu.run``).
 
 Load the counts, optionally subsample positions (-r) and apply min coverage
-(-m), run one Gibbs chain on the chosen device (optionally with a fixed eta
-from the filter's tran_df, -e), and write fit.txt, Gamma_{mean,star}.csv,
-Eta_{mean,star}.csv, Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and
-loglik_trace.csv.
+(-m), run one Gibbs chain (``run``) or several (``run_multi``) on the
+chosen device (optionally with a fixed eta from the filter's tran_df, -e),
+and write fit.txt, Gamma_{mean,star}.csv, Eta_{mean,star}.csv,
+Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and loglik_trace.csv
+(and chains.json for several chains).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from . import io
 from .likelihood import (
     deviance_from_loglik, log_likelihood_host_f64, total_coeff_host_f64,
 )
-from .sampler import SamplerConfig, SamplerResult, run_chain
+from .ops import resolve
+from .sampler import SamplerConfig, SamplerResult, run_chain, run_chains
 
 
 @dataclass
@@ -108,17 +110,11 @@ def sampler_config(rc: RunConfig) -> SamplerConfig:
     )
 
 
-def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
-        nmf_iters: Optional[int] = None) -> SamplerResult:
-    """Run one chain on `device` and write the output directory.
-
-    kernel: "cuda" (the tau-sweep and swap kernels; their plain versions
-    on a CPU device), "cuda_resident" (the resident sweep's kernels, see
-    ``resident``) or "torch" (the plain versions). nmf_iters overrides the
-    NMF start's
-    iteration count (benchmarks use a short start). Returns the result,
-    its tensors still on the device.
-    """
+def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
+             nmf_iters: Optional[int]):
+    """What run and run_multi share: the refusals, the prepared data, the
+    sampler config, the counts and eta on the device, and the kernel choice
+    bound to those counts (once per run)."""
     _refuse_unported(rc)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -132,20 +128,81 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
         eta_init = torch.as_tensor(io.read_eta_csv(rc.eta_file),
                                    dtype=torch.float32, device=device)
     n = torch.as_tensor(data.counts, device=device).to(torch.float32)
+    return device, data, cfg, eta_init, n, resolve(kernel, n)
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
+        nmf_iters: Optional[int] = None) -> SamplerResult:
+    """Run one chain on `device` and write the output directory.
+
+    kernel: one of ``ops.KERNELS``: "cuda" (the tau-sweep and swap kernels;
+    their plain versions on a CPU device), "cuda_resident" (the resident
+    sweep's kernels, see ``resident``), "cuda_topk" (the top-2 tau kernel,
+    for counts with at most two observed bases per cell: raises
+    TopkInapplicable otherwise, before the first sweep) or "torch" (the
+    plain versions). nmf_iters overrides the NMF start's iteration count
+    (benchmarks use a short start). Returns the result, its tensors still
+    on the device.
+    """
+    device, data, cfg, eta_init, n, ks = _prepare(data, rc, device, kernel,
+                                                  nmf_iters)
     generator = torch.Generator(device=device)
     generator.manual_seed(rc.seed)
 
     t0 = time.time()
-    res = run_chain(n, cfg, generator, eta_init=eta_init, kernel=kernel)
+    res = run_chain(n, cfg, generator, eta_init=eta_init, kernel=ks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - t0
 
-    device_name = (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu")
     write_outputs(rc.out_dir, data, res, cfg, elapsed, seed=rc.seed,
-                  extra_metrics={"device": device_name, "kernel": kernel})
+                  extra_metrics={"device": _device_name(device), "kernel": kernel})
     return res
+
+
+def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
+              kernel: str = "cuda", nmf_iters: Optional[int] = None
+              ) -> SamplerResult:
+    """Run n_chains chains (seeds rc.seed .. rc.seed + n_chains - 1) on
+    `device`, write the outputs of the chain with the best star loglik, and
+    chains.json: the seeds, each chain's star loglik, split-R-hat and bulk
+    ESS of the post-burn loglik traces, and the pairwise SNP distances of
+    the chains' tau-stars. Returns the best chain's result.
+
+    The counterpart of the JAX package's ``run_multi`` without its mesh,
+    PT, checkpoint and auto-length modes (refused by ``_refuse_unported``).
+    """
+    from .diagnostics import ess_bulk, replicate_agreement, split_rhat
+
+    device, data, cfg, eta_init, n, ks = _prepare(data, rc, device, kernel,
+                                                  nmf_iters)
+    seeds = list(range(rc.seed, rc.seed + n_chains))
+    t0 = time.time()
+    res = run_chains(n, cfg, seeds, eta_init=eta_init, kernel=ks)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.time() - t0
+
+    star = _np(res.star_loglik)
+    best = int(np.argmax(star))
+    best_res = SamplerResult(*(x[best] for x in res))
+    write_outputs(rc.out_dir, data, best_res, cfg, elapsed, seed=seeds[best],
+                  extra_metrics={"device": _device_name(device), "kernel": kernel,
+                                 "chains": n_chains})
+    post = _np(res.loglik_trace)[:, cfg.burn:]
+    with open(os.path.join(rc.out_dir, "chains.json"), "w") as f:
+        json.dump(
+            {"seeds": seeds, "best_seed": seeds[best],
+             "star_logliks": star.tolist(),
+             "loglik_split_rhat": split_rhat(post),
+             "loglik_ess_bulk": ess_bulk(post),
+             "tau_star_pairwise_snp": replicate_agreement(
+                 list(_np(res.tau_star))).tolist()}, f, indent=2)
+    return best_res
 
 
 def _np(t) -> np.ndarray:

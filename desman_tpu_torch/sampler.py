@@ -33,7 +33,7 @@ import torch
 
 from .likelihood import mixture
 from .nmf import nmf_init
-from .ops import draw_gumbel, draw_swap_proposal, resolve
+from .ops import Kernels, draw_gumbel, draw_swap_proposal, resolve
 from .utils import NBASES, one_hot_tau, safe_log
 
 _GAMMA_FLOOR = 1e-10
@@ -295,17 +295,20 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     return tau, mix, gamma, eta, loglik, acc_g, acc_e
 
 
-def make_sweep_fn(cfg: SamplerConfig, kernel: str = "cuda"):
+def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
     """Build the (n, state, accum, it, noise) -> (state, accum, loglik) step.
 
-    kernel: "cuda" runs the tau sweep and the swap move through the CUDA
-    kernel wrappers (their plain versions on CPU tensors); "cuda_resident"
-    runs the whole front half of the sweep on the resident kernels
-    (``resident.front``: two launches a sweep); "torch" runs the plain
-    versions everywhere. The kernel choice changes only the front half:
-    adaptation and accumulators are this function's, for every choice.
+    kernel: a kernel choice's name or its resolved ``ops.Kernels``. "cuda"
+    runs the tau sweep and the swap move through the CUDA kernel wrappers
+    (their plain versions on CPU tensors); "cuda_resident" runs the whole
+    front half of the sweep on the resident kernels (``resident.front``:
+    two launches a sweep); "cuda_topk" is "cuda" with the top-2 tau kernel,
+    which is bound to the counts, so it comes as ``ops.resolve("cuda_topk",
+    n)``; "torch" runs the plain versions everywhere. The kernel choice
+    changes only the front half: adaptation and accumulators are this
+    function's, for every choice.
     """
-    ks = resolve(kernel)
+    ks = kernel if isinstance(kernel, Kernels) else resolve(kernel)
     if ks.resident:
         from . import resident
 
@@ -465,21 +468,25 @@ def run_chain(
     eta_init: Optional[torch.Tensor] = None,
     tau_init: Optional[torch.Tensor] = None,
     gamma_init: Optional[torch.Tensor] = None,
-    kernel: str = "cuda",
+    kernel="cuda",
     noise=None,
 ) -> SamplerResult:
     """Run one chain end to end (init -> one sweep per iteration ->
     summaries) on n's device. n: [V,S,4] counts, cast to f32 once.
+    kernel: a kernel choice's name (bound here to n) or an ``ops.Kernels``
+    already resolved for n.
 
     The loglik trace is preallocated on the device and filled sweep by
     sweep; nothing is fetched to the host until the caller asks.
     """
+    n = n.to(torch.float32)
+    if not isinstance(kernel, Kernels):
+        kernel = resolve(kernel, n)
     sweep = make_sweep_fn(cfg, kernel)   # the resident path's refusals first
     if cfg.store_samples:
         raise NotImplementedError(
             "store_samples (desman --store_every) is not ported yet "
             "(ROADMAP queue 1 item 3)")
-    n = n.to(torch.float32)
     V, S, _ = n.shape
     state = init_state(n, cfg, generator, eta_init, tau_init, gamma_init)
     accum = init_accum(V, S, cfg.G, n.device)
@@ -489,3 +496,29 @@ def run_chain(
         state, accum, ll = sweep(n, state, accum, it, noise)
         trace[it] = ll
     return _result_from_accum(accum, cfg, trace)
+
+
+def run_chains(
+    n: torch.Tensor,
+    cfg: SamplerConfig,
+    seeds,
+    eta_init: Optional[torch.Tensor] = None,
+    kernel="cuda",
+) -> SamplerResult:
+    """Independent chains over seeds, stacked on a leading axis (the JAX
+    package's ``run_chains``, whose vmap becomes a loop here).
+
+    Chain i runs one after another on its own ``torch.Generator`` on n's
+    device, seeded with seeds[i], so it is bitwise ``run_chain`` of that
+    seed. The kernel choice is resolved once for all chains.
+    """
+    n = n.to(torch.float32)
+    if not isinstance(kernel, Kernels):
+        kernel = resolve(kernel, n)
+    results = []
+    for seed in seeds:
+        generator = torch.Generator(device=n.device)
+        generator.manual_seed(int(seed))
+        results.append(run_chain(n, cfg, generator, eta_init=eta_init,
+                                 kernel=kernel))
+    return SamplerResult(*(torch.stack(field) for field in zip(*results)))

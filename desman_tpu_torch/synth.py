@@ -86,3 +86,38 @@ def generate(
         samples=[f"Sample{s}" for s in range(S)],
     )
     return SynthTruth(tau_idx=tau.astype(np.int32), gamma=gamma, eta=eta, data=data)
+
+
+def mock_community(
+    V: int,
+    S: int,
+    G: int,
+    coverage: float = 50.0,
+    error_rate: float = 0.005,
+    gamma_alpha: float = 0.6,
+    max_alleles: int = 2,
+    seed: int = 2017,
+):
+    """The mock community of the JAX package's examples/complete_example.py:
+    V variant positions from ``generate`` (positions 0..V-1) followed by V
+    monomorphic ones (one true base plus sequencing error), as real counts
+    tables are mostly non-variant and the filter learns eta from those.
+    Its ``--paper`` scale is V=7000, S=64, G=5, gamma_alpha=0.6, biallelic
+    (max_alleles=2), seed 2017.
+
+    Returns (truth of the variant positions, CountsData of all 2V).
+    """
+    rng = np.random.default_rng(seed)
+    t = generate(V=V, S=S, G=G, coverage=coverage, error_rate=error_rate,
+                 gamma_alpha=gamma_alpha, seed=seed, max_alleles=max_alleles)
+    mono_base = rng.integers(0, NBASES, size=V)
+    mono = rng.poisson(
+        coverage * t.eta[mono_base][:, None, :].repeat(S, axis=1)
+    ).astype(np.int32)
+    data = CountsData(
+        counts=np.concatenate([t.data.counts, mono], axis=0),
+        contigs=np.array(["synth"] * (2 * V)),
+        positions=np.arange(2 * V),
+        samples=t.data.samples,
+    )
+    return t, data

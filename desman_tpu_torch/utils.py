@@ -10,6 +10,8 @@ full f32 (the ``heinsum`` contract of the JAX package).
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -87,3 +89,22 @@ def match_gamma_perm(gamma_a: np.ndarray, gamma_b: np.ndarray):
             cost[i, j] = np.abs(gamma_a[:, i] - gamma_b[:, j]).mean()
     rows, cols = linear_sum_assignment(cost)
     return float(cost[rows, cols].mean()), (rows, cols)
+
+
+def bh_fdr(pvalues: np.ndarray) -> np.ndarray:
+    """Benjamini-Hochberg q-values on the host in float64 (the filter's FDR
+    step)."""
+    p = np.asarray(pvalues, dtype=np.float64)
+    n = p.size
+    order = np.argsort(p)
+    ranked = p[order] * n / (np.arange(n) + 1.0)
+    # enforce monotonicity from the largest rank down
+    ranked = np.minimum.accumulate(ranked[::-1])[::-1]
+    q = np.empty_like(ranked)
+    q[order] = np.clip(ranked, 0.0, 1.0)
+    return q
+
+
+def all_base_pairs():
+    """The 6 unordered distinct base pairs, used by the variant filter's H1."""
+    return list(itertools.combinations(range(NBASES), 2))

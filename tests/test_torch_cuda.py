@@ -248,3 +248,93 @@ def test_resident_one_strain_takes_gamma_ll(cuda):
     assert (ops.tau_sweep.launches, ops.gamma_ll.launches,
             ops.gamma_apply_eta.launches, ops.fused_sweep.launches) == (10, 10, 10, 0)
     assert torch.isfinite(res.loglik_trace).all()
+
+
+# ---- the top-2 tau kernel (cuda_topk) and independent chains ----
+
+TOPK_SHAPES = [(77, 12, 3), (96, 40, 5), (1000, 64, 8), (33, 1, 1), (64, 33, 2)]
+
+
+def _topk_inputs(V, S, G, seed, device):
+    """Biallelic, error-free counts (at most two observed bases per cell),
+    with a non-trivial eta, and the top-2 layout of the counts."""
+    from desman_tpu_torch.ops.tau_topk import topk_layout
+
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=seed, error_rate=0.0,
+                       max_alleles=2)
+    rng = np.random.default_rng(seed)
+    tau = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32)
+    gamma = torch.as_tensor(t.gamma, dtype=torch.float32)
+    eta = torch.as_tensor(synth.make_eta(0.01), dtype=torch.float32)
+    n = torch.as_tensor(t.data.counts, dtype=torch.float32)
+    mix = mixture(one_hot_tau(tau), gamma)
+    gz = torch.as_tensor(rng.gumbel(size=(V, G, 4)), dtype=torch.float32)
+    layout = topk_layout(t.data.counts, device)
+    return (layout.n_val, layout.b_idx), [x.to(device) for x in (n, tau, mix, gamma, eta, gz)]
+
+
+@pytest.mark.parametrize("V,S,G", TOPK_SHAPES)
+def test_topk_kernel_matches_plain_and_the_tau_kernel(cuda, V, S, G):
+    (n_val, b_idx), (n, tau, mix, gamma, eta, gz) = _topk_inputs(V, S, G, 8, cuda)
+    before = ops.tau_sweep_topk.launches
+    tau_k, mix_k = ops.tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz)
+    tau_f, mix_f = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
+    again = ops.tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz)
+    torch.cuda.synchronize()
+    assert ops.tau_sweep_topk.launches == before + 2
+    tau_p, mix_p = ops.tau_sweep_topk_reference(n_val, b_idx, tau, mix, gamma, eta, gz)
+    same = (tau_k == tau_p).all(dim=1)
+    assert same.float().mean().item() >= 0.99
+    torch.testing.assert_close(mix_k[same], mix_p[same], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mix_k, mixture(one_hot_tau(tau_k), gamma),
+                               rtol=1e-5, atol=1e-6)
+    # bitwise the full tau kernel on <=2-base counts, and itself
+    assert torch.equal(tau_k, tau_f) and torch.equal(mix_k, mix_f)
+    assert torch.equal(again[0], tau_k) and torch.equal(again[1], mix_k)
+
+
+def test_topk_chain_is_bitwise_the_cuda_chain(cuda):
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain
+
+    t = synth.generate(V=300, S=12, G=4, coverage=50.0, seed=3, error_rate=0.0,
+                       max_alleles=2)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=4, burn=30, samples=30, nmf_iters=100)
+    results = {}
+    for kernel in ("cuda_topk", "cuda"):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        ops.reset_launches()
+        results[kernel] = run_chain(n, cfg, gen, kernel=kernel)
+        torch.cuda.synchronize()
+        launched = (ops.tau_sweep_topk.launches, ops.tau_sweep.launches)
+        assert launched == ((60, 0) if kernel == "cuda_topk" else (0, 60))
+        assert ops.swap.launches == 60
+    for name, a, b in zip(results["cuda"]._fields, results["cuda_topk"],
+                          results["cuda"]):
+        assert torch.equal(a, b), name
+
+
+def test_run_chains_on_the_card(cuda):
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain, run_chains
+
+    t = synth.generate(V=200, S=8, G=3, coverage=60.0, seed=5)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=3, burn=10, samples=10, nmf_iters=50)
+    ops.reset_launches()
+    res = run_chains(n, cfg, [0, 1], kernel="cuda_resident")
+    torch.cuda.synchronize()
+    assert ops.fused_sweep.launches == 40
+    assert res.loglik_trace.shape == (2, 20) and res.loglik_trace.is_cuda
+    for i, seed in enumerate((0, 1)):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(seed)
+        one = run_chain(n, cfg, gen, kernel="cuda_resident")
+        for name, a, b in zip(one._fields, res, one):
+            assert torch.equal(a[i], b), (seed, name)
+
+
+def test_topk_refuses_dense_counts_on_the_card(cuda):
+    t = synth.generate(V=64, S=8, G=6, coverage=80.0, seed=0)
+    with pytest.raises(ops.TopkInapplicable, match=">2 observed bases"):
+        ops.resolve("cuda_topk", torch.as_tensor(t.data.counts, device=cuda))

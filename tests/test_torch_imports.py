@@ -18,9 +18,11 @@ MODULES = [
     "desman_tpu_torch.nmf", "desman_tpu_torch.ops",
     "desman_tpu_torch.ops._build", "desman_tpu_torch.ops.tau_kernel",
     "desman_tpu_torch.ops.swap_kernel", "desman_tpu_torch.ops.gamma_kernel",
-    "desman_tpu_torch.ops.fused_sweep", "desman_tpu_torch.sampler",
-    "desman_tpu_torch.resident", "desman_tpu_torch.convert",
-    "desman_tpu_torch.run", "desman_tpu_torch.cli",
+    "desman_tpu_torch.ops.fused_sweep", "desman_tpu_torch.ops.tau_topk",
+    "desman_tpu_torch.sampler", "desman_tpu_torch.resident",
+    "desman_tpu_torch.convert", "desman_tpu_torch.run",
+    "desman_tpu_torch.filter", "desman_tpu_torch.model_selection",
+    "desman_tpu_torch.pipeline", "desman_tpu_torch.cli",
 ]
 
 
@@ -58,7 +60,8 @@ def test_source_imports_nothing_of_jax(path):
     assert not hits, f"{path} imports {hits}"
 
 
-@pytest.mark.parametrize("name", ["sampler.SamplerConfig", "run.RunConfig"])
+@pytest.mark.parametrize("name", ["sampler.SamplerConfig", "run.RunConfig",
+                                  "filter.FilterConfig"])
 def test_config_fields_match_the_jax_package(name):
     import importlib
 

@@ -75,7 +75,7 @@ def test_cuda_device_without_cuda_exits_nonzero(variant_half, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--chains", "2"], "item 3"),
+    (["--store_every=4"], "item 3"),
     (["--pt", "4"], "item 12"),
     (["--mesh=2x4"], "item 14"),
     (["--checkpoint", "ck.npz"], "item 11"),
@@ -90,7 +90,7 @@ def test_unported_flags_exit_2(argv, item, variant_half, capsys):
     assert item in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("cmd", ["filter", "geneassign", "resolvenhap", "nope"])
+@pytest.mark.parametrize("cmd", ["multibin", "geneassign", "diag", "nope"])
 def test_unported_subcommands_exit_2(cmd, capsys):
     assert cli.main([cmd, "x.csv"]) == 2
     assert cmd in capsys.readouterr().err
