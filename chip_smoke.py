@@ -32,12 +32,30 @@ Phases, each printing its own '# ...' lines:
    on (a)'s run dirs must pick best.txt's run; (b) must launch the top-2
    kernel and never the tau kernel; and a G=5 chain on (b)'s selected
    counts must have a loglik trace with `cuda_topk` equal to the one with
-   `cuda`.
+   `cuda`;
+7. GeneAssign at that scale: (a)'s pipeline also runs its `genes` stage on
+   1500 accessory genes drawn from the mock's truth as complete_example.py
+   draws them (presence/absence, every gene in some strain, Poisson
+   coverage); presence accuracy > 0.9 after matching the strains;
+8. `assign_gene_tau` at V=1e4, S=64, G=8 with the true gamma and eta
+   (4^8 > 4096: the annealed Gibbs path) with `kernel="cuda"` and
+   `kernel="torch"` from one generator seed: 50 sweeps (the tau kernel
+   launched 50 times, and never on the plain run; error rates within 0.5
+   points of each other) and 1600 sweeps (each <= 2% errors against the
+   truth, within 0.5 points); and G=5 at V=1e4 (exact enumeration of
+   [V,1024]), <= 2% errors;
+9. the `desman` run modes on TestData's true-variant half, each held to the
+   quickstart gates: `--eta_update rows --sample_eta` (accept_eta > 0),
+   `--store_every 5` (draws.npz of 15 draws, gamma_ess_min in metrics),
+   `-t true_tau.csv --kernel cuda_resident` (fused kernels launched), `-f
+   true_tau.csv` (Filtered_Tau_star.csv is the file's, no tau or swap
+   launch); `-f --kernel cuda_resident` must exit 2.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches counted on its own path in phases 4 and 6; the swap's
+kernel's launches summed over every path driven in phases 4 and 6-9, each
+with the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -50,11 +68,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 from desman_tpu_torch import cli, io, ops, run, sampler, synth
+from desman_tpu_torch.geneassign import assign_gene_tau, strain_coverage
 from desman_tpu_torch.likelihood import mixture
 from desman_tpu_torch.ops import _build
 from desman_tpu_torch.utils import match_gamma_perm, one_hot_tau
@@ -64,6 +84,9 @@ V, S, G = 10_000, 64, 8          # the port's metric configuration
 TIMING_CALLS = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(HERE, "TestData")
+# each kernel's launches over every main path driven (counts set to 0 just
+# before a path and read just after)
+PATH_LAUNCHES = Counter()
 
 
 class GateFailed(Exception):
@@ -378,6 +401,13 @@ OUTPUTS = ("fit.txt", "Gamma_mean.csv", "Gamma_star.csv", "Eta_mean.csv",
            "metrics.json", "loglik_trace.csv")
 
 
+def read_launches() -> dict:
+    """The launch counts since the last reset, added to PATH_LAUNCHES."""
+    launches = {k: getattr(ops, k).launches for k in LAUNCHED}
+    PATH_LAUNCHES.update(launches)
+    return launches
+
+
 def drive_cli(argv, out):
     """One `desman` CLI run with the launch counts set to 0 just before it
     and read just after; gates rc 0, every output file, a finite fit.txt."""
@@ -385,7 +415,7 @@ def drive_cli(argv, out):
     t0 = time.time()
     rc = cli.main(["desman", *argv, "-o", out])
     wall = time.time() - t0
-    launches = {k: getattr(ops, k).launches for k in LAUNCHED}
+    launches = read_launches()
     print(f"# cli {' '.join(argv[1:])}: rc {rc}, {wall:.2f} s wall, kernel "
           f"launches {launches}")
     gate(rc == 0, "desman CLI exits 0")
@@ -398,38 +428,50 @@ def drive_cli(argv, out):
     return launches, fit
 
 
-def phase_cli(tmp):
-    """The desman CLI on the card through each kernel path, gated like
-    tests/test_quickstart.py. Returns each kernel's launches on its path."""
-    data = io.read_counts_csv(os.path.join(TESTDATA, "variant_counts.csv"))
-    data = data.select(np.flatnonzero(data.positions < 1000))
+def variant_half(tmp) -> str:
+    """TestData's true-variant positions as a counts CSV (once per run)."""
     csv = os.path.join(tmp, "variants.csv")
-    io.write_counts_csv(csv, data)
+    if not os.path.exists(csv):
+        data = io.read_counts_csv(os.path.join(TESTDATA, "variant_counts.csv"))
+        io.write_counts_csv(csv, data.select(np.flatnonzero(data.positions < 1000)))
+    return csv
+
+
+def quickstart_gates(out, what):
+    """tests/test_quickstart.py's gates on an output directory; returns
+    metrics.json."""
     true_tau = io.read_tau_star_csv(os.path.join(TESTDATA, "true_tau.csv"))
     true_gamma = io.read_gamma_csv(os.path.join(TESTDATA, "true_gamma.csv"))
+    pred, pc, pp = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+    true, tc, tp = true_tau
+    rep = compare_tau(pred, true, list(zip(map(str, pc), map(int, pp))),
+                      list(zip(map(str, tc), map(int, tp))))
+    gmae, _ = match_gamma_perm(true_gamma,
+                               io.read_gamma_csv(os.path.join(out, "Gamma_mean.csv")))
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    print(f"# cli {what}: SNP error rate {rep.error_rate:.6f}, gamma "
+          f"MAE {gmae:.6f}, {metrics['sweeps_per_s']:.2f} sweeps/s on "
+          f"{metrics['device']}")
+    gate(rep.error_rate < 0.02, f"{what}: SNP error rate < 0.02")
+    gate(gmae < 0.02, f"{what}: gamma MAE < 0.02")
+    return metrics
+
+
+def phase_cli(tmp):
+    """The desman CLI on the card through each kernel path, gated like
+    tests/test_quickstart.py."""
+    csv = variant_half(tmp)
     eta = os.path.join(TESTDATA, "true_eta.csv")
-    path_launches = {}
     for kernel, path_kernels in (("cuda", ("tau_sweep", "swap")),
                                  ("cuda_resident", ("fused_sweep", "gamma_apply_eta"))):
         out = os.path.join(tmp, f"quickstart_{kernel}")
         launches, fit = drive_cli([csv, "-g", "5", "-e", eta, "-i", "150", "-s", "0",
                                    "--kernel", kernel], out)
-        pred, pc, pp = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
-        true, tc, tp = true_tau
-        rep = compare_tau(pred, true, list(zip(map(str, pc), map(int, pp))),
-                          list(zip(map(str, tc), map(int, tp))))
-        gmae, _ = match_gamma_perm(true_gamma,
-                                   io.read_gamma_csv(os.path.join(out, "Gamma_mean.csv")))
-        with open(os.path.join(out, "metrics.json")) as f:
-            metrics = json.load(f)
-        print(f"# cli --kernel {kernel}: SNP error rate {rep.error_rate:.6f}, gamma "
-              f"MAE {gmae:.6f}, star deviance {fit['star_deviance']:.6f}, "
-              f"{metrics['sweeps_per_s']:.2f} sweeps/s on {metrics['device']}")
-        gate(rep.error_rate < 0.02, f"--kernel {kernel}: SNP error rate < 0.02")
-        gate(gmae < 0.02, f"--kernel {kernel}: gamma MAE < 0.02")
+        print(f"# cli --kernel {kernel}: star deviance {fit['star_deviance']:.6f}")
+        quickstart_gates(out, f"--kernel {kernel}")
         gate(all(launches[k] > 0 for k in path_kernels),
              f"--kernel {kernel} launched {', '.join(path_kernels)}")
-        path_launches.update({k: launches[k] for k in path_kernels})
 
     # one strain: no swap to fuse, so the resident path takes the tau kernel
     # and gamma_ll with the carried mixture's term
@@ -438,7 +480,6 @@ def phase_cli(tmp):
                             os.path.join(tmp, "one_strain"))
     gate(launches["gamma_ll"] > 0 and launches["fused_sweep"] == 0,
          "-g 1 --kernel cuda_resident launched gamma_ll and not fused_sweep")
-    path_launches["gamma_ll"] = launches["gamma_ll"]
 
     # the top-2 kernel refuses counts with 3-4 observed bases in a cell, and
     # nothing falls back to the full kernel
@@ -453,9 +494,8 @@ def phase_cli(tmp):
     gate(rc != 0 and ">2 observed bases" in said,
          "--kernel cuda_topk on TestData exits non-zero naming the cells with "
          "more than 2 observed bases")
-    gate(all(getattr(ops, k).launches == 0 for k in LAUNCHED),
+    gate(all(n == 0 for n in read_launches().values()),
          "--kernel cuda_topk on TestData launched no kernel")
-    return path_launches
 
 
 def phase_north_star(tmp):
@@ -482,12 +522,29 @@ def phase_north_star(tmp):
 PAPER = dict(V=7000, S=64, G=5, seeds=[0, 1, 2, 3, 4], g_max=8, iterations=250)
 
 
+N_GENES = 1500
+
+
+def gene_table(tmp, truth, data):
+    """complete_example.py's accessory genes: presence/absence in each true
+    strain, every gene in at least one, Poisson coverage from the true
+    strain coverages. Returns (gene_cov.csv, etaG [D,G])."""
+    rng = np.random.default_rng(2017)
+    total = data.counts.sum(axis=2).mean(axis=0)
+    etaG = rng.integers(0, 2, size=(N_GENES, PAPER["G"]))
+    etaG[etaG.sum(axis=1) == 0, 0] = 1
+    x = rng.poisson(np.maximum(etaG @ strain_coverage(truth.gamma, total), 1e-9))
+    path = os.path.join(tmp, "gene_cov.csv")
+    io.write_gene_table(path, [f"gene{d}" for d in range(N_GENES)],
+                        ["n_positions", *data.samples],
+                        [np.full(N_GENES, 1000), *x.T.astype(np.float64)])
+    return path, etaG
+
+
 def phase_grid(tmp):
     """The strain-count grid at complete_example.py's --paper scale through
-    the pipeline CLI, (a) with cuda_resident at error rate 0.005 and (b)
-    with cuda_topk at error rate 0. Returns the top-2 kernel's launches on
-    path (b)."""
-    topk_launches = None
+    the pipeline CLI, (a) with cuda_resident at error rate 0.005, with the
+    genes stage (phase 7), and (b) with cuda_topk at error rate 0."""
     for tag, error_rate, kernel in (("a", 0.005, "cuda_resident"),
                                     ("b", 0.0, "cuda_topk")):
         truth, data = synth.mock_community(V=PAPER["V"], S=PAPER["S"], G=PAPER["G"],
@@ -495,19 +552,22 @@ def phase_grid(tmp):
         counts = os.path.join(tmp, f"core_counts_{tag}.csv")
         io.write_counts_csv(counts, data)
         out = os.path.join(tmp, f"grid_{tag}")
-        config = os.path.join(tmp, f"pipeline_{tag}.json")
-        with open(config, "w") as f:
-            json.dump({"counts": counts, "output_dir": out,
-                       "grid": {"g_min": 1, "g_max": PAPER["g_max"],
-                                "seeds": PAPER["seeds"],
-                                "iterations": PAPER["iterations"],
-                                "kernel": kernel}}, f)
+        config = {"counts": counts, "output_dir": out,
+                  "grid": {"g_min": 1, "g_max": PAPER["g_max"],
+                           "seeds": PAPER["seeds"],
+                           "iterations": PAPER["iterations"], "kernel": kernel}}
+        if tag == "a":
+            genes_csv, etaG = gene_table(tmp, truth, data)
+            config["genes"] = {"coverage_csv": genes_csv}
+        config_path = os.path.join(tmp, f"pipeline_{tag}.json")
+        with open(config_path, "w") as f:
+            json.dump(config, f)
         ops.reset_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(stdio.StringIO()):
-            rc = cli.main(["pipeline", config])
+            rc = cli.main(["pipeline", config_path])
         wall = time.time() - t0
-        launches = {k: getattr(ops, k).launches for k in LAUNCHED}
+        launches = read_launches()
         gate(rc == 0, f"pipeline ({tag}) exits 0")
         with open(os.path.join(out, "pipeline_summary.json")) as f:
             summary = json.load(f)
@@ -516,8 +576,8 @@ def phase_grid(tmp):
         rep = compare_tau(pred, truth.tau_idx,
                           list(zip(map(str, pc), map(int, pp))),
                           [("synth", i) for i in range(PAPER["V"])])
-        gmae, _ = match_gamma_perm(truth.gamma,
-                                   io.read_gamma_csv(os.path.join(best, "Gamma_mean.csv")))
+        gamma_inf = io.read_gamma_csv(os.path.join(best, "Gamma_mean.csv"))
+        gmae, (ti, pi) = match_gamma_perm(truth.gamma, gamma_inf)
         print(f"# grid ({tag}) error rate {error_rate} kernel {kernel}: "
               f"{summary['V_selected']}/{summary['V_total']} positions selected, "
               f"G={summary['selected_G']} (seed {summary['best_seed']}), SNP error "
@@ -539,12 +599,18 @@ def phase_grid(tmp):
             with open(picked) as f, open(os.path.join(out, "best.txt")) as g:
                 same = rc == 0 and f.read() == g.read()
             gate(same, "resolvenhap on grid (a)'s run dirs picks best.txt's run")
+            # phase 7: the genes stage on the selected run's strains
+            etaS = io.read_gene_cov_csv(os.path.join(out, "geneassign_etaS_df.csv"))
+            acc = float((etaS.values[:, pi] == etaG[:, ti]).mean())
+            print(f"# genes: {summary['genes_assigned']} accessory genes x "
+                  f"{etaS.values.shape[1]} strains, presence accuracy {acc:.6f}, "
+                  f"stage wall {summary['genes_wall_s']:.3f} s")
+            gate(summary["genes_assigned"] == N_GENES and acc > 0.9,
+                 f"genes stage: presence accuracy > 0.9 over {N_GENES} genes")
         else:
             gate(launches["tau_sweep_topk"] > 0 and launches["tau_sweep"] == 0,
                  "grid (b) launched tau_sweep_topk and never tau_sweep")
-            topk_launches = launches["tau_sweep_topk"]
             same_chain(out)
-    return topk_launches
 
 
 def same_chain(out):
@@ -571,6 +637,107 @@ def same_chain(out):
          "a cuda_topk chain's loglik trace is torch.equal to the cuda chain's")
 
 
+def phase_assign_tau():
+    """assign_gene_tau at the metric configuration with the true gamma and
+    eta: the annealed Gibbs path (4^8 > 4096) through the tau kernel and
+    its plain version from one generator seed, and G=5's exact
+    enumeration."""
+    dev = torch.device("cuda")
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    for sweeps, bar in ((50, None), (1600, 0.02)):
+        rates, stars = {}, {}
+        for kernel in ("cuda", "torch"):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.time()
+            star, mean = assign_gene_tau(t.data.counts, t.gamma, t.eta, sweeps=sweeps,
+                                         seed=0, device=dev, kernel=kernel)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = read_launches()
+            stars[kernel] = star.cpu().numpy()
+            rates[kernel] = float((stars[kernel] != t.tau_idx).mean())
+            print(f"# assign_gene_tau V={V} S={S} G={G} {sweeps} sweeps kernel "
+                  f"{kernel}: tau error rate {rates[kernel]:.6f}, {wall:.3f} s wall, "
+                  f"tau_sweep launches {launches['tau_sweep']}")
+            gate(launches["tau_sweep"] == (sweeps if kernel == "cuda" else 0),
+                 f"assign_gene_tau kernel={kernel}: tau kernel launched "
+                 f"{sweeps if kernel == 'cuda' else 0} times")
+            gate(bool(torch.isfinite(mean).all()) and star.shape == (V, G),
+                 f"assign_gene_tau kernel={kernel}: finite [V,G,4] posterior")
+            if bar is not None:
+                gate(rates[kernel] <= bar,
+                     f"assign_gene_tau {sweeps} sweeps kernel={kernel}: "
+                     f"<= {bar:.0%} tau errors")
+        print(f"# assign_gene_tau {sweeps} sweeps: kernel and plain calls agree on "
+              f"{(stars['cuda'] == stars['torch']).mean():.6f} of the cells")
+        gate(abs(rates["cuda"] - rates["torch"]) <= 0.005,
+             f"assign_gene_tau {sweeps} sweeps: kernel and plain error rates "
+             "within 0.5 points")
+    t5 = synth.generate(V=V, S=S, G=5, coverage=50.0, seed=0)
+    t0 = time.time()
+    star, _ = assign_gene_tau(t5.data.counts, t5.gamma, t5.eta, device=dev)
+    torch.cuda.synchronize()
+    rate = float((star.cpu().numpy() != t5.tau_idx).mean())
+    print(f"# assign_gene_tau V={V} S={S} G=5 (enumeration of 1024 states): "
+          f"tau error rate {rate:.6f}, {time.time() - t0:.3f} s wall")
+    gate(rate <= 0.02, "assign_gene_tau G=5 enumeration: <= 2% tau errors")
+
+
+def phase_run_modes(tmp):
+    """The desman run modes on TestData's true-variant half, as phase 4
+    runs the CLI, each held to the quickstart gates."""
+    csv = variant_half(tmp)
+    eta = os.path.join(TESTDATA, "true_eta.csv")
+    true_tau = os.path.join(TESTDATA, "true_tau.csv")
+    base = [csv, "-g", "5", "-i", "150", "-s", "0", "-e", eta]
+
+    out = os.path.join(tmp, "mode_rows")
+    launches, _ = drive_cli(base + ["--sample_eta", "--eta_update", "rows",
+                                    "--kernel", "cuda"], out)
+    m = quickstart_gates(out, "--eta_update rows --sample_eta")
+    gate(m["accept_eta"] > 0 and launches["tau_sweep"] > 0 and launches["swap"] > 0,
+         f"--eta_update rows: accept_eta {m['accept_eta']:.4f} > 0, tau and swap "
+         "kernels launched")
+
+    out = os.path.join(tmp, "mode_store")
+    launches, _ = drive_cli(base + ["--store_every", "5", "--kernel", "cuda"], out)
+    m = quickstart_gates(out, "--store_every 5")
+    draws = io.read_draws(os.path.join(out, "draws.npz"))
+    print(f"# --store_every 5: draws tau {draws['tau'].shape} {draws['tau'].dtype}, "
+          f"gamma_ess_min {m.get('gamma_ess_min')}")
+    gate(draws["tau"].shape == (15, 1000, 5) and draws["gamma"].shape == (15, 16, 5)
+         and "gamma_ess_min" in m and launches["tau_sweep"] > 0,
+         "--store_every 5: draws.npz holds 15 draws, metrics carry gamma_ess_min")
+
+    out = os.path.join(tmp, "mode_tau_init")
+    launches, _ = drive_cli(base + ["-t", true_tau, "--kernel", "cuda_resident"], out)
+    quickstart_gates(out, "-t --kernel cuda_resident")
+    gate(launches["fused_sweep"] > 0 and launches["gamma_apply_eta"] > 0,
+         "-t --kernel cuda_resident launched fused_sweep and gamma_apply_eta")
+
+    out = os.path.join(tmp, "mode_tau_fixed")
+    launches, _ = drive_cli(base + ["-f", true_tau, "--kernel", "cuda"], out)
+    quickstart_gates(out, "-f")
+    got, gc, gp = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+    want, wc, wp = io.read_tau_star_csv(true_tau)
+    row = {(str(c), int(p)): i for i, (c, p) in enumerate(zip(wc, wp))}
+    same = np.array_equal(got, want[[row[(str(c), int(p))] for c, p in zip(gc, gp)]])
+    gate(same and launches["tau_sweep"] == 0 and launches["swap"] == 0,
+         "-f: Filtered_Tau_star.csv is the file's haplotypes, no tau or swap launch")
+
+    ops.reset_launches()
+    err = stdio.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["desman", *base, "-f", true_tau, "--kernel", "cuda_resident",
+                       "-o", os.path.join(tmp, "mode_refused")])
+    said = err.getvalue().strip()
+    print(f"# cli -f --kernel cuda_resident: rc {rc}: {said}")
+    gate(rc == 2 and "--kernel cuda" in said
+         and all(n == 0 for n in read_launches().values()),
+         "-f --kernel cuda_resident exits 2 naming --kernel cuda, no launch")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -590,14 +757,17 @@ def main() -> int:
               f"{os.path.relpath(lib, HERE)}")
         records = phase_kernels()
         with tempfile.TemporaryDirectory() as tmp:
-            launches = phase_cli(tmp)
+            phase_cli(tmp)
             phase_north_star(tmp)
-            launches["tau_sweep_topk"] = phase_grid(tmp)
+            phase_grid(tmp)
+            phase_assign_tau()
+            phase_run_modes(tmp)
+        for r in records:
+            r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
+            gate(r["launches"] > 0, f"{r['name']} launched on a main path")
     except GateFailed as e:
         print(f"chip_smoke: gate failed: {e}", file=sys.stderr)
         return 1
-    for r in records:
-        r["launches"] = launches[r.get("launched_in", r["name"])]
     print(json.dumps({"kernels": records}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {

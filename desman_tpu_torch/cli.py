@@ -5,13 +5,23 @@
     python -m desman_tpu_torch pipeline config.yaml
     python -m desman_tpu_torch resolvenhap 'out/run_*'
     python -m desman_tpu_torch collate 'out/run_*' -o collated_fits.csv
+    python -m desman_tpu_torch geneassign -g Gamma_mean.csv -c gene_cov.csv
+    python -m desman_tpu_torch genecov counts.csv -G genes.tsv -o gene_cov.csv
+    python -m desman_tpu_torch validate -p Filtered_Tau_star.csv -t true_tau.csv
+    python -m desman_tpu_torch diag 'out/run_*'
 
-    desman       tau/gamma/eta Gibbs deconvolution (--chains, --kernel
+    desman       tau/gamma/eta Gibbs deconvolution (--chains, -t/-f,
+                 --eta_update, --store_every, --kernel
                  cuda|cuda_resident|cuda_topk|torch)
     filter       variant-position LLR filter -> sel_var/p/q/tran_df CSVs
-    pipeline     filter -> G-grid -> selection from one YAML/JSON config
+    pipeline     filter -> G-grid -> selection (-> genes) from one YAML/JSON
+                 config
     resolvenhap  pick the number of strains from a run grid (-c copies)
     collate      one CSV of a run grid's fit records
+    geneassign   accessory-gene strain assignment (+ --assign_tau)
+    genecov      per-gene coverage matrix from a counts CSV
+    validate     permutation-matched SNP/gamma error vs ground truth
+    diag         split R-hat / ESS / replicate tau agreement per G
 
 The JAX package's other subcommands and run-mode flags exit with code 2 and
 name the ROADMAP item that will port them; none is silently ignored.
@@ -30,11 +40,6 @@ import sys
 
 # flag -> the ROADMAP queue-1 item that ports it
 _WAITING_FLAGS = {
-    "--store_every": "3 (stored draws)",
-    "-t": "5 (em_gamma, known-haplotype start)",
-    "--tau_init": "5 (em_gamma, known-haplotype start)",
-    "-f": "5 (em_gamma, known-haplotype start)",
-    "--tau_fixed": "5 (em_gamma, known-haplotype start)",
     "--checkpoint": "11 (checkpoints)",
     "--checkpoint_every": "11 (checkpoints)",
     "--auto_burn": "11 (auto-length)",
@@ -50,12 +55,8 @@ _WAITING_FLAGS = {
 
 # the JAX package's other subcommands -> the ROADMAP queue-1 item
 _WAITING_COMMANDS = {
-    "geneassign": "10 (GeneAssign)",
     "multibin": "13 (remaining surface)",
-    "diag": "13 (remaining surface)",
-    "genecov": "13 (remaining surface)",
     "extract": "13 (remaining surface)",
-    "validate": "13 (remaining surface)",
     "strainfasta": "13 (remaining surface)",
 }
 
@@ -119,12 +120,21 @@ def _desman(argv) -> int:
     ap.add_argument("-m", "--min_coverage", type=float, default=0.0)
     ap.add_argument("--sample_eta", action="store_true",
                     help="sample eta even when -e seeds it")
+    ap.add_argument("-t", "--tau_init", default=None,
+                    help="Filtered_Tau_star.csv to initialize tau from")
+    ap.add_argument("-f", "--tau_fixed", default=None,
+                    help="Filtered_Tau_star.csv to FIX tau to (fits gamma/eta "
+                    "only, e.g. assigning new samples to known haplotypes)")
     ap.add_argument("--kappa_gamma", type=float, default=0.0,
                     help="gamma MH proposal concentration (0 = auto)")
     ap.add_argument("--kappa_eta", type=float, default=0.0,
                     help="eta MH proposal concentration (0 = auto)")
     ap.add_argument("--eta_update", choices=["joint", "rows"], default="joint",
-                    help="error-matrix MH (only 'joint' is ported)")
+                    help="error-matrix MH: one blocked update (default) or 4 "
+                    "per-row updates (same stationary distribution)")
+    ap.add_argument("--store_every", type=int, default=0, metavar="K",
+                    help="write every K-th post-burn (tau,gamma,eta) draw to "
+                    "<out>/draws.npz (K must divide the sampling sweeps)")
     ap.add_argument("--chains", type=int, default=1,
                     help="independent chains (seeds seed..seed+chains-1), run "
                     "one after another; the best by star likelihood is "
@@ -143,9 +153,12 @@ def _desman(argv) -> int:
                     "torch: the plain PyTorch versions (on a cpu device "
                     "cuda and torch are the same)")
     args = ap.parse_args(argv)
-    if args.eta_update != "joint":
-        print("desman: --eta_update rows is not ported to desman_tpu_torch yet "
-              "(ROADMAP queue 1 item 3 (per-row eta MH))", file=sys.stderr)
+    if args.kernel == "cuda_resident" and (
+            args.store_every or args.tau_fixed or args.eta_update == "rows"):
+        print("desman: --kernel cuda_resident is the single-device speed mode "
+              "for plain runs (composes with --chains and -t only); use "
+              "--kernel cuda for --store_every/-f/--eta_update rows",
+              file=sys.stderr)
         return 2
     if _cuda_missing("desman", args.device):
         return 2
@@ -160,7 +173,9 @@ def _desman(argv) -> int:
         eta_file=args.eta_file, sample_eta=args.sample_eta,
         min_coverage=args.min_coverage, n_positions=args.random_positions,
         out_dir=args.output_dir, kappa_gamma=args.kappa_gamma,
-        kappa_eta=args.kappa_eta, eta_update=args.eta_update,
+        kappa_eta=args.kappa_eta, tau_file=args.tau_fixed or args.tau_init,
+        fix_tau=args.tau_fixed is not None, eta_update=args.eta_update,
+        store_every=args.store_every,
     )
     try:
         if args.chains > 1:
@@ -323,12 +338,231 @@ def _pipeline(argv) -> int:
     return 0
 
 
+def _geneassign(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-geneassign", description="Assign accessory genes to strains")
+    ap.add_argument("-g", "--gamma_file", required=True, help="Gamma_mean.csv")
+    ap.add_argument("-c", "--gene_cov_file", required=True,
+                    help="CSV: gene name + per-sample mean coverage columns")
+    ap.add_argument("-t", "--total_cov_file", default=None,
+                    help="CSV: per-sample total bin coverage (one row per "
+                    "sample); default: derived from --core_counts")
+    ap.add_argument("--core_counts", default=None,
+                    help="core counts CSV to derive per-sample total coverage")
+    ap.add_argument("-o", "--output_stub", default="geneassign_")
+    ap.add_argument("-m", "--max_copy", type=int, default=1)
+    ap.add_argument("--model", choices=["quasipoisson", "gaussian"],
+                    default="quasipoisson")
+    ap.add_argument("--assign_tau", default=None, metavar="GENE_VAR_COUNTS",
+                    help="gene variant-counts CSV: also assign gene-level SNVs "
+                    "to strains with gamma/eta frozen; requires -e")
+    ap.add_argument("-e", "--eta_file", default=None,
+                    help="tran_df.csv / Eta_star.csv for --assign_tau")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    if _cuda_missing("geneassign", args.device):
+        return 2
+
+    from . import io
+    from .geneassign import (
+        GeneAssignConfig, assign_gene_tau, assign_genes, sample_total_coverage,
+        strain_coverage,
+    )
+
+    gamma = io.read_gamma_csv(args.gamma_file)          # [S,G]
+    genes = io.read_gene_cov_csv(args.gene_cov_file)    # [D,S]
+    gene_cov = genes.values
+    if args.total_cov_file:
+        total = io.read_total_cov_csv(args.total_cov_file)
+    elif args.core_counts:
+        total = sample_total_coverage(io.read_counts_csv(args.core_counts).counts)
+    else:
+        total = gene_cov.mean(axis=0)
+        print(
+            "geneassign: WARNING: no -t/--total_cov_file or --core_counts "
+            "given; approximating per-sample total bin coverage by the mean "
+            "accessory-gene coverage. Strain absolute coverages are biased "
+            "if accessory genes are not a representative sample of the bin; "
+            "pass --core_counts (the filtered core counts CSV) for the "
+            "reference-faithful derivation.", file=sys.stderr,
+        )
+    res = assign_genes(gene_cov, strain_coverage(gamma, total), GeneAssignConfig(
+        max_copy=args.max_copy, model=args.model), device=args.device)
+    stub = args.output_stub
+    G = gamma.shape[1]
+    cols = [f"H{g + 1}" for g in range(G)]
+    label = genes.index_label
+    io.write_gene_table(stub + "etaS_df.csv", genes.names, cols,
+                        res.eta_star.cpu().numpy(), label)
+    io.write_gene_table(stub + "etaP_df.csv", genes.names, cols,
+                        res.presence_prob.cpu().numpy(), label)
+    io.write_gene_table(stub + "eta_conf.csv", genes.names,
+                        ["loglik", "confidence"],
+                        [res.loglik.cpu().numpy(), res.confidence.cpu().numpy()],
+                        label)
+    print(f"geneassign: {gene_cov.shape[0]} genes x {G} strains -> {stub}etaS_df.csv")
+
+    if args.assign_tau:
+        if not args.eta_file:
+            print("geneassign: --assign_tau requires -e/--eta_file",
+                  file=sys.stderr)
+            return 2
+        var = io.read_counts_csv(args.assign_tau)
+        eta = io.read_eta_csv(args.eta_file)
+        tau_star, tau_mean = assign_gene_tau(var.counts, gamma, eta,
+                                             device=args.device)
+        io.write_tau_star_csv(stub + "gene_tau_star.csv", tau_star.cpu().numpy(),
+                              var.contigs, var.positions)
+        io.write_tau_mean_csv(stub + "gene_tau_mean.csv", tau_mean.cpu().numpy(),
+                              var.contigs, var.positions)
+        print(f"geneassign: assigned tau at {var.V} gene positions -> "
+              f"{stub}gene_tau_star.csv")
+    return 0
+
+
+def _genecov(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-genecov",
+        description="Per-gene mean coverage matrix from a counts CSV")
+    ap.add_argument("counts_file")
+    ap.add_argument("-G", "--genes", required=True,
+                    help="gene table: gene,contig,start,end (csv/tsv/bed)")
+    ap.add_argument("-o", "--output", default="gene_cov.csv")
+    args = ap.parse_args(argv)
+
+    from . import io
+    from .genecov import gene_coverage, read_gene_table
+
+    data = io.read_counts_csv(args.counts_file)
+    names, cov, n_positions = gene_coverage(data, read_gene_table(args.genes))
+    io.write_gene_table(args.output, names, ["n_positions", *data.samples],
+                        [n_positions, *cov.T])
+    print(f"genecov: {len(names)} genes x {data.S} samples -> {args.output}")
+    return 0
+
+
+def _validate(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-validate",
+        description="Permutation-matched SNP error vs ground truth "
+        "(validateSNP/taucomp equivalent)")
+    ap.add_argument("-p", "--pred_tau", required=True,
+                    help="predicted Filtered_Tau_star.csv")
+    ap.add_argument("-t", "--true_tau", required=True,
+                    help="ground-truth tau CSV (same format)")
+    ap.add_argument("--pred_gamma", default=None)
+    ap.add_argument("--true_gamma", default=None)
+    args = ap.parse_args(argv)
+
+    from .validation import validate_files
+
+    rep = validate_files(args.pred_tau, args.true_tau, args.pred_gamma,
+                         args.true_gamma)
+    hdr = "positions,pred_strains,snp_errors,error_rate"
+    if rep.gamma_mae is not None:
+        hdr += ",gamma_mae"
+    print(hdr)
+    print(rep.summary_line())
+    return 0
+
+
+def _csv_cell(v) -> str:
+    """A cell as pandas' to_csv writes it: NaN empty, numbers as Python
+    prints them."""
+    if v is None or (isinstance(v, float) and v != v):
+        return ""
+    return str(v)
+
+
+def _diag(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-diag",
+        description="Convergence diagnostics over finished run dirs: per-G "
+        "split R-hat / bulk ESS on the post-burn loglik traces and pairwise "
+        "replicate tau agreement")
+    ap.add_argument("run_dirs", nargs="+", help="run output dirs (globs ok)")
+    ap.add_argument("-b", "--burn_frac", type=float, default=0.5,
+                    help="fraction of each trace to discard as burn-in")
+    ap.add_argument("-o", "--output", default=None, help="write CSV here")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    from . import io
+    from .diagnostics import (
+        draws_diagnostics, ess_bulk, replicate_agreement, split_rhat,
+    )
+
+    # group by (G, V): same strain count AND same position set
+    by_key: dict = {}
+    for d in _expand_dirs(args.run_dirs):
+        paths = [os.path.join(d, f) for f in
+                 ("fit.txt", "loglik_trace.csv", "Filtered_Tau_star.csv")]
+        if not all(os.path.isfile(p) for p in paths):
+            continue
+        G = io.read_fit_txt(paths[0])["G"]
+        # each trace drops its own burn fraction, then chains align on their
+        # last n common draws (traces of other lengths)
+        trace = np.loadtxt(paths[1], ndmin=1)
+        post = trace[int(len(trace) * args.burn_frac):]
+        tau, _, _ = io.read_tau_star_csv(paths[2])
+        by_key.setdefault((G, tau.shape[0]), []).append((d, post, tau))
+    if not by_key:
+        print("diag: no run dirs with fit.txt + loglik_trace.csv + "
+              "Filtered_Tau_star.csv", file=sys.stderr)
+        return 1
+    rows = []
+    for (G, V) in sorted(by_key):
+        runs = by_key[(G, V)]
+        n_draws = min(len(t) for _, t, _ in runs)
+        post = np.stack([t[len(t) - n_draws:] for _, t, _ in runs])
+        rhat = split_rhat(post) if len(runs) > 1 else float("nan")
+        ess = ess_bulk(post)
+        agree = replicate_agreement([tau for _, _, tau in runs])
+        off = agree[np.triu_indices(len(runs), k=1)]
+        rows.append({
+            "G": G, "V": V, "chains": len(runs), "split_rhat": rhat,
+            "ess_bulk": ess,
+            "max_replicate_snp_distance": int(off.max()) if off.size else 0,
+        })
+        print(f"G={G}: chains={len(runs)} split_rhat={rhat:.4f} "
+              f"ess={ess:.1f} max_replicate_snp_dist="
+              f"{rows[-1]['max_replicate_snp_distance']}")
+        # per-parameter diagnostics from stored draws (--store_every): the
+        # loglik can look converged while an abundance still drifts
+        per_run = []
+        for d, _, _ in runs:
+            dpath = os.path.join(d, "draws.npz")
+            if os.path.isfile(dpath):
+                dd = draws_diagnostics(io.read_draws(dpath))
+                per_run.append(dd)
+                print(f"  draws[{d}]: n={dd['n_draws']} "
+                      f"gamma_ess_min={dd['gamma_ess_min']:.1f} "
+                      f"eta_ess_min={dd['eta_ess_min']:.1f}")
+        if per_run:
+            # worst case across replicates: the least-converged run
+            rows[-1].update({
+                "draws_runs": len(per_run),
+                **{f"draws_{k}": min(dd[k] for dd in per_run) for k in per_run[0]},
+            })
+    if args.output:
+        header = list(dict.fromkeys(k for r in rows for k in r))
+        io.write_rows(args.output, header,
+                      ([_csv_cell(r.get(k)) for k in header] for r in rows))
+        print(f"diag: wrote {args.output}")
+    return 0
+
+
 _COMMANDS = {
     "desman": _desman,
     "filter": _filter,
     "pipeline": _pipeline,
     "resolvenhap": _resolvenhap,
     "collate": _collate,
+    "geneassign": _geneassign,
+    "genecov": _genecov,
+    "validate": _validate,
+    "diag": _diag,
 }
 
 

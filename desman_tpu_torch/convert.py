@@ -1,10 +1,12 @@
-"""Sampler state as numpy arrays, both ways.
+"""Sampler state and results as numpy arrays, both ways.
 
 The "weights" of this system are the sampler's state. These functions move
 it between the port's tensors and plain numpy arrays keyed by the field
 names the JAX package's ``SamplerState`` / ``SamplerAccum`` /
-``SamplerResult`` use, so one state can start both packages. The JAX
-state's PRNG ``key`` has no counterpart: the generators differ.
+``SamplerResult`` / ``GeneAssignResult`` use, so one state can start both
+packages and one result can be read by either. The JAX state's PRNG
+``key`` has no counterpart: the generators differ. A result field that is
+None (no stored draws) stays None both ways.
 """
 from __future__ import annotations
 
@@ -13,14 +15,17 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from .geneassign import GeneAssignResult
 from .sampler import SamplerAccum, SamplerResult, SamplerState
 from .utils import NBASES
 
 _INT_FIELDS = ("tau", "star_tau", "tau_star")
+_INT8_FIELDS = ("tau_samples",)
 
 
 def _tensor(name: str, x, device) -> torch.Tensor:
-    dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+    dtype = (torch.int8 if name in _INT8_FIELDS else
+             torch.int32 if name in _INT_FIELDS else torch.float32)
     return torch.as_tensor(np.array(x), device=device).to(dtype).contiguous()
 
 
@@ -73,8 +78,8 @@ def accum_from_numpy(d: Mapping, device="cpu") -> SamplerAccum:
                            for f in SamplerAccum._fields})
 
 
-def _to_numpy(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _to_numpy(t) -> Optional[np.ndarray]:
+    return None if t is None else t.detach().cpu().numpy()
 
 
 def state_to_numpy(state: SamplerState) -> dict:
@@ -87,3 +92,25 @@ def accum_to_numpy(accum: SamplerAccum) -> dict:
 
 def result_to_numpy(res: SamplerResult) -> dict:
     return {f: _to_numpy(getattr(res, f)) for f in SamplerResult._fields}
+
+
+def result_from_numpy(d: Mapping, device="cpu") -> SamplerResult:
+    """Port result from a mapping of SamplerResult fields (the JAX
+    result's ``_asdict()`` as numpy arrays, or ``result_to_numpy``'s).
+    Fields the mapping lacks or holds as None come back None; fields the
+    port's result has not (such as PT's ``pt_swap_accept``) are ignored."""
+    return SamplerResult(**{
+        f: None if d.get(f) is None else _tensor(f, d[f], device)
+        for f in SamplerResult._fields})
+
+
+def geneassign_to_numpy(res: GeneAssignResult) -> dict:
+    return {f: _to_numpy(getattr(res, f)) for f in GeneAssignResult._fields}
+
+
+def geneassign_from_numpy(d: Mapping, device="cpu") -> GeneAssignResult:
+    """GeneAssign result from numpy arrays (eta_star int32, the rest f32)."""
+    return GeneAssignResult(**{
+        f: torch.as_tensor(np.array(d[f]), device=device).to(
+            torch.int32 if f == "eta_star" else torch.float32).contiguous()
+        for f in GeneAssignResult._fields})

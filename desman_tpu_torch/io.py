@@ -20,6 +20,7 @@ import gzip
 import os
 import re
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 
@@ -301,3 +302,80 @@ def read_fit_txt(path: str) -> dict:
 def ensure_dir(path: str) -> str:
     os.makedirs(path, exist_ok=True)
     return path
+
+
+class GeneMatrix(NamedTuple):
+    """A gene-indexed table: one row per gene, named columns."""
+
+    names: list           # D gene names (the index column)
+    columns: list         # the value columns' names
+    values: np.ndarray    # float64 [D, len(columns)]
+    index_label: str      # the index column's header cell ("" when unnamed)
+
+
+def read_gene_cov_csv(path: str) -> GeneMatrix:
+    """Gene-coverage matrix [D genes x S samples] (GeneAssign input).
+
+    Drops the ``n_positions`` metadata column genecov prepends: it is
+    bookkeeping, not a sample. Also reads the other gene-indexed tables
+    (``etaS_df.csv``, ``etaP_df.csv``).
+    """
+    rows = _read_rows(path)
+    header = rows[0] if rows else []
+    body = [r for r in rows[1:] if r]
+    values = _matrix(body, path).reshape(len(body), len(header) - 1)
+    keep = [j for j, c in enumerate(header[1:]) if c != "n_positions"]
+    return GeneMatrix(names=[r[0] for r in body],
+                      columns=[header[1 + j] for j in keep],
+                      values=values[:, keep],
+                      index_label=header[0] if header else "")
+
+
+def write_gene_table(path: str, names, columns, values,
+                     index_label: str = "") -> None:
+    """A gene-indexed table: ``<index_label>,<columns...>`` then one row per
+    gene, name first (what pandas' ``to_csv`` writes for a frame indexed by
+    gene, e.g. GeneAssign's etaS_df/etaP_df/eta_conf and genecov's output).
+    values: [D, len(columns)], or a list of per-column arrays of mixed
+    dtypes."""
+    if isinstance(values, (list, tuple)):
+        rows = ([str(name), *(str(col[d]) for col in values)]
+                for d, name in enumerate(names))
+    else:
+        rows = _labelled_rows(names, np.asarray(values))
+    write_rows(path, [index_label, *columns], rows)
+
+
+def read_total_cov_csv(path: str) -> np.ndarray:
+    """Per-sample total coverage (``geneassign -t``): an index column, then
+    the values, raveled row by row into [S] float64."""
+    return _matrix([r for r in _read_rows(path)[1:] if r], path).ravel()
+
+
+def write_draws(path: str, tau_samples, gamma_samples, eta_samples,
+                burn: int, thin: int) -> None:
+    """Posterior draws (desman --store_every K -> draws.npz), compressed.
+
+    tau draws are int8 [n_draws, V, G]; gamma [n_draws, S, G]; eta
+    [n_draws, 4, 4]: every thin-th post-burn sweep. Written to a temporary
+    file and moved into place, so a reader never sees half a file.
+    """
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(
+        tmp,
+        tau=np.asarray(tau_samples, np.int8),
+        gamma=np.asarray(gamma_samples, np.float32),
+        eta=np.asarray(eta_samples, np.float32),
+        burn=np.asarray(burn, np.int64),
+        thin=np.asarray(thin, np.int64),
+    )
+    os.replace(tmp, path)
+
+
+def read_draws(path: str) -> dict:
+    """Load a draws.npz written by write_draws."""
+    with np.load(path) as z:
+        return {
+            "tau": z["tau"], "gamma": z["gamma"], "eta": z["eta"],
+            "burn": int(z["burn"]), "thin": int(z["thin"]),
+        }

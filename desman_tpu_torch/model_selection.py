@@ -31,7 +31,7 @@ from .likelihood import (
 )
 from .ops import resolve
 from .run import write_outputs
-from .sampler import SamplerConfig, SamplerResult, run_chains
+from .sampler import SamplerConfig, chain_result, run_chains
 
 _RUN_FILES = ("fit.txt", "metrics.json", "Tau_mean.csv")
 
@@ -178,7 +178,7 @@ def fit_grid(
             if out_stub is not None and data is not None:
                 run_dir = f"{out_stub}_{G}_{seed}"
                 write_outputs(
-                    run_dir, data, SamplerResult(*(x[i] for x in res)), cfg,
+                    run_dir, data, chain_result(res, i), cfg,
                     seed=int(seed), extra_metrics={
                         "config_fingerprint": run_fingerprint(digest, cfg, int(seed)),
                         "device": device_name, "kernel": kernel})

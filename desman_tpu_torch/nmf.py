@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from .utils import NBASES, normalize_rows
+from .utils import NBASES, normalize_rows, one_hot_tau
 
 _EPS = 1e-9
 
@@ -59,3 +59,29 @@ def nmf_init(
     tau_idx = torch.argmax(tau_probs, dim=-1).to(torch.int32)
     gamma = normalize_rows(H.T.contiguous())                               # [S,G]
     return tau_idx, gamma
+
+
+def em_gamma(counts: torch.Tensor, tau_idx: torch.Tensor, eta: torch.Tensor,
+             iters: int = 100) -> torch.Tensor:
+    """ML abundance start for known haplotypes: EM on gamma with tau fixed.
+
+    With tau fixed the per-sample likelihood is a mixture over the G
+    component distributions M[v,g,:] = one_hot(tau) @ eta, so the EM update
+    of the mixture weights converges to the per-sample MLE in tens of
+    iterations: a far better start than NMF for ``desman -t/-f``.
+
+    counts [V,S,4], tau_idx [V,G] int, eta [4,4] -> gamma [S,G] f32.
+    """
+    n = counts.to(torch.float32)
+    S = n.shape[1]
+    G = tau_idx.shape[1]
+    M = torch.einsum("vga,ab->vgb", one_hot_tau(tau_idx), eta)     # [V,G,4]
+    N_s = torch.clamp_min(n.sum(dim=(0, 2)), _EPS)                 # [S]
+    gamma = torch.full((S, G), 1.0 / G, dtype=torch.float32, device=n.device)
+    for _ in range(iters):
+        p = torch.clamp_min(torch.einsum("sg,vgb->vsb", gamma, M), _EPS)
+        # E-step responsibilities folded into the M-step weight sum:
+        # gamma'[s,g] = (1/N_s) sum_vb n[v,s,b] gamma[s,g] M[v,g,b] / p[v,s,b]
+        w = torch.einsum("vsb,vgb->sg", n / p, M)
+        gamma = normalize_rows(torch.clamp_min(gamma * w / N_s[:, None], _EPS))
+    return gamma

@@ -1,5 +1,5 @@
-"""One-command pipeline: filter -> G-grid -> selection (counterpart of
-``desman_tpu.pipeline``).
+"""One-command pipeline: filter -> G-grid -> selection -> (genes)
+(counterpart of ``desman_tpu.pipeline``).
 
 A YAML (or JSON) config runs the whole in-scope pipeline on one device and
 writes a results tree:
@@ -8,6 +8,7 @@ writes a results tree:
       tran_df.csv  sel_var.csv  p_df.csv  q_df.csv      (filter)
       run_<G>_<seed>/...                                 (grid runs)
       collated_fits.csv  best.txt                        (selection)
+      geneassign_etaS_df.csv  geneassign_etaP_df.csv     (genes, optional)
       pipeline_summary.json
 
 Config keys (all optional except counts):
@@ -17,11 +18,14 @@ Config keys (all optional except counts):
     grid: {g_min: 1, g_max: 8, seeds: [0,1,2], iterations: 250, kernel: cuda,
            fix_eta: true}
     selection: {dev_cutoff: 0.02, unc_cutoff: 0.1}
+    genes: {coverage_csv: gene_cov.csv, max_copy: 1, model: quasipoisson}
 
-Not ported yet: the ``genes`` stage (GeneAssign, ROADMAP queue 1 item 10)
-and ``grid.auto_samples`` (ESS-targeted sampling, item 11) raise
-NotImplementedError before any work. The tables are written with ``io``'s
-csv writers (no pandas), in the JAX package's columns.
+The genes stage assigns the accessory genes of coverage_csv to the selected
+run's strains (its Gamma_mean.csv), with each sample's total coverage from
+all the input counts. Not ported yet: ``grid.auto_samples`` (ESS-targeted
+sampling, ROADMAP queue 1 item 11) raises NotImplementedError before any
+work. The tables are written with ``io``'s csv writers (no pandas), in the
+JAX package's columns.
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ import numpy as np
 
 from . import io
 from .filter import FilterConfig, filter_variants
+from .geneassign import (
+    GeneAssignConfig, assign_genes, sample_total_coverage, strain_coverage,
+)
 from .model_selection import fit_grid, resolve_nhap
 
 
@@ -48,10 +55,6 @@ def load_config(path: str) -> dict:
 
 
 def _refuse_unported(config: dict) -> None:
-    if config.get("genes"):
-        raise NotImplementedError(
-            "the pipeline's genes stage (GeneAssign) is not ported yet "
-            "(ROADMAP queue 1 item 10)")
     if float(config.get("grid", {}).get("auto_samples", 0.0)) > 0:
         raise NotImplementedError(
             "grid.auto_samples (ESS-targeted sampling) is not ported yet "
@@ -59,8 +62,8 @@ def _refuse_unported(config: dict) -> None:
 
 
 def run_pipeline(config: dict, device="cuda") -> dict:
-    """Run filter -> grid -> selection on `device`; returns the summary
-    (also written to pipeline_summary.json)."""
+    """Run filter -> grid -> selection (-> genes) on `device`; returns the
+    summary (also written to pipeline_summary.json)."""
     _refuse_unported(config)
     outdir = config.get("output_dir", "desman_pipeline_out")
     os.makedirs(outdir, exist_ok=True)
@@ -115,6 +118,26 @@ def run_pipeline(config: dict, device="cuda") -> dict:
         "grid_sweeps": len(g_values) * len(seeds) * iterations,
         "grid_wall_s": grid_wall,
     }
+
+    # ---- genes (optional) ----
+    genes = config.get("genes")
+    if genes:
+        t0 = time.time()
+        gene_cov = io.read_gene_cov_csv(genes["coverage_csv"])
+        gamma = io.read_gamma_csv(os.path.join(selres.run_dir, "Gamma_mean.csv"))
+        cov = strain_coverage(gamma, sample_total_coverage(data.counts))
+        gres = assign_genes(gene_cov.values, cov, GeneAssignConfig(
+            max_copy=int(genes.get("max_copy", 1)),
+            model=genes.get("model", "quasipoisson"),
+        ), device=device)
+        cols = [f"H{g + 1}" for g in range(gamma.shape[1])]
+        for name, table in (("etaS", gres.eta_star), ("etaP", gres.presence_prob)):
+            io.write_gene_table(
+                os.path.join(outdir, f"geneassign_{name}_df.csv"), gene_cov.names,
+                cols, table.cpu().numpy(), gene_cov.index_label)
+        summary["genes_assigned"] = len(gene_cov.names)
+        summary["genes_wall_s"] = time.time() - t0
+
     with open(os.path.join(outdir, "pipeline_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     return summary

@@ -6,7 +6,8 @@ Load the counts, optionally subsample positions (-r) and apply min coverage
 chosen device (optionally with a fixed eta from the filter's tran_df, -e),
 and write fit.txt, Gamma_{mean,star}.csv, Eta_{mean,star}.csv,
 Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and loglik_trace.csv
-(and chains.json for several chains).
+(and chains.json for several chains; draws.npz with --store_every). A
+haplotype file (-t, or -f to hold it fixed) starts tau from known strains.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from .likelihood import (
     deviance_from_loglik, log_likelihood_host_f64, total_coeff_host_f64,
 )
 from .ops import resolve
-from .sampler import SamplerConfig, SamplerResult, run_chain, run_chains
+from .sampler import (
+    SamplerConfig, SamplerResult, chain_result, run_chain, run_chains,
+)
 
 
 @dataclass
@@ -50,8 +53,8 @@ class RunConfig:
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 50
     profile_dir: Optional[str] = None
-    tau_file: Optional[str] = None
-    fix_tau: bool = False
+    tau_file: Optional[str] = None   # -t/-f: tau-star CSV to start from
+    fix_tau: bool = False            # -f: freeze tau (fit gamma/eta only)
     pt_replicas: int = 0
     pt_max_temp: float = 8.0
     auto_burn: bool = False
@@ -59,8 +62,8 @@ class RunConfig:
     auto_max_burn: int = 2000
     auto_samples: float = 0.0
     auto_max_samples: int = 2000
-    eta_update: str = "joint"
-    store_every: int = 0
+    eta_update: str = "joint"        # "joint" | "rows" (per-row eta MH)
+    store_every: int = 0             # >0: write every k-th post-burn draw
 
 
 def _refuse_unported(rc: RunConfig) -> None:
@@ -70,9 +73,6 @@ def _refuse_unported(rc: RunConfig) -> None:
         (rc.auto_burn or rc.auto_samples > 0, "auto_burn/auto_samples",
          "11 (auto-length)"),
         (rc.pt_replicas >= 2, "pt_replicas", "12 (parallel tempering)"),
-        (rc.tau_file or rc.fix_tau, "tau_file/fix_tau", "5 (em_gamma, -t/-f)"),
-        (rc.store_every, "store_every", "3 (stored draws)"),
-        (rc.eta_update != "joint", "eta_update='rows'", "3 (per-row eta MH)"),
         (rc.profile_dir, "profile_dir", "13 (profiling)"),
     ]
     for on, field, item in waiting:
@@ -96,6 +96,11 @@ def prepare_data(
 
 def sampler_config(rc: RunConfig) -> SamplerConfig:
     burn = int(rc.iterations * rc.burn_frac)
+    if rc.store_every and (rc.iterations - burn) % rc.store_every != 0:
+        raise ValueError(
+            f"store_every={rc.store_every} must divide the sampling sweeps "
+            f"({rc.iterations - burn} = iterations - burn)"
+        )
     return SamplerConfig(
         G=rc.G,
         burn=burn,
@@ -110,11 +115,28 @@ def sampler_config(rc: RunConfig) -> SamplerConfig:
     )
 
 
+def load_tau_init(tau_file: str, data: io.CountsData) -> np.ndarray:
+    """Load a Filtered_Tau_star.csv and align it to data's positions.
+
+    Every (Contig, Position) of `data` must appear in the tau file (the
+    fixed/initial haplotypes share the filter's position set).
+    """
+    tau, contigs, positions = io.read_tau_star_csv(tau_file)
+    index = {(str(c), int(p)): i for i, (c, p) in enumerate(zip(contigs, positions))}
+    rows = []
+    for c, p in zip(data.contigs, data.positions):
+        key = (str(c), int(p))
+        if key not in index:
+            raise ValueError(f"tau file missing position {key}")
+        rows.append(index[key])
+    return tau[rows]
+
+
 def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
              nmf_iters: Optional[int]):
     """What run and run_multi share: the refusals, the prepared data, the
-    sampler config, the counts and eta on the device, and the kernel choice
-    bound to those counts (once per run)."""
+    sampler config, the counts, eta and the known haplotypes on the device,
+    and the kernel choice bound to those counts (once per run)."""
     _refuse_unported(rc)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -127,8 +149,14 @@ def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
     if rc.eta_file:
         eta_init = torch.as_tensor(io.read_eta_csv(rc.eta_file),
                                    dtype=torch.float32, device=device)
+    tau_init = None
+    if rc.tau_file:
+        tau_init = torch.as_tensor(load_tau_init(rc.tau_file, data),
+                                   dtype=torch.int32, device=device)
+    elif rc.fix_tau:
+        raise ValueError("fix_tau requires tau_file")
     n = torch.as_tensor(data.counts, device=device).to(torch.float32)
-    return device, data, cfg, eta_init, n, resolve(kernel, n)
+    return device, data, cfg, eta_init, tau_init, n, resolve(kernel, n)
 
 
 def _device_name(device: torch.device) -> str:
@@ -148,20 +176,30 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
     (benchmarks use a short start). Returns the result, its tensors still
     on the device.
     """
-    device, data, cfg, eta_init, n, ks = _prepare(data, rc, device, kernel,
-                                                  nmf_iters)
+    device, data, cfg, eta_init, tau_init, n, ks = _prepare(
+        data, rc, device, kernel, nmf_iters)
     generator = torch.Generator(device=device)
     generator.manual_seed(rc.seed)
 
     t0 = time.time()
-    res = run_chain(n, cfg, generator, eta_init=eta_init, kernel=ks)
+    res = run_chain(n, cfg, generator, eta_init=eta_init, tau_init=tau_init,
+                    kernel=ks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - t0
 
     write_outputs(rc.out_dir, data, res, cfg, elapsed, seed=rc.seed,
                   extra_metrics={"device": _device_name(device), "kernel": kernel})
+    _write_draws(rc.out_dir, res, cfg)
     return res
+
+
+def _write_draws(out_dir: str, res: SamplerResult, cfg: SamplerConfig) -> None:
+    """draws.npz from a result with stored draws (--store_every)."""
+    if res.tau_samples is not None:
+        io.write_draws(os.path.join(out_dir, "draws.npz"), _np(res.tau_samples),
+                       _np(res.gamma_samples), _np(res.eta_samples),
+                       burn=cfg.burn, thin=cfg.store_thin)
 
 
 def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
@@ -178,21 +216,23 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
     """
     from .diagnostics import ess_bulk, replicate_agreement, split_rhat
 
-    device, data, cfg, eta_init, n, ks = _prepare(data, rc, device, kernel,
-                                                  nmf_iters)
+    device, data, cfg, eta_init, tau_init, n, ks = _prepare(
+        data, rc, device, kernel, nmf_iters)
     seeds = list(range(rc.seed, rc.seed + n_chains))
     t0 = time.time()
-    res = run_chains(n, cfg, seeds, eta_init=eta_init, kernel=ks)
+    res = run_chains(n, cfg, seeds, eta_init=eta_init, kernel=ks,
+                     tau_init=tau_init)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - t0
 
     star = _np(res.star_loglik)
     best = int(np.argmax(star))
-    best_res = SamplerResult(*(x[best] for x in res))
+    best_res = chain_result(res, best)
     write_outputs(rc.out_dir, data, best_res, cfg, elapsed, seed=seeds[best],
                   extra_metrics={"device": _device_name(device), "kernel": kernel,
                                  "chains": n_chains})
+    _write_draws(rc.out_dir, best_res, cfg)
     post = _np(res.loglik_trace)[:, cfg.burn:]
     with open(os.path.join(rc.out_dir, "chains.json"), "w") as f:
         json.dump(
@@ -225,7 +265,7 @@ def write_outputs(
     trace), so the numbers model selection discriminates on never carry the
     f32 device reduction error.
     """
-    from .diagnostics import ess_bulk
+    from .diagnostics import draws_diagnostics, ess_bulk
 
     io.ensure_dir(out_dir)
     trace = _np(res.loglik_trace).astype(np.float64)
@@ -262,6 +302,12 @@ def write_outputs(
     ess_fields = {}
     if post.size >= 4:
         ess_fields["loglik_ess_bulk"] = float(ess_bulk(post[None, :]))
+    # per-parameter gamma/eta ESS whenever draws were stored
+    if res.gamma_samples is not None and res.gamma_samples.shape[0] >= 4:
+        d = draws_diagnostics({"gamma": _np(res.gamma_samples),
+                               "eta": _np(res.eta_samples)})
+        ess_fields.update({k: d[k] for k in
+                           ("gamma_ess_min", "gamma_ess_median", "eta_ess_min")})
     metrics = {
         "G": cfg.G, "V": data.V, "S": data.S,
         **({"seed": int(seed)} if seed is not None else {}),

@@ -9,7 +9,8 @@ One sweep =
   2. **gamma update** — MH-within-Gibbs with a Dirichlet(kappa*gamma)
      random-walk proposal, all S samples accepted in parallel.
   3. **eta update** — one blocked Dirichlet MH step on the whole 4x4 matrix
-     (skipped when eta is fixed from the filter's tran_df).
+     (``eta_update="rows"``: four per-row steps in turn; skipped when eta is
+     fixed from the filter's tran_df).
 
 The JAX package's ``lax.scan`` is a Python loop over sweeps here. Whatever
 depends only on the sweep index (the anneal temperature, whether kappa is
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from .likelihood import mixture
-from .nmf import nmf_init
+from .nmf import em_gamma, nmf_init
 from .ops import Kernels, draw_gumbel, draw_swap_proposal, resolve
 from .utils import NBASES, one_hot_tau, safe_log
 
@@ -59,11 +60,13 @@ class SamplerConfig:
     eta_prior_diag: float = 10.0
     eta_prior_off: float = 1.0
     fix_eta: bool = False
-    eta_update: str = "joint"     # "rows" is not ported yet
+    # "joint" (one blocked MH on the whole 4x4) | "rows" (4 sequential
+    # per-row MH steps; same stationary distribution)
+    eta_update: str = "joint"
     fix_gamma: bool = False       # freeze abundances (known mixtures / tests)
     fix_tau: bool = False         # freeze haplotypes, fit gamma/eta
-    store_samples: bool = False   # not ported yet
-    store_thin: int = 1
+    store_samples: bool = False   # keep post-burn (tau, gamma, eta) draws
+    store_thin: int = 1           # keep every k-th draw (must divide samples)
     swap_moves: bool = True       # per-position strain-pair swap MH each sweep
     anneal_temp0: float = 3.0     # tempered tau updates early in burn-in
     anneal_frac: float = 0.5      # fraction of burn spent annealing T0 -> 1
@@ -116,6 +119,10 @@ class SamplerResult(NamedTuple):
     accept_eta: torch.Tensor
     accept_gamma_post: torch.Tensor  # post-burn acceptance rate
     accept_eta_post: torch.Tensor
+    # post-burn draws, every store_thin-th sweep (store_samples), else None
+    tau_samples: Optional[torch.Tensor] = None    # int8 [samples/thin,V,G]
+    gamma_samples: Optional[torch.Tensor] = None  # [samples/thin,S,G]
+    eta_samples: Optional[torch.Tensor] = None    # [samples/thin,4,4]
 
 
 class TorchNoise:
@@ -147,6 +154,13 @@ class TorchNoise:
         return torch._standard_gamma(alpha, generator=self.generator)
 
     def eta_u(self, it: int) -> torch.Tensor:
+        return torch.rand((), generator=self.generator,
+                          device=self.generator.device)
+
+    def eta_row_prop(self, it: int, a: int, alpha: torch.Tensor) -> torch.Tensor:
+        return torch._standard_gamma(alpha, generator=self.generator)
+
+    def eta_row_u(self, it: int, a: int) -> torch.Tensor:
         return torch.rand((), generator=self.generator,
                           device=self.generator.device)
 
@@ -259,11 +273,44 @@ def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise,
                        _loglik(n, mix, eta_prop), loglik, noise, it)
 
 
+def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
+             beta: float = 1.0):
+    """Sequential per-row Dirichlet MH on the 4x4 error matrix
+    (``eta_update="rows"``): for each row in turn one proposal, one
+    likelihood pass, that row's prior term and one MH decision.
+
+    beta tempers the likelihood term only; the returned loglik is the
+    untempered one. Returns (eta, loglik, accept rate over the four rows).
+    """
+    prior_alpha = _eta_prior(cfg, eta.device)
+    n_acc = torch.zeros((), device=eta.device)
+    for a in range(NBASES):
+        row = eta[a]
+        alpha_fwd = kappa * row + cfg.proposal_floor
+        row_prop = _dirichlet(noise.eta_row_prop(it, a, alpha_fwd))
+        alpha_rev = kappa * row_prop + cfg.proposal_floor
+        eta_prop = eta.clone()
+        eta_prop[a] = row_prop
+        ll_new = _loglik(n, mix, eta_prop)
+        log_ratio = (
+            beta * (ll_new - loglik)
+            + torch.sum((prior_alpha[a] - 1.0)
+                        * (safe_log(row_prop) - safe_log(row)))
+            + _dirichlet_logpdf(row, alpha_rev)
+            - _dirichlet_logpdf(row_prop, alpha_fwd)
+        )
+        accept = safe_log(noise.eta_row_u(it, a)) < log_ratio
+        eta = torch.where(accept, eta_prop, eta)
+        loglik = torch.where(accept, ll_new, loglik)
+        n_acc = n_acc + accept.to(torch.float32)
+    return eta, loglik, n_acc / NBASES
+
+
 def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
                   noise, temp: float):
     """The sweep's tau, gamma and eta updates as separate steps: the tau
     sweep and swap kernels (or their plain versions), then gamma_step and
-    eta_step_joint as plain PyTorch ops.
+    eta_step_joint (or eta_step) as plain PyTorch ops.
 
     Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta).
     """
@@ -290,7 +337,8 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     if cfg.fix_eta:
         eta, acc_e = state.eta, torch.zeros((), device=n.device)
     else:
-        eta, loglik, acc_e = eta_step_joint(
+        eta_fn = eta_step_joint if cfg.eta_update == "joint" else eta_step
+        eta, loglik, acc_e = eta_fn(
             cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it)
     return tau, mix, gamma, eta, loglik, acc_g, acc_e
 
@@ -316,9 +364,6 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
         front = resident.front
     else:
         front = _staged_front
-    if cfg.eta_update != "joint" and not cfg.fix_eta:
-        raise NotImplementedError(
-            "eta_update='rows' is not ported yet (ROADMAP queue 1 item 3)")
     anneal = cfg.anneal_temp0 > 1.0 and cfg.burn > 0
     anneal_sweeps = max(int(cfg.burn * cfg.anneal_frac), 1)
 
@@ -380,7 +425,12 @@ def init_state(
     tau_init: Optional[torch.Tensor] = None,
     gamma_init: Optional[torch.Tensor] = None,
 ) -> SamplerState:
-    """NMF-initialized (or user-supplied) chain state on n's device."""
+    """NMF-initialized (or user-supplied) chain state on n's device.
+
+    With tau_init and no gamma_init (known haplotypes, desman -t/-f) gamma
+    starts from ``nmf.em_gamma`` and no NMF runs, so the generator is not
+    drawn from.
+    """
     dev = n.device
     if eta_init is None:
         eta = (torch.full((NBASES, NBASES), 0.01 / 3.0, device=dev)
@@ -389,10 +439,9 @@ def init_state(
         eta = torch.as_tensor(eta_init, dtype=torch.float32,
                               device=dev).contiguous()
     if tau_init is not None and gamma_init is None:
-        raise NotImplementedError(
-            "a known-haplotype start (nmf.em_gamma, desman -t/-f) is not "
-            "ported yet (ROADMAP queue 1 item 5)")
-    if tau_init is None or gamma_init is None:
+        tau = torch.as_tensor(tau_init, device=dev).to(torch.int32)
+        gamma = em_gamma(n, tau, eta)
+    elif tau_init is None or gamma_init is None:
         tau, gamma = nmf_init(n, cfg.G, generator, iters=cfg.nmf_iters)
         if gamma_init is not None:
             gamma = gamma_init
@@ -441,8 +490,9 @@ def init_accum(V: int, S: int, G: int, device) -> SamplerAccum:
 
 
 def _result_from_accum(accum: SamplerAccum, cfg: SamplerConfig,
-                       trace: torch.Tensor) -> SamplerResult:
-    """Posterior means + star snapshot from a finished accumulator."""
+                       trace: torch.Tensor, **draws) -> SamplerResult:
+    """Posterior means + star snapshot from a finished accumulator (and the
+    stored draws, when there are any)."""
     n_s = torch.clamp_min(accum.n_samples, 1.0)
     return SamplerResult(
         tau_mean=accum.sum_tau / n_s,
@@ -458,6 +508,7 @@ def _result_from_accum(accum: SamplerAccum, cfg: SamplerConfig,
         accept_eta=accum.acc_eta / cfg.total_sweeps,
         accept_gamma_post=accum.acc_gamma_post / n_s,
         accept_eta_post=accum.acc_eta_post / n_s,
+        **draws,
     )
 
 
@@ -477,25 +528,45 @@ def run_chain(
     already resolved for n.
 
     The loglik trace is preallocated on the device and filled sweep by
-    sweep; nothing is fetched to the host until the caller asks.
+    sweep; nothing is fetched to the host until the caller asks. With
+    cfg.store_samples the state after every store_thin-th post-burn sweep
+    (draw j after sweep burn + (j+1)*thin - 1) is copied into buffers
+    preallocated on the device; storing reads the state and changes
+    nothing, so the trajectory is bitwise the one without storage.
     """
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
     sweep = make_sweep_fn(cfg, kernel)   # the resident path's refusals first
-    if cfg.store_samples:
-        raise NotImplementedError(
-            "store_samples (desman --store_every) is not ported yet "
-            "(ROADMAP queue 1 item 3)")
     V, S, _ = n.shape
+    G = cfg.G
+    thin = max(int(cfg.store_thin), 1)
+    if cfg.store_samples and cfg.samples % thin != 0:
+        raise ValueError(f"store_thin={thin} must divide samples={cfg.samples}")
     state = init_state(n, cfg, generator, eta_init, tau_init, gamma_init)
-    accum = init_accum(V, S, cfg.G, n.device)
+    accum = init_accum(V, S, G, n.device)
     noise = TorchNoise(generator) if noise is None else noise
     trace = torch.empty(cfg.total_sweeps, dtype=torch.float32, device=n.device)
+    draws = {}
+    if cfg.store_samples:
+        n_draws = cfg.samples // thin
+        draws = dict(
+            tau_samples=torch.empty((n_draws, V, G), dtype=torch.int8,
+                                    device=n.device),
+            gamma_samples=torch.empty((n_draws, S, G), dtype=torch.float32,
+                                      device=n.device),
+            eta_samples=torch.empty((n_draws, NBASES, NBASES),
+                                    dtype=torch.float32, device=n.device))
     for it in range(cfg.total_sweeps):
         state, accum, ll = sweep(n, state, accum, it, noise)
         trace[it] = ll
-    return _result_from_accum(accum, cfg, trace)
+        done = it + 1 - cfg.burn
+        if draws and done > 0 and done % thin == 0:
+            j = done // thin - 1
+            draws["tau_samples"][j] = state.tau
+            draws["gamma_samples"][j] = state.gamma
+            draws["eta_samples"][j] = state.eta
+    return _result_from_accum(accum, cfg, trace, **draws)
 
 
 def run_chains(
@@ -504,13 +575,15 @@ def run_chains(
     seeds,
     eta_init: Optional[torch.Tensor] = None,
     kernel="cuda",
+    tau_init: Optional[torch.Tensor] = None,
 ) -> SamplerResult:
     """Independent chains over seeds, stacked on a leading axis (the JAX
     package's ``run_chains``, whose vmap becomes a loop here).
 
     Chain i runs one after another on its own ``torch.Generator`` on n's
     device, seeded with seeds[i], so it is bitwise ``run_chain`` of that
-    seed. The kernel choice is resolved once for all chains.
+    seed. The kernel choice is resolved once for all chains. Fields that
+    are None (no stored draws) stay None.
     """
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
@@ -520,5 +593,11 @@ def run_chains(
         generator = torch.Generator(device=n.device)
         generator.manual_seed(int(seed))
         results.append(run_chain(n, cfg, generator, eta_init=eta_init,
-                                 kernel=kernel))
-    return SamplerResult(*(torch.stack(field) for field in zip(*results)))
+                                 tau_init=tau_init, kernel=kernel))
+    return SamplerResult(*(None if field[0] is None else torch.stack(field)
+                           for field in zip(*results)))
+
+
+def chain_result(res: SamplerResult, i: int) -> SamplerResult:
+    """Chain i of ``run_chains``' stacked result (None fields stay None)."""
+    return SamplerResult(*(None if x is None else x[i] for x in res))

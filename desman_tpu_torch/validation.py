@@ -1,15 +1,17 @@
-"""Permutation-matched comparison of inferred vs true strains (the
-``compare_tau`` of ``desman_tpu.validation``). Positions are aligned on
+"""Permutation-matched comparison of inferred vs true strains (counterpart
+of ``desman_tpu.validation``, the validateSNP step): haplotype calls under
+the best strain permutation, and gammas likewise. Positions are aligned on
 (Contig, Position) keys so the prediction may cover a subset of the truth.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-from .utils import snp_distance_perm
+from . import io
+from .utils import match_gamma_perm, snp_distance_perm
 
 
 @dataclass
@@ -21,6 +23,14 @@ class ValidationReport:
     error_rate: float          # snp_errors / (n_positions * matched strains)
     per_strain_errors: np.ndarray
     permutation: Tuple[np.ndarray, np.ndarray]
+    gamma_mae: Optional[float] = None
+
+    def summary_line(self) -> str:
+        g = "" if self.gamma_mae is None else f",{self.gamma_mae:.6f}"
+        return (
+            f"{self.n_positions},{self.n_strains_pred},{self.snp_errors},"
+            f"{self.error_rate:.6f}{g}"
+        )
 
 
 def _align(pred_tau, pred_keys, true_tau, true_keys):
@@ -61,3 +71,23 @@ def compare_tau(
         permutation=(rows, cols),
     )
 
+
+def validate_files(
+    pred_tau_csv: str,
+    true_tau_csv: str,
+    pred_gamma_csv: Optional[str] = None,
+    true_gamma_csv: Optional[str] = None,
+) -> ValidationReport:
+    """File-level validation (both sides in Filtered_Tau_star.csv format;
+    gammas in Gamma_mean.csv format)."""
+    pred_tau, pc, pp = io.read_tau_star_csv(pred_tau_csv)
+    true_tau, tc, tp = io.read_tau_star_csv(true_tau_csv)
+    rep = compare_tau(
+        pred_tau, true_tau,
+        pred_keys=list(zip(map(str, pc), map(int, pp))),
+        true_keys=list(zip(map(str, tc), map(int, tp))),
+    )
+    if pred_gamma_csv and true_gamma_csv:
+        rep.gamma_mae, _ = match_gamma_perm(
+            io.read_gamma_csv(true_gamma_csv), io.read_gamma_csv(pred_gamma_csv))
+    return rep

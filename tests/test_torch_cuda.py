@@ -229,7 +229,7 @@ def test_resident_sampler_runs_through_its_kernels(cuda):
                 ops.gamma_ll.launches) == (0, 0, 0)
     a, b = results
     for x, y in zip(a, b):   # same seed, same bits: no atomics anywhere
-        assert torch.equal(x, y)
+        assert (x is None and y is None) or torch.equal(x, y)
     assert torch.isfinite(a.loglik_trace).all()
     assert snp_distance_perm(t.tau_idx, a.tau_star.cpu().numpy()) <= 4
 
@@ -312,7 +312,7 @@ def test_topk_chain_is_bitwise_the_cuda_chain(cuda):
         assert ops.swap.launches == 60
     for name, a, b in zip(results["cuda"]._fields, results["cuda_topk"],
                           results["cuda"]):
-        assert torch.equal(a, b), name
+        assert (a is None and b is None) or torch.equal(a, b), name
 
 
 def test_run_chains_on_the_card(cuda):
@@ -331,10 +331,57 @@ def test_run_chains_on_the_card(cuda):
         gen.manual_seed(seed)
         one = run_chain(n, cfg, gen, kernel="cuda_resident")
         for name, a, b in zip(one._fields, res, one):
-            assert torch.equal(a[i], b), (seed, name)
+            assert (a is None and b is None) or torch.equal(a[i], b), (seed, name)
 
 
 def test_topk_refuses_dense_counts_on_the_card(cuda):
     t = synth.generate(V=64, S=8, G=6, coverage=80.0, seed=0)
     with pytest.raises(ops.TopkInapplicable, match=">2 observed bases"):
         ops.resolve("cuda_topk", torch.as_tensor(t.data.counts, device=cuda))
+
+
+# ---- the run modes and GeneAssign on the card ----
+
+
+def test_assign_gene_tau_gibbs_runs_the_tau_kernel(cuda):
+    """The annealed path (4^8 > state_cap) through the tau kernel and
+    through its plain version, from one generator seed: the kernel launches
+    once per sweep, and the two error rates against the truth agree within
+    0.5 points (a near-tie flip changes that position's later draws only)."""
+    from desman_tpu_torch.geneassign import assign_gene_tau
+
+    t = synth.generate(V=600, S=32, G=8, coverage=50.0, seed=4)
+    rates = {}
+    for kernel in ("cuda", "torch"):
+        ops.reset_launches()
+        star, mean = assign_gene_tau(t.data.counts, t.gamma, t.eta, sweeps=50,
+                                     device=cuda, kernel=kernel)
+        torch.cuda.synchronize()
+        assert ops.tau_sweep.launches == (50 if kernel == "cuda" else 0)
+        assert star.is_cuda and torch.isfinite(mean).all()
+        rates[kernel] = (star.cpu().numpy() != t.tau_idx).mean()
+    assert abs(rates["cuda"] - rates["torch"]) <= 0.005, rates
+
+
+def test_store_every_chain_is_bitwise_the_chain_without(cuda):
+    import dataclasses
+
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain
+
+    t = synth.generate(V=300, S=8, G=3, coverage=60.0, seed=6)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    base = SamplerConfig(G=3, burn=20, samples=20, nmf_iters=50)
+    results = []
+    for cfg in (base, dataclasses.replace(base, store_samples=True, store_thin=4)):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        ops.reset_launches()
+        results.append(run_chain(n, cfg, gen))
+        torch.cuda.synchronize()
+        assert ops.tau_sweep.launches == 40 and ops.swap.launches == 40
+    plain, stored = results
+    for name, a, b in zip(plain._fields, plain, stored):
+        if a is not None:
+            assert torch.equal(a, b), name
+    assert stored.tau_samples.shape == (5, 300, 3) and stored.tau_samples.is_cuda
+    assert stored.tau_samples.dtype == torch.int8

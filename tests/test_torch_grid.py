@@ -44,6 +44,9 @@ def test_run_chains_stacks_run_chain_of_each_seed(kernel):
         one = sampler.run_chain(n, cfg, torch.Generator().manual_seed(seed),
                                 kernel=kernel)
         for name, a, b in zip(one._fields, res, one):
+            if b is None:   # no stored draws
+                assert a is None, name
+                continue
             assert torch.equal(a[i], b), (seed, name)
     assert not torch.equal(res.loglik_trace[0], res.loglik_trace[1])
 
@@ -247,14 +250,46 @@ def test_collate_cli_matches_the_jax_collate(pipeline_out, tmp_path):
         assert [r["G"] for r in csv.DictReader(f)] == ["1", "1", "2", "2", "3", "3"]
 
 
-def test_pipeline_refuses_the_genes_stage(pipeline_out, tmp_path, capsys):
-    _, _, counts = pipeline_out
+def test_pipeline_refuses_the_genes_stage(pipeline_out, tmp_path):
+    """The genes stage runs: it assigns the accessory
+    genes to the selected run's strains as the JAX package's assign_genes
+    does on the same gamma, with each sample's total coverage from all the
+    input counts."""
+    from desman_tpu.geneassign import assign_genes as jax_assign_genes
+    from desman_tpu_torch.geneassign import sample_total_coverage, strain_coverage
+
+    _, grid_out, counts = pipeline_out
+    data = io.read_counts_csv(counts)
+    with open(os.path.join(grid_out, "pipeline_summary.json")) as f:
+        best = json.load(f)["best_run_dir"]
+    gamma = io.read_gamma_csv(os.path.join(best, "Gamma_mean.csv"))
+    cov = strain_coverage(gamma, sample_total_coverage(data.counts))
+    rng = np.random.default_rng(3)
+    etaG = rng.integers(0, 2, size=(30, gamma.shape[1]))
+    etaG[etaG.sum(axis=1) == 0, 0] = 1
+    x = rng.poisson(etaG @ cov).astype(np.float64)
+    gene_cov = str(tmp_path / "gene_cov.csv")
+    io.write_gene_table(gene_cov, [f"gene{d}" for d in range(30)],
+                        ["n_positions", *data.samples],
+                        [np.full(30, 50), *x.T], "gene")
+    # the grid's run dirs are reused (elastic resume): only genes is new
     config = tmp_path / "config.json"
-    config.write_text(json.dumps({"counts": counts, "output_dir": str(tmp_path / "o"),
-                                  "genes": {"coverage_csv": "gene_cov.csv"}}))
-    assert cli.main(["pipeline", str(config), "--device", "cpu"]) == 2
-    assert "item 10" in capsys.readouterr().err
-    assert not (tmp_path / "o").exists()
+    config.write_text(json.dumps({
+        "counts": counts, "output_dir": grid_out,
+        "grid": {"g_min": 1, "g_max": 3, "seeds": [0, 1], "iterations": 60},
+        "genes": {"coverage_csv": gene_cov}}))
+    assert cli.main(["pipeline", str(config), "--device", "cpu"]) == 0
+    with open(os.path.join(grid_out, "pipeline_summary.json")) as f:
+        summary = json.load(f)
+    assert summary["genes_assigned"] == 30 and summary["best_run_dir"] == best
+    want = jax_assign_genes(x, cov)
+    etaS = io.read_gene_cov_csv(os.path.join(grid_out, "geneassign_etaS_df.csv"))
+    etaP = io.read_gene_cov_csv(os.path.join(grid_out, "geneassign_etaP_df.csv"))
+    assert etaS.names == [f"gene{d}" for d in range(30)] and etaS.index_label == "gene"
+    np.testing.assert_array_equal(etaS.values, np.asarray(want.eta_star))
+    np.testing.assert_allclose(etaP.values, np.asarray(want.presence_prob),
+                               rtol=1e-5, atol=1e-4)
+    assert (etaS.values == etaG).mean() > 0.9
 
 
 def test_desman_chains_cli_writes_the_best_chain(tmp_path):

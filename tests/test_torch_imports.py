@@ -23,6 +23,7 @@ MODULES = [
     "desman_tpu_torch.convert", "desman_tpu_torch.run",
     "desman_tpu_torch.filter", "desman_tpu_torch.model_selection",
     "desman_tpu_torch.pipeline", "desman_tpu_torch.cli",
+    "desman_tpu_torch.geneassign", "desman_tpu_torch.genecov",
 ]
 
 
@@ -61,7 +62,8 @@ def test_source_imports_nothing_of_jax(path):
 
 
 @pytest.mark.parametrize("name", ["sampler.SamplerConfig", "run.RunConfig",
-                                  "filter.FilterConfig"])
+                                  "filter.FilterConfig",
+                                  "geneassign.GeneAssignConfig"])
 def test_config_fields_match_the_jax_package(name):
     import importlib
 

@@ -168,12 +168,19 @@ def test_resident_cli_writes_every_output(tmp_path):
     ["--store_every", "5"], ["-f", "tau.csv"], ["--eta_update", "rows"],
 ])
 def test_resident_cli_refuses_what_the_jax_cli_refuses(argv, tmp_path, capsys):
-    """The flags the JAX CLI refuses with --kernel pallas_resident are not
-    ported yet: each exits 2 with its not-ported message."""
+    """The flags the JAX CLI refuses with --kernel pallas_resident exit 2:
+    --store_every, -f and --eta_update rows with the JAX CLI's message
+    (use --kernel cuda), the flags not ported yet with their not-ported
+    message."""
     rc = cli.main(["desman", "x.csv", "-g", "2", "-o", str(tmp_path / "o"),
                    "--device", "cpu", "--kernel", "cuda_resident", *argv])
     assert rc == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if argv[0] in ("--store_every", "-f", "--eta_update"):
+        assert "single-device speed mode" in err and "--kernel cuda" in err
+    else:
+        assert "not ported" in err
+    assert not (tmp_path / "o").exists()
 
 
 def test_resident_cli_meets_the_quickstart_gates(tmp_path):

@@ -142,17 +142,38 @@ def test_state_round_trips_through_numpy():
     (dict(eta_update="rows"), "rows"),
 ])
 def test_unported_modes_raise(change, match):
-    cfg = dataclasses.replace(sampler.SamplerConfig(G=2, burn=2, samples=2,
+    """store_samples and eta_update='rows' run: the chain is finite, rows
+    updates eta, and stored draws have their shapes (`match` names the
+    mode)."""
+    t = synth.generate(V=40, S=5, G=2, coverage=40.0, seed=2)
+    cfg = dataclasses.replace(sampler.SamplerConfig(G=2, burn=4, samples=4,
                                                     nmf_iters=5), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        sampler.run_chain(torch.ones(10, 3, 4), cfg, torch.Generator())
+    res = sampler.run_chain(torch.as_tensor(t.data.counts), cfg,
+                            torch.Generator().manual_seed(0))
+    assert torch.isfinite(res.loglik_trace).all()
+    if match == "store_samples":
+        assert res.tau_samples.shape == (4, 40, 2)
+        assert res.tau_samples.dtype == torch.int8
+        assert res.gamma_samples.shape == (4, 5, 2) and res.eta_samples.shape == (4, 4, 4)
+    else:
+        assert res.tau_samples is None and res.eta_samples is None
+        assert float(res.accept_eta) > 0
 
 
 def test_known_haplotype_start_raises():
-    cfg = sampler.SamplerConfig(G=2, burn=2, samples=2, nmf_iters=5)
-    with pytest.raises(NotImplementedError, match="em_gamma"):
-        sampler.run_chain(torch.ones(10, 3, 4), cfg, torch.Generator(),
-                          tau_init=torch.zeros(10, 2, dtype=torch.int32))
+    """tau_init without gamma_init starts gamma from em_gamma and spends
+    no generator draw on NMF."""
+    t = synth.generate(V=40, S=5, G=2, coverage=40.0, seed=2)
+    n = torch.as_tensor(t.data.counts, dtype=torch.float32)
+    cfg = sampler.SamplerConfig(G=2, burn=2, samples=2, nmf_iters=5, fix_tau=True)
+    gen = torch.Generator().manual_seed(0)
+    before = gen.get_state()
+    st = sampler.init_state(n, cfg, gen, tau_init=to_torch(t.tau_idx))
+    assert torch.equal(gen.get_state(), before)
+    assert torch.equal(st.tau, to_torch(t.tau_idx, torch.int32))
+    assert np.abs(st.gamma.numpy() - t.gamma).mean() < 0.02
+    res = sampler.run_chain(n, cfg, gen, tau_init=to_torch(t.tau_idx))
+    assert torch.equal(res.tau_star, st.tau)
 
 
 def test_init_state_matches_jax_given_the_same_start():

@@ -5,7 +5,8 @@
 - ``ReplayNoise``: a noise source for the port's sweep that rebuilds the
   JAX package's exact random streams from a chain key, with the key layout
   of ``desman_tpu.sampler.make_sweep_fn``, so one sweep of each package can
-  be compared draw for draw.
+  be compared draw for draw; ``GeneTauReplay`` does the same for
+  ``assign_gene_tau``'s annealed sweeps.
 - ``check_replayed_sweep``: the gates one replayed sweep is held to;
   ``check_quickstart_gates``: tests/test_quickstart.py's accuracy gates on
   an output directory from TestData's true-variant half.
@@ -92,6 +93,28 @@ class ReplayNoise:
 
     def eta_u(self, it):
         return self._u(self._keys(it)[2], ())
+
+    # eta_update="rows": row a's proposal and uniform from fold_in(k_eta, a)
+    def eta_row_prop(self, it, a, alpha):
+        return self._prop(jax.random.fold_in(self._keys(it)[2], a), alpha)
+
+    def eta_row_u(self, it, a):
+        return self._u(jax.random.fold_in(self._keys(it)[2], a), ())
+
+
+class GeneTauReplay:
+    """The Gumbel streams of the JAX package's ``assign_gene_tau`` Gibbs
+    path: sweep it, strain g draws from fold_in(fold_in(PRNGKey(seed), it),
+    g), unscaled (the port multiplies by the temperature)."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def gumbel(self, it, V, G):
+        k = jax.random.fold_in(self.key, it)
+        gz = [np.asarray(jax.random.gumbel(jax.random.fold_in(k, g), (V, 4)))
+              for g in range(G)]
+        return torch.as_tensor(np.stack(gz, axis=1))
 
 
 def check_replayed_sweep(it, old, want, got, jll, pll, jaccum, paccum) -> bool:
