@@ -9,11 +9,19 @@ Phases, each printing its own '# ...' lines:
    power limit as nvidia-smi reports them;
 2. build: compile the CUDA kernels from desman_tpu_torch/csrc;
 3. kernels vs their plain PyTorch versions on the card at V=1e4, S=64,
-   G=8: agreement, mixture consistency, per-sample loglik sums to rtol
-   1e-5, the fused front-half kernel bitwise equal to the staged kernels
-   and to itself from run to run, the top-2 tau kernel (on biallelic,
-   error-free counts) bitwise equal to the tau kernel and to itself from
-   run to run, median times;
+   G=8, on inputs built on the CPU from numpy seeds and then moved to the
+   card (kernel_bench.phase3_inputs): agreement, mixture consistency,
+   per-sample loglik sums to rtol 1e-5, the tau and fused kernels' outputs
+   bitwise equal to the SHA-256 digests the one-warp-per-position kernels
+   gave on these inputs (TAU_SHA256, FUSED_SHA256), the fused front-half
+   kernel bitwise equal to the staged kernels and to itself from run to
+   run, the top-2 tau kernel (on biallelic, error-free counts) bitwise
+   equal to the tau kernel and to itself from run to run; median times
+   (CUDA events around each wrapper call, host included) and each kernel's
+   device time (torch.profiler, 50 calls), its bound (kernel_bench.bound)
+   and share of it; the tau and fused kernels' tile plan, registers and
+   resident blocks a SM; and both again at V=1e5, S=96, G=16 (device ms by
+   CUDA events around 200 launches, digests gated as at V=1e4);
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: the `desman` CLI on TestData's true-variant half with
    `--kernel cuda` and with `--kernel cuda_resident`, each held to the
@@ -22,7 +30,7 @@ Phases, each printing its own '# ...' lines:
    (cells of 3-4 observed bases) must exit non-zero and say why;
 5. a V=1e4, S=64, G=8 run() of 400 sweeps with each kernel choice that
    takes such counts (cuda, cuda_resident, torch), printing sweeps/s and
-   the final loglik;
+   the final loglik and each kernel's launches per sweep;
 6. the strain-count grid at the `--paper` scale of the JAX package's
    examples/complete_example.py (7000 variant + 7000 monomorphic positions,
    S=64, true G=5; G=1..8 x seeds 0-4, 250 sweeps, eta fixed from the
@@ -54,8 +62,8 @@ Phases, each printing its own '# ...' lines:
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every path driven in phases 4 and 6-9, each
-with the counts set to 0 just before it and read just after; the swap's
+kernel's launches summed over every path driven in phases 4-9, each with
+the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -73,10 +81,11 @@ from collections import Counter
 import numpy as np
 import torch
 
-from desman_tpu_torch import cli, io, ops, run, sampler, synth
+from desman_tpu_torch import cli, io, kernel_bench, ops, run, sampler, synth
 from desman_tpu_torch.geneassign import assign_gene_tau, strain_coverage
 from desman_tpu_torch.likelihood import mixture
-from desman_tpu_torch.ops import _build
+from desman_tpu_torch.ops import _build, tau_kernel
+from desman_tpu_torch.ops.fused_sweep import launch as fused_launch
 from desman_tpu_torch.utils import match_gamma_perm, one_hot_tau
 from desman_tpu_torch.validation import compare_tau
 
@@ -87,6 +96,18 @@ TESTDATA = os.path.join(HERE, "TestData")
 # each kernel's launches over every main path driven (counts set to 0 just
 # before a path and read just after)
 PATH_LAUNCHES = Counter()
+# launches a sweep of each kernel on the path that runs it (phases 4-6)
+SWEEP_LAUNCHES = {}
+# SHA-256 of (tau, mix) from tau_sweep and of (tau, mix, ll) from
+# fused_sweep on kernel_bench's inputs, as the one-warp-per-position
+# kernels gave them (python -m desman_tpu_torch.kernel_bench --against a
+# checkout from before the row-resident redesign; NVIDIA H100 80GB HBM3)
+TAU_SHA256 = {
+    kernel_bench.METRIC: "3ed8aeccc974a8de5492a1ae3a9f4346a3294f60c1025e039e896295974d6da8",
+    kernel_bench.SCALE: "1467c994339182705b1ae3a50dbb6157816acefb7e96318ef3f64831add2ef0f"}
+FUSED_SHA256 = {
+    kernel_bench.METRIC: "9f4c9c0d866e002bb6c15eb1f227dd35faabdda777d612f957111322e98e551a",
+    kernel_bench.SCALE: "64760bb508ebedeb67cbdd19d272a630c406e4e32553933e38b0e6a2a54fdb7f"}
 
 
 class GateFailed(Exception):
@@ -116,26 +137,52 @@ def median_ms(fn) -> float:
     return times[len(times) // 2]
 
 
+def record(name, source, replaces, err, ms, plain_ms, fn, **extra):
+    """A kernel's record: its times, its device time (torch.profiler over
+    50 calls of fn) against its bound at V, S, G, and `extra`."""
+    prof = kernel_bench.profiled_ms(fn)
+    device_ms = prof["total"]
+    b = kernel_bench.bound(name, V, S, G)
+    print(f"# {name}: device {device_ms:.4f} ms a call, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {b['logs']} logs, {b['bytes']} bytes), share of the bound "
+          f"{b['bound_ms'] / device_ms:.3f}; profiler records {prof['records']}")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                share_of_bound=b["bound_ms"] / device_ms, library_ms=None,
+                logs=b["logs"], bytes=b["bytes"], **extra)
+
+
+def resident_info(name):
+    """The row-resident kernel's tile plan, registers and resident blocks a
+    SM at the metric configuration."""
+    info = tau_kernel.kernel_info(name, S, G)
+    print(f"# {name} at S={S} G={G}: {info}")
+    return dict(tile_plan={"buffers": info["buffers"], "smem_bytes": info["smem_bytes"]},
+                registers=info["registers"], local_bytes=info["local_bytes"],
+                blocks_per_sm=info["blocks_per_sm"])
+
+
 def phase_kernels():
     """Each kernel against its plain version on the same inputs."""
     dev = torch.device("cuda")
-    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
-    rng = np.random.default_rng(0)
-    n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
-    gamma = torch.as_tensor(t.gamma, dtype=torch.float32, device=dev)
-    eta = torch.as_tensor(t.eta, dtype=torch.float32, device=dev)
-    tau = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32,
-                          device=dev)
-    mix = mixture(one_hot_tau(tau), gamma)
-    gz = torch.as_tensor(rng.gumbel(size=(V, G, 4)), dtype=torch.float32,
-                         device=dev)
+    host, rng = kernel_bench.phase3_inputs(V, S, G)
+    c = {k: v.to(dev) for k, v in host.items()}
+    n, tau, mix, gamma, eta, gz = kernel_bench.tau_args(c)
     print(f"# kernels at V={V} S={S} G={G}: counts and mixture "
           f"{n.numel() * 4 / 1e6:.2f} MB f32 each")
     records = []
 
     tau_k, mix_k = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
     tau_p, mix_p = ops.tau_sweep_reference(n, tau, mix, gamma, eta, gz)
+    again = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
     torch.cuda.synchronize()
+    sha = kernel_bench.digest(tau_k, mix_k)
+    print(f"# tau_sweep sha256 {sha}")
+    gate(sha == TAU_SHA256[kernel_bench.METRIC],
+         "tau_sweep's tau and mix are bitwise the one-warp-per-position kernel's")
+    gate(torch.equal(again[0], tau_k) and torch.equal(again[1], mix_k),
+         "tau_sweep is bitwise the same from run to run")
     same = (tau_k == tau_p).all(dim=1)
     agree = same.float().mean().item()
     err = (mix_k[same] - mix_p[same]).abs().max().item()
@@ -151,24 +198,15 @@ def phase_kernels():
     plain_ms = median_ms(
         lambda: ops.tau_sweep_reference(n, tau, mix, gamma, eta, gz))
     print(f"# tau_sweep median ms: kernel {ms:.4f}  plain {plain_ms:.4f}")
-    records.append(dict(
-        name="tau_sweep", route="cuda",
-        source="desman_tpu_torch/csrc/tau_kernel.cu",
-        replaces="desman_tpu/ops/tau_pallas.py:66", max_abs_err=err,
-        agreement=agree, ms=ms, plain_ms=plain_ms))
+    records.append(record(
+        "tau_sweep", "desman_tpu_torch/csrc/tau_kernel.cu",
+        "desman_tpu/ops/tau_pallas.py:66", err, ms, plain_ms,
+        lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz), agreement=agree,
+        sha256=sha, **resident_info("tau_sweep")))
 
     # swap: the true haplotypes with strains g and h exchanged at half the
     # positions, so both the accept and the reject branch run
-    g, h = 1, 6
-    tau_s = t.tau_idx.copy()
-    flip = rng.random(V) < 0.5
-    tau_s[flip, g], tau_s[flip, h] = t.tau_idx[flip, h], t.tau_idx[flip, g]
-    tau_s = torch.as_tensor(tau_s, dtype=torch.int32, device=dev)
-    mix_s = mixture(one_hot_tau(tau_s), gamma)
-    gt = torch.tensor(g, dtype=torch.int32, device=dev)
-    ht = torch.tensor(h, dtype=torch.int32, device=dev)
-    logu = torch.as_tensor(np.log(rng.uniform(size=V)), dtype=torch.float32,
-                           device=dev)
+    tau_s, mix_s, gt, ht, logu = (c[k] for k in ("tau_s", "mix_s", "g", "h", "logu"))
     args = (n, tau_s, mix_s, gamma, eta, gt, ht, logu)
     tau_k, mix_k = ops.swap(*args)
     tau_p, mix_p = ops.swap_reference(*args)
@@ -187,12 +225,11 @@ def phase_kernels():
     ms = median_ms(lambda: ops.swap(*args))
     plain_ms = median_ms(lambda: ops.swap_reference(*args))
     print(f"# swap median ms: kernel {ms:.4f}  plain {plain_ms:.4f}")
-    records.append(dict(
-        name="swap", route="cuda",
-        source="desman_tpu_torch/csrc/swap_kernel.cu",
-        replaces="desman_tpu/ops/swap_pallas.py:54", max_abs_err=err,
-        agreement=agree, ms=ms, plain_ms=plain_ms))
-    more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz, rng)
+    records.append(record(
+        "swap", "desman_tpu_torch/csrc/swap_kernel.cu",
+        "desman_tpu/ops/swap_pallas.py:54", err, ms, plain_ms,
+        lambda: ops.swap(*args), agreement=agree))
+    more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz, c)
     return records + more + [topk_kernel(rng)]
 
 
@@ -240,11 +277,12 @@ def topk_kernel(rng):
     full_ms = median_ms(lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz))
     print(f"# tau_sweep_topk median ms: kernel {ms:.4f}  plain {plain_ms:.4f}  "
           f"tau_sweep on the same counts {full_ms:.4f}")
-    return dict(
-        name="tau_sweep_topk", route="cuda",
-        source="desman_tpu_torch/csrc/tau_topk.cu",
-        replaces="desman_tpu/ops/tau_topk.py:81", max_abs_err=err,
-        agreement=agree, ms=ms, plain_ms=plain_ms, tau_sweep_ms=full_ms)
+    return record(
+        "tau_sweep_topk", "desman_tpu_torch/csrc/tau_topk.cu",
+        "desman_tpu/ops/tau_topk.py:81", err, ms, plain_ms,
+        lambda: ops.tau_sweep_topk(*args), agreement=agree, tau_sweep_ms=full_ms,
+        tau_sweep_device_ms=kernel_bench.profiled_ms(
+            lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz))["total"])
 
 
 def ll_err(got, want, agree=1.0):
@@ -265,14 +303,11 @@ def worst(*errs) -> float:
     return max(e for e in errs if e is not None)
 
 
-def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
+def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, c):
     """The resident sweep's kernels against their plain versions: the swap
     with emit_ll, gamma_ll (both with_old), gamma_apply_eta (both
     with_eta) and the fused front half."""
-    dev = n.device
-    gp = torch.as_tensor(rng.dirichlet(np.ones(G), size=S), dtype=torch.float32,
-                         device=dev)
-    accept = torch.as_tensor(rng.random(S) < 0.5, device=dev)
+    gp, accept = c["gp"], c["accept"]
     eta_prop = eta.flip(0).contiguous()
     records = []
 
@@ -295,10 +330,11 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
     print(f"# swap emit_ll median ms: kernel {ms:.4f}  plain {plain_ms:.4f}")
     # kernel 2': on the main path its step runs inside each fused_sweep
     # launch (swap_position<true>), so its launches are fused_sweep's
-    records.append(dict(
-        name="swap_emit_ll", route="cuda", source="desman_tpu_torch/csrc/swap_kernel.cu",
-        replaces="desman_tpu/ops/swap_pallas.py:111", max_abs_err=err,
-        agreement=agree, ms=ms, plain_ms=plain_ms, launched_in="fused_sweep"))
+    records.append(record(
+        "swap_emit_ll", "desman_tpu_torch/csrc/swap_kernel.cu",
+        "desman_tpu/ops/swap_pallas.py:111", err, ms, plain_ms,
+        lambda: ops.swap(*args, emit_ll=True), agreement=agree,
+        launched_in="fused_sweep"))
 
     # kernel 3: the gamma-MH loglik pair
     err, times = 0.0, {}
@@ -317,10 +353,10 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
             median_ms(lambda: ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old)))
         print(f"# gamma_ll with_old={with_old} median ms: kernel "
               f"{times[with_old][0]:.4f}  plain {times[with_old][1]:.4f}")
-    records.append(dict(
-        name="gamma_ll", route="cuda", source="desman_tpu_torch/csrc/gamma_kernel.cu",
-        replaces="desman_tpu/ops/gamma_pallas.py:78", max_abs_err=err,
-        ms=times[True][0], plain_ms=times[True][1],
+    records.append(record(
+        "gamma_ll", "desman_tpu_torch/csrc/gamma_kernel.cu",
+        "desman_tpu/ops/gamma_pallas.py:78", err, times[True][0], times[True][1],
+        lambda: ops.gamma_ll(n, mix, tau, gp, eta, with_old=True),
         without_old_ms=times[False][0], without_old_plain_ms=times[False][1]))
 
     # kernel 4: accepted gamma applied + the eta proposal's loglik
@@ -342,18 +378,14 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
             median_ms(lambda: ops.gamma_apply_eta_reference(*a, with_eta=with_eta)))
         print(f"# gamma_apply_eta with_eta={with_eta} median ms: kernel "
               f"{times[with_eta][0]:.4f}  plain {times[with_eta][1]:.4f}")
-    records.append(dict(
-        name="gamma_apply_eta", route="cuda",
-        source="desman_tpu_torch/csrc/gamma_kernel.cu",
-        replaces="desman_tpu/ops/gamma_pallas.py:134", max_abs_err=err,
-        ms=times[True][0], plain_ms=times[True][1],
+    records.append(record(
+        "gamma_apply_eta", "desman_tpu_torch/csrc/gamma_kernel.cu",
+        "desman_tpu/ops/gamma_pallas.py:134", err, times[True][0], times[True][1],
+        lambda: ops.gamma_apply_eta(n, mix, tau, gp, accept, eta_prop, with_eta=True),
         without_eta_ms=times[False][0], without_eta_plain_ms=times[False][1]))
 
-    # kernel 5: the fused front half, from the random tau of phase 3's start
-    tau0 = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32,
-                           device=dev)
-    fargs = (n, tau0, mixture(one_hot_tau(tau0), gamma), gamma, eta, gz, gt, ht,
-             logu, gp)
+    # kernel 5: the fused front half, from the random tau0 of phase 3's inputs
+    fargs = kernel_bench.fused_args(c)
     tau_f, mix_f, ll_f = ops.fused_sweep(*fargs)
     tau_p, mix_p, ll_p = ops.fused_sweep_reference(*fargs)
     t1, m1 = ops.tau_sweep(*fargs[:6])
@@ -376,6 +408,10 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
          "gamma_ll(with_old=False) on the card")
     gate(all(torch.equal(a, b) for a, b in zip(again, (tau_f, mix_f, ll_f))),
          "fused_sweep is bitwise the same from run to run")
+    sha = kernel_bench.digest(tau_f, mix_f, ll_f)
+    print(f"# fused_sweep sha256 {sha}")
+    gate(sha == FUSED_SHA256[kernel_bench.METRIC],
+         "fused_sweep's tau, mix and ll are bitwise the one-warp-per-position kernel's")
 
     def staged():
         t, m = ops.tau_sweep(*fargs[:6])
@@ -387,11 +423,57 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, rng):
     staged_ms = median_ms(staged)
     print(f"# fused_sweep median ms: kernel {ms:.4f}  plain {plain_ms:.4f}  "
           f"staged kernels {staged_ms:.4f}")
-    records.append(dict(
-        name="fused_sweep", route="cuda", source="desman_tpu_torch/csrc/fused_sweep.cu",
-        replaces="desman_tpu/ops/fused_sweep.py:41", max_abs_err=err,
-        agreement=agree, ms=ms, plain_ms=plain_ms, staged_kernels_ms=staged_ms))
+    records.append(record(
+        "fused_sweep", "desman_tpu_torch/csrc/fused_sweep.cu",
+        "desman_tpu/ops/fused_sweep.py:41", err, ms, plain_ms,
+        lambda: ops.fused_sweep(*fargs), agreement=agree, staged_kernels_ms=staged_ms,
+        sha256=sha, **resident_info("fused_sweep")))
     return records
+
+
+def phase_scale():
+    """The tau and fused kernels at the full-sweep scale, V=1e5 S=96 G=16:
+    outputs gated on the one-warp-per-position kernels' digests, device ms
+    by CUDA events around 200 launches into preallocated outputs, against
+    the bound. Returns {kernel: numbers}."""
+    dev = torch.device("cuda")
+    shape = kernel_bench.SCALE
+    c = kernel_bench.card_inputs(*shape, dev)
+    lib = _build.load_library()
+    out = {}
+    for name, args, want in (
+            ("tau_sweep", kernel_bench.tau_args(c), TAU_SHA256[shape]),
+            ("fused_sweep", kernel_bench.fused_args(c), FUSED_SHA256[shape])):
+        n, tau, mix = args[:3]
+        outs = [torch.empty_like(tau), torch.empty_like(mix)]
+        if name == "tau_sweep":
+            fn = lambda: tau_kernel.launch(lib, *args, *outs)  # noqa: E731
+            kept = outs
+        else:
+            outs += [_build.partial_scratch(lib, shape[0], 2, shape[1], dev),
+                     torch.empty((2, shape[1]), dtype=torch.float32, device=dev)]
+            fn = lambda: fused_launch(lib, *args, *outs)  # noqa: E731
+            kept = [outs[0], outs[1], outs[3]]
+        fn()
+        torch.cuda.synchronize()
+        sha = kernel_bench.digest(*kept)
+        gate(sha == want, f"{name} at V={shape[0]} S={shape[1]} G={shape[2]} is bitwise "
+             "the one-warp-per-position kernel's")
+        device_ms = kernel_bench.event_ms(fn)
+        b = kernel_bench.bound(name, *shape)
+        info = tau_kernel.kernel_info(name, shape[1], shape[2])
+        out[name] = dict(V=shape[0], S=shape[1], G=shape[2], device_ms=device_ms,
+                         bytes=b["bytes"], logs=b["logs"], bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"], share_of_bound=b["bound_ms"] / device_ms,
+                         bytes_per_s=b["bytes"] / device_ms * 1e3, sha256=sha,
+                         tile_plan={"buffers": info["buffers"],
+                                    "smem_bytes": info["smem_bytes"]},
+                         blocks_per_sm=info["blocks_per_sm"])
+        print(f"# {name} V={shape[0]} S={shape[1]} G={shape[2]}: device {device_ms:.4f} "
+              f"ms a launch (CUDA events, 200 launches), {b['bytes']} bytes = "
+              f"{b['bytes'] / device_ms / 1e6:.1f} GB/s, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), share {b['bound_ms'] / device_ms:.3f}, {info}")
+    return out
 
 
 LAUNCHED = ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta", "fused_sweep",
@@ -480,6 +562,7 @@ def phase_cli(tmp):
                             os.path.join(tmp, "one_strain"))
     gate(launches["gamma_ll"] > 0 and launches["fused_sweep"] == 0,
          "-g 1 --kernel cuda_resident launched gamma_ll and not fused_sweep")
+    SWEEP_LAUNCHES["gamma_ll"] = launches["gamma_ll"] / 40
 
     # the top-2 kernel refuses counts with 3-4 observed bases in a cell, and
     # nothing falls back to the full kernel
@@ -507,7 +590,15 @@ def phase_north_star(tmp):
         out = os.path.join(tmp, f"north_star_{kernel}")
         rc = run.RunConfig(G=G, iterations=400, burn_frac=0.0, seed=0,
                            out_dir=out)
+        ops.reset_launches()
         res = run.run(t.data, rc, device="cuda", kernel=kernel, nmf_iters=50)
+        launches = read_launches()
+        per_sweep = {k: v / 400 for k, v in launches.items() if v}
+        print(f"# run --kernel {kernel}: launches a sweep {per_sweep}")
+        for k, v in per_sweep.items():
+            SWEEP_LAUNCHES[k] = v
+        if kernel == "cuda_resident":
+            SWEEP_LAUNCHES["swap_emit_ll"] = per_sweep["fused_sweep"]
         trace = res.loglik_trace.cpu().numpy()
         with open(os.path.join(out, "metrics.json")) as f:
             m = json.load(f)
@@ -628,9 +719,14 @@ def same_chain(out):
     for kernel in ("cuda_topk", "cuda"):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
+        ops.reset_launches()
         traces[kernel] = sampler.run_chain(n, cfg, gen, eta_init=eta,
                                            kernel=kernel).loglik_trace
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if kernel == "cuda_topk":
+            SWEEP_LAUNCHES["tau_sweep_topk"] = (launches["tau_sweep_topk"]
+                                                / PAPER["iterations"])
     print(f"# G={PAPER['G']} seed-0 chain on grid (b)'s counts: final loglik cuda_topk "
           f"{traces['cuda_topk'][-1].item():.6f}, cuda {traces['cuda'][-1].item():.6f}")
     gate(torch.equal(traces["cuda_topk"], traces["cuda"]),
@@ -756,6 +852,10 @@ def main() -> int:
         print(f"# build: {time.time() - t0:.2f} s -> "
               f"{os.path.relpath(lib, HERE)}")
         records = phase_kernels()
+        scale = phase_scale()
+        for r in records:
+            if r["name"] in scale:
+                r["scale"] = scale[r["name"]]
         with tempfile.TemporaryDirectory() as tmp:
             phase_cli(tmp)
             phase_north_star(tmp)
@@ -764,6 +864,7 @@ def main() -> int:
             phase_run_modes(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
+            r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
             gate(r["launches"] > 0, f"{r['name']} launched on a main path")
     except GateFailed as e:
         print(f"chip_smoke: gate failed: {e}", file=sys.stderr)

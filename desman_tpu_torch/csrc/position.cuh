@@ -53,6 +53,22 @@ __device__ __forceinline__ float4 proposal_mix(const int* tau_row, const float* 
   return mp;
 }
 
+// gamma[s, g] where the strain loop finds it: GammaSG reads the [S,G] array
+// in device memory (the staged kernels), GammaGS a [G][S] copy in shared
+// memory (the row-resident kernels), where the lanes' s = lane, lane + 32,
+// ... read neighbouring words of one column. Both give the same value.
+struct GammaSG {
+  const float* p;
+  int G;
+  __device__ __forceinline__ float operator()(int s, int g) const { return p[s * G + g]; }
+};
+
+struct GammaGS {
+  const float* p;
+  int S;
+  __device__ __forceinline__ float operator()(int s, int g) const { return p[g * S + s]; }
+};
+
 // The four candidate terms of cell (v, s) in the tau sweep, from the cell's
 // counts, the rest mixture r = mix - gamma[s,g] onehot(tau[v,g]) and
 // gs = gamma[s,g]:
@@ -127,21 +143,22 @@ struct TwoBases {
 //   mix  = rest + gamma[:,g] (x) onehot(new)
 // with the per-sample terms of cand from `terms` (AllBases or TwoBases).
 // The row is rewritten after every strain by the lanes that own it and read
-// back by the same lanes, so out_row may be the row being read.
-template <class Terms>
+// back by the same lanes, so out_row may be the row being read. The rows
+// may lie in device or in shared memory; v indexes the tau and gz rows
+// (tau_in[v * G + g], gz[v * G + g]) where they lie.
+template <class Terms, class Gamma>
 __device__ __forceinline__ void tau_position_terms(const Terms& terms, const int* tau_in,
-                                                   const float4* mix_row, const float* gamma,
+                                                   const float4* mix_row, const Gamma& gamma,
                                                    const float e[4][4], const float4* gz,
                                                    int* tau_out, float4* out_row, long v,
                                                    int S, int G, int lane) {
   const float4* src = mix_row;
   for (int g = 0; g < G; ++g) {
-    const float* gam = gamma + g;  // gamma[s,g] = gam[s * G]
     const int old = tau_in[v * G + g];
 
     float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
     for (int s = lane; s < S; s += kWarp) {
-      const float gs = gam[s * G];
+      const float gs = gamma(s, g);
       const float4 m = src[s];
       const float r[4] = {m.x - (old == 0 ? gs : 0.f), m.y - (old == 1 ? gs : 0.f),
                           m.z - (old == 2 ? gs : 0.f), m.w - (old == 3 ? gs : 0.f)};
@@ -166,7 +183,7 @@ __device__ __forceinline__ void tau_position_terms(const Terms& terms, const int
     if (s3 > best) { best = s3; pick = 3; }
 
     for (int s = lane; s < S; s += kWarp) {
-      const float gs = gam[s * G];
+      const float gs = gamma(s, g);
       const float4 m = src[s];
       float4 r;
       r.x = (m.x - (old == 0 ? gs : 0.f)) + (pick == 0 ? gs : 0.f);
@@ -180,10 +197,11 @@ __device__ __forceinline__ void tau_position_terms(const Terms& terms, const int
   }
 }
 
-// The full tau sweep of position v on [V,S,4] counts (the staged tau kernel
-// and the fused front-half kernel).
+// The full tau sweep of position v on [V,S,4] counts (the tau kernel and
+// the fused front-half kernel).
+template <class Gamma>
 __device__ __forceinline__ void tau_position(const float4* n_row, const int* tau_in,
-                                             const float4* mix_row, const float* gamma,
+                                             const float4* mix_row, const Gamma& gamma,
                                              const float e[4][4], const float4* gz,
                                              int* tau_out, float4* out_row, long v, int S,
                                              int G, int lane) {
@@ -205,9 +223,9 @@ __device__ __forceinline__ void tau_position(const float4* n_row, const int* tau
 // from the logs already taken for dll, not a fresh log of the new mixture:
 // both accept cases are summed in the first pass (slot_a without the swap
 // term, slot_c with it) and slot_a keeps the one the decision picks.
-template <bool kEmit>
+template <bool kEmit, class Gamma>
 __device__ __forceinline__ void swap_position(const float4* n_row, const int* tau_in,
-                                              const float4* mix_row, const float* gamma,
+                                              const float4* mix_row, const Gamma& gamma,
                                               const float e[4][4], int g, int h, float logu_v,
                                               int* tau_out, float4* out_row, long v, int S,
                                               int G, int lane, float* slot_a, float* slot_c) {
@@ -220,13 +238,9 @@ __device__ __forceinline__ void swap_position(const float4* n_row, const int* ta
   for (int b = 0; b < 4; ++b)
     w[b] = doh[0] * e[0][b] + doh[1] * e[1][b] + doh[2] * e[2][b] + doh[3] * e[3][b];
 
-  // gamma[s,g] = gam_g[s * G]
-  const float* gam_g = gamma + g;
-  const float* gam_h = gamma + h;
-
   float part = 0.f;
   for (int s = lane; s < S; s += kWarp) {
-    const float dg = gam_g[s * G] - gam_h[s * G];
+    const float dg = gamma(s, g) - gamma(s, h);
     const float4 m = mix_row[s];
     const float4 cnt = n_row[s];
     const float nb[4] = {cnt.x, cnt.y, cnt.z, cnt.w};
@@ -257,7 +271,7 @@ __device__ __forceinline__ void swap_position(const float4* n_row, const int* ta
   for (int s = lane; s < S; s += kWarp) {
     float4 m = mix_row[s];
     if (accept) {
-      const float dg = gam_g[s * G] - gam_h[s * G];
+      const float dg = gamma(s, g) - gamma(s, h);
       m.x += dg * doh[0];
       m.y += dg * doh[1];
       m.z += dg * doh[2];

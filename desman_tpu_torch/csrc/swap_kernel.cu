@@ -46,7 +46,7 @@ swap_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
   if (v >= 0) {
     float e[4][4];
     load_eta(eta, e);
-    swap_position<kEmit>(n + v * S, tau_in, mix_in + v * S, gamma, e, *g_ptr, *h_ptr, logu[v],
+    swap_position<kEmit>(n + v * S, tau_in, mix_in + v * S, GammaSG{gamma, G}, e, *g_ptr, *h_ptr, logu[v],
                          tau_out, mix_out + v * S, v, S, G, lane, slot_a, slot_c);
   } else if (kEmit) {
     zero_slot(slot_a, S);

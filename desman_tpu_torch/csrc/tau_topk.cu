@@ -45,8 +45,8 @@ tau_topk_kernel(const float2* __restrict__ n_val, const int2* __restrict__ b_idx
   if (v < 0) return;
   float e[4][4];
   load_eta(eta, e);
-  tau_position_terms(TwoBases{n_val + v * S, b_idx + v * S}, tau_in, mix_in + v * S, gamma,
-                     e, gz, tau_out, mix_out + v * S, v, S, G, threadIdx.x % kWarp);
+  tau_position_terms(TwoBases{n_val + v * S, b_idx + v * S}, tau_in, mix_in + v * S,
+                     GammaSG{gamma, G}, e, gz, tau_out, mix_out + v * S, v, S, G, threadIdx.x % kWarp);
 }
 
 }  // namespace

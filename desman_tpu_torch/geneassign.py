@@ -103,17 +103,26 @@ def _enumerate_assign(x, cov, states, model: str, phi: float) -> GeneAssignResul
     )
 
 
+def _device(device) -> torch.device:
+    """`device` as a torch.device; raises if it names CUDA and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    return device
+
+
 def assign_genes(
     gene_cov: np.ndarray,
     cov: np.ndarray,
     cfg: GeneAssignConfig = GeneAssignConfig(),
     generator: Optional[torch.Generator] = None,
-    device="cpu",
+    device="cuda",
 ) -> GeneAssignResult:
-    """Assign genes to strains on `device`. gene_cov: [D,S]; cov: [G,S]
-    strain coverage. The Gibbs path draws from `generator` (default: one
-    seeded with 0 on `device`)."""
-    device = torch.device(device)
+    """Assign genes to strains on `device` (raises without CUDA unless the
+    caller asks for the CPU). gene_cov: [D,S]; cov: [G,S] strain coverage.
+    The Gibbs path draws from `generator` (default: one seeded with 0 on
+    `device`)."""
+    device = _device(device)
     G = cov.shape[0]
     K = (cfg.max_copy + 1) ** G
     x = torch.as_tensor(np.asarray(gene_cov), device=device).to(torch.float32)
@@ -228,13 +237,14 @@ def assign_gene_tau(
     sweeps: int = 50,
     seed: int = 0,
     state_cap: int = 4096,
-    device="cpu",
+    device="cuda",
     kernel: str = "cuda",
     noise=None,
 ):
     """Assign gene-level SNVs to strains with gamma/eta frozen (the
     ``--assign_tau`` mode). Returns (tau_star [V,G] int32, tau_mean
-    [V,G,4]) on `device`.
+    [V,G,4]) on `device` (raises without CUDA unless the caller asks for
+    the CPU).
 
     With gamma and eta fixed the positions are independent, so for
     4^G <= state_cap the 4^G joint base assignments are enumerated exactly
@@ -249,7 +259,7 @@ def assign_gene_tau(
     """
     if kernel not in ("cuda", "torch"):
         raise ValueError(f"assign_gene_tau: kernel {kernel!r}; one of cuda, torch")
-    device = torch.device(device)
+    device = _device(device)
     n = torch.as_tensor(np.asarray(counts), device=device).to(torch.float32)
     gam = torch.as_tensor(np.asarray(gamma), device=device).to(torch.float32)
     et = torch.as_tensor(np.asarray(eta), device=device).to(torch.float32)

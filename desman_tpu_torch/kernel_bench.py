@@ -1,0 +1,380 @@
+"""Device time and output bits of the tau-sweep and fused front-half
+kernels, beside the same kernels of another checkout; and the inputs,
+digests, bounds and timers that chip_smoke.py uses.
+
+    python -m desman_tpu_torch.kernel_bench [--against ROOT] [--out FILE]
+
+Times this package's ``ops.tau_sweep`` and ``ops.fused_sweep`` at V=1e4
+S=64 G=8 (chip_smoke.py's phase-3 inputs) and V=1e5 S=96 G=16. With
+--against, the same two wrappers of the ``desman_tpu_torch`` package in
+the checkout at ROOT (another commit, unpacked by ``git archive`` into a
+git-ignored directory) are loaded beside this package under another name,
+build their kernels into ROOT's own ``build/``, and run on the same inputs,
+in the order against, this, this, against. For each tree and kernel:
+
+- device ms a call: CUDA events around 200 back-to-back calls, divided by
+  200, and torch.profiler's self device time of each kernel over 50 calls;
+  the host microseconds to enqueue one call;
+- SHA-256 of the outputs, and whether the trees agree bit for bit. The
+  inputs are built on the CPU from numpy seeds (the mixture by an ordered
+  f32 sum, no BLAS) and then moved to the card, so nothing but the kernel
+  decides the bits;
+- registers and spill bytes of each kernel function (``nvcc -Xptxas -v``
+  over the tree's ``csrc/``).
+
+And the SASS instructions of one IEEE ``logf`` (a probe kernel with and
+without it). One JSON line per measurement, all of them also in FILE with
+--out. Needs a CUDA device and nvcc; it does not fall back.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import ops, synth
+from .ops import _build
+
+# The card's rates behind every bound_ms (H100 SXM: 132 SMs, 16 MUFU results
+# per clock per SM at the 1.98 GHz boost clock, 3.35 TB/s of HBM3).
+LOG_RATE = 132 * 16 * 1.98e9     # logs/s
+MEM_RATE = 3.35e12               # bytes/s
+METRIC = (10_000, 64, 8)         # the port's metric configuration
+SCALE = (100_000, 96, 16)        # the full-sweep scale (ROADMAP item 13)
+EVENT_LAUNCHES, PROFILED_LAUNCHES = 200, 50
+
+
+# ---------------------------------------------------------------- inputs
+
+def host_mixture(tau: np.ndarray, gamma: np.ndarray) -> np.ndarray:
+    """mix[v,s,a] = sum_g [tau[v,g] == a] gamma[s,g] in f32, strains added
+    in order by elementwise numpy: the same bits on every host."""
+    V, G = tau.shape
+    gam = gamma.astype(np.float32)
+    mix = np.zeros((V, gam.shape[0], 4), dtype=np.float32)
+    for g in range(G):
+        for a in range(4):
+            mix[:, :, a] += (tau[:, g] == a).astype(np.float32)[:, None] * gam[None, :, g]
+    return mix
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32))
+
+
+def _i32(x) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32))
+
+
+def phase3_inputs(V: int, S: int, G: int):
+    """chip_smoke.py's phase-3 inputs as CPU tensors, drawn in its order
+    from synth.generate(seed=0) and numpy's default_rng(0); returns (dict,
+    rng) with the rng where the top-2 kernel's draws start.
+
+    tau/mix/gz: the tau sweep's; tau_s/mix_s/g/h/logu: the swap's (the
+    truth with strains g, h exchanged at half the positions); gp/accept:
+    the gamma proposal and accepts; tau0/mix0: the fused kernel's start."""
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    rng = np.random.default_rng(0)
+    d = dict(n=_f32(t.data.counts), gamma=_f32(t.gamma), eta=_f32(t.eta))
+    tau = rng.integers(0, 4, size=(V, G))
+    d.update(tau=_i32(tau), mix=_f32(host_mixture(tau, t.gamma)),
+             gz=_f32(rng.gumbel(size=(V, G, 4))))
+    g, h = 1, G - 2
+    tau_s = t.tau_idx.copy()
+    flip = rng.random(V) < 0.5
+    tau_s[flip, g], tau_s[flip, h] = t.tau_idx[flip, h], t.tau_idx[flip, g]
+    d.update(tau_s=_i32(tau_s), mix_s=_f32(host_mixture(tau_s, t.gamma)),
+             g=torch.tensor(g, dtype=torch.int32), h=torch.tensor(h, dtype=torch.int32),
+             logu=_f32(np.log(rng.uniform(size=V))))
+    d.update(gp=_f32(rng.dirichlet(np.ones(G), size=S)),
+             accept=torch.as_tensor(rng.random(S) < 0.5))
+    tau0 = rng.integers(0, 4, size=(V, G))
+    d.update(tau0=_i32(tau0), mix0=_f32(host_mixture(tau0, t.gamma)))
+    return d, rng
+
+
+def tau_args(d: dict) -> tuple:
+    """(n, tau, mix, gamma, eta, gz) of the tau sweep."""
+    return tuple(d[k] for k in ("n", "tau", "mix", "gamma", "eta", "gz"))
+
+
+def fused_args(d: dict) -> tuple:
+    """(n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop) of the fused
+    kernel, from the fused kernel's own start tau0."""
+    return tuple(d[k] for k in ("n", "tau0", "mix0", "gamma", "eta", "gz", "g", "h",
+                                "logu", "gp"))
+
+
+def digest(*tensors: torch.Tensor) -> str:
+    """SHA-256 over the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# ---------------------------------------------------------------- bounds
+
+def kernel_work(name: str, V: int, S: int, G: int) -> tuple[int, int]:
+    """(logs, bytes) a call of kernel `name` needs at these shapes: every
+    log the function takes, each input read once and each output written
+    once (f32/i32: 4 bytes; [V,S,4] rows 16 bytes a cell)."""
+    cells = V * S
+    row = 16 * cells                     # one [V,S,4] f32 tensor
+    tau, gz, gam = 4 * V * G, 16 * V * G, 4 * S * G
+    if name == "tau_sweep":              # n, mix, tau, gz, gamma in; tau, mix out
+        return 16 * G * cells, 3 * row + 2 * tau + gz + gam + 64
+    if name == "tau_sweep_topk":         # n_val, b_idx (8 B a cell each) instead of n
+        return 8 * G * cells, 2 * row + 16 * cells + 2 * tau + gz + gam + 64
+    if name == "fused_sweep":            # + logu, gamma_prop in; ll [2,S] out
+        return (16 * G + 12) * cells, (3 * row + 2 * tau + gz + 2 * gam + 64
+                                       + 4 * V + 8 * S)
+    if name in ("swap", "swap_emit_ll"):  # n, mix, tau, gamma, logu in; tau, mix (ll) out
+        ll = 4 * S if name == "swap_emit_ll" else 0
+        return 8 * cells, 3 * row + 2 * tau + gam + 4 * V + 64 + ll
+    if name == "gamma_ll":               # with_old: n, mix, tau, gamma_prop in; ll [2,S]
+        return 8 * cells, 2 * row + tau + gam + 64 + 8 * S
+    if name == "gamma_apply_eta":        # with_eta: n, mix, tau, gp, accept, eta_prop; mix, ll
+        return 4 * cells, 3 * row + tau + gam + S + 64 + 4 * S
+    raise ValueError(f"no work model for kernel {name!r}")
+
+
+def bound(name: str, V: int, S: int, G: int) -> dict:
+    """The least time the card could take for kernel `name`: the larger of
+    its bytes over the memory rate and its logs over the SFU rate."""
+    logs, nbytes = kernel_work(name, V, S, G)
+    t_logs, t_bytes = logs / LOG_RATE * 1e3, nbytes / MEM_RATE * 1e3
+    return dict(logs=logs, bytes=nbytes, bound_ms=max(t_logs, t_bytes),
+                bound_by="operations" if t_logs >= t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------- timing
+
+def event_ms(fn, launches: int = EVENT_LAUNCHES) -> float:
+    """Device ms per call: CUDA events around `launches` back-to-back calls
+    (after 10 warm-up calls), divided by their number."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def host_us(fn, launches: int = EVENT_LAUNCHES) -> float:
+    """Host microseconds to enqueue one call: the wall time of `launches`
+    back-to-back calls without a synchronise, divided by their number."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / launches
+
+
+def profiled_ms(fn, launches: int = PROFILED_LAUNCHES) -> dict:
+    """torch.profiler's self device ms per call of each kernel fn launches,
+    over `launches` calls; key "total" is their sum. Each kernel's time is
+    the mean over the records the trace holds times its launches a call (at
+    least 1), so a record the tracer drops does not pull the mean down;
+    key "records" counts the records of each kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+    out = {e.key[:60]: e.self_device_time_total / 1e3 / e.count
+           * max(1, round(e.count / launches)) for e in kernels}
+    out["total"] = sum(out.values())
+    out["records"] = {e.key[:60]: e.count for e in kernels}
+    return out
+
+
+# ---------------------------------------------------------------- trees
+
+def load_ops(root: Path, name: str = "desman_tpu_torch_against"):
+    """The ``ops`` module of the desman_tpu_torch package at ROOT, imported
+    under `name` beside this package (its modules import one another
+    relatively, and its kernels build into ROOT's build/)."""
+    pkg = Path(root).resolve() / "desman_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.ops")
+
+
+def ptxas_registers(csrc: Path, workdir: Path) -> dict:
+    """nvcc -Xptxas -v of csrc's tau_kernel.cu and fused_sweep.cu, with the
+    package's flags: {kernel function: {registers, spill_stores,
+    spill_loads}}."""
+    out = {}
+    for src in ("tau_kernel.cu", "fused_sweep.cu"):
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                              "-o", str(workdir / f"{src}.o"), str(Path(csrc) / src)],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{res.stderr}")
+        fn = None
+        for line in res.stderr.splitlines():
+            m = re.search(r"Function properties for (\w+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
+                                              spill_loads=int(m.group(2)))
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items()
+            if "registers" in v and ("tau_sweep_kernel" in k or "fused_sweep_kernel" in k)}
+
+
+def logf_instructions(workdir: Path) -> int:
+    """SASS instructions of one IEEE logf: a kernel y = logf(x) against the
+    same kernel with y = x, built with the package's flags (NOPs not
+    counted)."""
+    src = workdir / "logf_probe.cu"
+    src.write_text(
+        "extern \"C\" __global__ void copy_probe(const float* x, float* y) {\n"
+        "  y[threadIdx.x] = x[threadIdx.x];\n}\n"
+        "extern \"C\" __global__ void logf_probe(const float* x, float* y) {\n"
+        "  y[threadIdx.x] = logf(x[threadIdx.x]);\n}\n")
+    cubin = workdir / "logf_probe.cubin"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, text=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+                           "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    count, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP)\S", line):
+            count[fn] = count.get(fn, 0) + 1
+    return count["logf_probe"] - count["copy_probe"]
+
+
+# ---------------------------------------------------------------- runs
+
+def card_inputs(V: int, S: int, G: int, dev) -> dict:
+    """The metric configuration's inputs are chip_smoke's phase-3 inputs;
+    at other shapes the same draws from synth.generate(seed=1)."""
+    if (V, S, G) == METRIC:
+        d, _ = phase3_inputs(V, S, G)
+    else:
+        t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=1)
+        rng = np.random.default_rng(1)
+        tau0 = rng.integers(0, 4, size=(V, G))
+        d = dict(n=_f32(t.data.counts), gamma=_f32(t.gamma), eta=_f32(t.eta),
+                 tau0=_i32(tau0), mix0=_f32(host_mixture(tau0, t.gamma)),
+                 gz=_f32(rng.gumbel(size=(V, G, 4))),
+                 g=torch.tensor(1, dtype=torch.int32),
+                 h=torch.tensor(G - 2, dtype=torch.int32),
+                 logu=_f32(np.log(rng.uniform(size=V))),
+                 gp=_f32(rng.dirichlet(np.ones(G), size=S)))
+        d["tau"], d["mix"] = d["tau0"], d["mix0"]
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+def measure(trees: dict, shape, rows: list) -> None:
+    """Each kernel of each tree at `shape`: digests, then CUDA-event times
+    in the order of `trees` and back, then profiler times, host time and
+    the digests again."""
+    V, S, G = shape
+    d = card_inputs(V, S, G, torch.device("cuda"))
+    for kernel in ("tau_sweep", "fused_sweep"):
+        args = tau_args(d) if kernel == "tau_sweep" else fused_args(d)
+        calls = {name: (lambda o=o: getattr(o, kernel)(*args)) for name, o in trees.items()}
+
+        def sha(name):
+            out = calls[name]()
+            torch.cuda.synchronize()
+            return digest(*out)
+
+        digests = {name: sha(name) for name in trees}
+        ev = {name: [] for name in trees}
+        for name in list(trees) + list(reversed(trees)):
+            ev[name].append(event_ms(calls[name]))
+        row = dict(kernel=kernel, V=V, S=S, G=G, **bound(kernel, V, S, G), event_ms=ev,
+                   profiled_ms={name: profiled_ms(calls[name]) for name in trees},
+                   host_us={name: host_us(calls[name]) for name in trees},
+                   sha256=digests,
+                   repeatable={name: sha(name) == digests[name] for name in trees},
+                   bitwise_equal=len(set(digests.values())) == 1)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m desman_tpu_torch.kernel_bench")
+    ap.add_argument("--against", help="root of another checkout whose desman_tpu_torch "
+                                      "kernels run beside this package's")
+    ap.add_argument("--out", help="file for all of the measurements as one JSON object")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_bench: needs a CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(f"# {smi}", flush=True)
+    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    trees = {"this": ops}
+    csrc = {"this": _build.CSRC}
+    if args.against:
+        trees = {"against": load_ops(Path(args.against)), **trees}
+        csrc["against"] = Path(args.against) / "desman_tpu_torch" / "csrc"
+    with tempfile.TemporaryDirectory() as tmp:
+        report["logf_instructions"] = logf_instructions(Path(tmp))
+        report["ptxas"] = {name: ptxas_registers(path, Path(tmp)) for name, path in csrc.items()}
+    print(json.dumps({k: report[k] for k in ("logf_instructions", "ptxas")}), flush=True)
+    report["runtime"] = {f"S{S}_G{G}": {k: ops.tau_kernel.kernel_info(k, S, G)
+                                        for k in ("tau_sweep", "fused_sweep")}
+                         for S, G in (METRIC[1:], SCALE[1:])}
+    print(json.dumps({"runtime": report["runtime"]}), flush=True)
+    rows = report["rows"] = []
+    for shape in (METRIC, SCALE):
+        measure(trees, shape, rows)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

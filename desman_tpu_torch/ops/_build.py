@@ -106,8 +106,10 @@ def load_library() -> ctypes.CDLL:
     if _library is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+        lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
         lib.desman_tau_sweep.restype = i32
+        lib.desman_tau_sweep_info.argtypes = [i32, i32, ptr]
+        lib.desman_tau_sweep_info.restype = i32
         lib.desman_tau_sweep_topk.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
         lib.desman_tau_sweep_topk.restype = i32
         lib.desman_swap.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
@@ -116,8 +118,10 @@ def load_library() -> ctypes.CDLL:
         lib.desman_gamma_ll.restype = i32
         lib.desman_gamma_apply_eta.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
         lib.desman_gamma_apply_eta.restype = i32
-        lib.desman_fused_sweep.argtypes = [ptr] * 14 + [i32] * 3 + [ptr]
+        lib.desman_fused_sweep.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
         lib.desman_fused_sweep.restype = i32
+        lib.desman_fused_sweep_info.argtypes = [i32, i32, ptr]
+        lib.desman_fused_sweep_info.restype = i32
         lib.desman_partial_rows.argtypes = [i32]
         lib.desman_partial_rows.restype = i32
         lib.desman_error_string.argtypes = [i32]

@@ -15,7 +15,7 @@ from ..utils import NBASES
 from ._build import check, load_library, partial_scratch, require, stream_of
 from .gamma_kernel import gamma_ll_reference
 from .swap_kernel import swap_reference
-from .tau_kernel import tau_sweep_reference
+from .tau_kernel import resident_grid, tau_sweep_reference
 
 
 def _check(n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop):
@@ -35,6 +35,25 @@ def _check(n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop):
     return V, S, G
 
 
+def launch(lib, n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop, tau_out,
+           mix_out, partial, ll, max_blocks=0):
+    """Launch the fused kernel and its reduction on checked CUDA tensors
+    into preallocated outputs and scratch; max_blocks > 0 caps the
+    persistent grid (the result does not depend on it). Raises on a launch
+    error."""
+    V, S, _ = n.shape
+    G = tau.shape[1]
+    plan, grid = resident_grid("fused_sweep", V, S, G, n.device.index, max_blocks)
+    with torch.cuda.device(n.device):
+        err = lib.desman_fused_sweep(
+            n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
+            eta.data_ptr(), gz.data_ptr(), g.data_ptr(), h.data_ptr(),
+            logu.data_ptr(), gamma_prop.data_ptr(), tau_out.data_ptr(),
+            mix_out.data_ptr(), partial.data_ptr(), ll.data_ptr(), V, S, G,
+            plan.buffers, plan.smem_bytes, grid, stream_of(n))
+    check(lib, err, "fused_sweep")
+
+
 def fused_sweep(n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop):
     """(tau [V,G] i32, mix [V,S,4], ll [2,S]): the tau sweep with noise gz,
     the swap of (g, h) against logu, and ll = [post-swap per-sample loglik
@@ -52,14 +71,8 @@ def fused_sweep(n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop):
     mix_out = torch.empty_like(mix)
     ll = torch.empty((2, S), dtype=torch.float32, device=n.device)
     partial = partial_scratch(lib, V, 2, S, n.device)
-    with torch.cuda.device(n.device):
-        err = lib.desman_fused_sweep(
-            n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
-            eta.data_ptr(), gz.data_ptr(), g.data_ptr(), h.data_ptr(),
-            logu.data_ptr(), gamma_prop.data_ptr(), tau_out.data_ptr(),
-            mix_out.data_ptr(), partial.data_ptr(), ll.data_ptr(), V, S, G,
-            stream_of(n))
-    check(lib, err, "fused_sweep")
+    launch(lib, n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop, tau_out,
+           mix_out, partial, ll)
     fused_sweep.launches += 1
     return tau_out, mix_out, ll
 

@@ -7,13 +7,98 @@ raises. The plain version is the ``--kernel torch`` sweep and the oracle the
 kernel is held against. Both take the categorical noise pre-drawn
 (``draw_gumbel``, multiplied by the temperature by the caller), so the same
 noise gives the same draws up to float near-ties.
+
+``tile_plan`` is the shared-memory plan of the row-resident tau and fused
+kernels (``csrc/tile.cuh``): whether a block stages its 8-position tile of
+rows, and the bytes that takes; ``resident_grid`` the persistent grid that
+walks the tiles.
 """
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
 from ._build import check, load_library, require, stream_of
+
+TILE = 8               # positions a tile: one warp each, a block's 8 warps
+SMEM_LIMIT = 232448    # dynamic shared memory one block may use on Hopper (227 KB)
+
+
+class TilePlan(NamedTuple):
+    """buffers: 1 where a block stages its tile's rows in shared memory, 0
+    where they stay in device memory. smem_bytes: the block's dynamic
+    shared memory."""
+
+    buffers: int
+    smem_bytes: int
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+@lru_cache(maxsize=None)
+def tile_plan(S: int, G: int, fused: bool = False) -> TilePlan:
+    """The tile plan of the tau kernel (fused=False) or the fused
+    front-half kernel at S samples and G strains: tile.cuh's TileLayout.
+
+    A block holds 16 bytes of mbarrier, gamma as [G][S] f32 (rounded up to
+    16 bytes), the tile's new tau rows [8,G] i32 and, in the fused kernel,
+    its [2,8,S] f32 reduction slots, and one buffer of the tile's n and mix
+    rows ([8,S] float4 each), gz rows ([8,G] float4) and tau rows ([8,G]
+    i32), where that fits in SMEM_LIMIT; else nothing is staged (the fused
+    kernel keeps its slots). A second buffer, the next tile's copy in
+    flight, was slower on an H100 at S=64 and S=96 (PERF.md).
+    """
+    slots = 2 * TILE * 4 * S if fused else 0
+    need = (16 + _round16(4 * S * G) + TILE * 4 * G + slots
+            + 2 * TILE * 16 * S + TILE * 16 * G + TILE * 4 * G)
+    if need <= SMEM_LIMIT:
+        return TilePlan(1, need)
+    if slots > SMEM_LIMIT:
+        raise ValueError(f"S={S}: the fused kernel's [2,8,S] slots need {slots} "
+                         f"bytes of shared memory, more than {SMEM_LIMIT}")
+    return TilePlan(0, slots)
+
+
+@lru_cache(maxsize=None)
+def _info(kernel: str, S: int, G: int, device: int) -> tuple:
+    plan = tile_plan(S, G, kernel == "fused_sweep")
+    lib = load_library()
+    fn = (lib.desman_fused_sweep_info if kernel == "fused_sweep"
+          else lib.desman_tau_sweep_info)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        check(lib, fn(plan.buffers, plan.smem_bytes, out), f"{kernel} info")
+    return plan, tuple(out)
+
+
+def kernel_info(kernel: str, S: int, G: int) -> dict:
+    """The tile plan of the tau or fused kernel at (S, G) with its
+    registers, local (spill) bytes, resident blocks a SM and the SMs of the
+    current CUDA device, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor. The first call for a
+    device opts the kernel in to its shared memory there; the answer is
+    kept, so a launch asks the runtime nothing."""
+    plan, (registers, local_bytes, per_sm, sms) = _info(
+        kernel, S, G, torch.cuda.current_device())
+    return dict(registers=registers, local_bytes=local_bytes, blocks_per_sm=per_sm,
+                sms=sms, buffers=plan.buffers, smem_bytes=plan.smem_bytes)
+
+
+def resident_grid(kernel: str, V: int, S: int, G: int, device: int,
+                  max_blocks: int = 0) -> tuple[TilePlan, int]:
+    """(tile plan, grid) of a launch of the tau or fused kernel on CUDA
+    device `device`: the blocks the card holds at once (SMs x resident
+    blocks a SM for this shared memory), no more than the tiles and, when
+    max_blocks > 0, no more than max_blocks."""
+    plan, (_, _, per_sm, sms) = _info(kernel, S, G, device)
+    grid = min(sms * max(per_sm, 1), (V + TILE - 1) // TILE)
+    return plan, min(grid, max_blocks) if max_blocks > 0 else grid
 
 
 def _check(n, tau, mix, gamma, eta, gz):
@@ -29,6 +114,22 @@ def _check(n, tau, mix, gamma, eta, gz):
     return V, S, G
 
 
+def launch(lib, n, tau, mix, gamma, eta, gz, tau_out, mix_out, max_blocks=0):
+    """Launch the tau kernel on checked CUDA tensors into preallocated
+    outputs; max_blocks > 0 caps the persistent grid (the result does not
+    depend on it). Raises on a launch error."""
+    V, S, _ = n.shape
+    G = tau.shape[1]
+    plan, grid = resident_grid("tau_sweep", V, S, G, n.device.index, max_blocks)
+    with torch.cuda.device(n.device):
+        err = lib.desman_tau_sweep(
+            n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
+            eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
+            mix_out.data_ptr(), V, S, G, plan.buffers, plan.smem_bytes, grid,
+            stream_of(n))
+    check(lib, err, "tau_sweep")
+
+
 def tau_sweep(n, tau, mix, gamma, eta, gz):
     """One full Gibbs sweep over strains: (tau [V,G] i32, mix [V,S,4]).
 
@@ -41,15 +142,9 @@ def tau_sweep(n, tau, mix, gamma, eta, gz):
         return tau_sweep_reference(n, tau, mix, gamma, eta, gz)
     if n.device.type != "cuda":
         raise ValueError(f"tau_sweep: no kernel for device {n.device}")
-    lib = load_library()
     tau_out = torch.empty_like(tau)
     mix_out = torch.empty_like(mix)
-    with torch.cuda.device(n.device):
-        err = lib.desman_tau_sweep(
-            n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
-            eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
-            mix_out.data_ptr(), V, S, G, stream_of(n))
-    check(lib, err, "tau_sweep")
+    launch(load_library(), n, tau, mix, gamma, eta, gz, tau_out, mix_out)
     tau_sweep.launches += 1
     return tau_out, mix_out
 

@@ -21,6 +21,11 @@ pytestmark = pytest.mark.cuda
 
 # (V, S, G): ragged V, S below / above / at a multiple of the warp, G = 1
 SHAPES = [(77, 12, 3), (96, 40, 5), (1000, 64, 8), (33, 1, 1), (64, 33, 2)]
+# the row-resident tau and fused kernels also at: a staged tile above 48 KB
+# of shared memory, the rows in device memory, and 250 tiles of S=96 G=16
+# (test_resident_kernels_are_bitwise_repeatable caps the grid, so that a
+# block walks many tiles)
+RESIDENT_SHAPES = SHAPES + [(64, 600, 4), (64, 1000, 4), (2000, 96, 16)]
 
 
 @pytest.fixture
@@ -42,7 +47,7 @@ def _inputs(V, S, G, seed, device):
     return [x.to(device) for x in (n, tau, mix, gamma, eta, gz)]
 
 
-@pytest.mark.parametrize("V,S,G", SHAPES)
+@pytest.mark.parametrize("V,S,G", RESIDENT_SHAPES)
 def test_tau_kernel_matches_plain(cuda, V, S, G):
     n, tau, mix, gamma, eta, gz = _inputs(V, S, G, 0, cuda)
     before = ops.tau_sweep.launches
@@ -147,7 +152,7 @@ def _staged(n, tau, mix, gamma, eta, gz, g, h, logu, gp):
     return t, m, ll_old, ops.gamma_ll(n, m, t, gp, eta, with_old=False)
 
 
-@pytest.mark.parametrize("V,S,G", [s for s in SHAPES if s[2] > 1])
+@pytest.mark.parametrize("V,S,G", [s for s in RESIDENT_SHAPES if s[2] > 1])
 def test_fused_sweep_is_bitwise_the_staged_kernels(cuda, V, S, G):
     args = _resident_inputs(V, S, G, 6, cuda)
     tau_f, mix_f, ll_f = ops.fused_sweep(*args)
@@ -164,6 +169,60 @@ def test_fused_sweep_is_bitwise_the_staged_kernels(cuda, V, S, G):
     torch.testing.assert_close(mix_f[same], mix_p[same], rtol=1e-4, atol=1e-5)
     if bool(same.all()):
         _assert_ll_close(ll_f, ll_p)
+
+
+@pytest.mark.parametrize("V,S,G", RESIDENT_SHAPES)
+def test_resident_kernels_are_bitwise_repeatable(cuda, V, S, G):
+    """The tau and fused kernels give the same bits from run to run and
+    whatever the persistent grid: sized by occupancy, one block walking
+    every tile, 7 blocks."""
+    from desman_tpu_torch.ops import _build
+    from desman_tpu_torch.ops.fused_sweep import launch as fused_launch
+    from desman_tpu_torch.ops.tau_kernel import launch as tau_launch, tile_plan
+
+    assert tile_plan(S, G).buffers == (0 if S >= 1000 else 1)
+    args = _resident_inputs(V, S, G, 9, cuda)
+    tau_runs = [ops.tau_sweep(*args[:6]) for _ in range(2)]
+    fused_runs = [ops.fused_sweep(*args) for _ in range(2)]
+    lib = _build.load_library()
+    n, tau, mix = args[:3]
+    for m in (1, 7):
+        outs = (torch.empty_like(tau), torch.empty_like(mix))
+        tau_launch(lib, *args[:6], *outs, max_blocks=m)
+        tau_runs.append(outs)
+        outs = (torch.empty_like(tau), torch.empty_like(mix),
+                _build.partial_scratch(lib, V, 2, S, cuda),
+                torch.empty((2, S), dtype=torch.float32, device=cuda))
+        fused_launch(lib, *args, *outs, max_blocks=m)
+        fused_runs.append((outs[0], outs[1], outs[3]))
+    torch.cuda.synchronize()
+    for runs in (tau_runs, fused_runs):
+        for run in runs[1:]:
+            for a, b in zip(runs[0], run):
+                assert torch.equal(a, b)
+
+
+def test_resident_kernels_alternate_shared_memory_plans(cuda):
+    """Plans above 48 KB of shared memory in turn (S=600: about 164 KB,
+    S=443: about 121 KB in the tau kernel) each launch and give the bits
+    of their first launch."""
+    first = {}
+    for S in (600, 443, 600, 443):
+        args = _resident_inputs(64, S, 4, 10, cuda)
+        outs = (*ops.tau_sweep(*args[:6]), *ops.fused_sweep(*args))
+        torch.cuda.synchronize()
+        for a, b in zip(first.setdefault(S, outs), outs):
+            assert torch.equal(a, b)
+
+
+def test_resident_kernels_fit_the_card(cuda):
+    """Every tile plan launches: at least one resident block a SM."""
+    from desman_tpu_torch.ops.tau_kernel import kernel_info
+
+    for S, G in ((1, 1), (64, 8), (96, 16), (443, 8), (600, 4), (800, 8), (1000, 4)):
+        for kernel in ("tau_sweep", "fused_sweep"):
+            info = kernel_info(kernel, S, G)
+            assert info["blocks_per_sm"] >= 1, (S, G, info)
 
 
 def test_kernels_are_bitwise_repeatable(cuda):

@@ -41,7 +41,7 @@ def test_enumeration_matches_jax(max_copy, model):
     x, cov, etaG, _, _ = _gene_dataset(max_copy=max_copy,
                                        mean_cov=30.0 * max_copy)
     cfg = geneassign.GeneAssignConfig(max_copy=max_copy, model=model)
-    ours = geneassign.assign_genes(x, cov, cfg)
+    ours = geneassign.assign_genes(x, cov, cfg, device="cpu")
     theirs = jga.assign_genes(x, cov, jga.GeneAssignConfig(max_copy=max_copy,
                                                            model=model))
     assert ours.eta_star.dtype == torch.int32
@@ -81,10 +81,10 @@ def test_coverage_helpers_match_jax():
 
 def test_gibbs_agrees_with_enumeration():
     x, cov, _, _, _ = _gene_dataset(D=30)
-    enum = geneassign.assign_genes(x, cov)
+    enum = geneassign.assign_genes(x, cov, device="cpu")
     gibbs = geneassign.assign_genes(
         x, cov, geneassign.GeneAssignConfig(state_cap=1, gibbs_sweeps=200),
-        generator=torch.Generator().manual_seed(0))
+        generator=torch.Generator().manual_seed(0), device="cpu")
     agree = (enum.eta_star == gibbs.eta_star).float().mean().item()
     assert agree > 0.95, agree
     gc, ec = gibbs.confidence.numpy(), enum.confidence.numpy()
@@ -102,7 +102,8 @@ def test_gibbs_large_G():
     cfg = geneassign.GeneAssignConfig(gibbs_sweeps=600)
     assert 2 ** 14 > cfg.state_cap
     r0, r1 = (geneassign.assign_genes(x, cov, cfg,
-                                      generator=torch.Generator().manual_seed(s))
+                                      generator=torch.Generator().manual_seed(s),
+                                      device="cpu")
               for s in (0, 1))
     e0 = r0.eta_star.numpy()
     assert (e0 == etaG).mean() > 0.99
@@ -130,7 +131,8 @@ def test_anneal_temperature_schedule():
 
 def test_assign_gene_tau_enumeration_matches_jax():
     t = synth.generate(V=80, S=10, G=3, coverage=60.0, seed=2)
-    star, mean = geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta)
+    star, mean = geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta,
+                                            device="cpu")
     jstar, jmean = jga.assign_gene_tau(t.data.counts, t.gamma, t.eta)
     np.testing.assert_array_equal(star.numpy(), np.asarray(jstar))
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5,
@@ -143,7 +145,7 @@ def test_assign_gene_tau_gibbs_replays_jax():
     t = synth.generate(V=80, S=10, G=3, coverage=60.0, seed=2)
     star, mean = geneassign.assign_gene_tau(
         t.data.counts, t.gamma, t.eta, sweeps=20, state_cap=4,
-        noise=GeneTauReplay(0))
+        noise=GeneTauReplay(0), device="cpu")
     jstar, _ = jga.assign_gene_tau(t.data.counts, t.gamma, t.eta, sweeps=20,
                                    state_cap=4)
     same = (star.numpy() == np.asarray(jstar)).all(axis=1)
@@ -154,7 +156,8 @@ def test_assign_gene_tau_gibbs_replays_jax():
 def test_assign_gene_tau_enumeration_recovers_truth():
     """tests/test_geneassign.py's bar: at most 5 of 240 calls wrong."""
     t = synth.generate(V=80, S=10, G=3, coverage=60.0, seed=2)
-    star, _ = geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta, sweeps=40)
+    star, _ = geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta, sweeps=40,
+                                         device="cpu")
     assert int((star.numpy() != t.tau_idx).sum()) <= 5
 
 
@@ -166,7 +169,8 @@ def test_assign_gene_tau_gibbs_matches_jax_quality(kernel):
     from the plurality start do not cross between them, PERF.md.)"""
     t = synth.generate(V=80, S=10, G=3, coverage=60.0, seed=2)
     star, mean = geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta,
-                                            sweeps=40, state_cap=4, kernel=kernel)
+                                            sweeps=40, state_cap=4, kernel=kernel,
+                                            device="cpu")
     jstar, _ = jga.assign_gene_tau(t.data.counts, t.gamma, t.eta, sweeps=40,
                                    state_cap=4)
     assert star.dtype == torch.int32 and mean.shape == (80, 3, 4)
@@ -175,11 +179,24 @@ def test_assign_gene_tau_gibbs_matches_jax_quality(kernel):
     assert abs(ours - theirs) <= 0.05 * t.tau_idx.size, (ours, theirs)
 
 
+def test_geneassign_defaults_to_the_card():
+    """assign_genes and assign_gene_tau run on CUDA unless the caller asks
+    for the CPU, and raise naming cuda where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device runs")
+    x, cov, _, _, _ = _gene_dataset(D=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        geneassign.assign_genes(x, cov)
+    t = synth.generate(V=10, S=3, G=2, coverage=20.0, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta)
+
+
 def test_assign_gene_tau_refuses_unknown_kernel():
     t = synth.generate(V=10, S=3, G=2, coverage=20.0, seed=0)
     with pytest.raises(ValueError, match="kernel"):
         geneassign.assign_gene_tau(t.data.counts, t.gamma, t.eta,
-                                   kernel="cuda_resident")
+                                   kernel="cuda_resident", device="cpu")
 
 
 # ---- genecov and host I/O ----
@@ -264,7 +281,7 @@ def test_draws_npz_reads_both_ways(tmp_path):
 
 def test_geneassign_result_round_trips():
     x, cov, _, _, _ = _gene_dataset(D=10)
-    res = geneassign.assign_genes(x, cov)
+    res = geneassign.assign_genes(x, cov, device="cpu")
     d = convert.geneassign_to_numpy(res)
     back = convert.geneassign_from_numpy(d)
     assert back.eta_star.dtype == torch.int32
@@ -451,6 +468,6 @@ def test_gibbs_default_generator_is_seeded():
     without one it seeds its own with 0, so two calls agree."""
     x, cov, _, _, _ = _gene_dataset(D=8)
     cfg = geneassign.GeneAssignConfig(state_cap=1, gibbs_sweeps=10)
-    a, b = (geneassign.assign_genes(x, cov, cfg) for _ in range(2))
+    a, b = (geneassign.assign_genes(x, cov, cfg, device="cpu") for _ in range(2))
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -24,6 +24,7 @@ MODULES = [
     "desman_tpu_torch.filter", "desman_tpu_torch.model_selection",
     "desman_tpu_torch.pipeline", "desman_tpu_torch.cli",
     "desman_tpu_torch.geneassign", "desman_tpu_torch.genecov",
+    "desman_tpu_torch.kernel_bench",
 ]
 
 
