@@ -11,17 +11,25 @@ Phases, each printing its own '# ...' lines:
 3. kernels vs their plain PyTorch versions on the card at V=1e4, S=64,
    G=8, on inputs built on the CPU from numpy seeds and then moved to the
    card (kernel_bench.phase3_inputs): agreement, mixture consistency,
-   per-sample loglik sums to rtol 1e-5, the tau and fused kernels' outputs
-   bitwise equal to the SHA-256 digests the one-warp-per-position kernels
-   gave on these inputs (TAU_SHA256, FUSED_SHA256), the fused front-half
+   per-sample loglik sums to rtol 1e-5, the tau, fused, top-2 and gamma_ll
+   kernels' outputs bitwise equal to the SHA-256 digests the
+   one-warp-per-position kernels gave on these inputs (TAU_SHA256,
+   FUSED_SHA256, TOPK_SHA256, GAMMA_LL_SHA256), the fused front-half
    kernel bitwise equal to the staged kernels and to itself from run to
-   run, the top-2 tau kernel (on biallelic, error-free counts) bitwise
-   equal to the tau kernel and to itself from run to run; median times
+   run, the top-2 tau kernel (on biallelic, error-free counts,
+   kernel_bench.topk_inputs) bitwise equal to the tau kernel and to itself
+   from run to run, its log (warp.cuh's log_normal) bitwise logf on every
+   float of [1e-12, FLT_MAX], gamma_ll's digest also at G=1; median times
    (CUDA events around each wrapper call, host included) and each kernel's
    device time (torch.profiler, 50 calls), its bound (kernel_bench.bound)
-   and share of it; the tau and fused kernels' tile plan, registers and
-   resident blocks a SM; and both again at V=1e5, S=96, G=16 (device ms by
-   CUDA events around 200 launches, digests gated as at V=1e4);
+   and share of it; the row-resident kernels' tile plan, registers and
+   resident blocks a SM; and those four kernels again at V=1e5, S=96,
+   G=16 (device ms by CUDA events around 200 launches, digests gated as at
+   V=1e4); then a resident sweep at V=64, S=4000, G=4, past the shared
+   memory of a block's reduction slots: the fused kernel bitwise the staged
+   chain, swap(emit_ll), gamma_ll and gamma_apply_eta against their plain
+   versions, and a 10-sweep cuda_resident chain (a main path: its launches
+   are counted);
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: the `desman` CLI on TestData's true-variant half with
    `--kernel cuda` and with `--kernel cuda_resident`, each held to the
@@ -62,7 +70,7 @@ Phases, each printing its own '# ...' lines:
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every path driven in phases 4-9, each with
+kernel's launches summed over every path driven in phases 3-9, each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
@@ -84,7 +92,7 @@ import torch
 from desman_tpu_torch import cli, io, kernel_bench, ops, run, sampler, synth
 from desman_tpu_torch.geneassign import assign_gene_tau, strain_coverage
 from desman_tpu_torch.likelihood import mixture
-from desman_tpu_torch.ops import _build, tau_kernel
+from desman_tpu_torch.ops import _build, gamma_kernel, tau_kernel, tau_topk
 from desman_tpu_torch.ops.fused_sweep import launch as fused_launch
 from desman_tpu_torch.utils import match_gamma_perm, one_hot_tau
 from desman_tpu_torch.validation import compare_tau
@@ -108,6 +116,18 @@ TAU_SHA256 = {
 FUSED_SHA256 = {
     kernel_bench.METRIC: "9f4c9c0d866e002bb6c15eb1f227dd35faabdda777d612f957111322e98e551a",
     kernel_bench.SCALE: "64760bb508ebedeb67cbdd19d272a630c406e4e32553933e38b0e6a2a54fdb7f"}
+# SHA-256 of (tau, mix) from tau_sweep_topk on kernel_bench.topk_inputs and
+# of ll from gamma_ll(with_old=True) on kernel_bench.gamma_ll_args, as the
+# one-warp-per-position kernels gave them (python -m
+# desman_tpu_torch.kernel_bench --against a checkout from before the top-2
+# kernel's row-resident redesign; NVIDIA H100 80GB HBM3)
+TOPK_SHA256 = {
+    kernel_bench.METRIC: "001c47ee079eeb0e971ced0c152369c0be4105aa025a07030f86ce070e9bc1fb",
+    kernel_bench.SCALE: "e31b0a47100e2e7eec89042acc0fe7389556355cf4de01e5dc80d77f75276d9d"}
+GAMMA_LL_SHA256 = {
+    kernel_bench.METRIC: "6042415d0bd5aa995f7dacbf623a3093d9e7b31c9df178d272db3ee7cadd98a9",
+    kernel_bench.ONE_STRAIN: "218113f1563effdfc6f9b56d5ca33bc91801aea1fac464825757969905fb7fae",
+    kernel_bench.SCALE: "0a61aa54c0d0b84cd8cd98cf9f7bed5e96e5c7cd957cbdf12db843060f5d01ac"}
 
 
 class GateFailed(Exception):
@@ -155,18 +175,22 @@ def record(name, source, replaces, err, ms, plain_ms, fn, **extra):
 
 def resident_info(name):
     """The row-resident kernel's tile plan, registers and resident blocks a
-    SM at the metric configuration."""
+    SM at the metric configuration, and the plan and grid its launches
+    there take."""
     info = tau_kernel.kernel_info(name, S, G)
-    print(f"# {name} at S={S} G={G}: {info}")
+    plan, grid = tau_kernel.resident_grid(name, V, S, G, torch.cuda.current_device())
+    print(f"# {name} at S={S} G={G}: {info}; a launch at V={V}: {plan}, grid {grid}")
     return dict(tile_plan={"buffers": info["buffers"], "smem_bytes": info["smem_bytes"]},
                 registers=info["registers"], local_bytes=info["local_bytes"],
-                blocks_per_sm=info["blocks_per_sm"])
+                blocks_per_sm=info["blocks_per_sm"],
+                launch_plan={"buffers": plan.buffers, "smem_bytes": plan.smem_bytes,
+                             "grid": grid})
 
 
 def phase_kernels():
     """Each kernel against its plain version on the same inputs."""
     dev = torch.device("cuda")
-    host, rng = kernel_bench.phase3_inputs(V, S, G)
+    host = kernel_bench.phase3_inputs(V, S, G)
     c = {k: v.to(dev) for k, v in host.items()}
     n, tau, mix, gamma, eta, gz = kernel_bench.tau_args(c)
     print(f"# kernels at V={V} S={S} G={G}: counts and mixture "
@@ -230,33 +254,33 @@ def phase_kernels():
         "desman_tpu/ops/swap_pallas.py:54", err, ms, plain_ms,
         lambda: ops.swap(*args), agreement=agree))
     more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz, c)
-    return records + more + [topk_kernel(rng)]
+    return records + more + [topk_kernel()]
 
 
-def topk_kernel(rng):
+def topk_kernel():
     """The top-2 tau kernel on biallelic, error-free counts (every cell
-    observes at most two bases): against its plain version, against the
-    full tau kernel (bitwise), and against itself (bitwise)."""
+    observes at most two bases; kernel_bench.topk_inputs): against its
+    plain version, against the full tau kernel (bitwise), against itself
+    (bitwise), and against the one-warp-per-position kernel's digest."""
     dev = torch.device("cuda")
-    t = synth.generate(V=V, S=S, G=G, coverage=50.0, error_rate=0.0,
-                       max_alleles=2, seed=0)
-    n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
-    layout = ops.tau_topk.topk_layout(t.data.counts, dev)
-    gamma = torch.as_tensor(t.gamma, dtype=torch.float32, device=dev)
-    # a non-trivial error matrix: with the data's own eta (the identity)
-    # most logs would sit at the 1e-12 floor
-    eta = torch.as_tensor(synth.make_eta(0.01), dtype=torch.float32, device=dev)
-    tau = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32,
-                          device=dev)
-    mix = mixture(one_hot_tau(tau), gamma)
-    gz = torch.as_tensor(rng.gumbel(size=(V, G, 4)), dtype=torch.float32,
-                         device=dev)
-    args = (layout.n_val, layout.b_idx, tau, mix, gamma, eta, gz)
+    d = {k: v.to(dev) for k, v in kernel_bench.topk_inputs(V, S, G).items()}
+    n, tau, mix, gamma, eta, gz = kernel_bench.tau_args(d)
+    args = kernel_bench.topk_args(d)
     tau_k, mix_k = ops.tau_sweep_topk(*args)
     tau_p, mix_p = ops.tau_sweep_topk_reference(*args)
     tau_f, mix_f = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
     again = ops.tau_sweep_topk(*args)
     torch.cuda.synchronize()
+    check = kernel_bench.log_mismatches()
+    print(f"# log_normal against logf on the {check['floats']} floats of [1e-12, FLT_MAX]: "
+          f"{check['mismatches']} differ")
+    gate(check["mismatches"] == 0,
+         "log_normal (the top-2 kernel's log) is bitwise logf on every float of [1e-12, "
+         "FLT_MAX]")
+    sha = kernel_bench.digest(tau_k, mix_k)
+    print(f"# tau_sweep_topk sha256 {sha}")
+    gate(sha == TOPK_SHA256[kernel_bench.METRIC],
+         "tau_sweep_topk's tau and mix are bitwise the one-warp-per-position kernel's")
     same = (tau_k == tau_p).all(dim=1)
     agree = same.float().mean().item()
     err = (mix_k[same] - mix_p[same]).abs().max().item()
@@ -282,7 +306,8 @@ def topk_kernel(rng):
         "desman_tpu/ops/tau_topk.py:81", err, ms, plain_ms,
         lambda: ops.tau_sweep_topk(*args), agreement=agree, tau_sweep_ms=full_ms,
         tau_sweep_device_ms=kernel_bench.profiled_ms(
-            lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz))["total"])
+            lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz))["total"], sha256=sha,
+        **resident_info("tau_sweep_topk"))
 
 
 def ll_err(got, want, agree=1.0):
@@ -353,11 +378,24 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, c):
             median_ms(lambda: ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old)))
         print(f"# gamma_ll with_old={with_old} median ms: kernel "
               f"{times[with_old][0]:.4f}  plain {times[with_old][1]:.4f}")
+    ll_args = kernel_bench.gamma_ll_args(c)
+    ll_k = ops.gamma_ll(*ll_args)
+    torch.cuda.synchronize()
+    sha = kernel_bench.digest(ll_k)
+    print(f"# gamma_ll sha256 {sha}")
+    gate(sha == GAMMA_LL_SHA256[kernel_bench.METRIC],
+         "gamma_ll's ll is bitwise the one-warp-per-position kernel's")
+    one = kernel_bench.card_inputs(*kernel_bench.ONE_STRAIN, n.device)
+    sha1 = kernel_bench.digest(ops.gamma_ll(*kernel_bench.gamma_ll_args(one)))
+    print(f"# gamma_ll at G=1 sha256 {sha1}")
+    gate(sha1 == GAMMA_LL_SHA256[kernel_bench.ONE_STRAIN],
+         "gamma_ll's ll at G=1 (the resident path's shape) is bitwise the "
+         "one-warp-per-position kernel's")
     records.append(record(
         "gamma_ll", "desman_tpu_torch/csrc/gamma_kernel.cu",
         "desman_tpu/ops/gamma_pallas.py:78", err, times[True][0], times[True][1],
         lambda: ops.gamma_ll(n, mix, tau, gp, eta, with_old=True),
-        without_old_ms=times[False][0], without_old_plain_ms=times[False][1]))
+        without_old_ms=times[False][0], without_old_plain_ms=times[False][1], sha256=sha))
 
     # kernel 4: accepted gamma applied + the eta proposal's loglik
     times = {}
@@ -432,28 +470,38 @@ def resident_kernels(n, gamma, eta, tau, mix, gt, ht, logu, gz, c):
 
 
 def phase_scale():
-    """The tau and fused kernels at the full-sweep scale, V=1e5 S=96 G=16:
-    outputs gated on the one-warp-per-position kernels' digests, device ms
-    by CUDA events around 200 launches into preallocated outputs, against
-    the bound. Returns {kernel: numbers}."""
+    """The row-resident kernels and gamma_ll at the full-sweep scale, V=1e5
+    S=96 G=16: outputs gated on the one-warp-per-position kernels' digests,
+    device ms by CUDA events around 200 launches into preallocated outputs,
+    against the bound. Returns {kernel: numbers}."""
     dev = torch.device("cuda")
     shape = kernel_bench.SCALE
     c = kernel_bench.card_inputs(*shape, dev)
+    topk = {k: v.to(dev) for k, v in kernel_bench.topk_inputs(*shape).items()}
     lib = _build.load_library()
+    ll = torch.empty((2, shape[1]), dtype=torch.float32, device=dev)
     out = {}
     for name, args, want in (
             ("tau_sweep", kernel_bench.tau_args(c), TAU_SHA256[shape]),
-            ("fused_sweep", kernel_bench.fused_args(c), FUSED_SHA256[shape])):
-        n, tau, mix = args[:3]
-        outs = [torch.empty_like(tau), torch.empty_like(mix)]
-        if name == "tau_sweep":
-            fn = lambda: tau_kernel.launch(lib, *args, *outs)  # noqa: E731
-            kept = outs
+            ("fused_sweep", kernel_bench.fused_args(c), FUSED_SHA256[shape]),
+            ("tau_sweep_topk", kernel_bench.topk_args(topk), TOPK_SHA256[shape]),
+            ("gamma_ll", kernel_bench.gamma_ll_args(c), GAMMA_LL_SHA256[shape])):
+        tau, mix = args[-5:-3] if name == "tau_sweep_topk" else args[1:3]
+        if name == "gamma_ll":
+            partial = _build.partial_scratch(lib, shape[0], 2, shape[1], dev)
+            fn = lambda: gamma_kernel.launch(lib, *args, partial, ll)  # noqa: E731
+            kept = [ll]
         else:
-            outs += [_build.partial_scratch(lib, shape[0], 2, shape[1], dev),
-                     torch.empty((2, shape[1]), dtype=torch.float32, device=dev)]
-            fn = lambda: fused_launch(lib, *args, *outs)  # noqa: E731
-            kept = [outs[0], outs[1], outs[3]]
+            outs = [torch.empty_like(tau), torch.empty_like(mix)]
+            kept = outs
+            if name == "tau_sweep":
+                fn = lambda: tau_kernel.launch(lib, *args, *outs)  # noqa: E731
+            elif name == "tau_sweep_topk":
+                fn = lambda: tau_topk.launch(lib, *args, *outs)  # noqa: E731
+            else:
+                outs += [_build.partial_scratch(lib, shape[0], 2, shape[1], dev), ll]
+                fn = lambda: fused_launch(lib, *args, *outs)  # noqa: E731
+                kept = [outs[0], outs[1], ll]
         fn()
         torch.cuda.synchronize()
         sha = kernel_bench.digest(*kept)
@@ -461,19 +509,91 @@ def phase_scale():
              "the one-warp-per-position kernel's")
         device_ms = kernel_bench.event_ms(fn)
         b = kernel_bench.bound(name, *shape)
-        info = tau_kernel.kernel_info(name, shape[1], shape[2])
         out[name] = dict(V=shape[0], S=shape[1], G=shape[2], device_ms=device_ms,
                          bytes=b["bytes"], logs=b["logs"], bound_ms=b["bound_ms"],
                          bound_by=b["bound_by"], share_of_bound=b["bound_ms"] / device_ms,
-                         bytes_per_s=b["bytes"] / device_ms * 1e3, sha256=sha,
-                         tile_plan={"buffers": info["buffers"],
-                                    "smem_bytes": info["smem_bytes"]},
-                         blocks_per_sm=info["blocks_per_sm"])
+                         bytes_per_s=b["bytes"] / device_ms * 1e3, sha256=sha)
+        info = {}
+        if name in kernel_bench.RESIDENT:
+            info = tau_kernel.kernel_info(name, shape[1], shape[2])
+            out[name].update(tile_plan={"buffers": info["buffers"],
+                                        "smem_bytes": info["smem_bytes"]},
+                             blocks_per_sm=info["blocks_per_sm"])
         print(f"# {name} V={shape[0]} S={shape[1]} G={shape[2]}: device {device_ms:.4f} "
               f"ms a launch (CUDA events, 200 launches), {b['bytes']} bytes = "
               f"{b['bytes'] / device_ms / 1e6:.1f} GB/s, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}), share {b['bound_ms'] / device_ms:.3f}, {info}")
     return out
+
+
+WIDE = (64, 4000, 4)   # V, S, G past the 3632 samples of shared-memory slots
+
+
+def phase_wide():
+    """A resident sweep past the shared memory of a block's reduction slots
+    (S=4000): fused_sweep bitwise the staged chain, swap(emit_ll), gamma_ll
+    and gamma_apply_eta against their plain versions to rtol 1e-5; then a
+    10-sweep cuda_resident chain there, with the launch counts set to 0 just
+    before it and read just after."""
+    dev = torch.device("cuda")
+    Vw, Sw, Gw = WIDE
+    plan = tau_kernel.tile_plan(Sw, Gw, fused=True)
+    print(f"# wide: V={Vw} S={Sw} G={Gw}, fused tile plan {plan}")
+    gate(plan.device_slots == 1, f"S={Sw}: the fused plan puts the slots in device memory")
+    t = synth.generate(V=Vw, S=Sw, G=Gw, coverage=30.0, seed=4)
+    rng = np.random.default_rng(4)
+    n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
+    gamma = torch.as_tensor(t.gamma, dtype=torch.float32, device=dev)
+    eta = torch.as_tensor(t.eta, dtype=torch.float32, device=dev)
+    tau = torch.as_tensor(rng.integers(0, 4, size=(Vw, Gw)), dtype=torch.int32, device=dev)
+    mix = mixture(one_hot_tau(tau), gamma)
+    gz = torch.as_tensor(rng.gumbel(size=(Vw, Gw, 4)), dtype=torch.float32, device=dev)
+    g = torch.tensor(Gw - 1, dtype=torch.int32, device=dev)
+    h = torch.tensor(0, dtype=torch.int32, device=dev)
+    logu = torch.as_tensor(np.log(rng.uniform(size=Vw)), dtype=torch.float32, device=dev)
+    gp = torch.as_tensor(rng.dirichlet(np.ones(Gw), size=Sw), dtype=torch.float32, device=dev)
+    accept = torch.as_tensor(rng.random(Sw) < 0.5, device=dev)
+    fargs = (n, tau, mix, gamma, eta, gz, g, h, logu, gp)
+    tau_f, mix_f, ll_f = ops.fused_sweep(*fargs)
+    t1, m1 = ops.tau_sweep(*fargs[:6])
+    t1, m1, ll_old = ops.swap(n, t1, m1, gamma, eta, g, h, logu, emit_ll=True)
+    ll2 = ops.gamma_ll(n, m1, t1, gp, eta, with_old=False)
+    torch.cuda.synchronize()
+    gate(torch.equal(tau_f, t1) and torch.equal(mix_f, m1)
+         and torch.equal(ll_f[0], ll_old) and torch.equal(ll_f[1], ll2[1]),
+         f"S={Sw}: fused_sweep is bitwise tau_sweep -> swap(emit_ll) -> "
+         "gamma_ll(with_old=False)")
+    err = {}
+    tau_k, mix_k, ll_k = ops.swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=True)
+    tau_p, mix_p, ll_p = ops.swap_reference(n, tau, mix, gamma, eta, g, h, logu,
+                                            emit_ll=True)
+    agree = (tau_k == tau_p).all(dim=1).float().mean().item()
+    gate(agree >= 0.99, f"S={Sw}: swap(emit_ll) agrees with its plain version on >= 99% "
+         "of positions")
+    err["swap_emit_ll"] = ll_err(ll_k, ll_p, agree)
+    for with_old in (True, False):
+        err[f"gamma_ll with_old={with_old}"] = ll_err(
+            ops.gamma_ll(n, mix, tau, gp, eta, with_old=with_old),
+            ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old))
+    mix_k, ll_k = ops.gamma_apply_eta(n, mix, tau, gp, accept, eta)
+    mix_p, ll_p = ops.gamma_apply_eta_reference(n, mix, tau, gp, accept, eta)
+    gate(torch.allclose(mix_k, mix_p, rtol=1e-5, atol=1e-7),
+         f"S={Sw}: gamma_apply_eta mix within rtol 1e-5 / atol 1e-7")
+    err["gamma_apply_eta"] = ll_err(ll_k, ll_p)
+    print(f"# wide: max |kernel - plain| of the per-sample logliks {err}")
+
+    cfg = sampler.SamplerConfig(G=Gw, burn=5, samples=5, nmf_iters=20)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ops.reset_launches()
+    res = sampler.run_chain(n, cfg, gen, kernel="cuda_resident")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"# wide: 10 cuda_resident sweeps, final loglik "
+          f"{res.loglik_trace[-1].item():.6f}, launches {launches}")
+    gate(bool(torch.isfinite(res.loglik_trace).all()) and launches["fused_sweep"] == 10
+         and launches["gamma_apply_eta"] == 10,
+         f"S={Sw}: a cuda_resident chain runs through fused_sweep and gamma_apply_eta")
 
 
 LAUNCHED = ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta", "fused_sweep",
@@ -856,6 +976,7 @@ def main() -> int:
         for r in records:
             if r["name"] in scale:
                 r["scale"] = scale[r["name"]]
+        phase_wide()
         with tempfile.TemporaryDirectory() as tmp:
             phase_cli(tmp)
             phase_north_star(tmp)

@@ -31,7 +31,9 @@
 // occupancy API (ops/tau_kernel.py's resident_grid) with 5 resident blocks
 // (48 registers; the compiler's own 77 allowed 3), one staged tile at a
 // time where it fits (tile_plan), the rows in device memory where even one
-// tile's do not. IEEE logf, no atomics.
+// tile's do not, and past S = 3632, where even the [2,8,S] slots do not fit
+// in shared memory, the slots in the block's rows of a device-memory scratch
+// (warp.cuh). IEEE logf, no atomics.
 #include <cuda_runtime.h>
 
 #include "position.cuh"
@@ -42,18 +44,21 @@ namespace {
 
 // As in tau_kernel.cu, the staged path takes its layout from the launch's
 // `staged` argument: folded into constants it was slower on an H100.
-template <bool kStaged>
+// kDeviceSlots (only with rows in device memory): the slots in the block's
+// rows of the device-memory scratch.
+template <bool kStaged, bool kDeviceSlots = false>
 __global__ void __launch_bounds__(kThreads, kResidentBlocks)
 fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
                    const float4* __restrict__ mix_in, const float* __restrict__ gamma,
                    const float* __restrict__ eta, const float4* __restrict__ gz,
                    const int* __restrict__ g_ptr, const int* __restrict__ h_ptr,
                    const float* __restrict__ logu, const float* __restrict__ gamma_prop,
-                   int* tau_out, float4* mix_out, float* __restrict__ partial, int V, int S,
-                   int G, int staged) {
+                   int* tau_out, float4* mix_out, float* __restrict__ partial,
+                   float* slot_scratch, int V, int S, int G, int staged) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const TileLayout L(S, G, kStaged && staged != 0, true);
-  float* slots = reinterpret_cast<float*>(smem + L.slots);
+  const TileLayout L(S, G, kStaged && staged != 0, TileKind::kFused);
+  float* slots = block_slots<kDeviceSlots>(slot_scratch,
+                                          reinterpret_cast<float*>(smem + L.slots), S);
   float* slot_old = warp_slot(slots, 0, S);
   float* slot_new = warp_slot(slots, 1, S);
   const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -138,7 +143,9 @@ fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
 // n, mix_in, mix_out: [V,S,4] f32; tau_in, tau_out: [V,G] i32; gamma,
 // gamma_prop: [S,G] f32; eta: [4,4] f32; gz: [V,G,4] f32 (already *
 // temperature); g, h: device int32 scalars; logu: [V] f32; ll: [2,S] f32;
-// partial: the [desman_partial_rows(V), 2, S] f32 scratch of its reduction.
+// partial: the [desman_partial_rows(V), 2, S] f32 scratch of its reduction;
+// slots: null, or where the plan puts them in device memory (S > 3632) the
+// [grid, 2, 8, S] f32 scratch of the blocks' slots.
 // staged and smem_bytes: ops/tau_kernel.py's tile_plan(S, G, fused=True);
 // grid: its resident_grid (after desman_fused_sweep_info has opted the
 // kernel in to its shared memory on this device). Launches on `stream`,
@@ -148,15 +155,18 @@ extern "C" int desman_fused_sweep(const void* n, const void* tau_in, const void*
                                   const void* gamma, const void* eta, const void* gz,
                                   const void* g, const void* h, const void* logu,
                                   const void* gamma_prop, void* tau_out, void* mix_out,
-                                  void* partial, void* ll, int V, int S, int G, int staged,
-                                  int smem_bytes, int grid, void* stream) {
+                                  void* partial, void* slots, void* ll, int V, int S, int G,
+                                  int staged, int smem_bytes, int grid, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (V <= 0) return static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * 2 * S, st));
-  const desman::TileLayout L(S, G, staged != 0, true);
+  const desman::TileLayout L(S, G, staged != 0, desman::TileKind::kFused);
   const int tiles = desman::launch_blocks(V);
-  if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > tiles)
+  if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > tiles ||
+      !desman::slot_scratch_ok(S, slots))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = staged ? desman::fused_sweep_kernel<true> : desman::fused_sweep_kernel<false>;
+  auto kernel = staged  ? desman::fused_sweep_kernel<true>
+                : slots ? desman::fused_sweep_kernel<false, true>
+                        : desman::fused_sweep_kernel<false>;
   kernel<<<grid, desman::kThreads, L.bytes, st>>>(
       static_cast<const float4*>(n), static_cast<const int*>(tau_in),
       static_cast<const float4*>(mix_in), static_cast<const float*>(gamma),
@@ -164,7 +174,7 @@ extern "C" int desman_fused_sweep(const void* n, const void* tau_in, const void*
       static_cast<const int*>(g), static_cast<const int*>(h),
       static_cast<const float*>(logu), static_cast<const float*>(gamma_prop),
       static_cast<int*>(tau_out), static_cast<float4*>(mix_out),
-      static_cast<float*>(partial), V, S, G, staged);
+      static_cast<float*>(partial), static_cast<float*>(slots), V, S, G, staged);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
     err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),

@@ -19,9 +19,14 @@
 // apply also writes mix once), about 20-30 MB a call at V=1e4, S=64, G=8,
 // against 4 or 8 logs per (v,s). The design reads n[v,s,:] and mix[v,s,:]
 // as one float4 each, keeps gamma_prop (a few KB) in cache, rebuilds mp in
-// registers, and writes nothing [V]-sized but the apply's new mixture. The
-// [S] sums go through the deterministic per-block reduction of warp.cuh,
-// the one the swap's emit_ll and the fused kernel use.
+// registers, and writes nothing [V]-sized but the apply's new mixture. The [S] sums go through the
+// deterministic per-block reduction of warp.cuh, the one the swap's emit_ll
+// and the fused kernel use (one partial row per 8 positions, summed by a
+// second, fixed-order launch), so the fused kernel's ll_new stays bitwise
+// gamma_ll's row 1. Past S = 3632 a block's reduction slots live in a
+// device-memory scratch (warp.cuh). A row-resident gamma_ll on a
+// persistent grid was no faster at the shapes the resident path launches
+// it at (G=1, V up to about 1e4; PERF.md).
 #include <cuda_runtime.h>
 
 #include "position.cuh"
@@ -29,14 +34,16 @@
 namespace desman {
 namespace {
 
+template <bool kDeviceSlots>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 gamma_ll_kernel(const float4* __restrict__ n, const float4* __restrict__ mix,
                 const int* __restrict__ tau, const float* __restrict__ gamma_prop,
-                const float* __restrict__ eta, float* __restrict__ partial, int V, int S,
-                int G, int with_old) {
-  extern __shared__ float slots[];
+                const float* __restrict__ eta, float* __restrict__ partial, float* slot_scratch,
+                int V, int S, int G, int with_old) {
+  extern __shared__ float smem_slots[];
   const long v = warp_position(V);
   const int lane = threadIdx.x % kWarp;
+  float* slots = block_slots<kDeviceSlots>(slot_scratch, smem_slots, S);
   float* slot_old = warp_slot(slots, 0, S);
   float* slot_new = warp_slot(slots, 1, S);
   if (v >= 0) {
@@ -54,16 +61,18 @@ gamma_ll_kernel(const float4* __restrict__ n, const float4* __restrict__ mix,
   write_block_partial(slots, 2, S, partial);
 }
 
+template <bool kDeviceSlots>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 apply_eta_kernel(const float4* __restrict__ n, const float4* __restrict__ mix,
                  const int* __restrict__ tau, const float* __restrict__ gamma_prop,
                  const bool* __restrict__ accept, const float* __restrict__ eta_prop,
-                 float4* __restrict__ mix_out, float* __restrict__ partial, int V, int S,
-                 int G, int with_eta) {
-  extern __shared__ float slots[];
+                 float4* __restrict__ mix_out, float* __restrict__ partial,
+                 float* slot_scratch, int V, int S, int G, int with_eta) {
+  extern __shared__ float smem_slots[];
   const long v = warp_position(V);
   if (!with_eta && v < 0) return;
   const int lane = threadIdx.x % kWarp;
+  float* slots = block_slots<kDeviceSlots>(slot_scratch, smem_slots, S);
   float* slot = warp_slot(slots, 0, S);
   if (v >= 0) {
     float e[4][4];
@@ -95,22 +104,26 @@ apply_eta_kernel(const float4* __restrict__ n, const float4* __restrict__ mix,
 
 // n, mix: [V,S,4] f32; tau: [V,G] i32; gamma_prop: [S,G] f32; eta: [4,4]
 // f32; ll: [2,S] f32 (row 0 zeros unless with_old); partial: the
-// [desman_partial_rows(V), 2, S] f32 scratch of its reduction. Launches on
-// `stream`, does not synchronise, allocates nothing; returns the first
-// failing call's cudaError_t.
+// [desman_partial_rows(V), 2, S] f32 scratch of its reduction; slots: null,
+// or past S = 3632 the [desman_partial_rows(V), 2, 8, S] f32 scratch of the
+// blocks' slots. Launches on `stream`, does not synchronise, allocates
+// nothing; returns the first failing call's cudaError_t.
 extern "C" int desman_gamma_ll(const void* n, const void* mix, const void* tau,
                                const void* gamma_prop, const void* eta, void* partial,
-                               void* ll, int V, int S, int G, int with_old, void* stream) {
+                               void* slots, void* ll, int V, int S, int G, int with_old,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (V <= 0) return static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * 2 * S, st));
-  cudaError_t err = desman::allow_slots(desman::gamma_ll_kernel, S);
+  if (!desman::slot_scratch_ok(S, slots)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = slots ? desman::gamma_ll_kernel<true> : desman::gamma_ll_kernel<false>;
+  cudaError_t err = desman::allow_slots(kernel, S);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = desman::launch_blocks(V);
-  desman::gamma_ll_kernel<<<blocks, desman::kWarpsPerBlock * desman::kWarp,
-                            desman::slot_bytes(S), st>>>(
+  kernel<<<blocks, desman::kWarpsPerBlock * desman::kWarp, desman::smem_slot_bytes(S), st>>>(
       static_cast<const float4*>(n), static_cast<const float4*>(mix),
       static_cast<const int*>(tau), static_cast<const float*>(gamma_prop),
-      static_cast<const float*>(eta), static_cast<float*>(partial), V, S, G, with_old);
+      static_cast<const float*>(eta), static_cast<float*>(partial),
+      static_cast<float*>(slots), V, S, G, with_old);
   err = cudaGetLastError();
   if (err == cudaSuccess)
     err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),
@@ -119,30 +132,36 @@ extern "C" int desman_gamma_ll(const void* n, const void* mix, const void* tau,
 }
 
 // n, mix, mix_out: [V,S,4] f32; tau: [V,G] i32; gamma_prop: [S,G] f32;
-// accept: [S] bool; eta_prop: [4,4] f32. With with_eta, ll: [S] f32 and
-// partial: the [desman_partial_rows(V), 1, S] f32 scratch; without, both
-// are ignored (the wrapper returns zeros). Launches on `stream`, does not
-// synchronise, allocates nothing; returns the first failing call's
-// cudaError_t.
+// accept: [S] bool; eta_prop: [4,4] f32. With with_eta, ll: [S] f32,
+// partial: the [desman_partial_rows(V), 1, S] f32 scratch and slots: null,
+// or past S = 3632 the [desman_partial_rows(V), 2, 8, S] f32 scratch of the
+// blocks' slots; without, all three are ignored (the wrapper returns
+// zeros). Launches on `stream`, does not synchronise, allocates nothing;
+// returns the first failing call's cudaError_t.
 extern "C" int desman_gamma_apply_eta(const void* n, const void* mix, const void* tau,
                                       const void* gamma_prop, const void* accept,
                                       const void* eta_prop, void* mix_out, void* partial,
-                                      void* ll, int V, int S, int G, int with_eta,
+                                      void* slots, void* ll, int V, int S, int G, int with_eta,
                                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (V <= 0) {
     return with_eta ? static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * S, st))
                     : static_cast<int>(cudaSuccess);
   }
-  cudaError_t err = with_eta ? desman::allow_slots(desman::apply_eta_kernel, S) : cudaSuccess;
+  if (with_eta && !desman::slot_scratch_ok(S, slots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = with_eta && slots ? desman::apply_eta_kernel<true>
+                                  : desman::apply_eta_kernel<false>;
+  cudaError_t err = with_eta ? desman::allow_slots(kernel, S) : cudaSuccess;
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = desman::launch_blocks(V);
-  desman::apply_eta_kernel<<<blocks, desman::kWarpsPerBlock * desman::kWarp,
-                             with_eta ? desman::slot_bytes(S) : 0, st>>>(
+  kernel<<<blocks, desman::kWarpsPerBlock * desman::kWarp,
+           with_eta ? desman::smem_slot_bytes(S) : 0, st>>>(
       static_cast<const float4*>(n), static_cast<const float4*>(mix),
       static_cast<const int*>(tau), static_cast<const float*>(gamma_prop),
       static_cast<const bool*>(accept), static_cast<const float*>(eta_prop),
-      static_cast<float4*>(mix_out), static_cast<float*>(partial), V, S, G, with_eta);
+      static_cast<float4*>(mix_out), static_cast<float*>(partial),
+      with_eta ? static_cast<float*>(slots) : nullptr, V, S, G, with_eta);
   err = cudaGetLastError();
   if (err == cudaSuccess && with_eta)
     err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),

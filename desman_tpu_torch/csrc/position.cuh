@@ -95,40 +95,38 @@ struct AllBases {
   }
 };
 
-// eta[a, b] for a base b known only at run time, by selects (a register
-// array indexed by a run-time value would go to local memory).
-__device__ __forceinline__ float eta_at(const float e[4][4], int a, int b) {
-  return b == 0 ? e[a][0] : b == 1 ? e[a][1] : b == 2 ? e[a][2] : e[a][3];
-}
-
 // TwoBases takes the cell's at most two observed bases (tau_topk._kernel):
 // slot k holds count n_val[s].k of base b_idx[s].k, the two slots in
 // ascending base order; an unused slot has count 0 and base 0. Each term is
 // the same expression as AllBases' for that base, added in the same (base)
 // order, and AllBases' other terms add an exact 0 (n = 0 times a finite
 // log): so t[c] is bitwise AllBases' t[c] whenever the cell observes at most
-// two bases, with 2 logs per candidate instead of 4.
+// two bases, with 2 logs per candidate instead of 4. The eta column of each
+// slot's base, eta[:, b], comes from a [4] float4 table the kernel stages
+// once per block (eta_col[b] = eta[:, b], the same floats as e[:][b]), by
+// one shared-memory load indexed by the base: no selects over e, whose
+// registers the kernel then does not hold (it passes e = nullptr). Its logs
+// are warp.cuh's safe_log_normal: bitwise safe_log, without logf's special
+// cases.
 struct TwoBases {
-  const float2* n_val;  // [S] slot counts of position v
-  const int2* b_idx;    // [S] slot bases of position v
+  const float2* n_val;    // [S] slot counts of position v
+  const int2* b_idx;      // [S] slot bases of position v
+  const float4* eta_col;  // [4]: eta[:, b]
 
   __device__ __forceinline__ void operator()(int s, const float r[4], float gs,
-                                             const float e[4][4], float t[4]) const {
+                                             const float (*)[4], float t[4]) const {
     const float2 nv = n_val[s];
     const int2 bi = b_idx[s];
-    float e0[4], e1[4];  // eta[:, b] at each slot's base
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      e0[a] = eta_at(e, a, bi.x);
-      e1[a] = eta_at(e, a, bi.y);
-    }
+    const float4 c0 = eta_col[bi.x], c1 = eta_col[bi.y];
+    const float e0[4] = {c0.x, c0.y, c0.z, c0.w};  // eta[:, b] at each slot's base
+    const float e1[4] = {c1.x, c1.y, c1.z, c1.w};
     const float q0 = r[0] * e0[0] + r[1] * e0[1] + r[2] * e0[2] + r[3] * e0[3];
     const float q1 = r[0] * e1[0] + r[1] * e1[1] + r[2] * e1[2] + r[3] * e1[3];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float acc = 0.f;
-      acc += nv.x * safe_log(q0 + gs * e0[c]);
-      acc += nv.y * safe_log(q1 + gs * e1[c]);
+      acc += nv.x * safe_log_normal(q0 + gs * e0[c]);
+      acc += nv.y * safe_log_normal(q1 + gs * e1[c]);
       t[c] = acc;
     }
   }

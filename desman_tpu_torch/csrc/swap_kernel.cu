@@ -21,7 +21,8 @@
 // its samples in registers, the warp reduces dll with a shuffle butterfly,
 // and every lane then applies the same decision to the samples it owns.
 // Without emit_ll a warp past the ragged edge returns at once; with it, it
-// writes zeros into its block's reduction slot.
+// writes zeros into its block's reduction slot (in shared memory, or past
+// S = 3632 in the block's rows of a device-memory scratch: warp.cuh).
 #include <cuda_runtime.h>
 
 #include "position.cuh"
@@ -29,18 +30,19 @@
 namespace desman {
 namespace {
 
-template <bool kEmit>
+template <bool kEmit, bool kDeviceSlots>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 swap_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
             const float4* __restrict__ mix_in, const float* __restrict__ gamma,
             const float* __restrict__ eta, const int* __restrict__ g_ptr,
             const int* __restrict__ h_ptr, const float* __restrict__ logu,
-            int* __restrict__ tau_out, float4* __restrict__ mix_out, float* partial, int V,
-            int S, int G) {
-  extern __shared__ float slots[];
+            int* __restrict__ tau_out, float4* __restrict__ mix_out, float* partial,
+            float* slot_scratch, int V, int S, int G) {
+  extern __shared__ float smem_slots[];
   const long v = warp_position(V);
   if (!kEmit && v < 0) return;
   const int lane = threadIdx.x % kWarp;
+  float* slots = block_slots<kDeviceSlots>(slot_scratch, smem_slots, S);
   float* slot_a = kEmit ? warp_slot(slots, 0, S) : nullptr;
   float* slot_c = kEmit ? warp_slot(slots, 1, S) : nullptr;
   if (v >= 0) {
@@ -60,13 +62,15 @@ swap_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
 // n, mix_in, mix_out: [V,S,4] f32; tau_in, tau_out: [V,G] i32; gamma:
 // [S,G] f32; eta: [4,4] f32; g, h: device int32 scalars; logu: [V] f32.
 // ll: null, or the [S] f32 post-swap per-sample loglik, with partial the
-// [desman_partial_rows(V), 1, S] f32 scratch of its reduction.
-// Launches on `stream`, does not synchronise, allocates nothing; returns the
-// first failing call's cudaError_t.
+// [desman_partial_rows(V), 1, S] f32 scratch of its reduction and slots
+// null, or past S = 3632 the [desman_partial_rows(V), 2, 8, S] f32 scratch
+// of the blocks' slots. Launches on `stream`, does not synchronise,
+// allocates nothing; returns the first failing call's cudaError_t.
 extern "C" int desman_swap(const void* n, const void* tau_in, const void* mix_in,
                            const void* gamma, const void* eta, const void* g,
                            const void* h, const void* logu, void* tau_out, void* mix_out,
-                           void* partial, void* ll, int V, int S, int G, void* stream) {
+                           void* partial, void* slots, void* ll, int V, int S, int G,
+                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (V <= 0) {
     return ll ? static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * S, st))
@@ -75,15 +79,20 @@ extern "C" int desman_swap(const void* n, const void* tau_in, const void* mix_in
   const int blocks = desman::launch_blocks(V);
   const int threads = desman::kWarpsPerBlock * desman::kWarp;
   const bool emit = ll != nullptr;
-  auto kernel = emit ? desman::swap_kernel<true> : desman::swap_kernel<false>;
+  if (emit ? !desman::slot_scratch_ok(S, slots) : slots != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = !emit   ? desman::swap_kernel<false, false>
+                : slots ? desman::swap_kernel<true, true>
+                        : desman::swap_kernel<true, false>;
   cudaError_t err = emit ? desman::allow_slots(kernel, S) : cudaSuccess;
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, threads, emit ? desman::slot_bytes(S) : 0, st>>>(
+  kernel<<<blocks, threads, emit ? desman::smem_slot_bytes(S) : 0, st>>>(
       static_cast<const float4*>(n), static_cast<const int*>(tau_in),
       static_cast<const float4*>(mix_in), static_cast<const float*>(gamma),
       static_cast<const float*>(eta), static_cast<const int*>(g), static_cast<const int*>(h),
       static_cast<const float*>(logu), static_cast<int*>(tau_out),
-      static_cast<float4*>(mix_out), static_cast<float*>(partial), V, S, G);
+      static_cast<float4*>(mix_out), static_cast<float*>(partial), static_cast<float*>(slots),
+      V, S, G);
   err = cudaGetLastError();
   if (err == cudaSuccess && emit)
     err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),

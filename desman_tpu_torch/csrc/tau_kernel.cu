@@ -78,7 +78,7 @@ tau_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
     return;
   }
 
-  const TileLayout L(S, G, staged != 0, false);
+  const TileLayout L(S, G, staged != 0, TileKind::kTau);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* gamma_t = reinterpret_cast<float*>(smem + L.gamma_t);
   int* tau_new = reinterpret_cast<int*>(smem + L.tau_new);
@@ -128,7 +128,7 @@ extern "C" int desman_tau_sweep(const void* n, const void* tau_in, const void* m
                                 void* tau_out, void* mix_out, int V, int S, int G, int staged,
                                 int smem_bytes, int grid, void* stream) {
   if (V <= 0) return static_cast<int>(cudaSuccess);
-  const desman::TileLayout L(S, G, staged != 0, false);
+  const desman::TileLayout L(S, G, staged != 0, desman::TileKind::kTau);
   if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > desman::launch_blocks(V))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = staged ? desman::tau_sweep_kernel<true> : desman::tau_sweep_kernel<false>;

@@ -1,26 +1,30 @@
 // Row-resident tiles and persistent blocks: the shared pieces of the tau
-// kernel (tau_kernel.cu) and the fused front-half kernel (fused_sweep.cu).
+// kernel (tau_kernel.cu), the fused front-half kernel (fused_sweep.cu) and
+// the top-2 tau kernel (tau_topk.cu).
 //
 // A tile is kTile = kWarpsPerBlock = 8 consecutive positions, one warp
 // each, so a tile is what a block of the one-warp-per-position launch
-// covered and the fused kernel's [S] partial rows stay one per 8 positions.
-// Its n rows and mix rows are each one contiguous 8*S*16-byte span of the
-// [V,S,4] arrays, its gz rows one 8*G*16-byte span of [V,G,4] and its tau
+// covered and the [S] partial rows stay one per 8 positions. Its n rows and
+// mix rows are each one contiguous 8*S*16-byte span of the [V,S,4] arrays
+// (the top-2 kernel's n_val and b_idx rows one 8*S*8-byte span each of its
+// [V,S,2] arrays), its gz rows one 8*G*16-byte span of [V,G,4] and its tau
 // rows one 8*G*4-byte span of [V,G]: each comes into shared memory with one
 // asynchronous bulk copy (cp.async.bulk, the Tensor Memory Accelerator's
 // 1-D form) that completes on the block's mbarrier.
 //
-// Shared memory of a block, in bytes (ops/tau_kernel.py's tile_plan computes
-// the same total and the wrapper passes it in):
+// Shared memory of a block of the sweep kernels, in bytes (ops/tau_kernel.py's
+// tile_plan computes the same total and the wrapper passes it in):
 //   [0, 16)           the mbarrier
+//   eta columns       [4] float4, eta[:, b] (top-2 kernel only)
 //   gamma^T           [G][S] f32, staged once per block, rounded up to 16
 //   tau_new           [8][G] i32: the tile's new tau rows
 //   slots             [2][8][S] f32 (fused kernel only; warp.cuh)
-//   buffer            n [8][S] float4, mix [8][S] float4, gz [8][G] float4,
-//                     tau [8][G] i32
+//   buffer            n [8][S] float4 (top-2: n_val [8][S] float2, then
+//                     b_idx [8][S] int2), mix [8][S] float4, gz [8][G]
+//                     float4, tau [8][G] i32
 // Unstaged (a tile's rows do not fit) nothing is staged: the rows are read
-// from device memory as by the one-warp-per-position kernels (only the
-// slots remain).
+// from device memory as by the one-warp-per-position kernels (only the eta
+// columns and the slots remain, the slots only where they fit: warp.cuh).
 #pragma once
 
 #include <cstdint>
@@ -35,29 +39,33 @@ constexpr int kTile = kWarpsPerBlock;
 constexpr int kThreads = kWarpsPerBlock * kWarp;
 // Resident blocks a SM the row-resident kernels ask the compiler for
 // (__launch_bounds__ minimum): 5 allows at most 48 registers a thread. On
-// an H100 5 beat 4, 6 and 8 for both kernels at S=64 and S=96 (PERF.md).
+// an H100 5 beat 4, 6 and 8 for the tau and fused kernels at S=64 and S=96
+// (PERF.md).
 constexpr int kResidentBlocks = 5;
-// Dynamic shared memory one block may use on Hopper (227 KB).
-constexpr size_t kSmemLimit = 232448;
 
 __host__ __device__ constexpr size_t round16(size_t x) { return (x + 15) / 16 * 16; }
 
-struct TileLayout {
-  size_t gamma_t, tau_new, slots, buf, n, mix, gz, tau, bytes;
+enum class TileKind { kTau, kFused, kTopk };
 
-  __host__ __device__ TileLayout(int S, int G, bool staged, bool fused) {
+struct TileLayout {
+  size_t eta_cols, gamma_t, tau_new, slots, buf, n, mix, gz, tau, bytes;
+
+  __host__ __device__ TileLayout(int S, int G, bool staged, TileKind kind) {
     const size_t s = static_cast<size_t>(S), g = static_cast<size_t>(G);
-    const size_t slot_bytes = fused ? 2 * kTile * 4 * s : 0;
+    const bool fused = kind == TileKind::kFused;
+    const size_t head = kind == TileKind::kTopk ? 64 : 0;  // the eta columns
     n = mix = gz = tau = 0;
-    if (!staged) {  // rows in device memory: the slots alone
-      gamma_t = tau_new = slots = buf = 0;
-      bytes = slot_bytes;
+    if (!staged) {  // rows in device memory: the eta columns and the slots alone
+      eta_cols = gamma_t = tau_new = buf = 0;
+      slots = head;
+      bytes = head + (fused && slot_bytes(S) <= kSmemLimit ? slot_bytes(S) : 0);
       return;
     }
-    gamma_t = 16;
+    eta_cols = 16;
+    gamma_t = 16 + head;
     tau_new = gamma_t + round16(4 * s * g);
     slots = tau_new + kTile * 4 * g;
-    buf = slots + slot_bytes;
+    buf = slots + (fused ? 2 * kTile * 4 * s : 0);
     mix = n + kTile * 16 * s;
     gz = mix + kTile * 16 * s;
     tau = gz + kTile * 16 * g;
@@ -151,6 +159,12 @@ __device__ __forceinline__ uint32_t tau_bulk_bytes(int rows, int G) {
   return static_cast<uint32_t>(rows * G * 4) & ~15u;
 }
 
+// The same for the top-2 kernel's n_val (float2) or b_idx (int2) rows of a
+// tile: 8 bytes a cell, so short of a multiple of 16 where rows * S is odd.
+__device__ __forceinline__ uint32_t pair_bulk_bytes(int rows, int S) {
+  return static_cast<uint32_t>(rows * S * 8) & ~15u;
+}
+
 // One thread: start the copies of tile t's rows into the buffer.
 __device__ __forceinline__ void issue_tile(unsigned char* smem, const TileLayout& L,
                                            uint64_t* bar, long t, int V, int S, int G,
@@ -178,6 +192,25 @@ __device__ __forceinline__ void tau_tail(int* tau_s, const int* tau, long t, int
     for (int k = lane; k < G; k += kWarp) {
       const int i = w * G + k;
       if (i >= bulk_words) tau_s[i] = tau[t * kTile * G + i];
+    }
+  }
+  __syncwarp();
+}
+
+// After the wait: warp w loads the cells of its n_val and b_idx rows the
+// bulk copies left out (only on a ragged last tile where rows * S is odd:
+// the tile's last cell), then syncs the warp.
+__device__ __forceinline__ void pair_tail(float2* n_val_s, int2* b_idx_s, const float2* n_val,
+                                          const int2* b_idx, long t, int rows, int S, int w,
+                                          int lane) {
+  const int bulk_cells = static_cast<int>(pair_bulk_bytes(rows, S) / 8);
+  if (bulk_cells < rows * S) {
+    for (int s = lane; s < S; s += kWarp) {
+      const int i = w * S + s;
+      if (i >= bulk_cells) {
+        n_val_s[i] = n_val[t * kTile * S + i];
+        b_idx_s[i] = b_idx[t * kTile * S + i];
+      }
     }
   }
   __syncwarp();

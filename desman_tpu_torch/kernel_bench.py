@@ -1,16 +1,21 @@
-"""Device time and output bits of the tau-sweep and fused front-half
-kernels, beside the same kernels of another checkout; and the inputs,
+"""Device time and output bits of the port's kernels (chiefly the
+row-resident ones: the tau sweep, the fused front half and the top-2 tau
+sweep), beside the same kernels of another checkout; and the inputs,
 digests, bounds and timers that chip_smoke.py uses.
 
     python -m desman_tpu_torch.kernel_bench [--against ROOT] [--out FILE]
 
-Times this package's ``ops.tau_sweep`` and ``ops.fused_sweep`` at V=1e4
-S=64 G=8 (chip_smoke.py's phase-3 inputs) and V=1e5 S=96 G=16. With
---against, the same two wrappers of the ``desman_tpu_torch`` package in
-the checkout at ROOT (another commit, unpacked by ``git archive`` into a
-git-ignored directory) are loaded beside this package under another name,
-build their kernels into ROOT's own ``build/``, and run on the same inputs,
-in the order against, this, this, against. For each tree and kernel:
+Times this package's ``ops.tau_sweep``, ``ops.fused_sweep``,
+``ops.tau_sweep_topk`` (on biallelic counts, ``topk_inputs``) and
+``ops.gamma_ll`` (with_old) at V=1e4 S=64 G=8 (chip_smoke.py's phase-3
+inputs) and V=1e5 S=96 G=16, ``ops.gamma_ll`` also at V=1e4 S=64 G=1, the
+shape the resident path launches it at, and ``ops.swap`` (with and without
+emit_ll) and ``ops.gamma_apply_eta`` at V=1e4 S=64 G=8. With --against, the same
+public wrappers of the ``desman_tpu_torch`` package in the checkout at ROOT
+(another commit, unpacked by ``git archive`` into a git-ignored directory)
+are loaded beside this package under another name, build their kernels
+into ROOT's own ``build/``, and run on the same inputs, in the order
+against, this, this, against. For each tree and kernel:
 
 - device ms a call: CUDA events around 200 back-to-back calls, divided by
   200, and torch.profiler's self device time of each kernel over 50 calls;
@@ -22,9 +27,12 @@ in the order against, this, this, against. For each tree and kernel:
 - registers and spill bytes of each kernel function (``nvcc -Xptxas -v``
   over the tree's ``csrc/``).
 
-And the SASS instructions of one IEEE ``logf`` (a probe kernel with and
-without it). One JSON line per measurement, all of them also in FILE with
---out. Needs a CUDA device and nvcc; it does not fall back.
+And the SASS instructions of one IEEE ``logf`` and of one ``log_normal``
+(probe kernels with and without them), the check of ``log_normal`` against
+``logf`` on every float of [1e-12, FLT_MAX], and this tree's tile plan, registers and resident blocks of
+each row-resident kernel (``ops.tau_kernel.kernel_info``). One JSON line per
+measurement, all of them also in FILE with --out. Needs a CUDA device and
+nvcc; it does not fall back.
 """
 from __future__ import annotations
 
@@ -51,8 +59,16 @@ from .ops import _build
 # per clock per SM at the 1.98 GHz boost clock, 3.35 TB/s of HBM3).
 LOG_RATE = 132 * 16 * 1.98e9     # logs/s
 MEM_RATE = 3.35e12               # bytes/s
+INSTR_RATE = 132 * 4 * 1.98e9    # warp instructions/s (4 schedulers a SM)
 METRIC = (10_000, 64, 8)         # the port's metric configuration
+ONE_STRAIN = (10_000, 64, 1)     # gamma_ll's shape on the resident path (G=1)
 SCALE = (100_000, 96, 16)        # the full-sweep scale (ROADMAP item 13)
+# the row-resident kernels (ops.tau_kernel's plans), and the kernels
+# measure() times at each shape
+RESIDENT = ("tau_sweep", "fused_sweep", "tau_sweep_topk")
+KERNELS = {METRIC: RESIDENT + ("gamma_ll", "swap", "swap_emit_ll", "gamma_apply_eta"),
+           ONE_STRAIN: ("gamma_ll",),
+           SCALE: RESIDENT + ("gamma_ll",)}
 EVENT_LAUNCHES, PROFILED_LAUNCHES = 200, 50
 
 
@@ -78,10 +94,9 @@ def _i32(x) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32))
 
 
-def phase3_inputs(V: int, S: int, G: int):
+def phase3_inputs(V: int, S: int, G: int) -> dict:
     """chip_smoke.py's phase-3 inputs as CPU tensors, drawn in its order
-    from synth.generate(seed=0) and numpy's default_rng(0); returns (dict,
-    rng) with the rng where the top-2 kernel's draws start.
+    from synth.generate(seed=0) and numpy's default_rng(0).
 
     tau/mix/gz: the tau sweep's; tau_s/mix_s/g/h/logu: the swap's (the
     truth with strains g, h exchanged at half the positions); gp/accept:
@@ -103,7 +118,7 @@ def phase3_inputs(V: int, S: int, G: int):
              accept=torch.as_tensor(rng.random(S) < 0.5))
     tau0 = rng.integers(0, 4, size=(V, G))
     d.update(tau0=_i32(tau0), mix0=_f32(host_mixture(tau0, t.gamma)))
-    return d, rng
+    return d
 
 
 def tau_args(d: dict) -> tuple:
@@ -116,6 +131,53 @@ def fused_args(d: dict) -> tuple:
     kernel, from the fused kernel's own start tau0."""
     return tuple(d[k] for k in ("n", "tau0", "mix0", "gamma", "eta", "gz", "g", "h",
                                 "logu", "gp"))
+
+
+def topk_inputs(V: int, S: int, G: int) -> dict:
+    """The top-2 kernel's inputs as CPU tensors, built as chip_smoke.py's
+    top-2 phase uses them: biallelic, error-free counts (every cell observes
+    at most two bases) from synth.generate(error_rate=0, max_alleles=2,
+    seed=0) with n (the [V,S,4] counts, for the tau kernel) beside their
+    top-2 layout n_val/b_idx; eta = synth.make_eta(0.01) (with the data's
+    own eta, the identity, most logs would sit at the 1e-12 floor); tau and
+    gz from numpy's default_rng(2), the mixture by host_mixture."""
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, error_rate=0.0, max_alleles=2,
+                       seed=0)
+    rng = np.random.default_rng(2)
+    tau = rng.integers(0, 4, size=(V, G))
+    layout = ops.tau_topk.topk_layout(t.data.counts, "cpu")
+    return dict(n=_f32(t.data.counts), n_val=layout.n_val, b_idx=layout.b_idx,
+                tau=_i32(tau), mix=_f32(host_mixture(tau, t.gamma)), gamma=_f32(t.gamma),
+                eta=_f32(synth.make_eta(0.01)), gz=_f32(rng.gumbel(size=(V, G, 4))))
+
+
+def topk_args(d: dict) -> tuple:
+    """(n_val, b_idx, tau, mix, gamma, eta, gz) of the top-2 sweep."""
+    return tuple(d[k] for k in ("n_val", "b_idx", "tau", "mix", "gamma", "eta", "gz"))
+
+
+def gamma_ll_args(d: dict) -> tuple:
+    """(n, mix, tau, gamma_prop, eta) of gamma_ll, on the tau sweep's start."""
+    return tuple(d[k] for k in ("n", "mix", "tau", "gp", "eta"))
+
+
+def swap_args(d: dict) -> tuple:
+    """(n, tau, mix, gamma, eta, g, h, logu) of the swap, on the truth with
+    strains g, h exchanged at half the positions."""
+    return tuple(d[k] for k in ("n", "tau_s", "mix_s", "gamma", "eta", "g", "h", "logu"))
+
+
+# each kernel's call on measure()'s inputs (the top-2 kernel's: topk_inputs)
+CALLS = {
+    "tau_sweep": lambda o, d: o.tau_sweep(*tau_args(d)),
+    "fused_sweep": lambda o, d: o.fused_sweep(*fused_args(d)),
+    "tau_sweep_topk": lambda o, d: o.tau_sweep_topk(*topk_args(d)),
+    "gamma_ll": lambda o, d: o.gamma_ll(*gamma_ll_args(d)),
+    "swap": lambda o, d: o.swap(*swap_args(d)),
+    "swap_emit_ll": lambda o, d: o.swap(*swap_args(d), emit_ll=True),
+    "gamma_apply_eta": lambda o, d: o.gamma_apply_eta(
+        *(d[k] for k in ("n", "mix", "tau", "gp", "accept")), d["eta"].flip(0).contiguous()),
+}
 
 
 def digest(*tensors: torch.Tensor) -> str:
@@ -150,6 +212,15 @@ def kernel_work(name: str, V: int, S: int, G: int) -> tuple[int, int]:
     if name == "gamma_apply_eta":        # with_eta: n, mix, tau, gp, accept, eta_prop; mix, ll
         return 4 * cells, 3 * row + tau + gam + S + 64 + 4 * S
     raise ValueError(f"no work model for kernel {name!r}")
+
+
+def log_issue_ms(name: str, V: int, S: int, G: int, instructions: dict) -> float:
+    """The least time the card's schedulers take to issue kernel `name`'s
+    logs alone: its logs times the SASS instructions of one log
+    (log_instructions: the top-2 kernel's log_normal, the others' logf),
+    over 32 lanes a warp instruction and INSTR_RATE."""
+    per_log = instructions["log_normal" if name == "tau_sweep_topk" else "logf"]
+    return kernel_work(name, V, S, G)[0] * per_log / 32 / INSTR_RATE * 1e3
 
 
 def bound(name: str, V: int, S: int, G: int) -> dict:
@@ -231,12 +302,18 @@ def load_ops(root: Path, name: str = "desman_tpu_torch_against"):
     return importlib.import_module(f"{name}.ops")
 
 
+# the sources and kernel functions ptxas_registers reports
+REGISTER_KERNELS = {"tau_kernel.cu": "tau_sweep_kernel", "fused_sweep.cu": "fused_sweep_kernel",
+                    "tau_topk.cu": "tau_topk_kernel", "gamma_kernel.cu": "gamma_ll_kernel"}
+
+
 def ptxas_registers(csrc: Path, workdir: Path) -> dict:
-    """nvcc -Xptxas -v of csrc's tau_kernel.cu and fused_sweep.cu, with the
-    package's flags: {kernel function: {registers, spill_stores,
-    spill_loads}}."""
+    """nvcc -Xptxas -v of the tau, fused, top-2 and gamma kernels' sources in
+    csrc, with the package's flags: {kernel function: {registers,
+    spill_stores, spill_loads}} for the kernel functions of
+    REGISTER_KERNELS."""
     out = {}
-    for src in ("tau_kernel.cu", "fused_sweep.cu"):
+    for src in REGISTER_KERNELS:
         res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                               "-o", str(workdir / f"{src}.o"), str(Path(csrc) / src)],
                              capture_output=True, text=True)
@@ -258,23 +335,27 @@ def ptxas_registers(csrc: Path, workdir: Path) -> dict:
             if m and fn:
                 out.setdefault(fn, {})["registers"] = int(m.group(1))
     return {k: v for k, v in out.items()
-            if "registers" in v and ("tau_sweep_kernel" in k or "fused_sweep_kernel" in k)}
+            if "registers" in v and any(name in k for name in REGISTER_KERNELS.values())}
 
 
-def logf_instructions(workdir: Path) -> int:
-    """SASS instructions of one IEEE logf: a kernel y = logf(x) against the
+def log_instructions(workdir: Path) -> dict:
+    """SASS instructions of one IEEE logf and of one csrc/warp.cuh
+    log_normal: probe kernels y = logf(x) and y = log_normal(x) against the
     same kernel with y = x, built with the package's flags (NOPs not
     counted)."""
-    src = workdir / "logf_probe.cu"
+    src = workdir / "log_probe.cu"
     src.write_text(
+        "#include \"warp.cuh\"\n"
         "extern \"C\" __global__ void copy_probe(const float* x, float* y) {\n"
         "  y[threadIdx.x] = x[threadIdx.x];\n}\n"
         "extern \"C\" __global__ void logf_probe(const float* x, float* y) {\n"
-        "  y[threadIdx.x] = logf(x[threadIdx.x]);\n}\n")
-    cubin = workdir / "logf_probe.cubin"
+        "  y[threadIdx.x] = logf(x[threadIdx.x]);\n}\n"
+        "extern \"C\" __global__ void log_normal_probe(const float* x, float* y) {\n"
+        "  y[threadIdx.x] = desman::log_normal(x[threadIdx.x]);\n}\n")
+    cubin = workdir / "log_probe.cubin"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
-    subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(cubin), str(src)],
-                   check=True, capture_output=True, text=True)
+    subprocess.run([_build._nvcc(), *flags, "-I", str(_build.CSRC), "-cubin", "-o", str(cubin),
+                    str(src)], check=True, capture_output=True, text=True)
     sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
                            "-sass", str(cubin)], check=True, capture_output=True,
                           text=True).stdout
@@ -285,7 +366,25 @@ def logf_instructions(workdir: Path) -> int:
             fn = m.group(1)
         elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP)\S", line):
             count[fn] = count.get(fn, 0) + 1
-    return count["logf_probe"] - count["copy_probe"]
+    return {"logf": count["logf_probe"] - count["copy_probe"],
+            "log_normal": count["log_normal_probe"] - count["copy_probe"]}
+
+
+def log_mismatches() -> dict:
+    """csrc/warp.cuh's log_normal against the IEEE logf on the card, on
+    every float of [1e-12, FLT_MAX] (the range safe_log hands to logf;
+    csrc/log_check.cu): the floats checked, how many differ in any bit, and
+    the least that does (None if none)."""
+    lo = int(np.array(1e-12, dtype=np.float32).view(np.uint32))
+    hi = int(np.array(np.finfo(np.float32).max, dtype=np.float32).view(np.uint32))
+    lib = _build.load_library()
+    out = torch.tensor([0, 0xFFFFFFFF], dtype=torch.int64, device="cuda")
+    _build.check(lib, lib.desman_log_mismatches(lo, hi, out.data_ptr(),
+                                                _build.stream_of(out)), "log check")
+    count, first = (int(x) for x in out.cpu())
+    first &= 0xFFFFFFFF
+    return dict(floats=hi - lo + 1, mismatches=count,
+                first=None if count == 0 else float(np.array(first, np.uint32).view(np.float32)))
 
 
 # ---------------------------------------------------------------- runs
@@ -294,7 +393,7 @@ def card_inputs(V: int, S: int, G: int, dev) -> dict:
     """The metric configuration's inputs are chip_smoke's phase-3 inputs;
     at other shapes the same draws from synth.generate(seed=1)."""
     if (V, S, G) == METRIC:
-        d, _ = phase3_inputs(V, S, G)
+        d = phase3_inputs(V, S, G)
     else:
         t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=1)
         rng = np.random.default_rng(1)
@@ -311,25 +410,30 @@ def card_inputs(V: int, S: int, G: int, dev) -> dict:
 
 
 def measure(trees: dict, shape, rows: list) -> None:
-    """Each kernel of each tree at `shape`: digests, then CUDA-event times
-    in the order of `trees` and back, then profiler times, host time and
-    the digests again."""
+    """Each of KERNELS[shape] of each tree at `shape`: digests, then
+    CUDA-event times in the order of `trees` and back, then profiler times,
+    host time and the digests again."""
     V, S, G = shape
-    d = card_inputs(V, S, G, torch.device("cuda"))
-    for kernel in ("tau_sweep", "fused_sweep"):
-        args = tau_args(d) if kernel == "tau_sweep" else fused_args(d)
-        calls = {name: (lambda o=o: getattr(o, kernel)(*args)) for name, o in trees.items()}
+    dev = torch.device("cuda")
+    d = card_inputs(V, S, G, dev)
+    for kernel in KERNELS[shape]:
+        k_in = ({k: v.to(dev) for k, v in topk_inputs(V, S, G).items()}
+                if kernel == "tau_sweep_topk" else d)
+        calls = {name: (lambda o=o: CALLS[kernel](o, k_in)) for name, o in trees.items()}
 
         def sha(name):
             out = calls[name]()
             torch.cuda.synchronize()
-            return digest(*out)
+            return digest(*(out if isinstance(out, tuple) else (out,)))
 
         digests = {name: sha(name) for name in trees}
         ev = {name: [] for name in trees}
         for name in list(trees) + list(reversed(trees)):
             ev[name].append(event_ms(calls[name]))
-        row = dict(kernel=kernel, V=V, S=S, G=G, **bound(kernel, V, S, G), event_ms=ev,
+        plan, grid = (ops.tau_kernel.resident_grid(kernel, V, S, G, dev.index or 0)
+                      if kernel in RESIDENT else (None, None))
+        row = dict(kernel=kernel, V=V, S=S, G=G, **bound(kernel, V, S, G),
+                   plan=plan and plan._asdict(), grid=grid, event_ms=ev,
                    profiled_ms={name: profiled_ms(calls[name]) for name in trees},
                    host_us={name: host_us(calls[name]) for name in trees},
                    sha256=digests,
@@ -359,16 +463,21 @@ def main(argv=None) -> int:
         trees = {"against": load_ops(Path(args.against)), **trees}
         csrc["against"] = Path(args.against) / "desman_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
-        report["logf_instructions"] = logf_instructions(Path(tmp))
+        report["log_instructions"] = log_instructions(Path(tmp))
         report["ptxas"] = {name: ptxas_registers(path, Path(tmp)) for name, path in csrc.items()}
-    print(json.dumps({k: report[k] for k in ("logf_instructions", "ptxas")}), flush=True)
-    report["runtime"] = {f"S{S}_G{G}": {k: ops.tau_kernel.kernel_info(k, S, G)
-                                        for k in ("tau_sweep", "fused_sweep")}
-                         for S, G in (METRIC[1:], SCALE[1:])}
+    report["log_normal"] = log_mismatches()
+    print(json.dumps({k: report[k] for k in ("log_instructions", "ptxas", "log_normal")}),
+          flush=True)
+    report["runtime"] = {f"S{shape[1]}_G{shape[2]}": {
+        k: ops.tau_kernel.kernel_info(k, *shape[1:])
+        for k in KERNELS[shape] if k in RESIDENT} for shape in KERNELS}
     print(json.dumps({"runtime": report["runtime"]}), flush=True)
     rows = report["rows"] = []
-    for shape in (METRIC, SCALE):
+    for shape in KERNELS:
         measure(trees, shape, rows)
+    for row in rows:
+        row["log_issue_ms"] = log_issue_ms(row["kernel"], row["V"], row["S"], row["G"],
+                                           report["log_instructions"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -9,7 +9,8 @@ and renames it into place, so concurrent processes never load a
 half-written library. A missing nvcc or a failed compile raises with the
 compiler's output.
 Beside the build: the checks every wrapper makes before it hands pointers
-to the library, and the error check after each launch.
+to the library, the error check after each launch, and the scratch of the
+kernels' ``[S]`` reductions.
 """
 from __future__ import annotations
 
@@ -29,6 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "desman_tpu_torch"
 # plain version beyond float near-ties.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+SMEM_LIMIT = 232448    # dynamic shared memory one block may use on Hopper (227 KB)
+TILE = 8               # positions a tile (and a block's warps)
+SLOT_ROWS = 2          # rows of a block's reduction slots (csrc/warp.cuh)
 
 _library = None
 
@@ -110,18 +114,22 @@ def load_library() -> ctypes.CDLL:
         lib.desman_tau_sweep.restype = i32
         lib.desman_tau_sweep_info.argtypes = [i32, i32, ptr]
         lib.desman_tau_sweep_info.restype = i32
-        lib.desman_tau_sweep_topk.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
+        lib.desman_tau_sweep_topk.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         lib.desman_tau_sweep_topk.restype = i32
-        lib.desman_swap.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
+        lib.desman_swap.argtypes = [ptr] * 13 + [i32] * 3 + [ptr]
         lib.desman_swap.restype = i32
-        lib.desman_gamma_ll.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.desman_gamma_ll.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.desman_gamma_ll.restype = i32
-        lib.desman_gamma_apply_eta.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+        lib.desman_gamma_apply_eta.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
         lib.desman_gamma_apply_eta.restype = i32
-        lib.desman_fused_sweep.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+        lib.desman_fused_sweep.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
         lib.desman_fused_sweep.restype = i32
-        lib.desman_fused_sweep_info.argtypes = [i32, i32, ptr]
-        lib.desman_fused_sweep_info.restype = i32
+        for info in ("tau_sweep_topk", "fused_sweep"):
+            fn = getattr(lib, f"desman_{info}_info")
+            fn.argtypes = [i32, i32, ptr]
+            fn.restype = i32
+        lib.desman_log_mismatches.argtypes = [ctypes.c_uint, ctypes.c_uint, ptr, ptr]
+        lib.desman_log_mismatches.restype = i32
         lib.desman_partial_rows.argtypes = [i32]
         lib.desman_partial_rows.restype = i32
         lib.desman_error_string.argtypes = [i32]
@@ -149,6 +157,27 @@ def partial_scratch(lib: ctypes.CDLL, V: int, rows: int, S: int,
     (warp.cuh's deterministic reduction)."""
     return torch.empty((max(lib.desman_partial_rows(V), 1), rows, S),
                        dtype=torch.float32, device=device)
+
+
+def slots_in_device_memory(S: int) -> bool:
+    """Whether a block's [2,8,S] f32 reduction slots are past the shared
+    memory a block may use (S > 3632), and so live in device memory."""
+    return SLOT_ROWS * TILE * 4 * S > SMEM_LIMIT
+
+
+def slot_scratch(blocks: int, S: int, device):
+    """None where a block's reduction slots fit in shared memory; past
+    that, the device-memory scratch of `blocks` blocks' slots, [blocks, 2,
+    8, S] f32 (csrc/warp.cuh)."""
+    if not slots_in_device_memory(S):
+        return None
+    return torch.empty((blocks, SLOT_ROWS, TILE, S), dtype=torch.float32,
+                       device=device)
+
+
+def ptr(t):
+    """A tensor's data pointer for a C entry point, None for None."""
+    return None if t is None else t.data_ptr()
 
 
 def require(name: str, t, dtype, shape, device) -> None:

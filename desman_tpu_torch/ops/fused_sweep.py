@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from ..utils import NBASES
-from ._build import check, load_library, partial_scratch, require, stream_of
+from ._build import (
+    check, load_library, partial_scratch, ptr, require, slot_scratch, stream_of,
+)
 from .gamma_kernel import gamma_ll_reference
 from .swap_kernel import swap_reference
 from .tau_kernel import resident_grid, tau_sweep_reference
@@ -44,13 +46,14 @@ def launch(lib, n, tau, mix, gamma, eta, gz, g, h, logu, gamma_prop, tau_out,
     V, S, _ = n.shape
     G = tau.shape[1]
     plan, grid = resident_grid("fused_sweep", V, S, G, n.device.index, max_blocks)
+    slots = slot_scratch(grid, S, n.device)
     with torch.cuda.device(n.device):
         err = lib.desman_fused_sweep(
             n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), gz.data_ptr(), g.data_ptr(), h.data_ptr(),
             logu.data_ptr(), gamma_prop.data_ptr(), tau_out.data_ptr(),
-            mix_out.data_ptr(), partial.data_ptr(), ll.data_ptr(), V, S, G,
-            plan.buffers, plan.smem_bytes, grid, stream_of(n))
+            mix_out.data_ptr(), partial.data_ptr(), ptr(slots), ll.data_ptr(), V,
+            S, G, plan.buffers, plan.smem_bytes, grid, stream_of(n))
     check(lib, err, "fused_sweep")
 
 

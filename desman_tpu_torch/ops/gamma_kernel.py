@@ -11,7 +11,8 @@ PyTorch versions.
 
 Each runs ``csrc/gamma_kernel.cu`` on CUDA tensors and its plain version on
 CPU tensors; on any other device it raises. ``accept`` stays an [S] bool
-device tensor, so the sweep never waits for the host.
+device tensor, so the sweep never waits for the host. Past S = 3632 both
+kernels keep their reduction slots in a device-memory scratch.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 
 from ..likelihood import mixture
 from ..utils import NBASES, one_hot_tau, safe_log
-from ._build import check, load_library, partial_scratch, require, stream_of
+from ._build import (
+    check, load_library, partial_scratch, ptr, require, slot_scratch, stream_of,
+)
 
 
 def _check(n, mix, tau, gamma_prop, eta):
@@ -40,6 +43,20 @@ def _sample_loglik(n, mix, eta):
                      dim=(0, 2))
 
 
+def launch(lib, n, mix, tau, gamma_prop, eta, partial, ll, with_old=True):
+    """Launch the gamma_ll kernel and its reduction on checked CUDA tensors
+    into a preallocated ll [2,S] and partial scratch. Raises on a launch
+    error."""
+    V, S, _ = n.shape
+    slots = slot_scratch(partial.shape[0], S, n.device)
+    with torch.cuda.device(n.device):
+        err = lib.desman_gamma_ll(
+            n.data_ptr(), mix.data_ptr(), tau.data_ptr(), gamma_prop.data_ptr(),
+            eta.data_ptr(), partial.data_ptr(), ptr(slots), ll.data_ptr(), V, S,
+            tau.shape[1], int(with_old), stream_of(n))
+    check(lib, err, "gamma_ll")
+
+
 def gamma_ll(n, mix, tau, gamma_prop, eta, with_old=True):
     """Per-sample loglik [2,S] of the carried mixture (row 0, zeros unless
     with_old) and of the gamma proposal (row 1).
@@ -53,13 +70,8 @@ def gamma_ll(n, mix, tau, gamma_prop, eta, with_old=True):
         raise ValueError(f"gamma_ll: no kernel for device {n.device}")
     lib = load_library()
     ll = torch.empty((2, S), dtype=torch.float32, device=n.device)
-    partial = partial_scratch(lib, V, 2, S, n.device)
-    with torch.cuda.device(n.device):
-        err = lib.desman_gamma_ll(
-            n.data_ptr(), mix.data_ptr(), tau.data_ptr(), gamma_prop.data_ptr(),
-            eta.data_ptr(), partial.data_ptr(), ll.data_ptr(), V, S, G,
-            int(with_old), stream_of(n))
-    check(lib, err, "gamma_ll")
+    launch(lib, n, mix, tau, gamma_prop, eta, partial_scratch(lib, V, 2, S, n.device),
+           ll, with_old)
     gamma_ll.launches += 1
     return ll
 
@@ -93,16 +105,16 @@ def gamma_apply_eta(n, mix, tau, gamma_prop, accept, eta_prop, with_eta=True):
     if with_eta:
         ll = torch.empty(S, dtype=torch.float32, device=n.device)
         partial = partial_scratch(lib, V, 1, S, n.device)
+        slots = slot_scratch(partial.shape[0], S, n.device)
     else:
         ll = torch.zeros(S, dtype=torch.float32, device=n.device)
-        partial = None
+        partial = slots = None
     with torch.cuda.device(n.device):
         err = lib.desman_gamma_apply_eta(
             n.data_ptr(), mix.data_ptr(), tau.data_ptr(), gamma_prop.data_ptr(),
             accept.data_ptr(), eta_prop.data_ptr(), mix_out.data_ptr(),
-            partial.data_ptr() if with_eta else None,
-            ll.data_ptr() if with_eta else None, V, S, G, int(with_eta),
-            stream_of(n))
+            ptr(partial), ptr(slots), ll.data_ptr() if with_eta else None, V, S, G,
+            int(with_eta), stream_of(n))
     check(lib, err, "gamma_apply_eta")
     gamma_apply_eta.launches += 1
     return mix_out, ll

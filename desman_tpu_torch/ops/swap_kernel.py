@@ -15,7 +15,7 @@ import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
 from ._build import (
-    check, load_library, partial_scratch, require, stream_of,
+    check, load_library, partial_scratch, ptr, require, slot_scratch, stream_of,
 )
 
 
@@ -52,13 +52,13 @@ def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
     mix_out = torch.empty_like(mix)
     ll = torch.empty(S, dtype=torch.float32, device=n.device) if emit_ll else None
     partial = partial_scratch(lib, V, 1, S, n.device) if emit_ll else None
+    slots = slot_scratch(partial.shape[0], S, n.device) if emit_ll else None
     with torch.cuda.device(n.device):
         err = lib.desman_swap(
             n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), g.data_ptr(), h.data_ptr(), logu.data_ptr(),
-            tau_out.data_ptr(), mix_out.data_ptr(),
-            partial.data_ptr() if emit_ll else None,
-            ll.data_ptr() if emit_ll else None, V, S, G, stream_of(n))
+            tau_out.data_ptr(), mix_out.data_ptr(), ptr(partial), ptr(slots),
+            ptr(ll), V, S, G, stream_of(n))
     check(lib, err, "swap")
     swap.launches += 1
     return (tau_out, mix_out, ll) if emit_ll else (tau_out, mix_out)

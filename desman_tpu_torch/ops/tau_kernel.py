@@ -8,10 +8,10 @@ kernel is held against. Both take the categorical noise pre-drawn
 (``draw_gumbel``, multiplied by the temperature by the caller), so the same
 noise gives the same draws up to float near-ties.
 
-``tile_plan`` is the shared-memory plan of the row-resident tau and fused
-kernels (``csrc/tile.cuh``): whether a block stages its 8-position tile of
-rows, and the bytes that takes; ``resident_grid`` the persistent grid that
-walks the tiles.
+``tile_plan`` is the shared-memory plan of the row-resident tau, fused and
+top-2 kernels (``csrc/tile.cuh``): whether a block stages its 8-position
+tile of rows, the bytes that takes, and where the fused kernel's reduction
+slots live; ``resident_grid`` the persistent grid that walks the tiles.
 """
 from __future__ import annotations
 
@@ -22,19 +22,25 @@ from typing import NamedTuple
 import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
-from ._build import check, load_library, require, stream_of
+from ._build import (
+    SMEM_LIMIT, TILE, check, load_library, require, slots_in_device_memory, stream_of,
+)
 
-TILE = 8               # positions a tile: one warp each, a block's 8 warps
-SMEM_LIMIT = 232448    # dynamic shared memory one block may use on Hopper (227 KB)
+# the C entry point that reports each row-resident kernel's resources
+_INFO = {"tau_sweep": "desman_tau_sweep_info", "fused_sweep": "desman_fused_sweep_info",
+         "tau_sweep_topk": "desman_tau_sweep_topk_info"}
 
 
 class TilePlan(NamedTuple):
     """buffers: 1 where a block stages its tile's rows in shared memory, 0
     where they stay in device memory. smem_bytes: the block's dynamic
-    shared memory."""
+    shared memory. device_slots: 1 where the block's [2,8,S] reduction slots
+    are past the shared memory a block may use (S > 3632) and live in a
+    device-memory scratch, else 0."""
 
     buffers: int
     smem_bytes: int
+    device_slots: int = 0
 
 
 def _round16(x: int) -> int:
@@ -42,63 +48,73 @@ def _round16(x: int) -> int:
 
 
 @lru_cache(maxsize=None)
-def tile_plan(S: int, G: int, fused: bool = False) -> TilePlan:
-    """The tile plan of the tau kernel (fused=False) or the fused
-    front-half kernel at S samples and G strains: tile.cuh's TileLayout.
+def tile_plan(S: int, G: int, fused: bool = False, topk: bool = False) -> TilePlan:
+    """The tile plan of the tau kernel, the fused front-half kernel
+    (fused=True) or the top-2 kernel (topk=True) at S samples and G
+    strains: tile.cuh's TileLayout.
 
-    A block holds 16 bytes of mbarrier, gamma as [G][S] f32 (rounded up to
-    16 bytes), the tile's new tau rows [8,G] i32 and, in the fused kernel,
-    its [2,8,S] f32 reduction slots, and one buffer of the tile's n and mix
-    rows ([8,S] float4 each), gz rows ([8,G] float4) and tau rows ([8,G]
-    i32), where that fits in SMEM_LIMIT; else nothing is staged (the fused
-    kernel keeps its slots). A second buffer, the next tile's copy in
-    flight, was slower on an H100 at S=64 and S=96 (PERF.md).
+    A block holds 16 bytes of mbarrier, in the top-2 kernel eta's four
+    columns ([4] float4), gamma as [G][S] f32 (rounded up to 16 bytes), the
+    tile's new tau rows [8,G] i32 and, in the fused kernel, its [2,8,S] f32
+    reduction slots, and one buffer of the tile's n and mix rows ([8,S]
+    float4 each; the top-2 kernel's n_val and b_idx rows take n's 16 bytes
+    a cell), gz rows ([8,G] float4) and tau rows ([8,G] i32), where that
+    fits in SMEM_LIMIT; else nothing is staged but eta's columns and the
+    fused kernel's slots, and past S = 3632 those slots are in device
+    memory too. A second buffer, the next tile's copy in flight, was slower
+    for the tau and fused kernels on an H100 at S=64 and S=96 (PERF.md).
     """
+    head = 64 if topk else 0
     slots = 2 * TILE * 4 * S if fused else 0
-    need = (16 + _round16(4 * S * G) + TILE * 4 * G + slots
+    need = (16 + head + _round16(4 * S * G) + TILE * 4 * G + slots
             + 2 * TILE * 16 * S + TILE * 16 * G + TILE * 4 * G)
     if need <= SMEM_LIMIT:
         return TilePlan(1, need)
-    if slots > SMEM_LIMIT:
-        raise ValueError(f"S={S}: the fused kernel's [2,8,S] slots need {slots} "
-                         f"bytes of shared memory, more than {SMEM_LIMIT}")
-    return TilePlan(0, slots)
+    if fused and slots_in_device_memory(S):
+        return TilePlan(0, head, 1)
+    return TilePlan(0, head + slots)
+
+
+def plan(kernel: str, S: int, G: int) -> TilePlan:
+    """The plan of row-resident kernel `kernel` at (S, G)."""
+    if kernel not in _INFO:
+        raise ValueError(f"no tile plan for kernel {kernel!r}")
+    return tile_plan(S, G, kernel == "fused_sweep", kernel == "tau_sweep_topk")
 
 
 @lru_cache(maxsize=None)
 def _info(kernel: str, S: int, G: int, device: int) -> tuple:
-    plan = tile_plan(S, G, kernel == "fused_sweep")
+    p = plan(kernel, S, G)
     lib = load_library()
-    fn = (lib.desman_fused_sweep_info if kernel == "fused_sweep"
-          else lib.desman_tau_sweep_info)
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        check(lib, fn(plan.buffers, plan.smem_bytes, out), f"{kernel} info")
-    return plan, tuple(out)
+        check(lib, getattr(lib, _INFO[kernel])(p.buffers, p.smem_bytes, out),
+              f"{kernel} info")
+    return p, tuple(out)
 
 
 def kernel_info(kernel: str, S: int, G: int) -> dict:
-    """The tile plan of the tau or fused kernel at (S, G) with its
-    registers, local (spill) bytes, resident blocks a SM and the SMs of the
-    current CUDA device, from cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor. The first call for a
-    device opts the kernel in to its shared memory there; the answer is
-    kept, so a launch asks the runtime nothing."""
-    plan, (registers, local_bytes, per_sm, sms) = _info(
+    """The tile plan of a row-resident kernel (tau_sweep, fused_sweep,
+    tau_sweep_topk) at (S, G) with its registers, local (spill) bytes,
+    resident blocks a SM and the SMs of the current CUDA device, from
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+    The first call for a device opts the kernel in to its shared memory
+    there; the answer is kept, so a launch asks the runtime nothing."""
+    p, (registers, local_bytes, per_sm, sms) = _info(
         kernel, S, G, torch.cuda.current_device())
     return dict(registers=registers, local_bytes=local_bytes, blocks_per_sm=per_sm,
-                sms=sms, buffers=plan.buffers, smem_bytes=plan.smem_bytes)
+                sms=sms, **p._asdict())
 
 
 def resident_grid(kernel: str, V: int, S: int, G: int, device: int,
                   max_blocks: int = 0) -> tuple[TilePlan, int]:
-    """(tile plan, grid) of a launch of the tau or fused kernel on CUDA
-    device `device`: the blocks the card holds at once (SMs x resident
-    blocks a SM for this shared memory), no more than the tiles and, when
-    max_blocks > 0, no more than max_blocks."""
-    plan, (_, _, per_sm, sms) = _info(kernel, S, G, device)
+    """(tile plan, grid) of a launch of a row-resident kernel on CUDA device
+    `device`: the blocks the card holds at once (SMs x resident blocks a SM
+    for this shared memory), no more than the tiles and, when max_blocks >
+    0, no more than max_blocks."""
+    p, (_, _, per_sm, sms) = _info(kernel, S, G, device)
     grid = min(sms * max(per_sm, 1), (V + TILE - 1) // TILE)
-    return plan, min(grid, max_blocks) if max_blocks > 0 else grid
+    return p, min(grid, max_blocks) if max_blocks > 0 else grid
 
 
 def _check(n, tau, mix, gamma, eta, gz):

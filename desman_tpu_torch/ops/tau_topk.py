@@ -24,6 +24,7 @@ import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
 from ._build import check, load_library, require, stream_of
+from .tau_kernel import resident_grid
 
 K_SLOTS = 2
 
@@ -92,6 +93,24 @@ def _check(n_val, b_idx, tau, mix, gamma, eta, gz):
     return V, S, G
 
 
+def launch(lib, n_val, b_idx, tau, mix, gamma, eta, gz, tau_out, mix_out,
+           max_blocks=0):
+    """Launch the top-2 kernel on checked CUDA tensors into preallocated
+    outputs; max_blocks > 0 caps the persistent grid (the result does not
+    depend on it). Raises on a launch error."""
+    V, S, _ = n_val.shape
+    G = tau.shape[1]
+    plan, grid = resident_grid("tau_sweep_topk", V, S, G, n_val.device.index,
+                               max_blocks)
+    with torch.cuda.device(n_val.device):
+        err = lib.desman_tau_sweep_topk(
+            n_val.data_ptr(), b_idx.data_ptr(), tau.data_ptr(), mix.data_ptr(),
+            gamma.data_ptr(), eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
+            mix_out.data_ptr(), V, S, G, plan.buffers, plan.smem_bytes, grid,
+            stream_of(n_val))
+    check(lib, err, "tau_sweep_topk")
+
+
 def tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz):
     """One full Gibbs sweep over strains on the top-2 layout: (tau [V,G]
     i32, mix [V,S,4]).
@@ -105,15 +124,9 @@ def tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz):
         return tau_sweep_topk_reference(n_val, b_idx, tau, mix, gamma, eta, gz)
     if n_val.device.type != "cuda":
         raise ValueError(f"tau_sweep_topk: no kernel for device {n_val.device}")
-    lib = load_library()
     tau_out = torch.empty_like(tau)
     mix_out = torch.empty_like(mix)
-    with torch.cuda.device(n_val.device):
-        err = lib.desman_tau_sweep_topk(
-            n_val.data_ptr(), b_idx.data_ptr(), tau.data_ptr(), mix.data_ptr(),
-            gamma.data_ptr(), eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
-            mix_out.data_ptr(), V, S, G, stream_of(n_val))
-    check(lib, err, "tau_sweep_topk")
+    launch(load_library(), n_val, b_idx, tau, mix, gamma, eta, gz, tau_out, mix_out)
     tau_sweep_topk.launches += 1
     return tau_out, mix_out
 

@@ -219,10 +219,126 @@ def test_resident_kernels_fit_the_card(cuda):
     """Every tile plan launches: at least one resident block a SM."""
     from desman_tpu_torch.ops.tau_kernel import kernel_info
 
-    for S, G in ((1, 1), (64, 8), (96, 16), (443, 8), (600, 4), (800, 8), (1000, 4)):
-        for kernel in ("tau_sweep", "fused_sweep"):
+    for S, G in ((1, 1), (64, 1), (64, 8), (96, 16), (443, 8), (600, 4), (700, 8),
+                 (800, 8), (1000, 4), (4000, 4)):
+        for kernel in ("tau_sweep", "fused_sweep", "tau_sweep_topk"):
             info = kernel_info(kernel, S, G)
             assert info["blocks_per_sm"] >= 1, (S, G, info)
+
+
+# ragged V, odd S, G = 1 (the resident path's shape), rows too wide for a
+# block's shared memory
+LOGLIK_SHAPES = SHAPES + [(2000, 96, 16), (64, 700, 8), (64, 1000, 4), (10_001, 64, 1),
+                          (25_000, 33, 3), (30_001, 64, 8)]
+
+
+@pytest.mark.parametrize("V,S,G", LOGLIK_SHAPES)
+def test_gamma_ll_is_bitwise_repeatable(cuda, V, S, G):
+    """gamma_ll gives the same bits from run to run, also into scratch
+    that holds NaN from an earlier call (every partial row is written
+    before it is summed), and agrees with its plain version."""
+    from desman_tpu_torch.ops import _build
+    from desman_tpu_torch.ops.gamma_kernel import launch
+
+    n, tau, mix, _, eta, _, _, _, _, gp = _resident_inputs(V, S, G, 11, cuda)
+    lib = _build.load_library()
+    for with_old in (True, False):
+        runs = [ops.gamma_ll(n, mix, tau, gp, eta, with_old=with_old) for _ in range(2)]
+        partial = _build.partial_scratch(lib, V, 2, S, cuda).fill_(float("nan"))
+        ll = torch.full((2, S), float("nan"), dtype=torch.float32, device=cuda)
+        launch(lib, n, mix, tau, gp, eta, partial, ll, with_old)
+        runs.append(ll)
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            assert torch.equal(runs[0], run)
+        _assert_ll_close(runs[0], ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old))
+
+
+# V past 8 * SMs x resident blocks, ragged V with one row of odd S in the
+# last tile (the n_val/b_idx tail), odd S, the rows in device memory
+TOPK_GRID_SHAPES = [(9, 63, 8), (10_001, 64, 8), (1001, 63, 5), (64, 1000, 4), (33, 1, 1)]
+
+
+@pytest.mark.parametrize("V,S,G", TOPK_GRID_SHAPES)
+def test_topk_kernel_is_bitwise_the_tau_kernel_on_every_grid(cuda, V, S, G):
+    """The row-resident top-2 kernel on <=2-base counts is bitwise the tau
+    kernel, and itself from run to run and whatever the persistent grid."""
+    from desman_tpu_torch.ops import _build
+    from desman_tpu_torch.ops.tau_kernel import tile_plan
+    from desman_tpu_torch.ops.tau_topk import launch
+
+    assert tile_plan(S, G, topk=True).buffers == (0 if S >= 1000 else 1)
+    (n_val, b_idx), (n, tau, mix, gamma, eta, gz) = _topk_inputs(V, S, G, 12, cuda)
+    want = ops.tau_sweep(n, tau, mix, gamma, eta, gz)
+    runs = [ops.tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz) for _ in range(2)]
+    lib = _build.load_library()
+    for m in (1, 7):
+        outs = (torch.empty_like(tau), torch.empty_like(mix))
+        launch(lib, n_val, b_idx, tau, mix, gamma, eta, gz, *outs, max_blocks=m)
+        runs.append(outs)
+    torch.cuda.synchronize()
+    for run in runs:
+        assert torch.equal(run[0], want[0]) and torch.equal(run[1], want[1])
+
+
+def test_slot_kernels_past_shared_memory(cuda):
+    """S=4000: a block's [2,8,S] slots (256000 bytes) exceed its shared
+    memory, so the four kernels that use them keep them in device memory:
+    the fused kernel stays bitwise the staged chain, and swap(emit_ll),
+    gamma_ll and gamma_apply_eta agree with their plain versions."""
+    from desman_tpu_torch.ops._build import slots_in_device_memory
+    from desman_tpu_torch.ops.tau_kernel import tile_plan
+
+    V, S, G = 64, 4000, 4
+    assert tile_plan(S, G, fused=True).device_slots == 1
+    assert slots_in_device_memory(S)
+    args = _resident_inputs(V, S, G, 13, cuda)
+    n, tau, mix, gamma, eta, gz, g, h, logu, gp = args
+    tau_f, mix_f, ll_f = ops.fused_sweep(*args)
+    tau_s, mix_s, ll_old, ll2 = _staged(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(tau_f, tau_s) and torch.equal(mix_f, mix_s)
+    assert torch.equal(ll_f[0], ll_old) and torch.equal(ll_f[1], ll2[1])
+
+    tau_k, mix_k, ll_k = ops.swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=True)
+    tau_p, mix_p, ll_p = ops.swap_reference(n, tau, mix, gamma, eta, g, h, logu,
+                                            emit_ll=True)
+    torch.cuda.synchronize()
+    same = (tau_k == tau_p).all(dim=1)
+    assert same.float().mean().item() >= 0.99
+    torch.testing.assert_close(mix_k[same], mix_p[same], rtol=1e-5, atol=1e-6)
+    if bool(same.all()):
+        _assert_ll_close(ll_k, ll_p)
+    for with_old in (True, False):
+        _assert_ll_close(ops.gamma_ll(n, mix, tau, gp, eta, with_old=with_old),
+                         ops.gamma_ll_reference(n, mix, tau, gp, eta, with_old))
+    accept = torch.as_tensor(np.random.default_rng(13).random(S) < 0.5, device=cuda)
+    mix_k, ll_k = ops.gamma_apply_eta(n, mix, tau, gp, accept, eta)
+    mix_p, ll_p = ops.gamma_apply_eta_reference(n, mix, tau, gp, accept, eta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mix_k, mix_p, rtol=1e-5, atol=1e-7)
+    _assert_ll_close(ll_k, ll_p)
+
+
+def test_resident_sampler_runs_past_shared_memory_slots(cuda):
+    """A cuda_resident chain at S=4000 runs through its kernels, bitwise the
+    same from run to run."""
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain
+
+    t = synth.generate(V=64, S=4000, G=4, coverage=30.0, seed=5)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=4, burn=3, samples=3, nmf_iters=20)
+    results = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        ops.reset_launches()
+        results.append(run_chain(n, cfg, gen, kernel="cuda_resident"))
+        torch.cuda.synchronize()
+        assert (ops.fused_sweep.launches, ops.gamma_apply_eta.launches) == (6, 6)
+    for x, y in zip(*results):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert torch.isfinite(results[0].loglik_trace).all()
 
 
 def test_kernels_are_bitwise_repeatable(cuda):
