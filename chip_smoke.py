@@ -65,12 +65,34 @@ Phases, each printing its own '# ...' lines:
    `--store_every 5` (draws.npz of 15 draws, gamma_ess_min in metrics),
    `-t true_tau.csv --kernel cuda_resident` (fused kernels launched), `-f
    true_tau.csv` (Filtered_Tau_star.csv is the file's, no tau or swap
-   launch); `-f --kernel cuda_resident` must exit 2.
+   launch); `-f --kernel cuda_resident` must exit 2;
+10. run modes of length and resume, at V=1e4, S=64, G=8 with `--kernel
+   cuda` unless said otherwise: (a) `-i 400 --checkpoint_every 50
+   --checkpoint` in `python -m desman_tpu_torch desman` subprocesses side by
+   side, one uninterrupted and one SIGKILLed once its snapshot shows 0 < it
+   < 400 and then rerun: fit.txt, the Tau/Gamma/Eta CSVs and
+   loglik_trace.csv byte-identical to each other and to an in-process run
+   without --checkpoint; (b) beside them the same run SIGTERMed mid-run
+   exits 75 naming the preemption, and its rerun's files match; then
+   run()'s sweeps/s with and without --checkpoint_every 50 in turns, and
+   the time of one snapshot write, printed;
+   (c) in-process `--auto_burn --auto_samples 100 -i 200`: tau and swap
+   kernels launched, 100 <= burn <= 2000, loglik_ess_bulk >= 100 or
+   sampling at its cap; the same on TestData's half (quickstart gates) and
+   with `cuda_topk` on grid (b)'s selected counts (the top-2 kernel, never
+   the tau kernel); (d) `--chains 4 --checkpoint` and `--auto_burn --chains
+   4` on TestData's half (quickstart gates, chains.json); (e) phase 6 (a)'s
+   counts through `pipeline` with `grid: {kernel: cuda, auto_samples: 100,
+   auto_max_samples: 500}`: G=5 within the gates, every run's
+   sampling_sweeps >= 125, and a rerun launches no sweep; (f)
+   `--checkpoint` and `--auto_burn` with `--kernel cuda_resident` exit 2
+   with the JAX CLI's message and launch nothing.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every path driven in phases 3-9, each with
+kernel's launches summed over every in-process path driven in phases 3-10,
+each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
@@ -80,6 +102,7 @@ import contextlib
 import io as stdio
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -954,6 +977,276 @@ def phase_run_modes(tmp):
          "-f --kernel cuda_resident exits 2 naming --kernel cuda, no launch")
 
 
+CK_SWEEPS = 400
+# the files a resumed run must write byte for byte as the uninterrupted one
+RESUMED = ("fit.txt", "Filtered_Tau_star.csv", "Gamma_star.csv", "Gamma_mean.csv",
+           "Eta_star.csv", "Eta_mean.csv", "Tau_mean.csv", "loglik_trace.csv")
+
+
+def read_metrics(out) -> dict:
+    with open(os.path.join(out, "metrics.json")) as f:
+        return json.load(f)
+
+
+def same_files(a, b) -> bool:
+    for f in RESUMED:
+        with open(os.path.join(a, f), "rb") as x, open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                print(f"# {f} differs between {a} and {b}")
+                return False
+    return True
+
+
+def desman_process(argv) -> subprocess.Popen:
+    """`python -m desman_tpu_torch desman ...` from the checkout, on the card
+    (no --device: it exits 2 without CUDA)."""
+    return subprocess.Popen([sys.executable, "-m", "desman_tpu_torch", "desman", *argv],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish(proc, timeout=600):
+    """Wait for a process; kill it if it outlives the timeout. Returns
+    (rc, stderr)."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode, err
+
+
+def snapshot_it(ck):
+    if not os.path.exists(ck):
+        return None
+    with np.load(ck) as z:
+        return int(z["it"])
+
+
+def run_together(runs):
+    """Start the checkpointed desman subprocesses of `runs` ((what, argv, ck,
+    signal or None) each) together; send each its signal once its snapshot
+    shows 0 < it < CK_SWEEPS, and gate that it landed there (a run without
+    a signal must exit 0). Returns each run's (rc, stderr)."""
+    t0 = time.time()
+    procs = [desman_process(argv) for _, argv, _, _ in runs]
+    pending = {i for i, (_, _, _, sig) in enumerate(runs) if sig is not None}
+    seen = {}
+    try:
+        deadline = time.time() + 600
+        while pending and time.time() < deadline:
+            for i in sorted(pending):
+                it = snapshot_it(runs[i][2])
+                if procs[i].poll() is not None:
+                    pending.discard(i)
+                elif it is not None and 0 < it < CK_SWEEPS:
+                    procs[i].send_signal(runs[i][3])
+                    seen[i] = it
+                    pending.discard(i)
+            time.sleep(0.002)
+    finally:
+        results = [finish(proc) for proc in procs]
+    print(f"# {len(runs)} desman subprocesses side by side: {time.time() - t0:.2f} s wall")
+    for i, ((what, _, ck, sig), (rc, err)) in enumerate(zip(runs, results)):
+        at = snapshot_it(ck)
+        print(f"# {what}: rc {rc}, snapshot on disk it={at}"
+              + (f", signal at it={seen.get(i)}" if sig is not None else ""))
+        if sig is None:
+            gate(rc == 0, f"{what} exits 0 ({err.strip()[-300:]})")
+        else:
+            gate(i in seen and at is not None and 0 < at < CK_SWEEPS,
+                 f"{what} landed mid-run (0 < it < {CK_SWEEPS})")
+    return results
+
+
+def refused(argv, what):
+    """A desman CLI refusal: exit 2 with the JAX CLI's message, no launch."""
+    ops.reset_launches()
+    err = stdio.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["desman", *argv])
+    said = err.getvalue().strip()
+    print(f"# cli {what}: rc {rc}: {said}")
+    gate(rc == 2 and "single-device speed mode" in said and "--kernel cuda" in said
+         and all(n == 0 for n in read_launches().values()),
+         f"{what} exits 2 with the JAX CLI's message, no launch")
+
+
+def checkpoint_cost(tmp, data):
+    """What checkpointing costs at V=1e4 S=64 G=8: run() of 400 sweeps with
+    and without --checkpoint_every 50, in turns (plain, checkpointed,
+    checkpointed, plain; the kernels warm), and the median of 5
+    checkpoint.save calls of that chain's state."""
+    from desman_tpu_torch import checkpoint
+
+    rates = {"plain": [], "checkpoint_every 50": []}
+    for i, mode in enumerate(("plain", "checkpoint_every 50", "checkpoint_every 50",
+                              "plain")):
+        out = os.path.join(tmp, f"len_rate_{i}")
+        rcfg = run.RunConfig(G=G, iterations=CK_SWEEPS, seed=0, out_dir=out)
+        if mode != "plain":
+            rcfg.checkpoint_path = os.path.join(tmp, f"rate_{i}.npz")
+        run.run(data, rcfg, device="cuda", kernel="cuda")
+        rates[mode].append(read_metrics(out)["sweeps_per_s"])
+    print(f"# run() V={V} S={S} G={G} {CK_SWEEPS} sweeps (NMF start included), in turns "
+          f"plain, checkpointed, checkpointed, plain: sweeps/s {rates}")
+    dev = torch.device("cuda")
+    n = torch.as_tensor(data.counts, dtype=torch.float32, device=dev)
+    gen = sampler.chain_generator(0, dev)
+    state = sampler.init_state(n, sampler.SamplerConfig(G=G, nmf_iters=50), gen)
+    accum = sampler.init_accum(V, S, G, dev)
+    path = os.path.join(tmp, "snapshot_timing.npz")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, state, accum, CK_SWEEPS, np.zeros(CK_SWEEPS, np.float32), [gen])
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    print(f"# snapshot write at V={V} S={S} G={G}: {os.path.getsize(path)} bytes, "
+          f"median {times[2]:.3f} ms of 5 ({times})")
+
+
+def phase_run_length(tmp):
+    """Phase 10: checkpoint/resume and auto-length runs (see the module
+    docstring)."""
+    t_phase = time.time()
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    csv = os.path.join(tmp, "metric_counts.csv")
+    io.write_counts_csv(csv, t.data)
+    base = [csv, "-g", str(G), "-i", str(CK_SWEEPS), "-s", "0", "--kernel", "cuda"]
+
+    # (a) and (b): SIGKILL / SIGTERM mid-run, then rerun: byte-identical to
+    # the uninterrupted checkpointed run and to the in-process run without
+    # --checkpoint; the subprocesses run side by side (each takes seconds
+    # to reach the card)
+    inproc = os.path.join(tmp, "len_inproc")
+    launches, _ = drive_cli(base, inproc)
+    gate(launches["tau_sweep"] == CK_SWEEPS and launches["swap"] == CK_SWEEPS,
+         f"the in-process run launched tau_sweep and swap {CK_SWEEPS} times")
+    ck_args = ["--checkpoint_every", "50", "--checkpoint"]
+    runs = {}
+    for name, sig in (("whole", None), ("killed", signal.SIGKILL),
+                      ("termed", signal.SIGTERM)):
+        out, ck = os.path.join(tmp, f"len_{name}"), os.path.join(tmp, f"{name}.npz")
+        runs[name] = (f"--checkpoint_every 50 run, {name}",
+                      base + ["-o", out] + ck_args + [ck], ck, sig)
+    (_, _), (rc_killed, _), (rc_termed, err) = run_together(list(runs.values()))
+    print(f"# SIGTERM stderr: {err.strip()[-200:]}")
+    gate(rc_killed == -signal.SIGKILL, "the killed run died of SIGKILL")
+    gate(rc_termed == 75 and "preempted" in err, "SIGTERM: exit 75 naming the preemption")
+    run_together([(f"rerun of the {name} run", *runs[name][1:3], None)
+                  for name in ("killed", "termed")])
+    whole = os.path.join(tmp, "len_whole")
+    gate(same_files(os.path.join(tmp, "len_killed"), whole) and same_files(whole, inproc),
+         "the SIGKILLed and resumed run's files are byte-identical to the "
+         "uninterrupted run's and to the in-process run's without --checkpoint")
+    gate(same_files(os.path.join(tmp, "len_termed"), whole), "the preempted and "
+         "resumed run's files are byte-identical to the uninterrupted run's")
+    checkpoint_cost(tmp, t.data)
+
+    # (c) auto length, in-process
+    auto = ["--auto_burn", "--auto_samples", "100"]
+    out = os.path.join(tmp, "len_auto")
+    launches, _ = drive_cli([csv, "-g", str(G), "-i", "200", "-s", "0", "--kernel", "cuda",
+                             *auto], out)
+    m = read_metrics(out)
+    burn = m["sweeps"] - m["sampling_sweeps"]
+    print(f"# --auto_burn --auto_samples 100 V=1e4: burn {burn}, sampling "
+          f"{m['sampling_sweeps']}, loglik_ess_bulk {m.get('loglik_ess_bulk')}, "
+          f"{m['sweeps_per_s']:.3f} sweeps/s, chain wall {m['elapsed_s']:.3f} s")
+    gate(launches["tau_sweep"] > 0 and launches["swap"] > 0,
+         "auto run launched tau_sweep and swap")
+    gate(100 <= burn <= 2000, "auto run: 100 <= burn <= --auto_max_burn")
+    gate(m.get("loglik_ess_bulk", 0.0) >= 100 or m["sampling_sweeps"] == 2000,
+         "auto run: loglik_ess_bulk >= 100, or sampling at its cap")
+    half = variant_half(tmp)
+    eta = os.path.join(TESTDATA, "true_eta.csv")
+    out = os.path.join(tmp, "len_auto_half")
+    drive_cli([half, "-g", "5", "-e", eta, "-i", "200", "-s", "0", *auto], out)
+    quickstart_gates(out, "--auto_burn --auto_samples 100")
+    out = os.path.join(tmp, "len_auto_topk")
+    launches, _ = drive_cli([os.path.join(tmp, "grid_b", "sel_var.csv"), "-g", "5", "-i",
+                             "200", "-s", "0", "--kernel", "cuda_topk", *auto], out)
+    m = read_metrics(out)
+    print(f"# --kernel cuda_topk auto on grid (b)'s counts: burn "
+          f"{m['sweeps'] - m['sampling_sweeps']}, sampling {m['sampling_sweeps']}, "
+          f"{m['sweeps_per_s']:.3f} sweeps/s")
+    gate(launches["tau_sweep_topk"] > 0 and launches["tau_sweep"] == 0,
+         "cuda_topk auto run launched tau_sweep_topk and never tau_sweep")
+
+    # (d) chains on TestData's half
+    for extra, what in ((["--checkpoint", os.path.join(tmp, "chains.npz")],
+                         "--chains 4 --checkpoint"),
+                        (["--auto_burn"], "--auto_burn --chains 4")):
+        out = os.path.join(tmp, f"len_chains_{extra[0].strip('-')}")
+        drive_cli([half, "-g", "5", "-e", eta, "-i", "150", "-s", "0", "--chains", "4",
+                   *extra], out)
+        quickstart_gates(out, what)
+        with open(os.path.join(out, "chains.json")) as f:
+            chains = json.load(f)
+        gate(chains["seeds"] == [0, 1, 2, 3], f"{what}: chains.json of 4 chains")
+
+    # (e) the ESS-targeted grid on phase 6 (a)'s counts, then its resume
+    config = {"counts": os.path.join(tmp, "core_counts_a.csv"),
+              "output_dir": os.path.join(tmp, "grid_e"),
+              "grid": {"g_min": 1, "g_max": PAPER["g_max"], "seeds": PAPER["seeds"],
+                       "iterations": PAPER["iterations"], "kernel": "cuda",
+                       "auto_samples": 100, "auto_max_samples": 500}}
+    config_path = os.path.join(tmp, "pipeline_e.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
+    truth, _ = synth.mock_community(V=PAPER["V"], S=PAPER["S"], G=PAPER["G"],
+                                    error_rate=0.005, seed=2017)
+    for attempt in ("first", "rerun"):
+        ops.reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(stdio.StringIO()):
+            rc = cli.main(["pipeline", config_path])
+        wall = time.time() - t0
+        launches = read_launches()
+        gate(rc == 0, f"ESS grid ({attempt}) exits 0")
+        if attempt == "rerun":
+            print(f"# ESS grid rerun: {wall:.2f} s, launches {launches}")
+            gate(launches["tau_sweep"] == 0 and launches["swap"] == 0,
+                 "the ESS grid's rerun does no new sweep (elastic resume)")
+            break
+        with open(os.path.join(config["output_dir"], "pipeline_summary.json")) as f:
+            summary = json.load(f)
+        best = summary["best_run_dir"]
+        pred, pc, pp = io.read_tau_star_csv(os.path.join(best, "Filtered_Tau_star.csv"))
+        rep = compare_tau(pred, truth.tau_idx, list(zip(map(str, pc), map(int, pp))),
+                          [("synth", i) for i in range(PAPER["V"])])
+        gmae, _ = match_gamma_perm(truth.gamma, io.read_gamma_csv(
+            os.path.join(best, "Gamma_mean.csv")))
+        sampling = [read_metrics(os.path.join(config["output_dir"], f"run_{g}_{s}"))
+                    ["sampling_sweeps"] for g in range(1, PAPER["g_max"] + 1)
+                    for s in PAPER["seeds"]]
+        print(f"# ESS grid (auto_samples 100, cap 500, kernel cuda): G="
+              f"{summary['selected_G']}, SNP error rate {rep.error_rate:.6f}, gamma MAE "
+              f"{gmae:.6f}; sampling sweeps a run min {min(sampling)} median "
+              f"{sorted(sampling)[len(sampling) // 2]} max {max(sampling)}; pipeline "
+              f"wall {wall:.2f} s, grid {summary['grid_wall_s']:.2f} s for "
+              f"{summary['grid_sweeps']} sweeps = "
+              f"{summary['grid_sweeps'] / summary['grid_wall_s']:.2f} sweeps/s; "
+              f"launches {launches}")
+        gate(summary["selected_G"] == PAPER["G"], f"ESS grid selects G={PAPER['G']}")
+        gate(rep.error_rate < 0.02 and gmae < 0.02,
+             "ESS grid: SNP error rate < 0.02, gamma MAE < 0.02")
+        floor = PAPER["iterations"] - PAPER["iterations"] // 2
+        gate(len(sampling) == PAPER["g_max"] * len(PAPER["seeds"])
+             and min(sampling) >= floor, f"every ESS grid run sampled >= {floor} sweeps")
+
+    # (f) the resident kernel refuses both modes
+    refused([half, "-g", "5", "-i", "10", "--kernel", "cuda_resident", "--checkpoint",
+             os.path.join(tmp, "refused.npz"), "-o", os.path.join(tmp, "len_refused")],
+            "--checkpoint --kernel cuda_resident")
+    refused([half, "-g", "5", "-i", "10", "--kernel", "cuda_resident", "--auto_burn",
+             "-o", os.path.join(tmp, "len_refused")], "--auto_burn --kernel cuda_resident")
+    print(f"# phase 10 wall {time.time() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -983,6 +1276,7 @@ def main() -> int:
             phase_grid(tmp)
             phase_assign_tau()
             phase_run_modes(tmp)
+            phase_run_length(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])

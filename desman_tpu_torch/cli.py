@@ -11,8 +11,8 @@
     python -m desman_tpu_torch diag 'out/run_*'
 
     desman       tau/gamma/eta Gibbs deconvolution (--chains, -t/-f,
-                 --eta_update, --store_every, --kernel
-                 cuda|cuda_resident|cuda_topk|torch)
+                 --eta_update, --store_every, --checkpoint, --auto_burn,
+                 --auto_samples, --kernel cuda|cuda_resident|cuda_topk|torch)
     filter       variant-position LLR filter -> sel_var/p/q/tran_df CSVs
     pipeline     filter -> G-grid -> selection (-> genes) from one YAML/JSON
                  config
@@ -28,7 +28,9 @@ name the ROADMAP item that will port them; none is silently ignored.
 ``--device cuda`` (the default) never falls back to the CPU: without CUDA it
 exits with code 2. ``--kernel cuda_topk`` on counts with a cell of more
 than two observed bases exits with code 1 and says so; it never switches to
-the full kernel.
+the full kernel. A ``--checkpoint`` run that gets SIGTERM finishes its
+segment, commits the checkpoint and exits with code 75; rerunning the same
+command resumes it.
 """
 from __future__ import annotations
 
@@ -40,13 +42,6 @@ import sys
 
 # flag -> the ROADMAP queue-1 item that ports it
 _WAITING_FLAGS = {
-    "--checkpoint": "11 (checkpoints)",
-    "--checkpoint_every": "11 (checkpoints)",
-    "--auto_burn": "11 (auto-length)",
-    "--auto_tol": "11 (auto-length)",
-    "--auto_max_burn": "11 (auto-length)",
-    "--auto_samples": "11 (auto-length)",
-    "--auto_max_samples": "11 (auto-length)",
     "--pt": "12 (parallel tempering)",
     "--pt_max_temp": "12 (parallel tempering)",
     "--profile": "13 (profiling)",
@@ -139,6 +134,22 @@ def _desman(argv) -> int:
                     help="independent chains (seeds seed..seed+chains-1), run "
                     "one after another; the best by star likelihood is "
                     "written, with chains.json")
+    ap.add_argument("--checkpoint", default=None,
+                    help="npz path: checkpoint every --checkpoint_every "
+                    "sweeps and resume from it if present")
+    ap.add_argument("--checkpoint_every", type=int, default=50)
+    ap.add_argument("--auto_burn", action="store_true",
+                    help="extend burn-in until the loglik plateaus (at "
+                    "least -i/2, at most --auto_max_burn); -i/2 sampling "
+                    "sweeps follow")
+    ap.add_argument("--auto_tol", type=float, default=1e-5)
+    ap.add_argument("--auto_max_burn", type=int, default=2000)
+    ap.add_argument("--auto_samples", type=float, default=0.0, metavar="ESS",
+                    help="extend sampling past -i/2 sweeps until the "
+                    "post-burn loglik bulk ESS (and min gamma ESS when "
+                    "--store_every draws exist) reaches this target, capped "
+                    "at --auto_max_samples")
+    ap.add_argument("--auto_max_samples", type=int, default=2000)
     _add_device(ap)
     ap.add_argument("--kernel",
                     choices=["cuda", "cuda_resident", "cuda_topk", "torch"],
@@ -153,17 +164,20 @@ def _desman(argv) -> int:
                     "torch: the plain PyTorch versions (on a cpu device "
                     "cuda and torch are the same)")
     args = ap.parse_args(argv)
+    auto = args.auto_burn or args.auto_samples > 0
     if args.kernel == "cuda_resident" and (
-            args.store_every or args.tau_fixed or args.eta_update == "rows"):
+            auto or args.checkpoint or args.store_every or args.tau_fixed
+            or args.eta_update == "rows"):
         print("desman: --kernel cuda_resident is the single-device speed mode "
               "for plain runs (composes with --chains and -t only); use "
-              "--kernel cuda for --store_every/-f/--eta_update rows",
-              file=sys.stderr)
+              "--kernel cuda for --auto_*/--checkpoint/--store_every/-f/"
+              "--eta_update rows", file=sys.stderr)
         return 2
     if _cuda_missing("desman", args.device):
         return 2
 
     from . import io
+    from .checkpoint import Preempted, install_preemption_handler
     from .ops import TopkInapplicable
     from .run import RunConfig, run, run_multi
 
@@ -173,10 +187,19 @@ def _desman(argv) -> int:
         eta_file=args.eta_file, sample_eta=args.sample_eta,
         min_coverage=args.min_coverage, n_positions=args.random_positions,
         out_dir=args.output_dir, kappa_gamma=args.kappa_gamma,
-        kappa_eta=args.kappa_eta, tau_file=args.tau_fixed or args.tau_init,
-        fix_tau=args.tau_fixed is not None, eta_update=args.eta_update,
+        kappa_eta=args.kappa_eta, checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        tau_file=args.tau_fixed or args.tau_init,
+        fix_tau=args.tau_fixed is not None, auto_burn=args.auto_burn,
+        auto_tol=args.auto_tol, auto_max_burn=args.auto_max_burn,
+        auto_samples=args.auto_samples,
+        auto_max_samples=args.auto_max_samples, eta_update=args.eta_update,
         store_every=args.store_every,
     )
+    if args.checkpoint:
+        # SIGTERM (preemption) -> finish the in-flight segment, commit its
+        # checkpoint, exit 75 (resumable)
+        install_preemption_handler()
     try:
         if args.chains > 1:
             run_multi(data, rc, n_chains=args.chains, device=args.device,
@@ -187,6 +210,9 @@ def _desman(argv) -> int:
         print(f"desman: --kernel cuda_topk cannot take {args.variant_file}: {e} "
               "(--kernel cuda)", file=sys.stderr)
         return 1
+    except Preempted as e:
+        print(f"desman: preempted — {e}", file=sys.stderr)
+        return 75  # EX_TEMPFAIL: rerun the same command to resume
     print(f"desman: wrote {args.output_dir}/fit.txt")
     return 0
 
@@ -327,9 +353,6 @@ def _pipeline(argv) -> int:
 
     try:
         summary = run_pipeline(load_config(args.config), device=args.device)
-    except NotImplementedError as e:
-        print(f"pipeline: {e}", file=sys.stderr)
-        return 2
     except TopkInapplicable as e:
         print(f"pipeline: grid kernel cuda_topk cannot take the selected "
               f"counts: {e} (kernel: cuda)", file=sys.stderr)

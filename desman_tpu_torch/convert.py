@@ -6,7 +6,8 @@ names the JAX package's ``SamplerState`` / ``SamplerAccum`` /
 ``SamplerResult`` / ``GeneAssignResult`` use, so one state can start both
 packages and one result can be read by either. The JAX state's PRNG
 ``key`` has no counterpart: the generators differ. A result field that is
-None (no stored draws) stays None both ways.
+None (no stored draws) stays None both ways. ``snapshot_from_jax_npz``
+reads the JAX package's checkpoint files the same way.
 """
 from __future__ import annotations
 
@@ -76,6 +77,19 @@ def topk_layout_from_numpy(n_val, b_idx, device="cpu"):
 def accum_from_numpy(d: Mapping, device="cpu") -> SamplerAccum:
     return SamplerAccum(**{f: _tensor(f, d[f], device)
                            for f in SamplerAccum._fields})
+
+
+def snapshot_from_jax_npz(path: str, device="cpu"):
+    """(SamplerState, SamplerAccum, it, trace) of a checkpoint the JAX
+    package's ``checkpoint.save`` wrote (a single chain's, or chains' with a
+    leading axis). Its chain key (``state_key``) has no counterpart and is
+    dropped; its noise can be replayed from that key by the caller."""
+    with np.load(path) as z:
+        state = state_from_numpy(
+            {f: z[f"state_{f}"] for f in SamplerState._fields}, device)
+        accum = accum_from_numpy(
+            {f: z[f"accum_{f}"] for f in SamplerAccum._fields}, device)
+        return state, accum, int(z["it"]), np.asarray(z["trace"])
 
 
 def _to_numpy(t) -> Optional[np.ndarray]:

@@ -2,8 +2,9 @@
 ``desman_tpu.model_selection``; the reference's resolvenhap semantics).
 
 ``fit_grid`` runs the (G, seed) grid on one device: for each G, one chain
-per seed (``sampler.run_chains``), with the kernel choice bound to the
-counts once for the whole grid. The JAX package compiles one program per G
+per seed (``sampler.run_chains``, or ``converge.run_chains_auto`` to an
+ESS target), with the kernel choice bound to the counts once for the
+whole grid. The JAX package compiles one program per G
 ahead of time in a thread pool; eager PyTorch has nothing to compile, so
 the port loops over G. ``resolve_nhap`` picks G from the runs' posterior
 mean deviances and SNV uncertainties, over the same fit.txt conventions.
@@ -29,6 +30,7 @@ from . import io
 from .likelihood import (
     deviance_from_loglik, snv_uncertainty, total_coeff_host_f64,
 )
+from .converge import run_chains_auto
 from .ops import resolve
 from .run import write_outputs
 from .sampler import SamplerConfig, chain_result, run_chains
@@ -99,6 +101,7 @@ def fit_grid(
     kernel: str = "cuda",
     resume: bool = True,
     ess_target: float = 0.0,
+    max_samples: int = 2000,
     device="cuda",
 ) -> List[RunRecord]:
     """Fit G x seeds on `device`; with out_stub and data, write one output
@@ -108,32 +111,44 @@ def fit_grid(
     for the whole grid (``cuda_topk`` raises TopkInapplicable here, before
     any chain, on counts with a cell of more than two observed bases).
 
+    ``ess_target > 0``: each G's chains extend their sampling phase in
+    segments until every chain's post-burn ESS reaches the target
+    (``converge.run_chains_auto`` with the burn pinned at iterations//2;
+    capped at ``max_samples``), so the posterior-mean deviances the
+    selection rule compares carry a chosen MC precision; each run's
+    metrics.json reports the sampling sweeps it ran. Not with
+    ``cuda_resident``.
+
     Elastic recovery: with out_stub, data and resume (default), a G value
     whose every seed directory is complete on disk and carries this run's
     config fingerprint is skipped and its records are rebuilt from the
     files; a rerun after a crash does only the missing work, and a rerun
-    with another config recomputes. resume=False always recomputes.
+    with another config (or ESS regime) recomputes. resume=False always
+    recomputes.
 
-    Not ported yet: ``mesh`` (ROADMAP queue 1 item 14) and ``ess_target >
-    0`` (item 11) raise NotImplementedError.
+    Not ported yet: ``mesh`` (ROADMAP queue 1 item 14) raises
+    NotImplementedError.
     """
     if mesh is not None:
         raise NotImplementedError(
             "fit_grid(mesh=...) is not ported yet (ROADMAP queue 1 item 14)")
-    if ess_target > 0:
-        raise NotImplementedError(
-            "fit_grid(ess_target > 0) is not ported yet (ROADMAP queue 1 "
-            "item 11)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
     n = torch.as_tensor(np.asarray(counts), device=device).to(torch.float32)
     ks = resolve(kernel, n)
+    if ks.resident and ess_target > 0:
+        raise ValueError("ess_target needs the segmented converge path; "
+                         "use kernel 'cuda' with it")
     coeff = total_coeff_host_f64(counts)
     burn = iterations // 2
     eta = (None if eta_init is None else
            torch.as_tensor(np.asarray(eta_init), dtype=torch.float32, device=device))
     digest = _data_digest(counts, eta_init) if out_stub is not None else None
+    if digest is not None and ess_target > 0:
+        # the achieved sampling length is data-driven: runs made under
+        # another ESS regime must not be reused by elastic resume
+        digest = f"{digest}|ess{ess_target:g}x{int(max_samples)}"
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
 
@@ -163,8 +178,17 @@ def fit_grid(
             records.extend(scan_run_dirs(
                 [f"{out_stub}_{G}_{int(s)}" for s in seeds], unc_threshold))
             continue
-        cfg = make_cfg(G)
-        res = run_chains(n, cfg, seeds, eta_init=eta, kernel=ks)
+        cfg = fp_cfg = make_cfg(G)
+        if ess_target > 0:
+            res, _, samples_used = run_chains_auto(
+                n, cfg, seeds, eta_init=eta, max_burn=cfg.burn, kernel=ks,
+                ess_target=ess_target, max_samples=max_samples)
+            # write_outputs reports the sampling length run; the
+            # fingerprint stays on the base config (the regime salts the
+            # digest)
+            cfg = dataclasses.replace(cfg, samples=samples_used)
+        else:
+            res = run_chains(n, cfg, seeds, eta_init=eta, kernel=ks)
         trace = res.loglik_trace.cpu().numpy().astype(np.float64)
         for i, seed in enumerate(seeds):
             # f64 compensated mean over the post-burn trace: the deviance
@@ -180,7 +204,8 @@ def fit_grid(
                 write_outputs(
                     run_dir, data, chain_result(res, i), cfg,
                     seed=int(seed), extra_metrics={
-                        "config_fingerprint": run_fingerprint(digest, cfg, int(seed)),
+                        "config_fingerprint": run_fingerprint(digest, fp_cfg,
+                                                              int(seed)),
                         "device": device_name, "kernel": kernel})
             records.append(RunRecord(G=G, seed=int(seed), mean_deviance=mean_dev,
                                      uncertainty=unc, run_dir=run_dir))

@@ -16,16 +16,16 @@ Config keys (all optional except counts):
     output_dir: desman_pipeline_out
     filter: {min_coverage: 5.0, q_cutoff: 0.05}
     grid: {g_min: 1, g_max: 8, seeds: [0,1,2], iterations: 250, kernel: cuda,
-           fix_eta: true}
+           fix_eta: true, auto_samples: 0, auto_max_samples: 2000}
     selection: {dev_cutoff: 0.02, unc_cutoff: 0.1}
     genes: {coverage_csv: gene_cov.csv, max_copy: 1, model: quasipoisson}
 
-The genes stage assigns the accessory genes of coverage_csv to the selected
-run's strains (its Gamma_mean.csv), with each sample's total coverage from
-all the input counts. Not ported yet: ``grid.auto_samples`` (ESS-targeted
-sampling, ROADMAP queue 1 item 11) raises NotImplementedError before any
-work. The tables are written with ``io``'s csv writers (no pandas), in the
-JAX package's columns.
+grid.auto_samples > 0 extends each G's sampling until every chain's
+post-burn ESS reaches it (``fit_grid``'s ess_target, capped at
+auto_max_samples). The genes stage assigns the accessory genes of
+coverage_csv to the selected run's strains (its Gamma_mean.csv), with each
+sample's total coverage from all the input counts. The tables are written
+with ``io``'s csv writers (no pandas), in the JAX package's columns.
 """
 from __future__ import annotations
 
@@ -54,17 +54,14 @@ def load_config(path: str) -> dict:
     return yaml.safe_load(text)
 
 
-def _refuse_unported(config: dict) -> None:
-    if float(config.get("grid", {}).get("auto_samples", 0.0)) > 0:
-        raise NotImplementedError(
-            "grid.auto_samples (ESS-targeted sampling) is not ported yet "
-            "(ROADMAP queue 1 item 11)")
+def _run_sweeps(run_dir: str) -> int:
+    with open(os.path.join(run_dir, "metrics.json")) as f:
+        return int(json.load(f)["sweeps"])
 
 
 def run_pipeline(config: dict, device="cuda") -> dict:
     """Run filter -> grid -> selection (-> genes) on `device`; returns the
     summary (also written to pipeline_summary.json)."""
-    _refuse_unported(config)
     outdir = config.get("output_dir", "desman_pipeline_out")
     os.makedirs(outdir, exist_ok=True)
     data = io.read_counts_csv(config["counts"])
@@ -89,6 +86,8 @@ def run_pipeline(config: dict, device="cuda") -> dict:
         eta_init=fres.eta, fix_eta=bool(grid.get("fix_eta", True)),
         out_stub=os.path.join(outdir, "run"), data=sel,
         kernel=grid.get("kernel", "cuda"), device=device,
+        ess_target=float(grid.get("auto_samples", 0.0)),
+        max_samples=int(grid.get("auto_max_samples", 2000)),
     )
     grid_wall = time.time() - t0
     fields = ["G", "seed", "mean_deviance", "uncertainty", "run_dir"]
@@ -115,7 +114,8 @@ def run_pipeline(config: dict, device="cuda") -> dict:
         "mean_deviance": selres.mean_deviance,
         "best_run_dir": selres.run_dir,
         "grid_runs": len(records),
-        "grid_sweeps": len(g_values) * len(seeds) * iterations,
+        # each run's own count: with grid.auto_samples sampling lengths differ
+        "grid_sweeps": sum(_run_sweeps(r.run_dir) for r in records),
         "grid_wall_s": grid_wall,
     }
 

@@ -1,11 +1,14 @@
 """End-to-end run: counts -> sampler -> DESMAN-format output dir
-(counterpart of the plain and ``--chains`` branches of ``desman_tpu.run``).
+(counterpart of ``desman_tpu.run`` without its parallel-tempering and mesh
+branches).
 
 Load the counts, optionally subsample positions (-r) and apply min coverage
 (-m), run one Gibbs chain (``run``) or several (``run_multi``) on the
-chosen device (optionally with a fixed eta from the filter's tran_df, -e),
-and write fit.txt, Gamma_{mean,star}.csv, Eta_{mean,star}.csv,
-Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and loglik_trace.csv
+chosen device (optionally with a fixed eta from the filter's tran_df, -e;
+checkpointed and resumable with --checkpoint; of data-driven length with
+--auto_burn/--auto_samples), and write fit.txt, Gamma_{mean,star}.csv,
+Eta_{mean,star}.csv, Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and
+loglik_trace.csv
 (and chains.json for several chains; draws.npz with --store_every). A
 haplotype file (-t, or -f to hold it fixed) starts tau from known strains.
 """
@@ -22,12 +25,15 @@ import numpy as np
 import torch
 
 from . import io
+from .checkpoint import run_chain_checkpointed, run_chains_checkpointed
+from .converge import run_chains_auto
 from .likelihood import (
     deviance_from_loglik, log_likelihood_host_f64, total_coeff_host_f64,
 )
 from .ops import resolve
 from .sampler import (
-    SamplerConfig, SamplerResult, chain_result, run_chain, run_chains,
+    SamplerConfig, SamplerResult, chain_generator, chain_result, run_chain,
+    run_chains,
 )
 
 
@@ -35,7 +41,8 @@ from .sampler import (
 class RunConfig:
     """Host-side run options; the same fields and defaults as the JAX
     package's ``RunConfig``. Fields of run modes the port does not have yet
-    make ``run`` raise instead of being ignored."""
+    (pt_replicas, profile_dir) make ``run`` raise instead of being
+    ignored."""
 
     G: int                           # -g number of strains
     iterations: int = 250            # -i total sweeps (burn = half)
@@ -69,9 +76,6 @@ class RunConfig:
 def _refuse_unported(rc: RunConfig) -> None:
     """Raise for every RunConfig field whose run mode is not ported yet."""
     waiting = [
-        (rc.checkpoint_path, "checkpoint_path", "11 (checkpoints)"),
-        (rc.auto_burn or rc.auto_samples > 0, "auto_burn/auto_samples",
-         "11 (auto-length)"),
         (rc.pt_replicas >= 2, "pt_replicas", "12 (parallel tempering)"),
         (rc.profile_dir, "profile_dir", "13 (profiling)"),
     ]
@@ -156,7 +160,28 @@ def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
     elif rc.fix_tau:
         raise ValueError("fix_tau requires tau_file")
     n = torch.as_tensor(data.counts, device=device).to(torch.float32)
-    return device, data, cfg, eta_init, tau_init, n, resolve(kernel, n)
+    ks = resolve(kernel, n)
+    if ks.resident and (_auto(rc) or rc.checkpoint_path):
+        # run-mode fields the resident path cannot honor must not be
+        # silently dropped (API callers bypass the CLI's refusal)
+        raise ValueError(
+            "the resident kernel supports plain/--chains runs only — "
+            "auto_burn/auto_samples/checkpoint need the composable 'cuda' "
+            "kernel")
+    return device, data, cfg, eta_init, tau_init, n, ks
+
+
+def _auto(rc: RunConfig) -> bool:
+    return rc.auto_burn or rc.auto_samples > 0
+
+
+def _auto_kw(rc: RunConfig, cfg: SamplerConfig) -> dict:
+    """converge's arguments for --auto_burn/--auto_samples; without
+    auto_burn the burn is pinned at cfg.burn (max_burn=cfg.burn burns
+    exactly that, segment-wise: the same trajectory)."""
+    return dict(rel_tol=rc.auto_tol,
+                max_burn=rc.auto_max_burn if rc.auto_burn else cfg.burn,
+                ess_target=rc.auto_samples, max_samples=rc.auto_max_samples)
 
 
 def _device_name(device: torch.device) -> str:
@@ -175,15 +200,29 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
     plain versions). nmf_iters overrides the NMF start's iteration count
     (benchmarks use a short start). Returns the result, its tensors still
     on the device.
+
+    rc.auto_burn/auto_samples run ``converge``'s data-driven length (a
+    one-chain ``run_chains_auto``, checkpointed with rc.checkpoint_path),
+    and metrics.json reports the sweeps run; rc.checkpoint_path alone runs
+    ``checkpoint.run_chain_checkpointed``. "cuda_resident" refuses both.
     """
     device, data, cfg, eta_init, tau_init, n, ks = _prepare(
         data, rc, device, kernel, nmf_iters)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(rc.seed)
+    generator = chain_generator(rc.seed, device)
+    init = dict(eta_init=eta_init, tau_init=tau_init, kernel=ks)
 
     t0 = time.time()
-    res = run_chain(n, cfg, generator, eta_init=eta_init, tau_init=tau_init,
-                    kernel=ks)
+    if _auto(rc):   # one chain of run_chains_auto (checkpointed or not)
+        res, burn_used, samples_used = run_chains_auto(
+            n, cfg, [rc.seed], checkpoint_path=rc.checkpoint_path,
+            **init, **_auto_kw(rc, cfg))
+        res = chain_result(res, 0)
+        cfg = replace(cfg, burn=burn_used, samples=samples_used)
+    elif rc.checkpoint_path:
+        res = run_chain_checkpointed(n, cfg, generator, rc.checkpoint_path,
+                                     checkpoint_every=rc.checkpoint_every, **init)
+    else:
+        res = run_chain(n, cfg, generator, **init)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - t0
@@ -211,17 +250,29 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
     ESS of the post-burn loglik traces, and the pairwise SNP distances of
     the chains' tau-stars. Returns the best chain's result.
 
-    The counterpart of the JAX package's ``run_multi`` without its mesh,
-    PT, checkpoint and auto-length modes (refused by ``_refuse_unported``).
+    The counterpart of the JAX package's ``run_multi`` without its mesh
+    and PT modes (refused by ``_refuse_unported``): rc.auto_burn/
+    auto_samples burn until every chain plateaus (``converge.
+    run_chains_auto``, checkpointed with rc.checkpoint_path), and
+    rc.checkpoint_path alone runs ``checkpoint.run_chains_checkpointed``.
     """
     from .diagnostics import ess_bulk, replicate_agreement, split_rhat
 
     device, data, cfg, eta_init, tau_init, n, ks = _prepare(
         data, rc, device, kernel, nmf_iters)
     seeds = list(range(rc.seed, rc.seed + n_chains))
+    init = dict(eta_init=eta_init, tau_init=tau_init, kernel=ks)
     t0 = time.time()
-    res = run_chains(n, cfg, seeds, eta_init=eta_init, kernel=ks,
-                     tau_init=tau_init)
+    if _auto(rc):
+        res, burn_used, samples_used = run_chains_auto(
+            n, cfg, seeds, checkpoint_path=rc.checkpoint_path, **init,
+            **_auto_kw(rc, cfg))
+        cfg = replace(cfg, burn=burn_used, samples=samples_used)
+    elif rc.checkpoint_path:
+        res = run_chains_checkpointed(n, cfg, seeds, rc.checkpoint_path,
+                                      checkpoint_every=rc.checkpoint_every, **init)
+    else:
+        res = run_chains(n, cfg, seeds, **init)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - t0

@@ -125,6 +125,9 @@ class SamplerResult(NamedTuple):
     eta_samples: Optional[torch.Tensor] = None    # [samples/thin,4,4]
 
 
+DRAW_FIELDS = ("tau_samples", "gamma_samples", "eta_samples")
+
+
 class TorchNoise:
     """The sweep's random draws from one chain's ``torch.Generator``.
 
@@ -344,7 +347,9 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
 
 
 def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
-    """Build the (n, state, accum, it, noise) -> (state, accum, loglik) step.
+    """Build the (n, state, accum, it, noise, burn=None) -> (state, accum,
+    loglik) step; ``burn`` replaces cfg.burn in the kappa-adaptation and
+    accumulation gates for that sweep (the anneal follows cfg.burn).
 
     kernel: a kernel choice's name or its resolved ``ops.Kernels``. "cuda"
     runs the tau sweep and the swap move through the CUDA kernel wrappers
@@ -376,7 +381,9 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
             np.float32(1.0) - np.float32(it) / np.float32(anneal_sweeps))
         return max(1.0, float(t))
 
-    def sweep(n, state: SamplerState, accum: SamplerAccum, it: int, noise):
+    def sweep(n, state: SamplerState, accum: SamplerAccum, it: int, noise,
+              burn: Optional[int] = None):
+        burn = cfg.burn if burn is None else burn
         tau, mix, gamma, eta, loglik, acc_g, acc_e = front(
             cfg, ks, n, state, it, noise, temperature(it))
 
@@ -384,7 +391,7 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
         # Dirichlet steps -> higher acceptance (frozen post-burn)
         kg, ke = state.kappa_gamma, state.kappa_eta
         if cfg.adapt_kappa:
-            if it < cfg.burn:
+            if it < burn:
                 kg = kg * torch.exp(cfg.adapt_rate * (cfg.target_accept - acc_g))
                 ke = ke * torch.exp(cfg.adapt_rate * (cfg.target_accept - acc_e))
             kg = torch.clamp(kg, 10.0, 1e9)
@@ -402,7 +409,7 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
             acc_gamma=accum.acc_gamma + acc_g,
             acc_eta=accum.acc_eta + acc_e,
         )
-        if it >= cfg.burn:
+        if it >= burn:
             upd.update(
                 sum_tau=accum.sum_tau + one_hot_tau(tau),
                 sum_gamma=accum.sum_gamma + gamma,
@@ -512,6 +519,57 @@ def _result_from_accum(accum: SamplerAccum, cfg: SamplerConfig,
     )
 
 
+def stored_slots(start_it: int, n_sweeps: int, burn: int, thin: int) -> list:
+    """Local indices of the draws a segment [start_it, start_it+n_sweeps)
+    keeps: the state after absolute sweep a with a >= burn and
+    (a - burn + 1) % thin == 0, the grid of a whole chain's stored draws."""
+    thin = max(int(thin), 1)
+    return [j for j in range(n_sweeps)
+            if start_it + j >= burn and (start_it + j - burn + 1) % thin == 0]
+
+
+def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
+                accum: SamplerAccum, start_it: int, n_sweeps: int, noise,
+                kernel="cuda", burn: Optional[int] = None, store: bool = False):
+    """Advance a chain n_sweeps sweeps from absolute sweep index start_it.
+
+    Returns (state, accum, trace): the [n_sweeps] loglik trace is
+    preallocated on n's device and filled sweep by sweep, so nothing waits
+    for the device. With ``store`` a fourth item holds the (tau int8, gamma,
+    eta) draws [k, ...] of the k sweeps ``stored_slots`` selects (burn: the
+    override or cfg.burn; thin: cfg.store_thin), copied into buffers on the
+    device; storing reads the state and changes nothing. ``burn`` has the
+    sweep's meaning (``make_sweep_fn``). Segments run in order from one
+    noise source give the draws and the trajectory of one long segment.
+    """
+    if not isinstance(kernel, Kernels):
+        kernel = resolve(kernel, n)
+    sweep = make_sweep_fn(cfg, kernel)
+    V, S, _ = n.shape
+    dev = n.device
+    trace = torch.empty(n_sweeps, dtype=torch.float32, device=dev)
+    slots = (stored_slots(start_it, n_sweeps, cfg.burn if burn is None else burn,
+                          cfg.store_thin) if store else [])
+    k = len(slots)
+    draws = (torch.empty((k, V, cfg.G), dtype=torch.int8, device=dev),
+             torch.empty((k, S, cfg.G), dtype=torch.float32, device=dev),
+             torch.empty((k, NBASES, NBASES), dtype=torch.float32, device=dev))
+    j = 0
+    for i in range(n_sweeps):
+        state, accum, ll = sweep(n, state, accum, start_it + i, noise, burn=burn)
+        trace[i] = ll
+        if j < k and slots[j] == i:
+            draws[0][j], draws[1][j], draws[2][j] = state.tau, state.gamma, state.eta
+            j += 1
+    return (state, accum, trace, draws) if store else (state, accum, trace)
+
+
+def check_store_thin(cfg: SamplerConfig) -> None:
+    thin = max(int(cfg.store_thin), 1)
+    if cfg.store_samples and cfg.samples % thin != 0:
+        raise ValueError(f"store_thin={thin} must divide samples={cfg.samples}")
+
+
 def run_chain(
     n: torch.Tensor,
     cfg: SamplerConfig,
@@ -522,51 +580,36 @@ def run_chain(
     kernel="cuda",
     noise=None,
 ) -> SamplerResult:
-    """Run one chain end to end (init -> one sweep per iteration ->
+    """Run one chain end to end (init -> one segment of every sweep ->
     summaries) on n's device. n: [V,S,4] counts, cast to f32 once.
     kernel: a kernel choice's name (bound here to n) or an ``ops.Kernels``
     already resolved for n.
 
-    The loglik trace is preallocated on the device and filled sweep by
-    sweep; nothing is fetched to the host until the caller asks. With
+    Nothing is fetched to the host until the caller asks. With
     cfg.store_samples the state after every store_thin-th post-burn sweep
-    (draw j after sweep burn + (j+1)*thin - 1) is copied into buffers
-    preallocated on the device; storing reads the state and changes
-    nothing, so the trajectory is bitwise the one without storage.
+    (draw j after sweep burn + (j+1)*thin - 1) is kept on the device, and
+    the trajectory is bitwise the one without storage.
     """
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    sweep = make_sweep_fn(cfg, kernel)   # the resident path's refusals first
+    make_sweep_fn(cfg, kernel)   # the resident path's refusals, before the start
+    check_store_thin(cfg)
     V, S, _ = n.shape
-    G = cfg.G
-    thin = max(int(cfg.store_thin), 1)
-    if cfg.store_samples and cfg.samples % thin != 0:
-        raise ValueError(f"store_thin={thin} must divide samples={cfg.samples}")
     state = init_state(n, cfg, generator, eta_init, tau_init, gamma_init)
-    accum = init_accum(V, S, G, n.device)
+    accum = init_accum(V, S, cfg.G, n.device)
     noise = TorchNoise(generator) if noise is None else noise
-    trace = torch.empty(cfg.total_sweeps, dtype=torch.float32, device=n.device)
-    draws = {}
-    if cfg.store_samples:
-        n_draws = cfg.samples // thin
-        draws = dict(
-            tau_samples=torch.empty((n_draws, V, G), dtype=torch.int8,
-                                    device=n.device),
-            gamma_samples=torch.empty((n_draws, S, G), dtype=torch.float32,
-                                      device=n.device),
-            eta_samples=torch.empty((n_draws, NBASES, NBASES),
-                                    dtype=torch.float32, device=n.device))
-    for it in range(cfg.total_sweeps):
-        state, accum, ll = sweep(n, state, accum, it, noise)
-        trace[it] = ll
-        done = it + 1 - cfg.burn
-        if draws and done > 0 and done % thin == 0:
-            j = done // thin - 1
-            draws["tau_samples"][j] = state.tau
-            draws["gamma_samples"][j] = state.gamma
-            draws["eta_samples"][j] = state.eta
-    return _result_from_accum(accum, cfg, trace, **draws)
+    out = run_segment(n, cfg, state, accum, 0, cfg.total_sweeps, noise, kernel,
+                      store=cfg.store_samples)
+    draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
+    return _result_from_accum(out[1], cfg, out[2], **draws)
+
+
+def chain_generator(seed: int, device) -> torch.Generator:
+    """A chain's generator on `device`, seeded `seed`."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
 
 
 def run_chains(
@@ -588,12 +631,8 @@ def run_chains(
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    results = []
-    for seed in seeds:
-        generator = torch.Generator(device=n.device)
-        generator.manual_seed(int(seed))
-        results.append(run_chain(n, cfg, generator, eta_init=eta_init,
-                                 tau_init=tau_init, kernel=kernel))
+    results = [run_chain(n, cfg, chain_generator(seed, n.device), eta_init=eta_init,
+                         tau_init=tau_init, kernel=kernel) for seed in seeds]
     return SamplerResult(*(None if field[0] is None else torch.stack(field)
                            for field in zip(*results)))
 

@@ -560,3 +560,70 @@ def test_store_every_chain_is_bitwise_the_chain_without(cuda):
             assert torch.equal(a, b), name
     assert stored.tau_samples.shape == (5, 300, 3) and stored.tau_samples.is_cuda
     assert stored.tau_samples.dtype == torch.int8
+
+
+# ---- checkpoints and auto-length runs on the card ----
+
+
+class _Interrupt(Exception):
+    pass
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "cuda_topk"])
+def test_checkpointed_chain_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
+    """A checkpointed chain at V=1e4 S=64 G=8 (cuda_topk: on biallelic
+    counts) stopped after two of three segments and resumed from its
+    snapshot (the Philox state included) is bitwise the uninterrupted
+    chain; the resumed part launches the kernels of its sweeps only."""
+    from desman_tpu_torch import checkpoint
+    from desman_tpu_torch.sampler import SamplerConfig, chain_generator, run_chain
+
+    two = dict(error_rate=0.0, max_alleles=2) if kernel == "cuda_topk" else {}
+    t = synth.generate(V=10_000, S=64, G=8, coverage=50.0, seed=0, **two)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=8, burn=30, samples=30, nmf_iters=50)
+    ref = run_chain(n, cfg, chain_generator(0, cuda), kernel=kernel)
+    ck = str(tmp_path / "c.npz")
+    real = checkpoint.run_segment
+    calls = []
+
+    def segment(*args, **kw):
+        if len(calls) == 2:
+            raise _Interrupt
+        calls.append(args[4])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(checkpoint, "run_segment", segment)
+    with pytest.raises(_Interrupt):
+        checkpoint.run_chain_checkpointed(n, cfg, chain_generator(0, cuda), ck,
+                                          checkpoint_every=20, kernel=kernel)
+    monkeypatch.undo()
+    assert checkpoint.load(ck)[2] == 40
+    ops.reset_launches()
+    got = checkpoint.run_chain_checkpointed(n, cfg, chain_generator(7, cuda), ck,
+                                            checkpoint_every=20, kernel=kernel)
+    torch.cuda.synchronize()
+    tau = ops.tau_sweep_topk if kernel == "cuda_topk" else ops.tau_sweep
+    assert tau.launches == 20 and ops.swap.launches == 20
+    for name, a, b in zip(ref._fields, ref, got):
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+def test_chains_auto_is_each_chains_auto_on_the_card(cuda):
+    """run_chains_auto's three chains, given the same stopping points (one
+    burn segment to max_burn; sampling extended to the cap in segments), are
+    three single-chain auto runs of their seeds, bit for bit."""
+    from desman_tpu_torch.converge import run_chain_auto, run_chains_auto
+    from desman_tpu_torch.sampler import SamplerConfig, chain_generator, chain_result
+
+    t = synth.generate(V=2000, S=32, G=4, coverage=50.0, seed=2)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=4, burn=40, samples=20, nmf_iters=50)
+    kw = dict(check_every=20, rel_tol=0.0, max_burn=40, ess_target=1e9, max_samples=60)
+    res, burn, samples = run_chains_auto(n, cfg, [0, 1, 2], **kw)
+    assert (burn, samples) == (40, 60) and res.loglik_trace.is_cuda
+    for i in range(3):
+        one, b, s = run_chain_auto(n, cfg, chain_generator(i, cuda), **kw)
+        assert (b, s) == (burn, samples)
+        for name, a, x in zip(one._fields, chain_result(res, i), one):
+            assert (a is None and x is None) or torch.equal(a, x), (i, name)

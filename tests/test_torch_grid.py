@@ -170,7 +170,16 @@ def test_fit_grid_resumes_finished_runs(grid_dirs, pipeline_data, monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 14"),
                                      (dict(ess_target=100.0), "item 11")])
-def test_fit_grid_refuses_unported_modes(kw, item):
+def test_fit_grid_refuses_unported_modes(kw, item, pipeline_data):
+    """mesh (item 14) raises naming its item; ess_target (item 11) is
+    ported: it samples until the target or max_samples."""
+    if item == "item 11":
+        records = model_selection.fit_grid(
+            pipeline_data.data.counts, [1, 2], [0], iterations=20, max_samples=30,
+            device="cpu", **kw)
+        assert [(r.G, r.seed) for r in records] == [(1, 0), (2, 0)]
+        assert all(np.isfinite(r.mean_deviance) for r in records)
+        return
     with pytest.raises(NotImplementedError, match=item):
         model_selection.fit_grid(np.ones((4, 2, 4)), [1], [0], device="cpu", **kw)
 

@@ -20,6 +20,7 @@ MODULES = [
     "desman_tpu_torch.ops.swap_kernel", "desman_tpu_torch.ops.gamma_kernel",
     "desman_tpu_torch.ops.fused_sweep", "desman_tpu_torch.ops.tau_topk",
     "desman_tpu_torch.sampler", "desman_tpu_torch.resident",
+    "desman_tpu_torch.checkpoint", "desman_tpu_torch.converge",
     "desman_tpu_torch.convert", "desman_tpu_torch.run",
     "desman_tpu_torch.filter", "desman_tpu_torch.model_selection",
     "desman_tpu_torch.pipeline", "desman_tpu_torch.cli",

@@ -87,12 +87,12 @@ def test_cuda_device_without_cuda_exits_nonzero(variant_half, tmp_path, capsys):
     (["--eta_update", "rows"], "item 3"),
     (["--store_every", "5"], "item 3"),
 ])
-def test_unported_flags_exit_2(argv, item, variant_half, tmp_path, capsys):
+def test_unported_flags_exit_2(argv, item, variant_half, port_out, tmp_path, capsys):
     """A flag of an item still to port exits 2 naming its item. The flags
-    of items 3 and 5 are ported: each runs on the quickstart input
+    of items 3, 5 and 11 are ported: each runs on the quickstart input
     (``_ported_flag``)."""
-    if item in ("item 3", "item 5"):
-        _ported_flag(argv, variant_half, str(tmp_path / "out"))
+    if item in ("item 3", "item 5", "item 11"):
+        _ported_flag(argv, variant_half, str(tmp_path / "out"), port_out)
         return
     rc = cli.main(["desman", variant_half, "-g", "2", "--device", "cpu", *argv])
     assert rc == 2
@@ -108,12 +108,28 @@ def _run_mode(variant_half, out, argv):
         return json.load(f)
 
 
-def _ported_flag(argv, variant_half, out):
+def _ported_flag(argv, variant_half, out, port_out):
     """--store_every that does not divide the sampling sweeps fails as in
     the JAX package; -f holds tau to the file; --eta_update rows samples
-    eta row by row; --store_every 5 writes draws.npz. The runs meet the
-    quickstart gates."""
-    if argv == ["--store_every=4"]:
+    eta row by row; --store_every 5 writes draws.npz; --checkpoint writes
+    the files of the run without it (port_out), and leaves its snapshot at
+    the last sweep; --auto_burn burns at least -i/2 sweeps. The runs meet
+    the quickstart gates."""
+    if argv[0] == "--checkpoint":
+        ck = os.path.join(os.path.dirname(out), argv[1])
+        m = _run_mode(variant_half, out, ["-e", ETA, "--checkpoint", ck])
+        for f in OUTPUTS:
+            if f != "metrics.json":
+                with open(os.path.join(out, f), "rb") as a, \
+                        open(os.path.join(port_out, f), "rb") as b:
+                    assert a.read() == b.read(), f
+        with np.load(ck) as z:
+            assert int(z["it"]) == m["sweeps"] == 150
+    elif argv == ["--auto_burn"]:
+        m = _run_mode(variant_half, out, ["-e", ETA, *argv])
+        assert m["sampling_sweeps"] == 75 and m["sweeps"] - 75 >= 75
+        assert len(np.loadtxt(os.path.join(out, "loglik_trace.csv"))) == m["sweeps"]
+    elif argv == ["--store_every=4"]:
         # 250 sweeps -> 125 sampling sweeps: 4 does not divide them, and
         # both packages say so before any work
         for main, extra in ((cli.main, ["--device", "cpu"]), (jcli.main, [])):
