@@ -86,12 +86,31 @@ Phases, each printing its own '# ...' lines:
    auto_max_samples: 500}`: G=5 within the gates, every run's
    sampling_sweeps >= 125, and a rerun launches no sweep; (f)
    `--checkpoint` and `--auto_burn` with `--kernel cuda_resident` exit 2
-   with the JAX CLI's message and launch nothing.
+   with the JAX CLI's message and launch nothing;
+11. parallel tempering, at V=1e4, S=64, G=8 with `--kernel cuda` unless
+   said otherwise: (a) run() with pt_replicas=4, pt_max_temp=8, 400
+   sweeps (nmf_iters 50): tau and swap launched exactly 4 x 400 times, 0 <
+   pt_swap_accept <= 1, a finite cold trace; then ms an ensemble sweep
+   beside 4 x ms a plain sweep, in turns plain, PT, PT, plain; and one
+   run() at V=1e5, S=96, G=16, R=4, 40 sweeps: wall and peak device memory;
+   (b) `desman --pt 4 -i 200` on TestData's half (quickstart gates) and
+   with `cuda_topk` on grid (b)'s counts (the top-2 kernel, never the tau
+   kernel); (c) tests/test_pt.py's mode-crossing case (V=40, swap moves
+   off, 6 rungs to T=16), seeds 0-3: each PT star within 2 SNPs of the
+   truth, the plain chains' further in sum; (d) `desman --pt 4 --checkpoint_every 50 --checkpoint -i 400`
+   subprocesses side by side, one uninterrupted, one SIGKILLed and one
+   SIGTERMed (exit 75) mid-run, then rerun: files byte-identical to the
+   uninterrupted run's; and in process run_chain_pt_checkpointed bitwise
+   run_chain_pt (V=2000, stored cold draws); (e) `--pt 4 --auto_burn
+   --auto_samples 100` on TestData's half (quickstart gates); (f) `--pt`
+   with `--auto_burn --checkpoint`, with `--auto_samples --chains 2` and
+   with `--kernel cuda_resident` exit 2 with the JAX CLI's message and
+   launch nothing.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every in-process path driven in phases 3-10,
+kernel's launches summed over every in-process path driven in phases 3-11,
 each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
@@ -1060,15 +1079,16 @@ def run_together(runs):
     return results
 
 
-def refused(argv, what):
-    """A desman CLI refusal: exit 2 with the JAX CLI's message, no launch."""
+def refused(argv, what, words=("single-device speed mode", "--kernel cuda")):
+    """A desman CLI refusal: exit 2 with the JAX CLI's message (holding
+    `words`), no launch."""
     ops.reset_launches()
     err = stdio.StringIO()
     with contextlib.redirect_stderr(err):
         rc = cli.main(["desman", *argv])
     said = err.getvalue().strip()
     print(f"# cli {what}: rc {rc}: {said}")
-    gate(rc == 2 and "single-device speed mode" in said and "--kernel cuda" in said
+    gate(rc == 2 and all(w in said for w in words)
          and all(n == 0 for n in read_launches().values()),
          f"{what} exits 2 with the JAX CLI's message, no launch")
 
@@ -1247,6 +1267,211 @@ def phase_run_length(tmp):
     print(f"# phase 10 wall {time.time() - t_phase:.2f} s")
 
 
+PT_R = 4
+
+
+def pt_turns(data):
+    """ms a sweep of the plain chain and ms an ensemble sweep of PT_R
+    replicas at V=1e4 S=64 G=8 on cuda, 400 sweeps each after its start, in
+    turns plain, PT, PT, plain (CUDA-synchronised host clock; launches not
+    counted: every count is reset before the next path)."""
+    dev = torch.device("cuda")
+    n = torch.as_tensor(data.counts, dtype=torch.float32, device=dev)
+    cfg = sampler.SamplerConfig(G=G, burn=CK_SWEEPS // 2, samples=CK_SWEEPS // 2,
+                                nmf_iters=50)
+    ks = ops.resolve("cuda", n)
+    times = {"plain": [], "pt": []}
+    for mode in ("plain", "pt", "pt", "plain"):
+        if mode == "plain":
+            gen = sampler.chain_generator(0, dev)
+            args = (sampler.init_state(n, cfg, gen), sampler.init_accum(V, S, G, dev), 0,
+                    CK_SWEEPS, sampler.TorchNoise(gen), ks)
+            fn = sampler.run_segment
+        else:
+            gens = sampler.pt_generators(0, PT_R, dev)
+            noises, exchange = sampler.pt_noises(gens)
+            args = (*sampler.pt_init(n, cfg, gens[:PT_R]), 0, CK_SWEEPS, noises,
+                    exchange, 8.0, ks)
+            fn = sampler.run_pt_segment
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(n, cfg, *args)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3 / CK_SWEEPS)
+    ops.reset_launches()
+    return times
+
+
+def crossing_case():
+    """tests/test_pt.py::test_pt_crosses_modes_plain_gibbs_cannot's counts,
+    truth and half label-swapped start."""
+    rng = np.random.default_rng(3)
+    Vc, Sc = 40, 4
+    tau_idx = rng.integers(0, 4, size=(Vc, 2))
+    same = tau_idx[:, 0] == tau_idx[:, 1]
+    tau_idx[same, 1] = (tau_idx[same, 0] + 1) % 4
+    gamma = np.tile(np.array([0.8, 0.2]), (Sc, 1))
+    eta = np.full((4, 4), 0.01 / 3) + np.eye(4) * (0.99 - 0.01 / 3)
+    probs = np.einsum("vsa,ab->vsb",
+                      np.einsum("vga,sg->vsa", np.eye(4)[tau_idx], gamma), eta)
+    counts = rng.poisson(5.0 * probs)
+    tau0 = tau_idx.copy()
+    tau0[Vc // 2:] = tau0[Vc // 2:, ::-1]
+    return counts, tau_idx, tau0, gamma, eta
+
+
+def phase_pt(tmp):
+    """Phase 11: parallel tempering (see the module docstring)."""
+    from desman_tpu_torch import checkpoint
+    from desman_tpu_torch.utils import snp_distance_perm
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    # (a) run() at full width, then the plain chain and PT in turns
+    out = os.path.join(tmp, "pt_run")
+    rc = run.RunConfig(G=G, iterations=CK_SWEEPS, seed=0, out_dir=out,
+                       pt_replicas=PT_R, pt_max_temp=8.0)
+    ops.reset_launches()
+    res = run.run(t.data, rc, device="cuda", kernel="cuda", nmf_iters=50)
+    launches = read_launches()
+    m = read_metrics(out)
+    trace = res.loglik_trace.cpu().numpy()
+    print(f"# run --pt {PT_R} V={V} S={S} G={G} {CK_SWEEPS} sweeps: pt_swap_accept "
+          f"{m['pt_swap_accept']:.6f}, final loglik {m['final_loglik']:.6f}, star "
+          f"deviance {m['star_deviance']:.6f}, {m['sweeps_per_s']:.3f} ensemble "
+          f"sweeps/s, launches {launches}")
+    gate(launches["tau_sweep"] == PT_R * CK_SWEEPS and launches["swap"] == PT_R * CK_SWEEPS,
+         f"--pt {PT_R}: tau_sweep and swap launched {PT_R} x {CK_SWEEPS} times")
+    gate(0.0 < m["pt_swap_accept"] <= 1.0, "0 < pt_swap_accept <= 1")
+    gate(trace.shape == (CK_SWEEPS,) and bool(np.isfinite(trace).all()),
+         f"--pt {PT_R}: {CK_SWEEPS} finite cold logliks")
+    times = pt_turns(t.data)
+    print(f"# in turns plain, PT, PT, plain at V={V} S={S} G={G}, {CK_SWEEPS} sweeps: "
+          f"ms an ensemble sweep of {PT_R} {times['pt']}, {PT_R} x ms a plain sweep "
+          f"{[PT_R * x for x in times['plain']]} (ratio of the sums "
+          f"{sum(times['pt']) / (PT_R * sum(times['plain'])):.4f})")
+
+    # one record at V=1e5 S=96 G=16: wall and peak memory
+    big = synth.generate(V=100_000, S=96, G=16, coverage=50.0, seed=0)
+    out = os.path.join(tmp, "pt_big")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.time()
+    res = run.run(big.data, run.RunConfig(G=16, iterations=40, seed=0, out_dir=out,
+                                          pt_replicas=PT_R),
+                  device="cuda", kernel="cuda", nmf_iters=50)
+    wall = time.time() - t0
+    launches = read_launches()
+    m = read_metrics(out)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# run --pt {PT_R} V=1e5 S=96 G=16, 40 sweeps: wall {wall:.3f} s (chain "
+          f"{m['elapsed_s']:.3f} s, {m['sweeps_per_s']:.3f} ensemble sweeps/s), peak "
+          f"device memory {peak} bytes, pt_swap_accept {m['pt_swap_accept']:.6f}")
+    gate(launches["tau_sweep"] == PT_R * 40
+         and bool(torch.isfinite(res.loglik_trace).all()),
+         "V=1e5 PT run: 160 tau launches, finite cold logliks")
+    del res, big
+
+    # (b) accuracy through the CLI
+    half = variant_half(tmp)
+    eta = os.path.join(TESTDATA, "true_eta.csv")
+    out = os.path.join(tmp, "pt_half")
+    launches, _ = drive_cli([half, "-g", "5", "-e", eta, "-i", "200", "-s", "0",
+                             "--pt", str(PT_R)], out)
+    m = quickstart_gates(out, f"--pt {PT_R}")
+    gate(launches["tau_sweep"] == PT_R * 200 and 0.0 < m["pt_swap_accept"] <= 1.0,
+         f"--pt {PT_R} on TestData's half: {PT_R * 200} tau launches, "
+         f"pt_swap_accept {m['pt_swap_accept']:.6f}")
+    out = os.path.join(tmp, "pt_topk")
+    launches, _ = drive_cli([os.path.join(tmp, "grid_b", "sel_var.csv"), "-g", "5", "-i",
+                             "200", "-s", "0", "--kernel", "cuda_topk", "--pt",
+                             str(PT_R)], out)
+    print(f"# --pt {PT_R} --kernel cuda_topk on grid (b)'s counts: pt_swap_accept "
+          f"{read_metrics(out)['pt_swap_accept']:.6f}")
+    gate(launches["tau_sweep_topk"] == PT_R * 200 and launches["tau_sweep"] == 0,
+         "--pt --kernel cuda_topk launched tau_sweep_topk and never tau_sweep")
+
+    # (c) mode crossing: PT's star within 2 SNPs of the truth, plain's worse
+    counts, truth, tau0, gamma, eta_c = crossing_case()
+    n = torch.as_tensor(counts, dtype=torch.float32, device=dev)
+    init = dict(eta_init=torch.as_tensor(eta_c, dtype=torch.float32, device=dev),
+                gamma_init=torch.as_tensor(gamma, dtype=torch.float32, device=dev),
+                tau_init=torch.as_tensor(tau0, dtype=torch.int32, device=dev))
+    cfg = sampler.SamplerConfig(G=2, burn=200, samples=200, nmf_iters=0,
+                                anneal_temp0=1.0, swap_moves=False, fix_gamma=True,
+                                fix_eta=True)
+    d_pt, d_plain = [], []
+    ops.reset_launches()
+    for seed in range(4):   # a plain chain crosses now and then: four seeds
+        plain = sampler.run_chain(n, cfg, sampler.chain_generator(seed, dev), **init)
+        pt = sampler.run_chain_pt(n, cfg, seed, n_replicas=6, max_temp=16.0, **init)
+        d_plain.append(snp_distance_perm(truth, plain.tau_star.cpu().numpy()))
+        d_pt.append(snp_distance_perm(truth, pt.tau_star.cpu().numpy()))
+    launches = read_launches()
+    print(f"# mode crossing (V=40, 6 rungs to T=16, seeds 0-3): star SNP distances PT "
+          f"{d_pt}, plain {d_plain}; launches {launches}")
+    gate(max(d_pt) <= 2 and sum(d_plain) > sum(d_pt)
+         and launches["tau_sweep"] == 4 * (400 + 6 * 400),
+         "PT's stars within 2 SNPs of the truth, plain Gibbs's further from it")
+
+    # (d) resume: --pt --checkpoint subprocesses SIGKILLed / SIGTERMed and rerun
+    csv = os.path.join(tmp, "metric_counts.csv")
+    base = [csv, "-g", str(G), "-i", str(CK_SWEEPS), "-s", "0", "--kernel", "cuda",
+            "--pt", str(PT_R), "--checkpoint_every", "50", "--checkpoint"]
+    runs = {}
+    for name, sig in (("whole", None), ("killed", signal.SIGKILL),
+                      ("termed", signal.SIGTERM)):
+        out, ck = os.path.join(tmp, f"pt_{name}"), os.path.join(tmp, f"pt_{name}.npz")
+        runs[name] = (f"--pt {PT_R} --checkpoint run, {name}", base + [ck, "-o", out],
+                      ck, sig)
+    (_, _), (rc_killed, _), (rc_termed, err) = run_together(list(runs.values()))
+    gate(rc_killed == -signal.SIGKILL, "the killed PT run died of SIGKILL")
+    gate(rc_termed == 75 and "preempted" in err,
+         "SIGTERM: the PT run exits 75 naming the preemption")
+    run_together([(f"rerun of the {name} PT run", *runs[name][1:3], None)
+                  for name in ("killed", "termed")])
+    whole = os.path.join(tmp, "pt_whole")
+    gate(same_files(os.path.join(tmp, "pt_killed"), whole)
+         and same_files(os.path.join(tmp, "pt_termed"), whole),
+         "the SIGKILLed and the SIGTERMed PT runs resume byte-identical to the "
+         "uninterrupted run")
+    small = synth.generate(V=2000, S=32, G=4, coverage=50.0, seed=2)
+    n = torch.as_tensor(small.data.counts, dtype=torch.float32, device=dev)
+    cfg = sampler.SamplerConfig(G=4, burn=30, samples=30, nmf_iters=50,
+                                store_samples=True, store_thin=5)
+    ops.reset_launches()
+    ref = sampler.run_chain_pt(n, cfg, 3, n_replicas=PT_R)
+    got = checkpoint.run_chain_pt_checkpointed(n, cfg, 3, os.path.join(tmp, "pt_in.npz"),
+                                               checkpoint_every=20, n_replicas=PT_R)
+    read_launches()
+    gate(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(ref, got)),
+         "in process, run_chain_pt_checkpointed is bitwise run_chain_pt (stored "
+         "cold draws included)")
+
+    # (e) auto length on TestData's half
+    out = os.path.join(tmp, "pt_auto")
+    drive_cli([half, "-g", "5", "-e", eta, "-i", "200", "-s", "0", "--pt", str(PT_R),
+               "--auto_burn", "--auto_samples", "100"], out)
+    m = quickstart_gates(out, f"--pt {PT_R} --auto_burn --auto_samples 100")
+    print(f"# --pt {PT_R} --auto_burn --auto_samples 100 on TestData's half: burn "
+          f"{m['sweeps'] - m['sampling_sweeps']}, sampling {m['sampling_sweeps']}, "
+          f"loglik_ess_bulk {m.get('loglik_ess_bulk')}")
+
+    # (f) the JAX CLI's refusals
+    pt = ["--pt", str(PT_R), "-o", os.path.join(tmp, "pt_refused")]
+    single = ("composes only single-chain",)
+    refused([half, "-g", "5", "-i", "10", *pt, "--auto_burn", "--checkpoint",
+             os.path.join(tmp, "pt_refused.npz")], "--pt --auto_burn --checkpoint", single)
+    refused([half, "-g", "5", "-i", "10", *pt, "--auto_samples", "50", "--chains", "2"],
+            "--pt --auto_samples --chains 2", single)
+    refused([half, "-g", "5", "-i", "10", *pt, "--kernel", "cuda_resident"],
+            "--pt --kernel cuda_resident",
+            ("single-device speed mode", "--kernel cuda for --pt"))
+    print(f"# phase 11 wall {time.time() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -1277,6 +1502,7 @@ def main() -> int:
             phase_assign_tau()
             phase_run_modes(tmp)
             phase_run_length(tmp)
+            phase_pt(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])

@@ -1,5 +1,5 @@
-"""Checkpoint / exact resume for sampler chains (counterpart of
-``desman_tpu.checkpoint`` without its parallel-tempering part).
+"""Checkpoint / exact resume for sampler chains and parallel-tempering
+ensembles (counterpart of ``desman_tpu.checkpoint``).
 
 A run executes as segments of sweeps (``sampler.run_segment``); between
 segments the full chain state (tau, gamma, eta, mixture cache, adapted
@@ -14,6 +14,14 @@ the mt19937 state on the CPU), and a resumed run restores it and never runs
 ``init_state`` again (the NMF start draws from the same generator). Segments
 run the same sweeps in the same order from the same draws, so a resumed run
 continues the exact trajectory of an uninterrupted one.
+
+A PT snapshot (``save_pt``) holds the replicas' states and accumulators
+with a leading [R] axis, ``rung``, ``it``, the cold trace, ``n_acc`` and
+``n_heads`` (the JAX package's ``save_pt`` fields) and ``generator_state``
+[R + 1, ...]: the replicas' generators, then the exchange's. Its stored
+cold draws ride the same file's ``extra_*`` arrays, so one rename commits
+both: the JAX package's separate ``.draws.npz`` and its truncation of a
+draws file that ran one segment ahead have no counterpart here.
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ from .ops import Kernels, resolve
 from .sampler import (
     DRAW_FIELDS, SamplerAccum, SamplerConfig, SamplerResult, SamplerState,
     TorchNoise, _result_from_accum, chain_generator, chain_result,
-    check_store_thin, init_accum, init_state, make_sweep_fn, run_segment,
+    check_store_thin, init_accum, init_state, make_pt_step, make_sweep_fn,
+    pt_generators, pt_init, pt_merge_accums, pt_noises, pt_swap_rate,
+    run_pt_segment, run_segment,
     stored_slots,  # noqa: F401 (checkpoint.stored_slots, as in the JAX package)
 )
 
@@ -72,15 +82,17 @@ def _numpy(t) -> np.ndarray:
 
 def save(path: str, state: SamplerState, accum: SamplerAccum, it: int,
          trace: np.ndarray, generators: Sequence[torch.Generator],
-         extras: Optional[dict] = None) -> None:
+         extras: Optional[dict] = None, payload: Optional[dict] = None) -> None:
     """Serialize a chain snapshot atomically (write + rename).
 
     state/accum: one chain's, or the chains' stacked on a leading axis;
     generators: each chain's generator, in that order. ``extras``:
     caller-owned arrays saved alongside (converge.run_chains_auto's
     plateau-detector state, stored draws); read back with ``load_extras``.
+    ``payload``: more top-level arrays, written as they are (``save_pt``).
     """
-    payload = {f"state_{k}": _numpy(v) for k, v in zip(_STATE_FIELDS, state)}
+    payload = dict(payload or {})
+    payload.update({f"state_{k}": _numpy(v) for k, v in zip(_STATE_FIELDS, state)})
     payload.update(
         {f"accum_{k}": _numpy(v) for k, v in zip(_ACCUM_FIELDS, accum)})
     payload["it"] = np.asarray(it, np.int64)
@@ -291,3 +303,95 @@ def _run_checkpointed(n, cfg: SamplerConfig, generators, checkpoint_path: str,
 
     return stacked_result(accums, cfg, np.concatenate(trace_parts, axis=1),
                           draws, n.device)
+
+
+# --------------------------------------------------------------------------
+# parallel-tempering checkpoints (replica states + rung assignment)
+# --------------------------------------------------------------------------
+
+def save_pt(path: str, states, accums, rung, it: int, trace: np.ndarray,
+            n_acc: float, n_heads: float, generators: Sequence[torch.Generator],
+            extras: Optional[dict] = None) -> None:
+    """Serialize a PT snapshot atomically (write + rename): the replicas'
+    states and accumulators (lists, stacked here on a leading [R] axis),
+    rung, it, the cold trace so far, the accepted exchanges and proposals,
+    every generator's state (the R replicas', then the exchange's) and the
+    caller's ``extras`` (stored cold draws)."""
+    save(path, stack(states), stack(accums), it, trace, generators, extras,
+         payload={"rung": _numpy(rung).astype(np.int32),
+                  "n_acc": np.asarray(n_acc, np.float64),
+                  "n_heads": np.asarray(n_heads, np.float64)})
+
+
+def load_pt(path: str, device="cpu"):
+    """(states, accums, rung, it, trace, n_acc, n_heads, generator_state) of
+    a PT snapshot: per-replica lists, rung as int64 on `device`."""
+    state, accum, it, trace, gen_state = load(path, device)
+    with np.load(path) as z:
+        rung = torch.as_tensor(z["rung"].astype(np.int64), device=device)
+        n_acc, n_heads = float(z["n_acc"]), float(z["n_heads"])
+    return (unstack(state), unstack(accum), rung, it, trace, n_acc, n_heads,
+            gen_state)
+
+
+def run_chain_pt_checkpointed(
+    n: torch.Tensor,
+    cfg: SamplerConfig,
+    seed: int,
+    checkpoint_path: str,
+    checkpoint_every: int = 50,
+    n_replicas: int = 4,
+    max_temp: float = 8.0,
+    eta_init=None,
+    tau_init=None,
+    kernel="cuda",
+) -> SamplerResult:
+    """``sampler.run_chain_pt`` with periodic checkpoints and automatic
+    resume: the result is bitwise ``run_chain_pt`` of the same (n, cfg,
+    seed, n_replicas, max_temp) however often the run was interrupted, the
+    cold-rung thinned draws of cfg.store_samples included. A SIGTERM raises
+    ``Preempted`` at the next segment head. R < 2 is
+    ``run_chain_checkpointed`` with a generator seeded `seed`.
+    """
+    R = int(n_replicas)
+    if R < 2:   # the same fallback as run_chain_pt
+        return run_chain_checkpointed(n, cfg, chain_generator(seed, n.device),
+                                      checkpoint_path, checkpoint_every,
+                                      eta_init, tau_init, kernel)
+    n, ks = prepare(n, cfg, kernel)
+    make_pt_step(n, cfg, R, max_temp, ks)   # the refusals, before the start
+    generators = pt_generators(seed, R, n.device)
+    if os.path.exists(checkpoint_path):
+        (states, accums, rung, it, trace_done, acc_sum, head_sum,
+         gen_state) = load_pt(checkpoint_path, n.device)
+        restore_generators(generators, gen_state)
+        trace_parts = [trace_done[:it]]
+        draws = _DrawBuf(load_extras(checkpoint_path))
+    else:
+        states, accums, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init)
+        it, acc_sum, head_sum = 0, 0.0, 0.0
+        trace_parts = []
+        draws = _DrawBuf()
+    noises, exchange = pt_noises(generators)
+    n_acc = torch.tensor(acc_sum, dtype=torch.float32, device=n.device)
+
+    while it < cfg.total_sweeps:
+        check_preempted()
+        seg = min(checkpoint_every, cfg.total_sweeps - it)
+        out = run_pt_segment(n, cfg, states, accums, rung, it, seg, noises,
+                             exchange, max_temp, ks, store=cfg.store_samples)
+        states, accums, rung, trace, seg_acc, seg_heads = out[:6]
+        if cfg.store_samples:
+            draws.append(*(_numpy(d) for d in out[6]))
+        it += seg
+        n_acc = n_acc + seg_acc
+        head_sum += seg_heads
+        trace_parts.append(_numpy(trace))
+        save_pt(checkpoint_path, states, accums, rung, it,
+                np.concatenate(trace_parts), float(n_acc), head_sum, generators,
+                extras=draws.extras())
+
+    trace = torch.as_tensor(np.concatenate(trace_parts), device=n.device)
+    return _result_from_accum(pt_merge_accums(accums), cfg, trace,
+                              pt_swap_accept=pt_swap_rate(n_acc, head_sum),
+                              **draws.result_fields(n.device))

@@ -10,7 +10,7 @@
     python -m desman_tpu_torch validate -p Filtered_Tau_star.csv -t true_tau.csv
     python -m desman_tpu_torch diag 'out/run_*'
 
-    desman       tau/gamma/eta Gibbs deconvolution (--chains, -t/-f,
+    desman       tau/gamma/eta Gibbs deconvolution (--chains, --pt, -t/-f,
                  --eta_update, --store_every, --checkpoint, --auto_burn,
                  --auto_samples, --kernel cuda|cuda_resident|cuda_topk|torch)
     filter       variant-position LLR filter -> sel_var/p/q/tran_df CSVs
@@ -42,8 +42,6 @@ import sys
 
 # flag -> the ROADMAP queue-1 item that ports it
 _WAITING_FLAGS = {
-    "--pt": "12 (parallel tempering)",
-    "--pt_max_temp": "12 (parallel tempering)",
     "--profile": "13 (profiling)",
     "--mesh": "14 (multi-GPU)",
 }
@@ -150,6 +148,12 @@ def _desman(argv) -> int:
                     "--store_every draws exist) reaches this target, capped "
                     "at --auto_max_samples")
     ap.add_argument("--auto_max_samples", type=int, default=2000)
+    ap.add_argument("--pt", type=int, default=0, metavar="R",
+                    help="parallel tempering with R replicas (better mixing "
+                    "on multimodal posteriors; composes with --chains/-t/-f/"
+                    "--checkpoint, and with --auto_burn/--auto_samples via "
+                    "the cold-rung trace)")
+    ap.add_argument("--pt_max_temp", type=float, default=8.0)
     _add_device(ap)
     ap.add_argument("--kernel",
                     choices=["cuda", "cuda_resident", "cuda_topk", "torch"],
@@ -165,12 +169,19 @@ def _desman(argv) -> int:
                     "cuda and torch are the same)")
     args = ap.parse_args(argv)
     auto = args.auto_burn or args.auto_samples > 0
+    # the JAX CLI's capability check: auto-length PT runs one chain,
+    # without checkpoints
+    if auto and args.pt >= 2 and (args.checkpoint or args.chains > 1):
+        from .run import AUTO_PT_SINGLE_CHAIN
+
+        print(f"desman: {AUTO_PT_SINGLE_CHAIN}", file=sys.stderr)
+        return 2
     if args.kernel == "cuda_resident" and (
-            auto or args.checkpoint or args.store_every or args.tau_fixed
-            or args.eta_update == "rows"):
+            args.pt >= 2 or auto or args.checkpoint or args.store_every
+            or args.tau_fixed or args.eta_update == "rows"):
         print("desman: --kernel cuda_resident is the single-device speed mode "
               "for plain runs (composes with --chains and -t only); use "
-              "--kernel cuda for --auto_*/--checkpoint/--store_every/-f/"
+              "--kernel cuda for --pt/--auto_*/--checkpoint/--store_every/-f/"
               "--eta_update rows", file=sys.stderr)
         return 2
     if _cuda_missing("desman", args.device):
@@ -194,7 +205,8 @@ def _desman(argv) -> int:
         auto_tol=args.auto_tol, auto_max_burn=args.auto_max_burn,
         auto_samples=args.auto_samples,
         auto_max_samples=args.auto_max_samples, eta_update=args.eta_update,
-        store_every=args.store_every,
+        store_every=args.store_every, pt_replicas=args.pt,
+        pt_max_temp=args.pt_max_temp,
     )
     if args.checkpoint:
         # SIGTERM (preemption) -> finish the in-flight segment, commit its

@@ -1,6 +1,6 @@
 """Convergence-adaptive runs: stop burning in when the chain plateaus, and
 optionally sample until an ESS target (counterpart of ``desman_tpu.converge``
-without its parallel-tempering and mesh parts).
+without its mesh part; ``run_chain_pt_auto`` for parallel tempering).
 
 Burn-in advances in segments (``sampler.run_segment``) that accumulate
 nothing until the segment-mean log-likelihood stops improving; then at
@@ -23,7 +23,9 @@ from .checkpoint import (
 )
 from .diagnostics import ess_bulk
 from .sampler import (
-    SamplerConfig, TorchNoise, chain_generator, chain_result, init_accum,
+    SamplerConfig, TorchNoise, _result_from_accum, chain_generator,
+    chain_result, init_accum, make_pt_step, pt_generators, pt_init,
+    pt_merge_accums, pt_noises, pt_swap_rate, run_pt_segment,
 )
 
 # phase 1's burn override: no sweep accumulates, kappa keeps adapting
@@ -276,3 +278,109 @@ def _run_auto(n, cfg: SamplerConfig, generators, eta_init, tau_init,
     res = stacked_result(accums, res_cfg, np.concatenate(trace_parts, axis=1),
                          draws, n.device)
     return res, burn_used, it - burn_used
+
+
+def run_chain_pt_auto(
+    n: torch.Tensor,
+    cfg: SamplerConfig,
+    seed: int,
+    n_replicas: int = 4,
+    max_temp: float = 8.0,
+    eta_init=None,
+    tau_init=None,
+    check_every: int = 50,
+    rel_tol: float = 1e-5,
+    max_burn: int = 2000,
+    kernel="cuda",
+    ess_target: float = 0.0,
+    max_samples: int = 0,
+    auto_burn: bool = True,
+):
+    """Parallel tempering with plateau-detected burn-in and/or ESS-targeted
+    sampling (the JAX package's ``run_chain_pt_auto``), on the cold rung's
+    trace: whichever replica holds rung 0, the cold loglik is one signal.
+
+    Phase 1 advances the ensemble ``check_every`` sweeps at a time with
+    nothing accumulated (burn = never) until the cold trace plateaus
+    (``plateau_step``'s verdict twice in a row; at least cfg.burn, at most
+    max_burn sweeps), or for exactly cfg.burn sweeps with auto_burn=False.
+    Phase 2 starts fresh accumulators and samples at least cfg.samples
+    sweeps; with ``ess_target > 0`` it extends in ``check_every`` segments
+    until the post-burn cold ESS (min-ed with the stored cold draws' gamma
+    ESS) reaches the target, capped at max_samples. Returns
+    (SamplerResult, burn_used, samples_used); the result's acceptance rates
+    are over the sampling sweeps. R < 2 is ``run_chain_auto`` with a
+    generator seeded `seed`.
+    """
+    R = int(n_replicas)
+    if R < 2:   # the same fallback as run_chain_pt; auto_burn=False pins burn
+        return run_chain_auto(
+            n, cfg, chain_generator(seed, n.device), eta_init=eta_init,
+            tau_init=tau_init, check_every=check_every, rel_tol=rel_tol,
+            max_burn=max_burn if auto_burn else cfg.burn, kernel=kernel,
+            ess_target=ess_target, max_samples=max_samples)
+    n, ks = prepare(n, cfg, kernel)
+    make_pt_step(n, cfg, R, max_temp, ks)   # the refusals, before the start
+    V, S, _ = n.shape
+    max_burn = max(max_burn, cfg.burn) if auto_burn else cfg.burn
+    generators = pt_generators(seed, R, n.device)
+    states, accums, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init)
+    noises, exchange = pt_noises(generators)
+    n_acc = torch.zeros((), dtype=torch.float32, device=n.device)
+    head_sum = 0
+
+    def segment(start, seg, burn, store=False):
+        nonlocal states, accums, rung, n_acc, head_sum
+        out = run_pt_segment(n, cfg, states, accums, rung, start, seg, noises,
+                             exchange, max_temp, ks, burn=burn, store=store)
+        states, accums, rung, trace, seg_acc, seg_heads = out[:6]
+        n_acc = n_acc + seg_acc
+        head_sum += seg_heads
+        return trace.cpu().numpy(), (out[6] if store else None)
+
+    # phase 1: burn until the cold trace plateaus (the accums are scratch)
+    it = 0
+    trace_parts = []
+    prev_mean = np.full(1, np.nan)
+    hits = np.zeros(1, np.int64)
+    while it < max_burn:
+        seg = min(check_every, max_burn - it)
+        trace, _ = segment(it, seg, _NEVER)
+        it += seg
+        trace_parts.append(trace)
+        if not auto_burn:
+            continue
+        prev_mean, hits = plateau_step(trace[None], prev_mean, hits, it,
+                                       cfg.burn, rel_tol)
+        if hits[0] >= _PLATEAU_CONFIRMATIONS:
+            break
+    burn_used = it
+
+    # phase 2: fresh accumulators, >= cfg.samples cold-rung sweeps
+    accums = [init_accum(V, S, cfg.G, n.device) for _ in range(R)]
+    draws = _DrawBuf()
+    done_s = 0
+    target = cfg.samples
+    cap = max(int(max_samples), cfg.samples)
+    while done_s < target:
+        seg = (min(check_every, target - done_s) if ess_target > 0
+               else target - done_s)
+        trace, seg_draws = segment(burn_used + done_s, seg, burn_used,
+                                   cfg.store_samples)
+        if seg_draws is not None:
+            draws.append(*(d.cpu().numpy() for d in seg_draws))
+        done_s += seg
+        trace_parts.append(trace)
+        if ess_target > 0 and target <= done_s < cap:
+            gd = draws.extras().get("draw_gamma")
+            post = np.concatenate(trace_parts)[None, burn_used:]
+            if _need_extension(post, None if gd is None else gd[None],
+                               ess_target):
+                target = min(done_s + check_every, cap)
+
+    res = _result_from_accum(
+        pt_merge_accums(accums), replace(cfg, burn=0, samples=done_s),
+        torch.as_tensor(np.concatenate(trace_parts), device=n.device),
+        pt_swap_accept=pt_swap_rate(n_acc, head_sum),
+        **draws.result_fields(n.device))
+    return res, burn_used, done_s

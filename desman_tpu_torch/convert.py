@@ -7,7 +7,8 @@ names the JAX package's ``SamplerState`` / ``SamplerAccum`` /
 packages and one result can be read by either. The JAX state's PRNG
 ``key`` has no counterpart: the generators differ. A result field that is
 None (no stored draws) stays None both ways. ``snapshot_from_jax_npz``
-reads the JAX package's checkpoint files the same way.
+and ``pt_snapshot_from_jax_npz`` read the JAX package's checkpoint files
+the same way.
 """
 from __future__ import annotations
 
@@ -92,6 +93,25 @@ def snapshot_from_jax_npz(path: str, device="cpu"):
         return state, accum, int(z["it"]), np.asarray(z["trace"])
 
 
+def pt_snapshot_from_jax_npz(path: str, device="cpu"):
+    """(states, accums, rung, it, trace, n_acc, n_heads) of a snapshot the
+    JAX package's ``checkpoint.save_pt`` wrote: per-replica lists of
+    SamplerState / SamplerAccum (its [R] axis unstacked), rung int64 [R].
+    The replicas' keys (``state_key``) have no counterpart and are dropped;
+    their noise can be replayed from those keys by the caller."""
+    with np.load(path) as z:
+        R = z["rung"].shape[0]
+        states = [state_from_numpy(
+            {f: z[f"state_{f}"][r] for f in SamplerState._fields}, device)
+            for r in range(R)]
+        accums = [accum_from_numpy(
+            {f: z[f"accum_{f}"][r] for f in SamplerAccum._fields}, device)
+            for r in range(R)]
+        rung = torch.as_tensor(z["rung"].astype(np.int64), device=device)
+        return (states, accums, rung, int(z["it"]), np.asarray(z["trace"]),
+                float(z["n_acc"]), float(z["n_heads"]))
+
+
 def _to_numpy(t) -> Optional[np.ndarray]:
     return None if t is None else t.detach().cpu().numpy()
 
@@ -111,8 +131,9 @@ def result_to_numpy(res: SamplerResult) -> dict:
 def result_from_numpy(d: Mapping, device="cpu") -> SamplerResult:
     """Port result from a mapping of SamplerResult fields (the JAX
     result's ``_asdict()`` as numpy arrays, or ``result_to_numpy``'s).
-    Fields the mapping lacks or holds as None come back None; fields the
-    port's result has not (such as PT's ``pt_swap_accept``) are ignored."""
+    Fields the mapping lacks or holds as None come back None (PT's
+    ``pt_swap_accept`` included); keys that are no result field are
+    ignored."""
     return SamplerResult(**{
         f: None if d.get(f) is None else _tensor(f, d[f], device)
         for f in SamplerResult._fields})

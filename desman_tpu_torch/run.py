@@ -1,14 +1,13 @@
 """End-to-end run: counts -> sampler -> DESMAN-format output dir
-(counterpart of ``desman_tpu.run`` without its parallel-tempering and mesh
-branches).
+(counterpart of ``desman_tpu.run`` without its mesh branches).
 
 Load the counts, optionally subsample positions (-r) and apply min coverage
 (-m), run one Gibbs chain (``run``) or several (``run_multi``) on the
 chosen device (optionally with a fixed eta from the filter's tran_df, -e;
-checkpointed and resumable with --checkpoint; of data-driven length with
---auto_burn/--auto_samples), and write fit.txt, Gamma_{mean,star}.csv,
-Eta_{mean,star}.csv, Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and
-loglik_trace.csv
+with parallel tempering, --pt; checkpointed and resumable with
+--checkpoint; of data-driven length with --auto_burn/--auto_samples), and
+write fit.txt, Gamma_{mean,star}.csv, Eta_{mean,star}.csv,
+Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and loglik_trace.csv
 (and chains.json for several chains; draws.npz with --store_every). A
 haplotype file (-t, or -f to hold it fixed) starts tau from known strains.
 """
@@ -25,24 +24,25 @@ import numpy as np
 import torch
 
 from . import io
-from .checkpoint import run_chain_checkpointed, run_chains_checkpointed
-from .converge import run_chains_auto
+from .checkpoint import (
+    run_chain_checkpointed, run_chain_pt_checkpointed, run_chains_checkpointed,
+)
+from .converge import run_chain_pt_auto, run_chains_auto
 from .likelihood import (
     deviance_from_loglik, log_likelihood_host_f64, total_coeff_host_f64,
 )
 from .ops import resolve
 from .sampler import (
-    SamplerConfig, SamplerResult, chain_generator, chain_result, run_chain,
-    run_chains,
+    RESIDENT_PLAIN_ONLY, SamplerConfig, SamplerResult, chain_generator,
+    chain_result, run_chain, run_chain_pt, run_chains, run_chains_pt,
 )
 
 
 @dataclass
 class RunConfig:
     """Host-side run options; the same fields and defaults as the JAX
-    package's ``RunConfig``. Fields of run modes the port does not have yet
-    (pt_replicas, profile_dir) make ``run`` raise instead of being
-    ignored."""
+    package's ``RunConfig``. A field of a run mode the port does not have
+    yet (profile_dir) makes ``run`` raise instead of being ignored."""
 
     G: int                           # -g number of strains
     iterations: int = 250            # -i total sweeps (burn = half)
@@ -76,7 +76,6 @@ class RunConfig:
 def _refuse_unported(rc: RunConfig) -> None:
     """Raise for every RunConfig field whose run mode is not ported yet."""
     waiting = [
-        (rc.pt_replicas >= 2, "pt_replicas", "12 (parallel tempering)"),
         (rc.profile_dir, "profile_dir", "13 (profiling)"),
     ]
     for on, field, item in waiting:
@@ -136,12 +135,23 @@ def load_tau_init(tau_file: str, data: io.CountsData) -> np.ndarray:
     return tau[rows]
 
 
+# the JAX CLI's refusal of auto-length PT with --checkpoint or --chains
+AUTO_PT_SINGLE_CHAIN = (
+    "--auto_burn/--auto_samples with --pt composes only single-chain "
+    "without --mesh/--checkpoint (pin -i for those combinations)")
+
+
 def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
-             nmf_iters: Optional[int]):
+             nmf_iters: Optional[int], n_chains: int = 1):
     """What run and run_multi share: the refusals, the prepared data, the
     sampler config, the counts, eta and the known haplotypes on the device,
     and the kernel choice bound to those counts (once per run)."""
     _refuse_unported(rc)
+    pt = rc.pt_replicas >= 2
+    if _auto(rc) and pt and (rc.checkpoint_path or n_chains > 1):
+        # the JAX CLI refuses these; its run()/run_multi() would drop the
+        # checkpoint or the tempering without a word
+        raise ValueError(AUTO_PT_SINGLE_CHAIN)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -161,13 +171,10 @@ def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
         raise ValueError("fix_tau requires tau_file")
     n = torch.as_tensor(data.counts, device=device).to(torch.float32)
     ks = resolve(kernel, n)
-    if ks.resident and (_auto(rc) or rc.checkpoint_path):
+    if ks.resident and (_auto(rc) or pt or rc.checkpoint_path):
         # run-mode fields the resident path cannot honor must not be
         # silently dropped (API callers bypass the CLI's refusal)
-        raise ValueError(
-            "the resident kernel supports plain/--chains runs only — "
-            "auto_burn/auto_samples/checkpoint need the composable 'cuda' "
-            "kernel")
+        raise ValueError(RESIDENT_PLAIN_ONLY)
     return device, data, cfg, eta_init, tau_init, n, ks
 
 
@@ -201,26 +208,44 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
     (benchmarks use a short start). Returns the result, its tensors still
     on the device.
 
-    rc.auto_burn/auto_samples run ``converge``'s data-driven length (a
+    The JAX package's branches, in its order: rc.auto_burn/auto_samples
+    with rc.pt_replicas >= 2 run ``converge.run_chain_pt_auto`` (without
+    a checkpoint: refused); alone, ``converge``'s data-driven length (a
     one-chain ``run_chains_auto``, checkpointed with rc.checkpoint_path),
-    and metrics.json reports the sweeps run; rc.checkpoint_path alone runs
-    ``checkpoint.run_chain_checkpointed``. "cuda_resident" refuses both.
+    and metrics.json reports the sweeps run; rc.checkpoint_path runs
+    ``checkpoint.run_chain_pt_checkpointed`` with PT and
+    ``checkpoint.run_chain_checkpointed`` without; rc.pt_replicas >= 2
+    alone runs ``sampler.run_chain_pt`` (rc.pt_max_temp the top of the
+    ladder; metrics.json adds pt_swap_accept). "cuda_resident" refuses
+    every one of these modes.
     """
     device, data, cfg, eta_init, tau_init, n, ks = _prepare(
         data, rc, device, kernel, nmf_iters)
     generator = chain_generator(rc.seed, device)
     init = dict(eta_init=eta_init, tau_init=tau_init, kernel=ks)
+    ladder = dict(n_replicas=rc.pt_replicas, max_temp=rc.pt_max_temp)
 
     t0 = time.time()
-    if _auto(rc):   # one chain of run_chains_auto (checkpointed or not)
+    if _auto(rc) and rc.pt_replicas >= 2:
+        res, burn_used, samples_used = run_chain_pt_auto(
+            n, cfg, rc.seed, **ladder, **init, auto_burn=rc.auto_burn,
+            **_auto_kw(rc, cfg))
+        cfg = replace(cfg, burn=burn_used, samples=samples_used)
+    elif _auto(rc):   # one chain of run_chains_auto (checkpointed or not)
         res, burn_used, samples_used = run_chains_auto(
             n, cfg, [rc.seed], checkpoint_path=rc.checkpoint_path,
             **init, **_auto_kw(rc, cfg))
         res = chain_result(res, 0)
         cfg = replace(cfg, burn=burn_used, samples=samples_used)
+    elif rc.checkpoint_path and rc.pt_replicas >= 2:
+        res = run_chain_pt_checkpointed(n, cfg, rc.seed, rc.checkpoint_path,
+                                        checkpoint_every=rc.checkpoint_every,
+                                        **ladder, **init)
     elif rc.checkpoint_path:
         res = run_chain_checkpointed(n, cfg, generator, rc.checkpoint_path,
                                      checkpoint_every=rc.checkpoint_every, **init)
+    elif rc.pt_replicas >= 2:
+        res = run_chain_pt(n, cfg, rc.seed, **ladder, **init)
     else:
         res = run_chain(n, cfg, generator, **init)
     if device.type == "cuda":
@@ -251,15 +276,17 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
     the chains' tau-stars. Returns the best chain's result.
 
     The counterpart of the JAX package's ``run_multi`` without its mesh
-    and PT modes (refused by ``_refuse_unported``): rc.auto_burn/
-    auto_samples burn until every chain plateaus (``converge.
-    run_chains_auto``, checkpointed with rc.checkpoint_path), and
-    rc.checkpoint_path alone runs ``checkpoint.run_chains_checkpointed``.
+    mode, with its branches in its order: rc.auto_burn/auto_samples burn
+    until every chain plateaus (``converge.run_chains_auto``, checkpointed
+    with rc.checkpoint_path; with PT refused); rc.pt_replicas >= 2 runs
+    ``sampler.run_chains_pt``, and, as in the JAX package, without
+    checkpoints even when rc.checkpoint_path is set; rc.checkpoint_path
+    alone runs ``checkpoint.run_chains_checkpointed``.
     """
     from .diagnostics import ess_bulk, replicate_agreement, split_rhat
 
     device, data, cfg, eta_init, tau_init, n, ks = _prepare(
-        data, rc, device, kernel, nmf_iters)
+        data, rc, device, kernel, nmf_iters, n_chains)
     seeds = list(range(rc.seed, rc.seed + n_chains))
     init = dict(eta_init=eta_init, tau_init=tau_init, kernel=ks)
     t0 = time.time()
@@ -268,6 +295,9 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
             n, cfg, seeds, checkpoint_path=rc.checkpoint_path, **init,
             **_auto_kw(rc, cfg))
         cfg = replace(cfg, burn=burn_used, samples=samples_used)
+    elif rc.pt_replicas >= 2:
+        res = run_chains_pt(n, cfg, seeds, n_replicas=rc.pt_replicas,
+                            max_temp=rc.pt_max_temp, **init)
     elif rc.checkpoint_path:
         res = run_chains_checkpointed(n, cfg, seeds, rc.checkpoint_path,
                                       checkpoint_every=rc.checkpoint_every, **init)
@@ -371,6 +401,8 @@ def write_outputs(
         "accept_gamma_post": float(res.accept_gamma_post),
         "accept_eta_post": float(res.accept_eta_post),
         **ess_fields,
+        **({"pt_swap_accept": float(res.pt_swap_accept)}
+           if res.pt_swap_accept is not None else {}),
         "final_loglik": float(trace[-1]),
         "elapsed_s": elapsed,
         "sweeps_per_s": (cfg.total_sweeps / elapsed) if elapsed else None,

@@ -23,6 +23,12 @@ sweep: ``TorchNoise`` draws from the chain's ``torch.Generator``.
 With ``kernel="cuda_resident"`` steps 1-3 run as two kernel launches a
 sweep (``resident.front``), with the same draws in the same order; only
 the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops.
+
+Parallel tempering (``run_chain_pt``): R replicas on a temperature ladder,
+each a sweep with a fixed ``temp`` and a likelihood power ``beta``, then an
+exchange of adjacent rungs. The JAX package vmaps the replicas; here they
+run one after another, each on its own generator, and the exchange draws
+from one more (``pt_seeds``).
 """
 from __future__ import annotations
 
@@ -123,6 +129,8 @@ class SamplerResult(NamedTuple):
     tau_samples: Optional[torch.Tensor] = None    # int8 [samples/thin,V,G]
     gamma_samples: Optional[torch.Tensor] = None  # [samples/thin,S,G]
     eta_samples: Optional[torch.Tensor] = None    # [samples/thin,4,4]
+    # replica exchange only (run_chain_pt): mean adjacent-swap acceptance
+    pt_swap_accept: Optional[torch.Tensor] = None
 
 
 DRAW_FIELDS = ("tau_samples", "gamma_samples", "eta_samples")
@@ -168,6 +176,13 @@ class TorchNoise:
                           device=self.generator.device)
 
 
+def _tempered(x) -> bool:
+    """False only for the host float 1.0: an untempered step skips the
+    multiply or divide (a 0-d device temp or beta, as PT passes them,
+    always tempers)."""
+    return isinstance(x, torch.Tensor) or x != 1.0
+
+
 def _dirichlet_logpdf(x, alpha):
     """Row-wise Dirichlet log-density; x, alpha [..., K] -> [...]."""
     return (
@@ -204,13 +219,17 @@ def _gamma_proposal(cfg: SamplerConfig, gamma, kappa, noise, it: int):
 
 
 def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
-                  noise, it: int):
+                  noise, it: int, beta=1.0):
     """The per-sample MH decisions from the per-sample likelihood pair:
     (accept [S] bool, gamma, loglik). The old/new terms of the ratio
-    already give the post-update total loglik."""
+    already give the post-update total loglik. beta tempers the likelihood
+    term only; the returned loglik is the untempered one."""
+    dll = ll_new - ll_old
+    if _tempered(beta):
+        dll = beta * dll
     # symmetric Dirichlet(1) prior on gamma rows -> prior ratio = 0
     log_ratio = (
-        (ll_new - ll_old)
+        dll
         + _dirichlet_logpdf(gamma, alpha_rev)
         - _dirichlet_logpdf(gamma_prop, alpha_fwd)
     )
@@ -221,8 +240,10 @@ def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
 
 
 def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
-               it: int):
-    """Parallel per-sample Dirichlet-random-walk MH on gamma.
+               it: int, beta=1.0):
+    """Parallel per-sample Dirichlet-random-walk MH on gamma; beta < 1
+    tempers the likelihood term only (replica exchange's target
+    prior * L^beta).
 
     Returns (gamma, mix, accept_rate, loglik): the per-sample old/new
     likelihood terms of the MH ratio already give the post-update total
@@ -236,7 +257,7 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
         n[None] * safe_log(torch.einsum("kvsa,ab->kvsb", both, eta)),
         dim=(1, 3))                                                   # [2,S]
     accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd,
-                                          alpha_rev, ll[0], ll[1], noise, it)
+                                          alpha_rev, ll[0], ll[1], noise, it, beta)
     mix = torch.where(accept[None, :, None], mix_prop, mix)
     return gamma, mix, accept.to(torch.float32).mean(), loglik
 
@@ -251,12 +272,15 @@ def _eta_proposal(cfg: SamplerConfig, eta, kappa, noise, it: int):
 
 
 def _eta_accept(cfg: SamplerConfig, eta, eta_prop, alpha_fwd, alpha_rev,
-                ll_new, loglik, noise, it: int):
+                ll_new, loglik, noise, it: int, beta=1.0):
     """The one MH decision of the joint eta step: (eta, loglik, accepted
-    as f32)."""
+    as f32); beta tempers the likelihood term only."""
     prior_alpha = _eta_prior(cfg, eta.device)
+    dll = ll_new - loglik
+    if _tempered(beta):
+        dll = beta * dll
     log_ratio = (
-        (ll_new - loglik)
+        dll
         + torch.sum((prior_alpha - 1.0) * (safe_log(eta_prop) - safe_log(eta)))
         + torch.sum(_dirichlet_logpdf(eta, alpha_rev))
         - torch.sum(_dirichlet_logpdf(eta_prop, alpha_fwd))
@@ -268,16 +292,17 @@ def _eta_accept(cfg: SamplerConfig, eta, eta_prop, alpha_fwd, alpha_rev,
 
 
 def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise,
-                   it: int):
+                   it: int, beta=1.0):
     """Blocked MH on the whole 4x4 error matrix: all four rows proposed at
-    once, one accept/reject, one likelihood pass."""
+    once, one accept/reject, one likelihood pass; beta tempers the
+    likelihood term only."""
     eta_prop, alpha_fwd, alpha_rev = _eta_proposal(cfg, eta, kappa, noise, it)
     return _eta_accept(cfg, eta, eta_prop, alpha_fwd, alpha_rev,
-                       _loglik(n, mix, eta_prop), loglik, noise, it)
+                       _loglik(n, mix, eta_prop), loglik, noise, it, beta)
 
 
 def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
-             beta: float = 1.0):
+             beta=1.0):
     """Sequential per-row Dirichlet MH on the 4x4 error matrix
     (``eta_update="rows"``): for each row in turn one proposal, one
     likelihood pass, that row's prior term and one MH decision.
@@ -310,11 +335,15 @@ def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
 
 
 def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
-                  noise, temp: float):
+                  noise, temp, beta=1.0):
     """The sweep's tau, gamma and eta updates as separate steps: the tau
     sweep and swap kernels (or their plain versions), then gamma_step and
     eta_step_joint (or eta_step) as plain PyTorch ops.
 
+    temp scales the Gumbel noise (a host float, or PT's 0-d device
+    tensor); beta tempers every MH ratio, the swap's as a threshold
+    logu / beta (the JAX package's Pallas swap; its XLA swap compares
+    logu < beta * dll, the same decision but at float near-ties).
     Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta).
     """
     V, S, _ = n.shape
@@ -323,12 +352,14 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
         tau, mix = state.tau, state.mix
     else:
         gz = noise.gumbel(it, V, G)
-        if temp != 1.0:
+        if _tempered(temp):
             gz = gz * temp
         tau, mix = ks.tau_sweep(n, state.tau, state.mix, state.gamma,
                                 state.eta, gz)
         if cfg.swap_moves and G > 1:
             g, h, logu = noise.swap(it, V, G)
+            if _tempered(beta):
+                logu = logu / beta
             tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu)
     if cfg.fix_gamma:
         gamma, acc_g = state.gamma, torch.zeros((), device=n.device)
@@ -336,20 +367,32 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     else:
         gamma, mix, acc_g, loglik = gamma_step(
             cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
-            noise, it)
+            noise, it, beta)
     if cfg.fix_eta:
         eta, acc_e = state.eta, torch.zeros((), device=n.device)
     else:
         eta_fn = eta_step_joint if cfg.eta_update == "joint" else eta_step
         eta, loglik, acc_e = eta_fn(
-            cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it)
+            cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it, beta)
     return tau, mix, gamma, eta, loglik, acc_g, acc_e
 
 
+# the resident path's refusal of run modes it cannot honor (the JAX
+# package's run-level wording)
+RESIDENT_PLAIN_ONLY = (
+    "the resident kernel supports plain/--chains runs only — "
+    "auto_burn/auto_samples/pt/checkpoint need the composable 'cuda' kernel")
+
+
 def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
-    """Build the (n, state, accum, it, noise, burn=None) -> (state, accum,
-    loglik) step; ``burn`` replaces cfg.burn in the kappa-adaptation and
-    accumulation gates for that sweep (the anneal follows cfg.burn).
+    """Build the (n, state, accum, it, noise, burn=None, temp=None,
+    beta=1.0) -> (state, accum, loglik) step; ``burn`` replaces cfg.burn in
+    the kappa-adaptation and accumulation gates for that sweep (the anneal
+    follows cfg.burn). A given ``temp`` replaces the anneal schedule with a
+    fixed tau temperature, and ``beta`` tempers every MH acceptance
+    (likelihood term only): together the sweep targets prior * L^beta, the
+    per-replica kernel of ``run_chain_pt`` (temp = 1/beta). Both may be 0-d
+    device tensors; temp=None, beta=1.0 is the plain chain, bit for bit.
 
     kernel: a kernel choice's name or its resolved ``ops.Kernels``. "cuda"
     runs the tau sweep and the swap move through the CUDA kernel wrappers
@@ -382,10 +425,14 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
         return max(1.0, float(t))
 
     def sweep(n, state: SamplerState, accum: SamplerAccum, it: int, noise,
-              burn: Optional[int] = None):
+              burn: Optional[int] = None, temp=None, beta=1.0):
         burn = cfg.burn if burn is None else burn
-        tau, mix, gamma, eta, loglik, acc_g, acc_e = front(
-            cfg, ks, n, state, it, noise, temperature(it))
+        if ks.resident and (temp is not None or _tempered(beta)):
+            raise ValueError(RESIDENT_PLAIN_ONLY)
+        temp = temperature(it) if temp is None else temp
+        args = (cfg, ks, n, state, it, noise, temp)
+        tau, mix, gamma, eta, loglik, acc_g, acc_e = (
+            front(*args) if ks.resident else front(*args, beta))
 
         # diminishing adaptation, burn-in only: larger kappa -> smaller
         # Dirichlet steps -> higher acceptance (frozen post-burn)
@@ -640,3 +687,284 @@ def run_chains(
 def chain_result(res: SamplerResult, i: int) -> SamplerResult:
     """Chain i of ``run_chains``' stacked result (None fields stay None)."""
     return SamplerResult(*(None if x is None else x[i] for x in res))
+
+
+# --------------------------------------------------------------------------
+# parallel tempering (replica exchange)
+# --------------------------------------------------------------------------
+
+class ExchangeNoise:
+    """The replica exchange's uniforms, from a generator of their own.
+    ``exchange_u`` takes the sweep index, as ``TorchNoise``'s methods do, so
+    that a replay source can rebuild another package's stream."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def exchange_u(self, it: int, R: int) -> torch.Tensor:
+        return torch.rand((R,), generator=self.generator,
+                          device=self.generator.device)
+
+
+def pt_seeds(seed: int, R: int) -> list:
+    """The R + 1 generator seeds of a PT run from its seed:
+    ``np.random.SeedSequence(seed).spawn(R + 1)``, children 0..R-1 for the
+    replicas and child R for the exchange, each child's first 64-bit word.
+    The children of distinct seeds are distinct streams, so the runs of
+    --chains (seeds seed .. seed + C - 1) share no generator."""
+    children = np.random.SeedSequence(int(seed)).spawn(R + 1)
+    return [int(c.generate_state(1, np.uint64)[0]) for c in children]
+
+
+def pt_generators(seed: int, R: int, device) -> list:
+    """The R replica generators and the exchange generator of ``pt_seeds``."""
+    return [chain_generator(s, device) for s in pt_seeds(seed, R)]
+
+
+def pt_ladder(R: int, max_temp: float, device) -> torch.Tensor:
+    """Geometric temperature ladder [R] f32, rung 0 cold (T=1), computed on
+    the CPU so that every device holds the same ladder."""
+    r = torch.arange(R, dtype=torch.float32)
+    ladder = torch.tensor(max_temp, dtype=torch.float32) ** (r / (R - 1))
+    return ladder.to(device)
+
+
+def pt_init(n, cfg: SamplerConfig, generators, eta_init=None, tau_init=None,
+            gamma_init=None):
+    """(states, accums, rung) of a replica-exchange run: one state per
+    generator given (the R replicas', not the exchange's), each drawing its
+    NMF start from it, fresh accumulators, and rung [R] = arange(R) (int64
+    on n's device: replica i holds ladder rung rung[i])."""
+    V, S, _ = n.shape
+    R = len(generators)
+    states = [init_state(n, cfg, g, eta_init, tau_init, gamma_init)
+              for g in generators]
+    accums = [init_accum(V, S, cfg.G, n.device) for _ in range(R)]
+    return states, accums, torch.arange(R, device=n.device)
+
+
+def _keep_cold(is_cold, new: SamplerAccum, old: SamplerAccum) -> SamplerAccum:
+    """The sweep's accumulators where the replica held the cold rung, the
+    pre-sweep ones elsewhere (the fields the sweep left alone pass as they
+    are)."""
+    return SamplerAccum(*(o if x is o else torch.where(is_cold, x, o)
+                          for x, o in zip(new, old)))
+
+
+def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
+                 kernel="cuda", burn: Optional[int] = None):
+    """One PT ensemble sweep + exchange: the JAX package's ``make_pt_step``
+    with the replicas in turn.
+
+    Returns step(states, accums, rung, it, noises, exchange) -> (states,
+    accums, rung, cold_ll, n_acc, n_heads): replica i sweeps from
+    noises[i] at the temperature of its rung; the exchange proposes
+    swapping the temperatures of the replicas holding rungs (r, r+1),
+    alternating parity by sweep, with ``exchange.exchange_u(it, R)``.
+    cold_ll is the loglik of the replica that was cold during the sweep,
+    n_acc the accepted exchanges (0-d f32 on the device), n_heads the
+    proposals (a host int: it depends on it and R only). ``rung`` stays on
+    the device and nothing waits for it. ``burn`` has the sweep's meaning.
+    """
+    ks = kernel if isinstance(kernel, Kernels) else resolve(kernel, n)
+    if ks.resident:
+        raise ValueError(RESIDENT_PLAIN_ONLY)
+    sweep = make_sweep_fn(cfg, ks)
+    dev = n.device
+    ladder = pt_ladder(R, max_temp, dev)
+    beta_ladder = 1.0 / ladder
+    dbeta = beta_ladder - torch.roll(beta_ladder, -1)   # b_r - b_{r+1}
+    idx = torch.arange(R, device=dev)
+    up, down = idx + 1, idx - 1
+    heads = [((idx % 2) == p) & (idx + 1 < R) for p in (0, 1)]
+    n_heads = [sum(1 for i in range(R) if i % 2 == p and i + 1 < R)
+               for p in (0, 1)]
+    first = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    # index_select, not x[idx]: advanced indexing costs the host several
+    # times more a call, and the step makes six
+    def step(states, accums, rung, it: int, noises, exchange):
+        temps = ladder.index_select(0, rung)
+        betas = 1.0 / temps
+        is_cold = rung == 0
+        new_states, new_accums, lls = [], [], []
+        for i in range(R):
+            st, ac, ll = sweep(n, states[i], accums[i], it, noises[i],
+                               burn=burn, temp=temps[i], beta=betas[i])
+            new_states.append(st)
+            # hot replicas draw from tempered targets: keep their
+            # pre-sweep accumulators, star included
+            new_accums.append(_keep_cold(is_cold[i], ac, accums[i]))
+            lls.append(ll)
+        lls = torch.stack(lls)
+
+        order = torch.argsort(rung)                  # rung -> replica
+        ll_by_rung = lls.index_select(0, order)
+        delta = dbeta * (torch.roll(ll_by_rung, -1) - ll_by_rung)
+        is_head = heads[it % 2]
+        u = exchange.exchange_u(it, R)
+        acc = is_head & (safe_log(u) < delta)
+        acc_prev = torch.cat([first, acc[:-1]])
+        # old rung -> new rung (disjoint adjacent transpositions)
+        rung_perm = torch.where(acc, up, torch.where(acc_prev, down, idx))
+        new_rung = rung_perm.index_select(0, rung)
+        # adapted proposal scales belong to the rung, not the replica: the
+        # new holder of rung new_rung[i] takes its old holder's kappas
+        src = order.index_select(0, new_rung)
+        kg = torch.stack([s.kappa_gamma for s in new_states]).index_select(0, src)
+        ke = torch.stack([s.kappa_eta for s in new_states]).index_select(0, src)
+        new_states = [s._replace(kappa_gamma=kg[i], kappa_eta=ke[i])
+                      for i, s in enumerate(new_states)]
+        cold_ll = torch.sum(torch.where(is_cold, lls, 0.0))
+        n_acc = torch.sum(acc.to(torch.float32))
+        return new_states, new_accums, new_rung, cold_ll, n_acc, n_heads[it % 2]
+
+    return step
+
+
+def pt_noises(generators):
+    """The replicas' noise sources and the exchange's, from the R + 1
+    generators of ``pt_generators``."""
+    return [TorchNoise(g) for g in generators[:-1]], ExchangeNoise(generators[-1])
+
+
+def run_pt_segment(n, cfg: SamplerConfig, states, accums, rung, start_it: int,
+                   n_sweeps: int, noises, exchange, max_temp: float,
+                   kernel="cuda", burn: Optional[int] = None, store: bool = False):
+    """Advance a PT ensemble n_sweeps from absolute sweep index start_it.
+
+    Returns (states, accums, rung, trace, n_acc, n_heads): trace [n_sweeps]
+    holds each sweep's cold_ll on n's device, n_acc the segment's accepted
+    exchanges (0-d f32 on the device), n_heads its proposals (host int).
+    With ``store`` a seventh item holds the (tau int8, gamma, eta) draws of
+    the sweeps ``stored_slots`` selects, taken from the replica holding rung
+    0 after the sweep's exchange. ``burn`` has the sweep's meaning.
+    Segments run in order from the same noise sources give the draws and
+    the trajectory of one long segment.
+    """
+    if not isinstance(kernel, Kernels):
+        kernel = resolve(kernel, n)
+    R = len(states)
+    step = make_pt_step(n, cfg, R, max_temp, kernel, burn=burn)
+    V, S, _ = n.shape
+    dev = n.device
+    trace = torch.empty(n_sweeps, dtype=torch.float32, device=dev)
+    n_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    n_heads = 0
+    slots = (stored_slots(start_it, n_sweeps, cfg.burn if burn is None else burn,
+                          cfg.store_thin) if store else [])
+    k = len(slots)
+    draws = (torch.empty((k, V, cfg.G), dtype=torch.int8, device=dev),
+             torch.empty((k, S, cfg.G), dtype=torch.float32, device=dev),
+             torch.empty((k, NBASES, NBASES), dtype=torch.float32, device=dev))
+    j = 0
+    for i in range(n_sweeps):
+        states, accums, rung, cold_ll, acc, heads = step(
+            states, accums, rung, start_it + i, noises, exchange)
+        trace[i] = cold_ll
+        n_acc = n_acc + acc
+        n_heads += heads
+        if j < k and slots[j] == i:
+            cold = torch.argmin(rung).reshape(1)   # the holder of rung 0
+            for buf, field in zip(draws, ("tau", "gamma", "eta")):
+                stacked = torch.stack([getattr(s, field) for s in states])
+                buf[j] = stacked.index_select(0, cold)[0]
+            j += 1
+    out = (states, accums, rung, trace, n_acc, n_heads)
+    return out + (draws,) if store else out
+
+
+def pt_merge_accums(accums) -> SamplerAccum:
+    """Merge the replicas' cold-rung records: sums add, the star is the
+    replica's with the highest star loglik (the first on a tie)."""
+    stacked = SamplerAccum(*(torch.stack(f) for f in zip(*accums)))
+    star = torch.argmax(stacked.star_loglik).reshape(1)
+
+    def pick(x):
+        return x.index_select(0, star)[0]
+
+    # exactly one replica is cold each sweep, so the acceptance sums across
+    # replicas already total one value a sweep
+    return SamplerAccum(
+        sum_tau=stacked.sum_tau.sum(0), sum_gamma=stacked.sum_gamma.sum(0),
+        sum_eta=stacked.sum_eta.sum(0), sum_loglik=stacked.sum_loglik.sum(0),
+        n_samples=stacked.n_samples.sum(0),
+        star_loglik=pick(stacked.star_loglik), star_tau=pick(stacked.star_tau),
+        star_gamma=pick(stacked.star_gamma), star_eta=pick(stacked.star_eta),
+        acc_gamma=stacked.acc_gamma.sum(0), acc_eta=stacked.acc_eta.sum(0),
+        acc_gamma_post=stacked.acc_gamma_post.sum(0),
+        acc_eta_post=stacked.acc_eta_post.sum(0))
+
+
+def pt_swap_rate(n_acc: torch.Tensor, n_heads: float) -> torch.Tensor:
+    """Accepted exchanges per proposal (sweeps whose parity has no pair
+    propose nothing), the same f32 division on every path."""
+    return n_acc / torch.tensor(max(float(n_heads), 1.0), dtype=torch.float32,
+                                device=n_acc.device)
+
+
+def run_chain_pt(
+    n: torch.Tensor,
+    cfg: SamplerConfig,
+    seed: int,
+    n_replicas: int = 4,
+    max_temp: float = 8.0,
+    eta_init: Optional[torch.Tensor] = None,
+    tau_init: Optional[torch.Tensor] = None,
+    gamma_init: Optional[torch.Tensor] = None,
+    kernel="cuda",
+) -> SamplerResult:
+    """Parallel tempering (replica exchange) on n's device.
+
+    R replicas on the ladder T_r = max_temp^(r/(R-1)) (rung 0 cold) each
+    target prior * L^(1/T_r): the Gumbel noise of the tau sweep is scaled
+    by T_r and every MH ratio's likelihood term by 1/T_r. After every
+    ensemble sweep adjacent rungs (alternating parity) exchange their
+    temperatures with probability min(1, exp((b_r - b_{r+1}) (ll_{r+1} -
+    ll_r))). Accumulators and the star record only while a replica holds
+    the cold rung; with cfg.store_samples the stored draws are the cold
+    replica's after each kept sweep's exchange. The loglik trace is the
+    cold rung's. The generators come from ``pt_seeds(seed, R)``; R < 2 is
+    ``run_chain`` with a generator seeded `seed`, bit for bit.
+    """
+    n = n.to(torch.float32)
+    if not isinstance(kernel, Kernels):
+        kernel = resolve(kernel, n)
+    R = int(n_replicas)
+    if R < 2:
+        return run_chain(n, cfg, chain_generator(seed, n.device), eta_init=eta_init,
+                         tau_init=tau_init, gamma_init=gamma_init, kernel=kernel)
+    make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
+    check_store_thin(cfg)
+    generators = pt_generators(seed, R, n.device)
+    states, accums, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init,
+                                   gamma_init)
+    noises, exchange = pt_noises(generators)
+    out = run_pt_segment(n, cfg, states, accums, rung, 0, cfg.total_sweeps,
+                         noises, exchange, max_temp, kernel,
+                         store=cfg.store_samples)
+    draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
+    return _result_from_accum(pt_merge_accums(out[1]), cfg, out[3],
+                              pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
+
+
+def run_chains_pt(
+    n: torch.Tensor,
+    cfg: SamplerConfig,
+    seeds,
+    n_replicas: int = 4,
+    max_temp: float = 8.0,
+    eta_init: Optional[torch.Tensor] = None,
+    tau_init: Optional[torch.Tensor] = None,
+    kernel="cuda",
+) -> SamplerResult:
+    """Independent PT runs over seeds, stacked on a leading axis (the JAX
+    package's ``run_chains_pt``, whose vmap becomes a loop): run i is
+    bitwise ``run_chain_pt`` of seeds[i]."""
+    n = n.to(torch.float32)
+    if not isinstance(kernel, Kernels):
+        kernel = resolve(kernel, n)
+    results = [run_chain_pt(n, cfg, seed, n_replicas, max_temp, eta_init=eta_init,
+                            tau_init=tau_init, kernel=kernel) for seed in seeds]
+    return SamplerResult(*(None if field[0] is None else torch.stack(field)
+                           for field in zip(*results)))

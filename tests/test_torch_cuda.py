@@ -627,3 +627,52 @@ def test_chains_auto_is_each_chains_auto_on_the_card(cuda):
         assert (b, s) == (burn, samples)
         for name, a, x in zip(one._fields, chain_result(res, i), one):
             assert (a is None and x is None) or torch.equal(a, x), (i, name)
+
+
+# ---- parallel tempering on the card ----
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "cuda_topk"])
+def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
+    """A 4-replica PT run at V=1e4 S=64 G=8 (cuda_topk: on biallelic
+    counts) launches its tau kernel and the swap R x sweeps times; stopped
+    after two of three checkpoint segments and resumed from its snapshot
+    (every replica's and the exchange's Philox state included), it is
+    bitwise the uninterrupted run, and the resumed part launches R x its
+    sweeps."""
+    from desman_tpu_torch import checkpoint
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain_pt
+
+    two = dict(error_rate=0.0, max_alleles=2) if kernel == "cuda_topk" else {}
+    t = synth.generate(V=10_000, S=64, G=8, coverage=50.0, seed=0, **two)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=8, burn=30, samples=30, nmf_iters=50)
+    tau = ops.tau_sweep_topk if kernel == "cuda_topk" else ops.tau_sweep
+    ops.reset_launches()
+    ref = run_chain_pt(n, cfg, 0, n_replicas=4, kernel=kernel)
+    torch.cuda.synchronize()
+    assert tau.launches == 4 * 60 and ops.swap.launches == 4 * 60
+    assert 0.0 < float(ref.pt_swap_accept) <= 1.0
+    ck = str(tmp_path / "pt.npz")
+    real = checkpoint.run_pt_segment
+    calls = []
+
+    def segment(*args, **kw):
+        if len(calls) == 2:
+            raise _Interrupt
+        calls.append(args[5])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(checkpoint, "run_pt_segment", segment)
+    with pytest.raises(_Interrupt):
+        checkpoint.run_chain_pt_checkpointed(n, cfg, 0, ck, checkpoint_every=20,
+                                             n_replicas=4, kernel=kernel)
+    monkeypatch.undo()
+    assert checkpoint.load_pt(ck)[3] == 40
+    ops.reset_launches()
+    got = checkpoint.run_chain_pt_checkpointed(n, cfg, 0, ck, checkpoint_every=20,
+                                               n_replicas=4, kernel=kernel)
+    torch.cuda.synchronize()
+    assert tau.launches == 4 * 20 and ops.swap.launches == 4 * 20
+    for name, a, b in zip(ref._fields, ref, got):
+        assert (a is None and b is None) or torch.equal(a, b), name

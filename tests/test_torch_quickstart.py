@@ -89,9 +89,9 @@ def test_cuda_device_without_cuda_exits_nonzero(variant_half, tmp_path, capsys):
 ])
 def test_unported_flags_exit_2(argv, item, variant_half, port_out, tmp_path, capsys):
     """A flag of an item still to port exits 2 naming its item. The flags
-    of items 3, 5 and 11 are ported: each runs on the quickstart input
+    of items 3, 5, 11 and 12 are ported: each runs on the quickstart input
     (``_ported_flag``)."""
-    if item in ("item 3", "item 5", "item 11"):
+    if item in ("item 3", "item 5", "item 11", "item 12"):
         _ported_flag(argv, variant_half, str(tmp_path / "out"), port_out)
         return
     rc = cli.main(["desman", variant_half, "-g", "2", "--device", "cpu", *argv])
@@ -113,7 +113,8 @@ def _ported_flag(argv, variant_half, out, port_out):
     the JAX package; -f holds tau to the file; --eta_update rows samples
     eta row by row; --store_every 5 writes draws.npz; --checkpoint writes
     the files of the run without it (port_out), and leaves its snapshot at
-    the last sweep; --auto_burn burns at least -i/2 sweeps. The runs meet
+    the last sweep; --auto_burn burns at least -i/2 sweeps; --pt 4 runs
+    four tempered replicas and reports their exchange rate. The runs meet
     the quickstart gates."""
     if argv[0] == "--checkpoint":
         ck = os.path.join(os.path.dirname(out), argv[1])
@@ -129,6 +130,9 @@ def _ported_flag(argv, variant_half, out, port_out):
         m = _run_mode(variant_half, out, ["-e", ETA, *argv])
         assert m["sampling_sweeps"] == 75 and m["sweeps"] - 75 >= 75
         assert len(np.loadtxt(os.path.join(out, "loglik_trace.csv"))) == m["sweeps"]
+    elif argv[0] == "--pt":
+        m = _run_mode(variant_half, out, ["-e", ETA, *argv])
+        assert 0.0 < m["pt_swap_accept"] <= 1.0 and m["sweeps"] == 150
     elif argv == ["--store_every=4"]:
         # 250 sweeps -> 125 sampling sweeps: 4 does not divide them, and
         # both packages say so before any work

@@ -286,6 +286,11 @@ def test_result_round_trips_with_and_without_draws():
             assert (a is None and b is None) or torch.equal(a, b), f
         if store:
             assert back.tau_samples.dtype == torch.int8
-    # a JAX-style mapping with fields the port has not (PT's swap rate)
+    # a JAX-style mapping whose PT swap rate is None, and one with a rate
     d["pt_swap_accept"] = None
     assert convert.result_from_numpy(d).eta_samples.shape == (2, 4, 4)
+    assert convert.result_from_numpy(d).pt_swap_accept is None
+    pt = sampler.run_chain_pt(n, cfg, 0, n_replicas=2)
+    back = convert.result_from_numpy(convert.result_to_numpy(pt))
+    assert back.pt_swap_accept.dtype == torch.float32
+    assert torch.equal(back.pt_swap_accept, pt.pt_swap_accept)

@@ -5,7 +5,8 @@
 - ``ReplayNoise``: a noise source for the port's sweep that rebuilds the
   JAX package's exact random streams from a chain key, with the key layout
   of ``desman_tpu.sampler.make_sweep_fn``, so one sweep of each package can
-  be compared draw for draw; ``GeneTauReplay`` does the same for
+  be compared draw for draw; ``ReplayExchange`` does the same for the
+  replica exchange of ``make_pt_step``, ``GeneTauReplay`` for
   ``assign_gene_tau``'s annealed sweeps.
 - ``check_replayed_sweep``: the gates one replayed sweep is held to;
   ``check_quickstart_gates``: tests/test_quickstart.py's accuracy gates on
@@ -100,6 +101,17 @@ class ReplayNoise:
 
     def eta_row_u(self, it, a):
         return self._u(jax.random.fold_in(self._keys(it)[2], a), ())
+
+
+class ReplayExchange:
+    """The JAX replica exchange's uniforms for run key `key`: make_pt_step
+    draws uniform(fold_in(split(key)[1], it), (R,)) each sweep."""
+
+    def __init__(self, key):
+        self.k_swap = jax.random.split(key)[1]
+
+    def exchange_u(self, it, R):
+        return to_torch(jax.random.uniform(jax.random.fold_in(self.k_swap, it), (R,)))
 
 
 class GeneTauReplay:
