@@ -105,22 +105,40 @@ Phases, each printing its own '# ...' lines:
    --auto_samples 100` on TestData's half (quickstart gates); (f) `--pt`
    with `--auto_burn --checkpoint`, with `--auto_samples --chains 2` and
    with `--kernel cuda_resident` exit 2 with the JAX CLI's message and
-   launch nothing.
+   launch nothing;
+12. the rest of the single-card surface: (a) `multibin -g 5 -i 250
+   --kernel cuda` on 12 genome bins of S=64 (synth seeds 200-211, true
+   G=5, V from 1000 to 1e4 in equal steps, each padded to V=1e4 on the
+   card): tau and swap launched 12 x 250 times, every bin at SNP error
+   rate < 0.02 and gamma MAE < 0.02 with fit.txt's V its own, bin 0
+   bitwise run_chain of its padded counts, `--kernel cuda_topk` exits 2
+   and launches nothing, the wall a bin beside run() on the V=1e4 bin in
+   turns; (b) `extract` of that bin written as a pileup (S=64, about 68 MB)
+   through the C++ scanner gives its counts, positions and contigs; on a
+   V=1000 slice the Python parser, the scanner and .gz input agree and `-G
+   --gene_cov` writes what `genecov` writes; the readers' MB/s (host
+   times); (c) `strainfasta` on bin 0's calls, variants only and against a
+   reference FASTA of its contigs; (d) `desman --profile` at V=1e4 S=64
+   G=8 -i 100 beside the untraced run: the sampled files byte-identical,
+   the trace's kernel events naming the tau and swap kernels 100 times
+   each, the walls, and where the traced wall goes.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every in-process path driven in phases 3-11,
-each with
+kernel's launches summed over every in-process path driven in phases 3-12,
+the tau and swap kernels' multibin launches beside them, each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 import contextlib
+import gzip
 import io as stdio
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -1008,7 +1026,11 @@ def read_metrics(out) -> dict:
 
 
 def same_files(a, b) -> bool:
-    for f in RESUMED:
+    return same_files_of(a, b, RESUMED)
+
+
+def same_files_of(a, b, names) -> bool:
+    for f in names:
         with open(os.path.join(a, f), "rb") as x, open(os.path.join(b, f), "rb") as y:
             if x.read() != y.read():
                 print(f"# {f} differs between {a} and {b}")
@@ -1472,6 +1494,276 @@ def phase_pt(tmp):
     print(f"# phase 11 wall {time.time() - t_phase:.2f} s")
 
 
+MB_BINS, MB_G, MB_SWEEPS = 12, 5, 250
+# the multibin path's launches of each kernel (phase 12 (a))
+MULTIBIN_LAUNCHES = {}
+SAMPLED = ("Filtered_Tau_star.csv", "Gamma_mean.csv", "Gamma_star.csv",
+           "Eta_mean.csv", "Eta_star.csv", "fit.txt")
+
+
+def multibin_bins():
+    """Phase 12's genome bins: 12 of S=64, true G=5, V from 1000 to 1e4 in
+    equal steps, each on contigs of its own (2500 positions a contig,
+    1-based positions three apart)."""
+    bins = []
+    for b, vb in enumerate(np.linspace(V // 10, V, MB_BINS).round().astype(int)):
+        t = synth.generate(V=int(vb), S=S, G=MB_G, coverage=50.0, seed=200 + b)
+        v = np.arange(vb)
+        t.data.contigs = np.array([f"bin{b}_contig{k}" for k in v // 2500], dtype=object)
+        t.data.positions = (1 + 3 * (v % 2500)).astype(np.int64)
+        bins.append(t)
+    return bins
+
+
+def same_counts(a, b) -> bool:
+    return (np.array_equal(a.counts, b.counts) and np.array_equal(a.positions, b.positions)
+            and list(map(str, a.contigs)) == list(map(str, b.contigs)))
+
+
+def phase_multibin(tmp):
+    """Phase 12: the rest of the single-card surface (see the module
+    docstring)."""
+    from torch.profiler import profile
+
+    from desman_tpu_torch import multibin, pileup, strainfasta
+    from desman_tpu_torch.profiling import TRACE_FILE, activities
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    bins = multibin_bins()
+    big = bins[-1]
+    files = []
+    for b, t in enumerate(bins):
+        files.append(os.path.join(tmp, f"bin{b:02d}.csv"))
+        io.write_counts_csv(files[-1], t.data)
+    print(f"# multibin: {MB_BINS} bins, V {[t.data.V for t in bins]}, S={S}, true "
+          f"G={MB_G}; padded counts {MB_BINS * V * S * 4 * 4} bytes f32 on the card")
+
+    # (a) run() on the V=1e4 bin, the multibin CLI, run() again
+    def run_big(k):
+        ops.reset_launches()
+        t0 = time.time()
+        run.run(big.data, run.RunConfig(G=MB_G, iterations=MB_SWEEPS, seed=0,
+                                        out_dir=os.path.join(tmp, f"mb_run{k}")),
+                device="cuda", kernel="cuda")
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    walls = [run_big(0)]
+    stub = os.path.join(tmp, "mb_")
+    ops.reset_launches()
+    t0 = time.time()
+    rc = cli.main(["multibin", *files, "-g", str(MB_G), "-i", str(MB_SWEEPS), "-s", "0",
+                   "--kernel", "cuda", "-o", stub])
+    mb_wall = time.time() - t0
+    launches = read_launches()
+    MULTIBIN_LAUNCHES.update(launches)
+    walls.append(run_big(1))
+    ops.reset_launches()
+    print(f"# multibin -g {MB_G} -i {MB_SWEEPS} --kernel cuda: rc {rc}, {mb_wall:.3f} s "
+          f"wall, {mb_wall / MB_BINS:.3f} s a bin; run() on the V={V} bin in turns "
+          f"before and after: {walls[0]:.3f} s, {walls[1]:.3f} s; launches {launches}")
+    gate(rc == 0, "multibin exits 0")
+    gate(launches["tau_sweep"] == MB_BINS * MB_SWEEPS
+         and launches["swap"] == MB_BINS * MB_SWEEPS,
+         f"multibin launched tau_sweep and swap {MB_BINS} x {MB_SWEEPS} times each")
+    for b, t in enumerate(bins):
+        out = f"{stub}bin{b:02d}"
+        fit = io.read_fit_txt(os.path.join(out, "fit.txt"))
+        pred, _, pp = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+        rep = compare_tau(pred, t.tau_idx)
+        gmae, _ = match_gamma_perm(t.gamma, io.read_gamma_csv(
+            os.path.join(out, "Gamma_mean.csv")))
+        print(f"# multibin bin {b} (V={t.data.V}): SNP error rate {rep.error_rate:.6f}, "
+              f"gamma MAE {gmae:.6f}, star deviance {fit['star_deviance']:.6f}")
+        gate(fit["V"] == t.data.V and np.array_equal(pp, t.data.positions),
+             f"bin {b}: fit.txt and the calls carry the bin's own {t.data.V} positions")
+        gate(rep.error_rate < 0.02 and gmae < 0.02,
+             f"bin {b}: SNP error rate < 0.02 and gamma MAE < 0.02")
+    # the smallest bin is bitwise run_chain of its padded counts
+    V0 = bins[0].data.V
+    padded = torch.as_tensor(multibin.pad_bins([bins[0].data.counts, big.data.counts])[0],
+                             device=dev)
+    cfg = sampler.SamplerConfig(G=MB_G, burn=MB_SWEEPS // 2,
+                                samples=MB_SWEEPS - MB_SWEEPS // 2)
+    one = sampler.run_chain(padded, cfg, sampler.chain_generator(
+        sampler.spawn_seeds(0, MB_BINS)[0], dev), kernel="cuda")
+    ops.reset_launches()
+    out = f"{stub}bin00"
+    tau = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))[0]
+    trace = np.loadtxt(os.path.join(out, "loglik_trace.csv"))
+    gstar = io.read_gamma_csv(os.path.join(out, "Gamma_star.csv")).astype(np.float32)
+    gate(np.array_equal(tau, one.tau_star[:V0].cpu().numpy())
+         and np.array_equal(trace, one.loglik_trace.cpu().numpy().astype(np.float64))
+         and np.array_equal(gstar, one.gamma_star.cpu().numpy()),
+         f"bin 0 is bitwise run_chain of its counts padded to V={V} (tau star, loglik "
+         "trace, gamma star)")
+    del padded, one
+    err = stdio.StringIO()
+    ops.reset_launches()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["multibin", *files[:2], "-g", str(MB_G), "--kernel", "cuda_topk",
+                       "-o", os.path.join(tmp, "mb_topk_")])
+    print(f"# multibin --kernel cuda_topk: rc {rc}: {err.getvalue().strip()}")
+    gate(rc == 2 and "cuda_topk binds to one counts tensor" in err.getvalue()
+         and all(n == 0 for n in read_launches().values()),
+         "multibin --kernel cuda_topk exits 2 and launches nothing")
+
+    # (b) extract: the V=1e4 bin as a pileup through the C++ scanner
+    pl = os.path.join(tmp, "bin11.pileup")
+    t0 = time.time()
+    pileup.write_pileup(pl, big.data, seed=0)
+    t_write = time.time() - t0
+    names = os.path.join(tmp, "samples.txt")
+    with open(names, "w") as f:
+        f.write("\n".join(big.data.samples) + "\n")
+    out_csv = os.path.join(tmp, "extracted.csv")
+    t0 = time.time()
+    rc = cli.main(["extract", pl, "-n", names, "-o", out_csv])
+    t_extract = time.time() - t0
+    got = io.read_counts_csv(out_csv)
+    gate(rc == 0 and same_counts(got, big.data) and got.samples == big.data.samples,
+         f"extract of the V={V} S={S} pileup gives the bin's counts, positions and contigs")
+    mb = os.path.getsize(pl) / 1e6
+    t0 = time.time()
+    pileup.read_pileup(pl)
+    t_native = time.time() - t0
+    csv_mb = os.path.getsize(files[-1]) / 1e6
+    t0 = time.time()
+    io.read_counts_csv(files[-1])
+    t_csv_native = time.time() - t0
+    t0 = time.time()
+    io.read_counts_csv(files[-1], prefer_native=False)
+    t_csv_py = time.time() - t0
+    # a V=1000 slice: the Python parser, .gz input and the gene stage
+    small = big.data.select(np.arange(V // 10))
+    spl = os.path.join(tmp, "slice.pileup")
+    pileup.write_pileup(spl, small, seed=1)
+    with open(spl, "rb") as src, gzip.open(spl + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    t0 = time.time()
+    py = pileup.read_pileup(spl, prefer_native=False)
+    t_py = time.time() - t0
+    smb = os.path.getsize(spl) / 1e6
+    gate(same_counts(py, small) and same_counts(pileup.read_pileup(spl), small)
+         and same_counts(pileup.read_pileup(spl + ".gz"), small),
+         f"on a V={small.V} slice the Python parser, the C++ scanner and .gz input agree")
+    print(f"# pileup of V={V} S={S}: {mb:.3f} MB written in {t_write:.3f} s; extract "
+          f"{t_extract:.3f} s; C++ scanner {t_native:.3f} s ({mb / t_native:.1f} MB/s); "
+          f"Python parser on the V={small.V} slice ({smb:.3f} MB) {t_py:.3f} s "
+          f"({smb / t_py:.2f} MB/s); counts CSV of {csv_mb:.3f} MB: C++ reader "
+          f"{t_csv_native:.3f} s ({csv_mb / t_csv_native:.1f} MB/s), Python reader "
+          f"{t_csv_py:.3f} s ({csv_mb / t_csv_py:.2f} MB/s) (host times)")
+    genes = os.path.join(tmp, "slice_genes.csv")
+    rng = np.random.default_rng(7)
+    starts = rng.integers(1, 3 * small.V - 100, size=15)
+    with open(genes, "w") as f:
+        f.write("gene,contig,start,end\n")
+        for k, a in enumerate(starts):
+            f.write(f"gene{k},{small.contigs[0]},{a},{a + rng.integers(20, 400)}\n")
+        f.write("gene_absent,bin11_contig9,1,100\n")
+    slice_csv = os.path.join(tmp, "slice.csv")
+    io.write_counts_csv(slice_csv, small)
+    gc_extract, gc_genecov = (os.path.join(tmp, f"gc_{w}.csv") for w in ("extract", "genecov"))
+    sub_csv = os.path.join(tmp, "slice_genes_counts.csv")
+    rc = cli.main(["extract", spl, "-n", names, "-G", genes, "--gene_cov", gc_extract,
+                   "-o", sub_csv])
+    rc2 = cli.main(["genecov", slice_csv, "-G", genes, "-o", gc_genecov])
+    with open(gc_extract, "rb") as a, open(gc_genecov, "rb") as b:
+        same_cov = a.read() == b.read()
+    from desman_tpu_torch.genecov import read_gene_table
+    want, _ = pileup.restrict_to_genes(small, read_gene_table(genes))
+    gate(rc == 0 and rc2 == 0 and same_cov and 0 < want.V < small.V
+         and same_counts(io.read_counts_csv(sub_csv), want),
+         "extract -G --gene_cov: the gene coverage genecov writes, the gene positions' counts")
+
+    # (c) strainfasta on bin 0's calls
+    tau_csv = os.path.join(stub + "bin00", "Filtered_Tau_star.csv")
+    tau, contigs, positions = io.read_tau_star_csv(tau_csv)
+    fa = os.path.join(tmp, "strains_variants.fasta")
+    rc = cli.main(["strainfasta", tau_csv, "-o", fa])
+    seqs = strainfasta.read_fasta(fa)
+    gate(rc == 0 and all(seqs[f"hap{g + 1}"] == "".join("ACGT"[x] for x in tau[:, g])
+                         for g in range(MB_G)),
+         "strainfasta, variants only: each strain's string is its tau column")
+    rng = np.random.default_rng(12)
+    ref = {c: rng.choice(list("ACGT"), int(positions[contigs == c].max()) + 50)
+           for c in sorted(set(contigs))}
+    ref_fa, fa = os.path.join(tmp, "bin00.fasta"), os.path.join(tmp, "strains_full.fasta")
+    with open(ref_fa, "w") as f:
+        for c, seq in ref.items():
+            f.write(f">{c}\n" + "".join(
+                "".join(seq[i:i + 70]) + "\n" for i in range(0, len(seq), 70)))
+    rc = cli.main(["strainfasta", tau_csv, "-f", ref_fa, "-o", fa])
+    full = strainfasta.read_fasta(fa)
+    ok = rc == 0 and len(full) == MB_G * len(ref)
+    for g in range(MB_G):
+        for c, seq in ref.items():
+            want = seq.copy()
+            at = contigs == c
+            want[positions[at] - 1] = np.array(list("ACGT"))[tau[at, g]]
+            ok = ok and full.get(f"{c}_hap{g + 1}") == "".join(want)
+    gate(ok, "strainfasta -f: the called positions carry the calls, every other "
+         "base is the reference's")
+
+    # (d) desman --profile at the metric configuration, with and without
+    csv = os.path.join(tmp, "metric_counts.csv")
+    base = ["desman", csv, "-g", str(G), "-i", "100", "-s", "0", "--kernel", "cuda"]
+    runs = {}
+    for name, extra in (("untraced", []),
+                        ("traced", ["--profile", os.path.join(tmp, "trace")])):
+        out = os.path.join(tmp, f"profile_{name}")
+        ops.reset_launches()
+        t0 = time.time()
+        rc = cli.main([*base, "-o", out, *extra])
+        runs[name] = (rc, time.time() - t0, read_launches(), read_metrics(out)["elapsed_s"])
+    trace_path = os.path.join(tmp, "trace", TRACE_FILE)
+    with open(trace_path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    counted = {"tau_sweep": sum("tau_sweep_kernel" in k for k in kernels),
+               "swap": sum("swap_kernel" in k for k in kernels)}
+    (rc_u, wall_u, _, chain_u), (rc_t, wall_t, launches, chain_t) = runs.values()
+    print(f"# desman --profile at V={V} S={S} G={G} -i 100: wall {wall_t:.3f} s traced, "
+          f"{wall_u:.3f} s untraced (chain {chain_t:.3f} s against {chain_u:.3f} s, "
+          f"{chain_t / chain_u:.3f} x); trace {os.path.getsize(trace_path)} bytes, "
+          f"{len(kernels)} kernel events, named {counted}; launches {launches}")
+    gate(rc_u == 0 and rc_t == 0
+         and same_files_of(os.path.join(tmp, "profile_traced"),
+                           os.path.join(tmp, "profile_untraced"), SAMPLED),
+         "desman --profile writes the sampled files of the untraced run byte for byte")
+    gate(counted == {k: launches[k] for k in counted} and counted["tau_sweep"] == 100
+         and counted["swap"] == 100,
+         "the trace names the tau and swap kernels, 100 launches each, as the "
+         "wrappers counted")
+    # where the traced wall goes: 100 sweeps of the same counts untraced, then
+    # traced by a second profiler session of this process, then its export
+    n = torch.as_tensor(io.read_counts_csv(csv).counts, dtype=torch.float32, device=dev)
+    cfg = sampler.SamplerConfig(G=G, burn=50, samples=50, nmf_iters=50)
+    gen = sampler.chain_generator(0, dev)
+    start = (sampler.init_state(n, cfg, gen), sampler.init_accum(V, S, G, dev))
+    ks = ops.resolve("cuda", n)
+
+    def hundred_sweeps():
+        t0 = time.perf_counter()
+        sampler.run_segment(n, cfg, *start, 0, 100, sampler.TorchNoise(gen), ks)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    untraced = hundred_sweeps()
+    with profile(activities=activities(dev)) as prof:
+        traced = hundred_sweeps()
+    t0 = time.perf_counter()
+    prof.export_chrome_trace(os.path.join(tmp, "second_trace.json"))
+    export = time.perf_counter() - t0
+    ops.reset_launches()
+    print(f"# 100 sweeps at V={V} S={S} G={G}: {untraced:.3f} s untraced, {traced:.3f} s "
+          f"traced ({traced / untraced:.3f} x; a second profiler session of the process), "
+          f"export {export:.3f} s; of the {chain_t - chain_u:.3f} s tracing added to the "
+          f"CLI's chain, {chain_t - chain_u - (traced - untraced) - export:.3f} s are "
+          "neither (the first session's start, the traced NMF start)")
+    print(f"# phase 12 wall {time.time() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -1503,9 +1795,12 @@ def main() -> int:
             phase_run_modes(tmp)
             phase_run_length(tmp)
             phase_pt(tmp)
+            phase_multibin(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
+            if r["name"] in ("tau_sweep", "swap"):
+                r["multibin_launches"] = MULTIBIN_LAUNCHES[r["name"]]
             gate(r["launches"] > 0, f"{r['name']} launched on a main path")
     except GateFailed as e:
         print(f"chip_smoke: gate failed: {e}", file=sys.stderr)

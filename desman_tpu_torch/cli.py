@@ -9,10 +9,14 @@
     python -m desman_tpu_torch genecov counts.csv -G genes.tsv -o gene_cov.csv
     python -m desman_tpu_torch validate -p Filtered_Tau_star.csv -t true_tau.csv
     python -m desman_tpu_torch diag 'out/run_*'
+    python -m desman_tpu_torch multibin bin1.csv bin2.csv -g 5 -o bins_
+    python -m desman_tpu_torch extract sample.pileup -o counts.csv
+    python -m desman_tpu_torch strainfasta Filtered_Tau_star.csv -o strains.fasta
 
     desman       tau/gamma/eta Gibbs deconvolution (--chains, --pt, -t/-f,
                  --eta_update, --store_every, --checkpoint, --auto_burn,
-                 --auto_samples, --kernel cuda|cuda_resident|cuda_topk|torch)
+                 --auto_samples, --profile,
+                 --kernel cuda|cuda_resident|cuda_topk|torch)
     filter       variant-position LLR filter -> sel_var/p/q/tran_df CSVs
     pipeline     filter -> G-grid -> selection (-> genes) from one YAML/JSON
                  config
@@ -22,9 +26,13 @@
     genecov      per-gene coverage matrix from a counts CSV
     validate     permutation-matched SNP/gamma error vs ground truth
     diag         split R-hat / ESS / replicate tau agreement per G
+    multibin     many genome bins sharing one sample set, one chain a bin
+    extract      per-position base counts (and per-gene coverage) from a
+                 multi-sample samtools mpileup (C++ scanner; --python)
+    strainfasta  strain haplotype sequences from Filtered_Tau_star calls
 
-The JAX package's other subcommands and run-mode flags exit with code 2 and
-name the ROADMAP item that will port them; none is silently ignored.
+The JAX package's --mesh exits with code 2 and names the ROADMAP item that
+will port it; no flag is silently ignored.
 ``--device cuda`` (the default) never falls back to the CPU: without CUDA it
 exits with code 2. ``--kernel cuda_topk`` on counts with a cell of more
 than two observed bases exits with code 1 and says so; it never switches to
@@ -42,15 +50,7 @@ import sys
 
 # flag -> the ROADMAP queue-1 item that ports it
 _WAITING_FLAGS = {
-    "--profile": "13 (profiling)",
     "--mesh": "14 (multi-GPU)",
-}
-
-# the JAX package's other subcommands -> the ROADMAP queue-1 item
-_WAITING_COMMANDS = {
-    "multibin": "13 (remaining surface)",
-    "extract": "13 (remaining surface)",
-    "strainfasta": "13 (remaining surface)",
 }
 
 
@@ -154,6 +154,9 @@ def _desman(argv) -> int:
                     "--checkpoint, and with --auto_burn/--auto_samples via "
                     "the cold-rung trace)")
     ap.add_argument("--pt_max_temp", type=float, default=8.0)
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the chain to "
+                    "DIR/trace.json (one chain; --chains > 1 runs untraced)")
     _add_device(ap)
     ap.add_argument("--kernel",
                     choices=["cuda", "cuda_resident", "cuda_topk", "torch"],
@@ -206,7 +209,7 @@ def _desman(argv) -> int:
         auto_samples=args.auto_samples,
         auto_max_samples=args.auto_max_samples, eta_update=args.eta_update,
         store_every=args.store_every, pt_replicas=args.pt,
-        pt_max_temp=args.pt_max_temp,
+        pt_max_temp=args.pt_max_temp, profile_dir=args.profile,
     )
     if args.checkpoint:
         # SIGTERM (preemption) -> finish the in-flight segment, commit its
@@ -466,13 +469,155 @@ def _genecov(argv) -> int:
     args = ap.parse_args(argv)
 
     from . import io
-    from .genecov import gene_coverage, read_gene_table
+    from .genecov import read_gene_table
 
     data = io.read_counts_csv(args.counts_file)
-    names, cov, n_positions = gene_coverage(data, read_gene_table(args.genes))
-    io.write_gene_table(args.output, names, ["n_positions", *data.samples],
-                        [n_positions, *cov.T])
+    names = _write_gene_cov(args.output, data, read_gene_table(args.genes))
     print(f"genecov: {len(names)} genes x {data.S} samples -> {args.output}")
+    return 0
+
+
+def _write_gene_cov(path, data, genes) -> list:
+    """The [D, S] gene-coverage table (n_positions first), as the JAX
+    package's pandas frame writes it; returns the gene names."""
+    from . import io
+    from .genecov import gene_coverage
+
+    names, cov, n_positions = gene_coverage(data, genes)
+    io.write_gene_table(path, names, ["n_positions", *data.samples],
+                        [n_positions, *cov.T])
+    return names
+
+
+def _extract(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-extract",
+        description="Extract per-position base counts (and per-gene coverage) "
+        "from a multi-sample samtools-mpileup file (C++ scanner)")
+    ap.add_argument("pileup_file", help="multi-sample `samtools mpileup` output")
+    ap.add_argument("-n", "--sample_names", default=None,
+                    help="file with one sample name per line (default: "
+                    "Sample1..S)")
+    ap.add_argument("-o", "--output", default="counts.csv")
+    ap.add_argument("-q", "--min_baseq", type=int, default=0,
+                    help="drop bases below this phred quality")
+    ap.add_argument("-G", "--genes", default=None,
+                    help="gene table (gene,contig,start,end): restrict "
+                    "positions to gene regions")
+    ap.add_argument("--gene_cov", default=None, metavar="CSV",
+                    help="also write the per-gene mean-coverage matrix "
+                    "(GeneAssign input); requires -G")
+    ap.add_argument("--python", action="store_true",
+                    help="the Python parser instead of the C++ scanner")
+    args = ap.parse_args(argv)
+
+    if args.gene_cov and not args.genes:
+        print("extract: --gene_cov requires -G/--genes", file=sys.stderr)
+        return 2
+
+    from . import io
+    from .pileup import read_pileup, read_sample_names
+
+    samples = read_sample_names(args.sample_names) if args.sample_names else None
+    data = read_pileup(args.pileup_file, samples=samples,
+                       min_baseq=args.min_baseq, prefer_native=not args.python)
+    if args.genes:
+        from .genecov import read_gene_table
+        from .pileup import restrict_to_genes
+
+        genes = read_gene_table(args.genes)
+        if args.gene_cov:
+            _write_gene_cov(args.gene_cov, data, genes)
+            print(f"extract: {len(genes.names)} genes -> {args.gene_cov}")
+        data, _ = restrict_to_genes(data, genes)
+    io.write_counts_csv(args.output, data)
+    print(f"extract: {data.V} positions x {data.S} samples -> {args.output}")
+    return 0
+
+
+def _bin_out_dirs(stub: str, counts_files) -> list:
+    """One output dir per bin: stub + the counts file's basename,
+    disambiguated by its parent dir, then by an index, so that
+    bin1/counts.csv and bin2/counts.csv do not collide."""
+    from collections import Counter
+
+    stems = [os.path.splitext(os.path.basename(f))[0] for f in counts_files]
+    stem_count = Counter(stems)
+    names = [
+        f"{os.path.basename(os.path.dirname(os.path.abspath(f)))}_{stem}"
+        if stem_count[stem] > 1 else stem
+        for f, stem in zip(counts_files, stems)
+    ]
+    seen: Counter = Counter()
+    out_dirs = []
+    for base in names:
+        k = seen[base]
+        seen[base] += 1
+        out_dirs.append(stub + (base if k == 0 else f"{base}_{k}"))
+    return out_dirs
+
+
+def _multibin(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-multibin",
+        description="Deconvolve many genome bins in one run (the bins share "
+        "the sample set; one chain a bin on counts padded to a common V)")
+    ap.add_argument("counts_files", nargs="+",
+                    help="one counts CSV per bin (same sample columns)")
+    ap.add_argument("-g", "--num_strains", type=int, required=True)
+    ap.add_argument("-o", "--output_stub", default="bin_out_",
+                    help="per-bin output dir = stub + counts-file basename")
+    ap.add_argument("-i", "--iterations", type=int, default=250)
+    ap.add_argument("-s", "--seed", type=int, default=0)
+    ap.add_argument("-e", "--eta_file", default=None,
+                    help="tran_df.csv: fix eta for every bin")
+    ap.add_argument("--kernel", choices=["cuda", "cuda_topk", "torch"],
+                    default="cuda",
+                    help="cuda: the tau-sweep and swap kernels; torch: the "
+                    "plain PyTorch versions (cuda_topk binds to one counts "
+                    "tensor and is refused)")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    if args.kernel == "cuda_topk":
+        print("desman-multibin: --kernel cuda_topk binds to one counts "
+              "tensor; unsupported for batched bins (use cuda or torch)",
+              file=sys.stderr)
+        return 2
+    if _cuda_missing("multibin", args.device):
+        return 2
+
+    from . import io
+    from .multibin import run_bins_files
+    from .sampler import SamplerConfig
+
+    eta = io.read_eta_csv(args.eta_file) if args.eta_file else None
+    burn = args.iterations // 2
+    cfg = SamplerConfig(G=args.num_strains, burn=burn,
+                        samples=args.iterations - burn,
+                        fix_eta=eta is not None)
+    out_dirs = _bin_out_dirs(args.output_stub, args.counts_files)
+    run_bins_files(args.counts_files, cfg, out_dirs, seed=args.seed,
+                   eta_init=eta, kernel=args.kernel, device=args.device)
+    print(f"multibin: {len(out_dirs)} bins -> {args.output_stub}*")
+    return 0
+
+
+def _strainfasta(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="desman-strainfasta",
+        description="Write strain haplotype sequences from Filtered_Tau_star "
+        "calls")
+    ap.add_argument("tau_file", help="Filtered_Tau_star.csv")
+    ap.add_argument("-f", "--ref_fasta", default=None,
+                    help="bin contig FASTA: substitute strain bases into full "
+                    "contigs (default: variants-only haplotype strings)")
+    ap.add_argument("-o", "--output", default="strains.fasta")
+    args = ap.parse_args(argv)
+
+    from .strainfasta import write_strain_fasta
+
+    G = write_strain_fasta(args.tau_file, args.output, ref_fasta=args.ref_fasta)
+    print(f"strainfasta: {G} strains -> {args.output}")
     return 0
 
 
@@ -598,6 +743,9 @@ _COMMANDS = {
     "genecov": _genecov,
     "validate": _validate,
     "diag": _diag,
+    "multibin": _multibin,
+    "extract": _extract,
+    "strainfasta": _strainfasta,
 }
 
 
@@ -607,10 +755,6 @@ def main(argv=None) -> int:
         print(__doc__)
         return 0 if argv else 1
     cmd = argv[0]
-    if cmd in _WAITING_COMMANDS:
-        print(f"{cmd}: not ported to desman_tpu_torch yet "
-              f"(ROADMAP queue 1 item {_WAITING_COMMANDS[cmd]})", file=sys.stderr)
-        return 2
     if cmd not in _COMMANDS:
         print(f"unknown command {cmd!r}; one of {sorted(_COMMANDS)}", file=sys.stderr)
         return 2

@@ -15,10 +15,13 @@ two packages write the same text for the same arrays.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import gzip
 import os
 import re
+import shutil
+import tempfile
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -89,14 +92,51 @@ def _matrix(rows: list, path: str) -> np.ndarray:
         raise ValueError(f"{path}: {e}") from None
 
 
-def read_counts_csv(path: str) -> CountsData:
+@contextlib.contextmanager
+def decompressed(path: str):
+    """Context manager yielding a plain-text path for `path`.
+
+    Gzipped inputs (.gz) are streamed to a temporary file for the C++
+    parsers (they read plain files); plain paths pass through untouched.
+    Parse errors (ValueError) raised inside the block are rewritten to name
+    the .gz path, not the temporary file.
+    """
+    if not str(path).endswith(".gz"):
+        yield path
+        return
+    tmp = tempfile.NamedTemporaryFile(suffix=".txt", delete=False)
+    try:
+        with tmp, gzip.open(path, "rb") as src:
+            shutil.copyfileobj(src, tmp, length=1 << 20)
+        try:
+            yield tmp.name
+        except ValueError as e:
+            raise ValueError(str(e).replace(tmp.name, str(path))) from None
+    finally:
+        os.unlink(tmp.name)
+
+
+def read_counts_csv(path: str, prefer_native: bool = True) -> CountsData:
     """Read a DESMAN variant-count CSV into a dense [V,S,4] tensor.
 
     Accepts the reference header convention ``<sample>-A`` (also tolerates
     ``<sample>.A`` / ``<sample>_A``). The first two columns are
-    ``Contig,Position`` (any capitalization). Gzipped (.gz) input is read
-    directly.
+    ``Contig,Position`` (any capitalization). Gzipped (.gz) input is
+    handled transparently. With prefer_native the C++ reader
+    (``native.read_counts_csv_native``) parses the file; a parse error
+    there falls through to the Python reader, so messages stay uniform. A
+    C++ library that cannot be built raises (``native``).
     """
+    if str(path).endswith(".gz"):
+        with decompressed(path) as plain:
+            return read_counts_csv(plain, prefer_native=prefer_native)
+    if prefer_native:
+        from . import native
+
+        try:
+            return native.read_counts_csv_native(path)
+        except (ValueError, OSError):
+            pass   # the Python reader below says what is wrong
     rows = _read_rows(path)
     cols = rows[0] if rows else []
     if len(cols) < 2 + NBASES:
@@ -146,7 +186,7 @@ def write_counts_csv(path: str, data: CountsData) -> None:
     header = ["Contig", "Position"] + [
         f"{name}-{base}" for name in data.samples for base in BASES]
     V = data.V
-    flat = np.asarray(data.counts).reshape(V, -1)
+    flat = np.asarray(data.counts).reshape(V, NBASES * data.S)
     write_rows(path, header, (
         [str(c), str(p), *map(str, row)]
         for c, p, row in zip(data.contigs, data.positions, flat)))

@@ -30,9 +30,10 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import profile
 
 from . import ops, synth
+from .profiling import activities
 from .sampler import (
     SamplerConfig, TorchNoise, init_accum, init_state, make_pt_step,
     make_sweep_fn, pt_generators, pt_init, pt_noises,
@@ -61,7 +62,7 @@ def _measure(run, per: int) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / (WALL // per)
     traced = TRACED // per
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities("cuda")) as prof:
         run(traced)
         torch.cuda.synchronize()
     items = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]

@@ -32,6 +32,7 @@ from .likelihood import (
     deviance_from_loglik, log_likelihood_host_f64, total_coeff_host_f64,
 )
 from .ops import resolve
+from .profiling import device_trace
 from .sampler import (
     RESIDENT_PLAIN_ONLY, SamplerConfig, SamplerResult, chain_generator,
     chain_result, run_chain, run_chain_pt, run_chains, run_chains_pt,
@@ -41,8 +42,7 @@ from .sampler import (
 @dataclass
 class RunConfig:
     """Host-side run options; the same fields and defaults as the JAX
-    package's ``RunConfig``. A field of a run mode the port does not have
-    yet (profile_dir) makes ``run`` raise instead of being ignored."""
+    package's ``RunConfig``."""
 
     G: int                           # -g number of strains
     iterations: int = 250            # -i total sweeps (burn = half)
@@ -71,17 +71,6 @@ class RunConfig:
     auto_max_samples: int = 2000
     eta_update: str = "joint"        # "joint" | "rows" (per-row eta MH)
     store_every: int = 0             # >0: write every k-th post-burn draw
-
-
-def _refuse_unported(rc: RunConfig) -> None:
-    """Raise for every RunConfig field whose run mode is not ported yet."""
-    waiting = [
-        (rc.profile_dir, "profile_dir", "13 (profiling)"),
-    ]
-    for on, field, item in waiting:
-        if on:
-            raise NotImplementedError(
-                f"RunConfig.{field} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 def prepare_data(
@@ -146,7 +135,6 @@ def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
     """What run and run_multi share: the refusals, the prepared data, the
     sampler config, the counts, eta and the known haplotypes on the device,
     and the kernel choice bound to those counts (once per run)."""
-    _refuse_unported(rc)
     pt = rc.pt_replicas >= 2
     if _auto(rc) and pt and (rc.checkpoint_path or n_chains > 1):
         # the JAX CLI refuses these; its run()/run_multi() would drop the
@@ -217,7 +205,9 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
     ``checkpoint.run_chain_checkpointed`` without; rc.pt_replicas >= 2
     alone runs ``sampler.run_chain_pt`` (rc.pt_max_temp the top of the
     ladder; metrics.json adds pt_swap_accept). "cuda_resident" refuses
-    every one of these modes.
+    every one of these modes. With rc.profile_dir every branch runs inside
+    ``profiling.device_trace`` (the trace ends when the chain has; the
+    output files are written after it).
     """
     device, data, cfg, eta_init, tau_init, n, ks = _prepare(
         data, rc, device, kernel, nmf_iters)
@@ -226,30 +216,32 @@ def run(data: io.CountsData, rc: RunConfig, device="cuda", kernel: str = "cuda",
     ladder = dict(n_replicas=rc.pt_replicas, max_temp=rc.pt_max_temp)
 
     t0 = time.time()
-    if _auto(rc) and rc.pt_replicas >= 2:
-        res, burn_used, samples_used = run_chain_pt_auto(
-            n, cfg, rc.seed, **ladder, **init, auto_burn=rc.auto_burn,
-            **_auto_kw(rc, cfg))
-        cfg = replace(cfg, burn=burn_used, samples=samples_used)
-    elif _auto(rc):   # one chain of run_chains_auto (checkpointed or not)
-        res, burn_used, samples_used = run_chains_auto(
-            n, cfg, [rc.seed], checkpoint_path=rc.checkpoint_path,
-            **init, **_auto_kw(rc, cfg))
-        res = chain_result(res, 0)
-        cfg = replace(cfg, burn=burn_used, samples=samples_used)
-    elif rc.checkpoint_path and rc.pt_replicas >= 2:
-        res = run_chain_pt_checkpointed(n, cfg, rc.seed, rc.checkpoint_path,
-                                        checkpoint_every=rc.checkpoint_every,
-                                        **ladder, **init)
-    elif rc.checkpoint_path:
-        res = run_chain_checkpointed(n, cfg, generator, rc.checkpoint_path,
-                                     checkpoint_every=rc.checkpoint_every, **init)
-    elif rc.pt_replicas >= 2:
-        res = run_chain_pt(n, cfg, rc.seed, **ladder, **init)
-    else:
-        res = run_chain(n, cfg, generator, **init)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with device_trace(rc.profile_dir, device):
+        if _auto(rc) and rc.pt_replicas >= 2:
+            res, burn_used, samples_used = run_chain_pt_auto(
+                n, cfg, rc.seed, **ladder, **init, auto_burn=rc.auto_burn,
+                **_auto_kw(rc, cfg))
+            cfg = replace(cfg, burn=burn_used, samples=samples_used)
+        elif _auto(rc):   # one chain of run_chains_auto (checkpointed or not)
+            res, burn_used, samples_used = run_chains_auto(
+                n, cfg, [rc.seed], checkpoint_path=rc.checkpoint_path,
+                **init, **_auto_kw(rc, cfg))
+            res = chain_result(res, 0)
+            cfg = replace(cfg, burn=burn_used, samples=samples_used)
+        elif rc.checkpoint_path and rc.pt_replicas >= 2:
+            res = run_chain_pt_checkpointed(n, cfg, rc.seed, rc.checkpoint_path,
+                                            checkpoint_every=rc.checkpoint_every,
+                                            **ladder, **init)
+        elif rc.checkpoint_path:
+            res = run_chain_checkpointed(n, cfg, generator, rc.checkpoint_path,
+                                         checkpoint_every=rc.checkpoint_every,
+                                         **init)
+        elif rc.pt_replicas >= 2:
+            res = run_chain_pt(n, cfg, rc.seed, **ladder, **init)
+        else:
+            res = run_chain(n, cfg, generator, **init)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     elapsed = time.time() - t0
 
     write_outputs(rc.out_dir, data, res, cfg, elapsed, seed=rc.seed,
@@ -281,7 +273,8 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
     with rc.checkpoint_path; with PT refused); rc.pt_replicas >= 2 runs
     ``sampler.run_chains_pt``, and, as in the JAX package, without
     checkpoints even when rc.checkpoint_path is set; rc.checkpoint_path
-    alone runs ``checkpoint.run_chains_checkpointed``.
+    alone runs ``checkpoint.run_chains_checkpointed``. As in the JAX
+    package, no branch opens a trace: rc.profile_dir is ignored here.
     """
     from .diagnostics import ess_bulk, replicate_agreement, split_rhat
 

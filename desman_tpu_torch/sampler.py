@@ -706,14 +706,20 @@ class ExchangeNoise:
                           device=self.generator.device)
 
 
+def spawn_seeds(seed: int, k: int) -> list:
+    """k generator seeds from one seed: the first 64-bit word of each child
+    of ``np.random.SeedSequence(seed).spawn(k)``. The children of distinct
+    seeds are distinct streams."""
+    children = np.random.SeedSequence(int(seed)).spawn(k)
+    return [int(c.generate_state(1, np.uint64)[0]) for c in children]
+
+
 def pt_seeds(seed: int, R: int) -> list:
     """The R + 1 generator seeds of a PT run from its seed:
-    ``np.random.SeedSequence(seed).spawn(R + 1)``, children 0..R-1 for the
-    replicas and child R for the exchange, each child's first 64-bit word.
-    The children of distinct seeds are distinct streams, so the runs of
-    --chains (seeds seed .. seed + C - 1) share no generator."""
-    children = np.random.SeedSequence(int(seed)).spawn(R + 1)
-    return [int(c.generate_state(1, np.uint64)[0]) for c in children]
+    ``spawn_seeds(seed, R + 1)``, children 0..R-1 for the replicas and
+    child R for the exchange, so the runs of --chains (seeds seed .. seed +
+    C - 1) share no generator."""
+    return spawn_seeds(seed, R + 1)
 
 
 def pt_generators(seed: int, R: int, device) -> list:

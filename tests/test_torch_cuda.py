@@ -676,3 +676,77 @@ def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
     assert tau.launches == 4 * 20 and ops.swap.launches == 4 * 20
     for name, a, b in zip(ref._fields, ref, got):
         assert (a is None and b is None) or torch.equal(a, b), name
+
+
+# ---- multibin and --profile on the card ----
+
+
+def test_multibin_is_bitwise_run_chain_per_bin(cuda):
+    """Three bins of S=64 padded to V=1999 (a tail tile short of 8 rows)
+    run through the tau and swap kernels, each bitwise run_chain of its
+    padded counts with its generator; the kernels agree with their plain
+    versions on the padded counts, zero rows included."""
+    from desman_tpu_torch import multibin
+    from desman_tpu_torch.sampler import (
+        SamplerConfig, chain_generator, init_state, run_chain, spawn_seeds,
+    )
+
+    bins = [synth.generate(V=V, S=64, G=4, coverage=50.0, seed=40 + V).data.counts
+            for V in (611, 1999, 1203)]
+    cfg = SamplerConfig(G=4, burn=15, samples=15, nmf_iters=50)
+    ops.reset_launches()
+    results = multibin.run_bins(bins, cfg, seed=3, device=cuda)
+    torch.cuda.synchronize()
+    assert ops.tau_sweep.launches == 3 * 30 and ops.swap.launches == 3 * 30
+    padded = torch.as_tensor(multibin.pad_bins(bins), device=cuda)
+    assert padded.shape == (3, 1999, 64, 4)
+    for b, (counts, res, seed) in enumerate(zip(bins, results, spawn_seeds(3, 3))):
+        V = counts.shape[0]
+        want = run_chain(padded[b], cfg, chain_generator(seed, cuda))
+        for name, a, ref in zip(want._fields, res, want):
+            if name in ("tau_mean", "tau_star"):
+                ref = ref[:V]
+            assert (a is None and ref is None) or torch.equal(a, ref), (b, name)
+        # one tau sweep and one swap from the bin's start, kernel vs plain
+        st = init_state(padded[b], cfg, chain_generator(seed, cuda))
+        rng = np.random.default_rng(b)
+        gz = torch.as_tensor(rng.gumbel(size=(1999, 4, 4)), dtype=torch.float32,
+                             device=cuda)
+        args = (padded[b], st.tau, st.mix, st.gamma, st.eta, gz)
+        tau_k, _ = ops.tau_sweep(*args)
+        tau_p, _ = ops.tau_sweep_reference(*args)
+        assert torch.equal(tau_k[V:], tau_p[V:])   # zero rows: Gumbel alone
+        assert (tau_k == tau_p).all(1).float().mean().item() >= 0.99
+        g = torch.tensor(0, dtype=torch.int32, device=cuda)
+        h = torch.tensor(3, dtype=torch.int32, device=cuda)
+        logu = torch.as_tensor(np.log(rng.uniform(size=1999)), dtype=torch.float32,
+                               device=cuda)
+        sargs = (padded[b], st.tau, st.mix, st.gamma, st.eta, g, h, logu)
+        tau_k, _ = ops.swap(*sargs)
+        tau_p, _ = ops.swap_reference(*sargs)
+        assert torch.equal(tau_k[V:], tau_p[V:])   # log ratio 0 on zero rows
+        assert (tau_k == tau_p).all(1).float().mean().item() >= 0.99
+
+
+def test_profile_trace_names_the_kernels(cuda, tmp_path):
+    """run() with profile_dir on the card writes a trace whose kernel
+    events name the tau and swap kernels as often as their wrappers
+    launched them."""
+    import json
+
+    from desman_tpu_torch import io, profiling, run
+
+    data = synth.generate(V=500, S=16, G=3, coverage=40.0, seed=2).data
+    ops.reset_launches()
+    rc = run.RunConfig(G=3, iterations=20, seed=0, out_dir=str(tmp_path / "o"),
+                       profile_dir=str(tmp_path / "trace"))
+    run.run(data, rc, device="cuda", kernel="cuda")
+    launched = (ops.tau_sweep.launches, ops.swap.launches)
+    assert launched == (20, 20)
+    with open(tmp_path / "trace" / profiling.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counted = (sum("tau_sweep_kernel" in k for k in kernels),
+               sum("swap_kernel" in k for k in kernels))
+    assert counted == launched, counted
+    assert io.read_fit_txt(str(tmp_path / "o" / "fit.txt"))["V"] == 500

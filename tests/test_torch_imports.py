@@ -25,7 +25,9 @@ MODULES = [
     "desman_tpu_torch.filter", "desman_tpu_torch.model_selection",
     "desman_tpu_torch.pipeline", "desman_tpu_torch.cli",
     "desman_tpu_torch.geneassign", "desman_tpu_torch.genecov",
-    "desman_tpu_torch.kernel_bench",
+    "desman_tpu_torch.kernel_bench", "desman_tpu_torch.native",
+    "desman_tpu_torch.pileup", "desman_tpu_torch.strainfasta",
+    "desman_tpu_torch.profiling", "desman_tpu_torch.multibin",
 ]
 
 

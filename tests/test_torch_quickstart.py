@@ -167,10 +167,10 @@ def _ported_flag(argv, variant_half, out, port_out):
 @pytest.mark.parametrize("cmd", ["multibin", "geneassign", "diag", "nope",
                                  "extract", "strainfasta"])
 def test_unported_subcommands_exit_2(cmd, port_out, variant_half, tmp_path, capsys):
-    """A subcommand still to port, or an unknown one, exits 2 naming
-    itself. geneassign and diag are ported: each runs on the quickstart
-    run (``_ported_subcommand``)."""
-    if cmd in ("geneassign", "diag"):
+    """An unknown subcommand exits 2 naming itself. Every subcommand of the
+    JAX package is ported: each runs on the quickstart input or run
+    (``_ported_subcommand``)."""
+    if cmd != "nope":
         _ported_subcommand(cmd, port_out, variant_half, tmp_path, capsys)
         return
     assert cli.main([cmd, "x.csv"]) == 2
@@ -179,7 +179,40 @@ def test_unported_subcommands_exit_2(cmd, port_out, variant_half, tmp_path, caps
 
 def _ported_subcommand(cmd, port_out, variant_half, tmp_path, capsys):
     """geneassign on the quickstart run's strains and planted accessory
-    genes; diag on the quickstart run directory."""
+    genes; diag on the quickstart run directory; multibin on the
+    quickstart input as one bin (the quickstart gates); extract on the
+    quickstart input written as a pileup (the counts back); strainfasta on
+    the quickstart run's calls (each strain's string is its tau column)."""
+    if cmd == "multibin":
+        stub = str(tmp_path / "bins_")
+        assert cli.main(["multibin", variant_half, "-g", "5", "-e", ETA, "-i", "150",
+                         "-o", stub, "--device", "cpu"]) == 0
+        _gates(stub + "variants")
+        return
+    if cmd == "extract":
+        from desman_tpu_torch.pileup import write_pileup
+
+        data = io.read_counts_csv(variant_half)
+        pileup, names = str(tmp_path / "qs.pileup"), tmp_path / "names.txt"
+        write_pileup(pileup, data)
+        names.write_text("\n".join(data.samples) + "\n")
+        out = str(tmp_path / "counts.csv")
+        assert cli.main(["extract", pileup, "-n", str(names), "-o", out]) == 0
+        with open(out, "rb") as a, open(variant_half, "rb") as b:
+            assert a.read() == b.read()
+        return
+    if cmd == "strainfasta":
+        tau, _, _ = io.read_tau_star_csv(os.path.join(port_out, "Filtered_Tau_star.csv"))
+        out = tmp_path / "strains.fasta"
+        assert cli.main(["strainfasta", os.path.join(port_out, "Filtered_Tau_star.csv"),
+                         "-o", str(out)]) == 0
+        lines = out.read_text().split("\n")
+        heads = [i for i, ln in enumerate(lines) if ln.startswith(">")]
+        assert [lines[i] for i in heads] == [f">hap{g + 1} variants=1000" for g in range(5)]
+        for g, i in enumerate(heads):
+            seq = "".join(lines[i + 1:heads[g + 1] if g + 1 < 5 else None])
+            assert seq == "".join("ACGT"[b] for b in tau[:, g])
+        return
     if cmd == "diag":
         assert cli.main(["diag", port_out, "-o", str(tmp_path / "diag.csv")]) == 0
         assert "G=5: chains=1" in capsys.readouterr().out
