@@ -111,7 +111,10 @@ Phases, each printing its own '# ...' lines:
    G=5, V from 1000 to 1e4 in equal steps, each padded to V=1e4 on the
    card): tau and swap launched 12 x 250 times, every bin at SNP error
    rate < 0.02 and gamma MAE < 0.02 with fit.txt's V its own, bin 0
-   bitwise run_chain of its padded counts, `--kernel cuda_topk` exits 2
+   bitwise run_chain of its padded counts, the tau and swap kernels
+   against their plain versions at G=5 on bins 0 and 1 padded to V=1e4
+   and bin 1 padded to V=9999 (zero rows bitwise, >= 99% elsewhere),
+   `--kernel cuda_topk` exits 2
    and launches nothing, the wall a bin beside run() on the V=1e4 bin in
    turns; (b) `extract` of that bin written as a pileup (S=64, about 68 MB)
    through the C++ scanner gives its counts, positions and contigs; on a
@@ -1497,6 +1500,8 @@ def phase_pt(tmp):
 MB_BINS, MB_G, MB_SWEEPS = 12, 5, 250
 # the multibin path's launches of each kernel (phase 12 (a))
 MULTIBIN_LAUNCHES = {}
+# the tau and swap kernels against their plain versions at its inputs
+MULTIBIN_CHECK = {}
 SAMPLED = ("Filtered_Tau_star.csv", "Gamma_mean.csv", "Gamma_star.csv",
            "Eta_mean.csv", "Eta_star.csv", "fit.txt")
 
@@ -1513,6 +1518,64 @@ def multibin_bins():
         t.data.positions = (1 + 3 * (v % 2500)).astype(np.int64)
         bins.append(t)
     return bins
+
+
+def multibin_kernels(counts, b, v_max):
+    """The tau and swap kernels against their plain versions at the
+    multibin path's inputs: bin b's counts padded with zero rows to v_max
+    at G=MB_G, from the state its chain starts in, on that chain's own
+    Gumbel and swap noise. On the zero rows (log-likelihood 0) the kernel
+    must give the plain version's tau bit for bit: Gumbel argmax there,
+    always accepted swap; elsewhere the >= 99% agreement of phase 3. The
+    swap starts from the tau sweep's result with strains g and h exchanged
+    at every other data row, so both its branches run there."""
+    dev = torch.device("cuda")
+    Vb = counts.shape[0]
+    n = torch.zeros((v_max, S, 4), dtype=torch.float32, device=dev)
+    n[:Vb] = torch.as_tensor(counts, dtype=torch.float32, device=dev)
+    cfg = sampler.SamplerConfig(G=MB_G, burn=MB_SWEEPS // 2,
+                                samples=MB_SWEEPS - MB_SWEEPS // 2)
+    gen = sampler.chain_generator(sampler.spawn_seeds(0, MB_BINS)[b], dev)
+    st = sampler.init_state(n, cfg, gen)
+    gz = ops.draw_gumbel(gen, v_max, MB_G)
+    g, h, logu = ops.draw_swap_proposal(gen, v_max, MB_G)
+    what = f"bin {b} (V={Vb}) padded to V={v_max} at G={MB_G}"
+    tau_s = None
+    for name in ("tau_sweep", "swap"):
+        if tau_s is None:
+            tau0, args = st.tau, (n, st.tau, st.mix, st.gamma, st.eta, gz)
+        else:
+            tau0 = tau_s
+            args = (n, tau_s, mixture(one_hot_tau(tau_s), st.gamma), st.gamma, st.eta,
+                    g, h, logu)
+        tau_k, mix_k = getattr(ops, name)(*args)
+        tau_p, mix_p = getattr(ops, f"{name}_reference")(*args)
+        same = (tau_k == tau_p).all(dim=1)
+        agree = same.float().mean().item()
+        err = (mix_k[same] - mix_p[same]).abs().max().item()
+        changed = (tau_k != tau0).any(dim=1).float()
+        moved, moved_zero = changed[:Vb].mean().item(), changed[Vb:].mean().item()
+        rec = MULTIBIN_CHECK.setdefault(name, {"agreement": 1.0, "max_abs_err": 0.0})
+        rec["agreement"] = min(rec["agreement"], agree)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"# multibin {name} on {what}: position agreement {agree:.6f}, changed "
+              f"share {moved:.4f} of the data rows and {moved_zero:.4f} of the zero rows, "
+              f"max |mix kernel - plain| on agreeing positions {err:.3e}")
+        gate(torch.equal(tau_k[Vb:], tau_p[Vb:]),
+             f"{name} on {what}: the zero rows' tau is bitwise the plain version's")
+        gate(agree >= 0.99, f"{name} on {what}: agrees with its plain version on "
+             ">= 99% of positions")
+        gate(torch.allclose(mix_k, mixture(one_hot_tau(tau_k), st.gamma), rtol=1e-5,
+                            atol=1e-6), f"{name} on {what}: mix == mixture(onehot(tau), gamma)")
+        if name == "tau_sweep":
+            gate(0 < moved_zero, f"tau_sweep on {what}: the zero rows drew their bases")
+            tau_s, ex = tau_p.clone(), torch.arange(0, Vb, 2, device=dev)
+            tau_s[ex, g], tau_s[ex, h] = tau_p[ex, h], tau_p[ex, g]
+        else:
+            gate(0.1 < moved < 0.6 and 0 < moved_zero,
+                 f"swap on {what}: accepted where the strains were exchanged, "
+                 "and on the zero rows")
+    ops.reset_launches()
 
 
 def same_counts(a, b) -> bool:
@@ -1537,7 +1600,8 @@ def phase_multibin(tmp):
         files.append(os.path.join(tmp, f"bin{b:02d}.csv"))
         io.write_counts_csv(files[-1], t.data)
     print(f"# multibin: {MB_BINS} bins, V {[t.data.V for t in bins]}, S={S}, true "
-          f"G={MB_G}; padded counts {MB_BINS * V * S * 4 * 4} bytes f32 on the card")
+          f"G={MB_G}; one bin's padded counts at a time on the card, {V * S * 4 * 4} "
+          "bytes f32")
 
     # (a) run() on the V=1e4 bin, the multibin CLI, run() again
     def run_big(k):
@@ -1599,6 +1663,8 @@ def phase_multibin(tmp):
          f"bin 0 is bitwise run_chain of its counts padded to V={V} (tau star, loglik "
          "trace, gamma star)")
     del padded, one
+    for b, v_max in ((0, V), (1, V), (1, V - 1)):
+        multibin_kernels(bins[b].data.counts, b, v_max)
     err = stdio.StringIO()
     ops.reset_launches()
     with contextlib.redirect_stderr(err):
@@ -1801,6 +1867,8 @@ def main() -> int:
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
             if r["name"] in ("tau_sweep", "swap"):
                 r["multibin_launches"] = MULTIBIN_LAUNCHES[r["name"]]
+                r["multibin_agreement"] = MULTIBIN_CHECK[r["name"]]["agreement"]
+                r["multibin_max_abs_err"] = MULTIBIN_CHECK[r["name"]]["max_abs_err"]
             gate(r["launches"] > 0, f"{r['name']} launched on a main path")
     except GateFailed as e:
         print(f"chip_smoke: gate failed: {e}", file=sys.stderr)

@@ -5,8 +5,8 @@ variant positions are padded with zero rows to a common V (a zero row is
 likelihood-neutral: n=0 kills every log term and the multinomial
 coefficient) and one chain runs per bin. The JAX package vmaps the chain
 over bins; here the bins run one after another on their padded counts, as
-``sampler.run_chains`` runs chains, and each bin's results are cut back to
-its own V.
+``sampler.run_chains`` runs chains, one padded bin on the device at a
+time, and each bin's results are cut back to its own V.
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ from .sampler import (
 )
 
 
-def pad_bins(counts_list: Sequence[np.ndarray]) -> np.ndarray:
-    """Stack [V_b, S, 4] tensors into [B, V_max, S, 4] with zero padding."""
+def _bin_shape(counts_list: Sequence[np.ndarray]):
+    """(S, V_max) of bins that share a sample axis; ValueError otherwise."""
     if not counts_list:
         raise ValueError("no bins")
     S = counts_list[0].shape[1]
@@ -32,7 +32,12 @@ def pad_bins(counts_list: Sequence[np.ndarray]) -> np.ndarray:
             raise ValueError(
                 "all bins must be [V, S, 4] with a shared sample axis; got "
                 f"{[tuple(x.shape) for x in counts_list]}")
-    v_max = max(c.shape[0] for c in counts_list)
+    return S, max(c.shape[0] for c in counts_list)
+
+
+def pad_bins(counts_list: Sequence[np.ndarray]) -> np.ndarray:
+    """Stack [V_b, S, 4] tensors into [B, V_max, S, 4] with zero padding."""
+    S, v_max = _bin_shape(counts_list)
     out = np.zeros((len(counts_list), v_max, S, 4), np.float32)
     for b, c in enumerate(counts_list):
         out[b, : c.shape[0]] = c
@@ -51,25 +56,27 @@ def run_bins(
     their tensors on `device`, with tau_mean and tau_star cut back to the
     bin's V.
 
-    The padded counts [B, V_max, S, 4] go to the device once. Bin b runs
-    on its own generator, seeded with child b of ``spawn_seeds(seed, B)``
-    (PT's convention), so its result is bitwise ``run_chain`` of its padded
-    counts with that generator. The kernel choice ("cuda" or "torch") is
-    resolved once for all bins; "cuda_topk" binds to one counts tensor, so
-    it raises ValueError.
+    Each bin is padded to V_max on the device just before its chain runs
+    (one [V_max, S, 4] tensor there at a time), equal to ``pad_bins``' row
+    b. Bin b runs on its own generator, seeded with child b of
+    ``spawn_seeds(seed, B)`` (PT's convention), so its result is bitwise
+    ``run_chain`` of ``pad_bins(counts_list)[b]`` with that generator. The
+    kernel choice ("cuda" or "torch") is resolved once for all bins;
+    "cuda_topk" binds to one counts tensor, so it raises ValueError.
     """
     ks = resolve(kernel)
+    S, v_max = _bin_shape(counts_list)
     device = torch.device(device)
-    padded = torch.as_tensor(pad_bins(counts_list), device=device)
     eta = (None if eta_init is None else
            torch.as_tensor(eta_init, dtype=torch.float32, device=device))
     out = []
-    for b, s in enumerate(spawn_seeds(seed, len(counts_list))):
-        res = run_chain(padded[b], cfg, chain_generator(s, device),
-                        eta_init=eta, kernel=ks)
-        V = counts_list[b].shape[0]
-        out.append(res._replace(tau_mean=res.tau_mean[:V],
-                                tau_star=res.tau_star[:V]))
+    for counts, s in zip(counts_list, spawn_seeds(seed, len(counts_list))):
+        V = counts.shape[0]
+        n = torch.zeros((v_max, S, 4), dtype=torch.float32, device=device)
+        n[:V] = torch.as_tensor(counts, dtype=torch.float32, device=device)
+        res = run_chain(n, cfg, chain_generator(s, device), eta_init=eta, kernel=ks)
+        out.append(res._replace(tau_mean=res.tau_mean[:V], tau_star=res.tau_star[:V]))
+        del n
     return out
 
 

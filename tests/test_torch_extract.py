@@ -205,6 +205,45 @@ def test_counts_reader_errors_fall_through_to_python(text, says, tmp_path):
     assert str(ours.value) == str(python.value) and says in str(ours.value)
 
 
+BAD_CELLS = {"empty": "", "decimal": "2.5", "exponent": "1e3", "junk": "5x",
+             "negative": "-3", "space": " 4"}
+# what the default reader (C++ first) gives for a=[1, 2, 3, 4] with the
+# cell in a-C ("middle") or a-T ("last"), None for a ValueError: the C++
+# reader reads an empty cell as 0 and, in the last column only, stops at
+# the first non-digit; elsewhere its parse error falls through to Python
+MALFORMED_READS = {
+    ("middle", "empty"): [1, 0, 3, 4], ("last", "empty"): [1, 2, 3, 0],
+    ("middle", "decimal"): [1, 2, 3, 4], ("last", "decimal"): [1, 2, 3, 2],
+    ("middle", "exponent"): [1, 1000, 3, 4], ("last", "exponent"): [1, 2, 3, 1],
+    ("middle", "junk"): None, ("last", "junk"): [1, 2, 3, 5],
+    ("middle", "negative"): [1, -3, 3, 4], ("last", "negative"): [1, 2, 3, -3],
+    ("middle", "space"): [1, 4, 3, 4], ("last", "space"): [1, 2, 3, 4],
+}
+
+
+@pytest.mark.parametrize("where,cell", sorted(MALFORMED_READS))
+def test_malformed_counts_cells_read_as_jax_reads_them(where, cell, tmp_path):
+    """A malformed count cell reads as the JAX package's default reader
+    (its C++ reader first, pandas after) reads it, which is the same C++
+    source: the values pinned in MALFORMED_READS. Where the JAX reader
+    raises, so does the port's (its message is the Python reader's)."""
+    row = ["c", "7", "1", "2", "3", "4"]
+    row[3 if where == "middle" else 5] = BAD_CELLS[cell]
+    path = str(tmp_path / "c.csv")
+    with open(path, "w") as f:
+        f.write("Contig,Position,a-A,a-C,a-G,a-T\n" + ",".join(row) + "\n")
+    want = MALFORMED_READS[where, cell]
+    if want is None:
+        with pytest.raises(ValueError):
+            jio.read_counts_csv(path)
+        with pytest.raises(ValueError, match="could not convert"):
+            io.read_counts_csv(path)
+        return
+    got = io.read_counts_csv(path)
+    assert got.counts.ravel().tolist() == want
+    _same(got, jio.read_counts_csv(path))
+
+
 def _gene_table(tmp_path):
     genes = tmp_path / "genes.csv"
     genes.write_text("gene,contig,start,end\ngeneA,contig_0,100,120\n"
