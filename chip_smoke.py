@@ -124,13 +124,35 @@ Phases, each printing its own '# ...' lines:
    reference FASTA of its contigs; (d) `desman --profile` at V=1e4 S=64
    G=8 -i 100 beside the untraced run: the sampled files byte-identical,
    the trace's kernel events naming the tau and swap kernels 100 times
-   each, the walls, and where the traced wall goes.
+   each, the walls, and where the traced wall goes;
+13. position sharding over a mesh of ranks (``desman_tpu_torch.parallel``),
+   at V=1e4, S=64, G=8, 200 sweeps: (f) the tau, swap and top-2 kernels
+   against their plain versions on a shard's block as a 1x4 mesh gives it
+   (V=1e4-2 padded to 1e4, the last rank's 2500 rows: a tail tile of 4 and
+   2 pad rows with +inf swap thresholds; pad rows' tau bitwise, >= 99%
+   agreement elsewhere); (c)-(e) `desman --mesh 1x2`, `--mesh 2x1 --chains
+   2`, `--mesh 1x2 --kernel cuda_topk` (biallelic counts) and `--mesh 1x2
+   --checkpoint` subprocesses side by side, each a world of two ranks
+   sharing the card over gloo: the run records' launches exactly chains x
+   data ranks x 200 over the ranks, <= 3 collectives a sweep, tau_star
+   agreement >= 0.99 with the single-device chain and no more SNP errors
+   than it; the checkpointed run SIGTERMed mid-run exits 75 and resumes on
+   a 1x1 mesh in process; the host µs of a collective over gloo; (a) a
+   1x1 mesh over NCCL in process through `run_multi(mesh=...)`: tau_star
+   equal to `run_chain`'s and the trace within rtol 1e-5, tau and swap
+   launched 200 times; (b) the host µs of the layer's all_reduce over NCCL,
+   and ms a sweep of the 1x1 mesh against the plain chain, in turns, four
+   runs each; (g) with four cards or more, `desman --mesh 2x2 --chains 2`
+   over NCCL, a card a rank, held as (c). Two ranks take NCCL where there
+   are two cards (the backend rule).
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every in-process path driven in phases 3-12,
-the tau and swap kernels' multibin launches beside them, each with
+kernel's launches summed over every in-process path driven in phases 3-13,
+the tau and swap kernels' multibin launches beside them, and the tau, swap
+and top-2 kernels' mesh launches over every rank of phase 13 with their
+agreement on a shard's block, each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
@@ -1830,6 +1852,322 @@ def phase_multibin(tmp):
     print(f"# phase 12 wall {time.time() - t_phase:.2f} s")
 
 
+# phase 13: the mesh path's launches of each kernel over every rank, and
+# the kernels against their plain versions on a shard's block
+MESH_SWEEPS = 200
+MESH_LAUNCHES = Counter()
+MESH_CHECK = {}
+
+
+def mesh_block_kernels():
+    """The tau, swap and top-2 kernels against their plain versions on a
+    shard's block as a 1x4 mesh gives it: V = 1e4 - 2 padded to 1e4, the
+    last rank's rows [7500, 1e4): 2500 rows (a tail tile of 4) ending in 2
+    zero pad rows, from the state a chain starts in with every other data
+    row's bases one off, on that chain's own Gumbel and swap noise cut to
+    the block (``parallel.ShardNoise``: the pad rows' swap thresholds
+    +inf). On the pad rows the kernel must give
+    the plain version's tau bit for bit; elsewhere >= 99% agreement. The
+    swap starts from the tau sweep's result with strains g and h exchanged
+    at every other data row, so both its branches run."""
+    from desman_tpu_torch.parallel import Mesh, ShardNoise, pad_positions
+
+    dev = torch.device("cuda")
+    mesh, true_v = Mesh(1, 4), V - 2
+    cfg = sampler.SamplerConfig(G=G, burn=MESH_SWEEPS // 2, samples=MESH_SWEEPS // 2)
+    cases = (("tau_sweep", synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)),
+             ("swap", None),
+             ("tau_sweep_topk", synth.generate(V=V, S=S, G=G, coverage=50.0,
+                                               error_rate=0.0, max_alleles=2, seed=0)))
+    tau_s = None
+    for name, t in cases:
+        if t is not None:
+            padded, _ = pad_positions(t.data.counts[:true_v].astype(np.float32), 4)
+            lo, hi = mesh.block(padded.shape[0], 3)
+            n_full = torch.as_tensor(padded, device=dev)
+            gen = sampler.chain_generator(0, dev)
+            st = sampler.init_state(n_full, cfg, gen)
+            noise = ShardNoise(sampler.TorchNoise(gen), lo, hi, padded.shape[0], true_v)
+            gz = noise.gumbel(0, hi - lo, G)
+            g, h, logu = noise.swap(0, hi - lo, G)
+            n, tau, mix = n_full[lo:hi], st.tau[lo:hi], st.mix[lo:hi]
+            pad = true_v - lo
+            # every other data row one base off, so the sweep has calls to make
+            tau = tau.clone()
+            tau[0:pad:2] = (tau[0:pad:2] + 1) % 4
+            mix = mixture(one_hot_tau(tau), st.gamma)
+        if name == "swap":
+            tau0, args = tau_s, (n, tau_s, mixture(one_hot_tau(tau_s), st.gamma),
+                                 st.gamma, st.eta, g, h, logu)
+        elif name == "tau_sweep":
+            tau0, args = tau, (n, tau, mix, st.gamma, st.eta, gz)
+        else:
+            layout = tau_topk.topk_layout(padded[lo:hi], dev)
+            tau0, args = tau, (layout.n_val, layout.b_idx, tau, mix, st.gamma, st.eta, gz)
+        tau_k, mix_k = getattr(ops, name)(*args)
+        tau_p, mix_p = getattr(ops, f"{name}_reference")(*args)
+        same = (tau_k == tau_p).all(dim=1)
+        agree = same.float().mean().item()
+        err = (mix_k[same] - mix_p[same]).abs().max().item()
+        changed = (tau_k != tau0).any(dim=1).float()
+        MESH_CHECK[name] = {"agreement": agree, "max_abs_err": err}
+        what = f"{name} on a 1x4 shard's block (rows {lo}-{hi} of V={true_v} padded to {hi})"
+        print(f"# mesh {what}: agreement {agree:.6f}, changed share {changed[:pad].mean():.4f} "
+              f"of the data rows and {changed[pad:].mean():.4f} of the pad rows, max |mix "
+              f"kernel - plain| on agreeing positions {err:.3e}")
+        gate(torch.equal(tau_k[pad:], tau_p[pad:]),
+             f"{what}: the pad rows' tau bitwise the plain version's")
+        gate(agree >= 0.99, f"{what}: >= 99% agreement with its plain version")
+        gate(torch.allclose(mix_k, mixture(one_hot_tau(tau_k), st.gamma), rtol=1e-5,
+                            atol=1e-6), f"{what}: mix == mixture(onehot(tau), gamma)")
+        if name != "swap":
+            gate(0.3 < changed[:pad].mean().item() < 0.7, f"{what}: the sweep moved "
+                 "the rows started one base off")
+        if name == "tau_sweep":
+            tau_s, ex = tau_p.clone(), torch.arange(0, pad, 2, device=dev)
+            tau_s[ex, g], tau_s[ex, h] = tau_p[ex, h], tau_p[ex, g]
+        elif name == "swap":
+            gate(0.1 < changed[:pad].mean().item() < 0.6 and not changed[pad:].any(),
+                 f"{what}: accepted where the strains were exchanged, never on the "
+                 "pad rows (+inf thresholds)")
+    ops.reset_launches()
+
+
+def mesh_collective_us(out):
+    """A rank of a two-rank world (gloo on one card, NCCL on two): host µs
+    of one [2,S] sum through the collective layer, 1000 calls after 20;
+    rank 0 writes it to `out`."""
+    from desman_tpu_torch.parallel import Mesh, distributed
+
+    distributed.maybe_initialize("cuda")
+    dev = distributed.rank_device("cuda")
+    axes = distributed.mesh_axes(Mesh(1, 2), dev)
+    x = torch.ones((2, S), device=dev)
+    for _ in range(20):
+        axes.data.sum(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        axes.data.sum(x)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e3
+    if distributed.is_coordinator():
+        with open(out, "w") as f:
+            json.dump({"us": us, "backend": distributed.backend()}, f)
+    return 0
+
+
+def mesh_manifest_it(ck):
+    try:
+        with open(os.path.join(ck, "manifest.json")) as f:
+            return int(json.load(f)["it"])
+    except (OSError, ValueError):
+        return None
+
+
+def mesh_cli_runs(tmp, csv, bi_csv):
+    """(c)-(e): the mesh CLI runs, side by side on the card (each a world
+    of two ranks sharing cuda:0), the checkpointed one SIGTERMed once its
+    manifest shows 0 < it < MESH_SWEEPS. Returns {name: (rc, stderr)}."""
+    base = ["-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0"]
+    runs = {
+        "1x2": [csv, *base, "--mesh", "1x2", "-o", os.path.join(tmp, "mesh_1x2")],
+        "2x1": [csv, *base, "--mesh", "2x1", "--chains", "2",
+                "-o", os.path.join(tmp, "mesh_2x1")],
+        "topk": [bi_csv, *base, "--mesh", "1x2", "--kernel", "cuda_topk",
+                 "-o", os.path.join(tmp, "mesh_topk")],
+        "termed": [csv, *base, "--mesh", "1x2", "--checkpoint_every", "25",
+                   "--checkpoint", os.path.join(tmp, "mesh_ck"),
+                   "-o", os.path.join(tmp, "mesh_termed")],
+    }
+    t0 = time.time()
+    procs = {k: desman_process(argv) for k, argv in runs.items()}
+    ck, seen = os.path.join(tmp, "mesh_ck"), None
+    try:
+        deadline = time.time() + 600
+        while seen is None and procs["termed"].poll() is None and time.time() < deadline:
+            it = mesh_manifest_it(ck)
+            if it is not None and 0 < it < MESH_SWEEPS:
+                procs["termed"].send_signal(signal.SIGTERM)
+                seen = it
+            time.sleep(0.002)
+    finally:
+        results = {k: finish(p) for k, p in procs.items()}
+    print(f"# {len(runs)} desman --mesh runs side by side: {time.time() - t0:.2f} s wall; "
+          f"SIGTERM at it={seen}")
+    for k, (rc, err) in results.items():
+        print(f"# desman --mesh {k}: rc {rc} {err.strip()[-300:] if rc else ''}")
+    return results, seen
+
+
+def phase_mesh(tmp):
+    """Phase 13: position sharding over a mesh of ranks (see the module
+    docstring)."""
+    from desman_tpu_torch.parallel import Shard, distributed, launch, make_mesh
+    from desman_tpu_torch.utils import snp_distance_perm
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    bi = synth.generate(V=V, S=S, G=G, coverage=50.0, error_rate=0.0, max_alleles=2,
+                        seed=0)
+    csv, bi_csv = os.path.join(tmp, "mesh_counts.csv"), os.path.join(tmp, "mesh_bi.csv")
+    io.write_counts_csv(csv, t.data)
+    io.write_counts_csv(bi_csv, bi.data)
+
+    # the single-device partners: seeds 0 and 1 with cuda, seed 0 with cuda_topk
+    cfg = run.sampler_config(run.RunConfig(G=G, iterations=MESH_SWEEPS))
+    n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
+    ref = sampler.run_chains(n, cfg, [0, 1], kernel="cuda")
+    n_bi = torch.as_tensor(bi.data.counts, dtype=torch.float32, device=dev)
+    ref_topk = sampler.run_chains(n_bi, cfg, [0], kernel="cuda_topk")
+    ops.reset_launches()
+
+    def agreement(out, want, truth, what):
+        tau, _, _ = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+        want = want.cpu().numpy()
+        agree = (tau == want).all(axis=1).mean()
+        snp, snp_ref = snp_distance_perm(truth, tau), snp_distance_perm(truth, want)
+        print(f"# {what}: tau_star agreement {agree:.6f} with the single-device chain, "
+              f"SNP errors {snp} of {tau.size} against the truth (that chain: {snp_ref})")
+        gate(agree >= 0.99 and snp <= snp_ref, f"{what}: agreement >= 0.99, SNP errors "
+             f"no more than the single-device chain's ({snp_ref})")
+
+    def record_of(out, what, kernel, chains, d, ranks=2):
+        m = read_metrics(out)
+        runs = chains * d * MESH_SWEEPS
+        print(f"# {what}: backend {m['backend']}, {m['ranks']} ranks, launches "
+              f"{m['launches']}, collectives a sweep {m['collectives_per_sweep']}, "
+              f"{m['sweeps_per_s']:.3f} sweeps/s")
+        gate(m["backend"] == backend_of(ranks) and m["ranks"] == ranks,
+             f"{what}: {ranks} ranks over {backend_of(ranks)}")
+        gate(m["launches"][kernel] == runs and m["launches"]["swap"] == runs
+             and all(v == 0 for k, v in m["launches"].items() if k not in (kernel, "swap")),
+             f"{what}: {kernel} and swap launched exactly {runs} times over the ranks")
+        gate(m["collectives_per_sweep"] <= 3, f"{what}: <= 3 collectives a sweep")
+        MESH_LAUNCHES.update(m["launches"])
+
+    def backend_of(ranks):
+        """The backend rule: NCCL when each rank has a card of its own."""
+        return "nccl" if ranks <= torch.cuda.device_count() else "gloo"
+
+    # (f) the kernels on a shard's block
+    mesh_block_kernels()
+
+    # (c)-(e) the CLI: 1x2, 2x1 --chains 2, cuda_topk, the preempted run
+    results, seen = mesh_cli_runs(tmp, csv, bi_csv)
+    for k in ("1x2", "2x1", "topk"):
+        gate(results[k][0] == 0, f"desman --mesh {k} exits 0")
+    rc_t, err_t = results["termed"]
+    gate(rc_t == 75 and "preempted" in err_t and seen is not None,
+         "desman --mesh 1x2 --checkpoint: SIGTERM mid-run exits 75 naming the preemption")
+    record_of(os.path.join(tmp, "mesh_1x2"), "--mesh 1x2", "tau_sweep", 1, 2)
+    record_of(os.path.join(tmp, "mesh_2x1"), "--mesh 2x1 --chains 2", "tau_sweep", 2, 1)
+    record_of(os.path.join(tmp, "mesh_topk"), "--mesh 1x2 --kernel cuda_topk",
+              "tau_sweep_topk", 1, 2)
+    agreement(os.path.join(tmp, "mesh_1x2"), ref.tau_star[0], t.tau_idx, "--mesh 1x2")
+    with open(os.path.join(tmp, "mesh_2x1", "chains.json")) as f:
+        best = json.load(f)["best_seed"]
+    agreement(os.path.join(tmp, "mesh_2x1"), ref.tau_star[best], t.tau_idx,
+              f"--mesh 2x1 --chains 2 (best seed {best})")
+    agreement(os.path.join(tmp, "mesh_topk"), ref_topk.tau_star[0], bi.tau_idx,
+              "--mesh 1x2 --kernel cuda_topk")
+    # the preempted run resumed on a 1x1 mesh, in process
+    at = mesh_manifest_it(os.path.join(tmp, "mesh_ck"))
+    termed = os.path.join(tmp, "mesh_termed")
+    launches, _ = drive_cli([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0",
+                             "--mesh", "1x1", "--checkpoint_every", "25", "--checkpoint",
+                             os.path.join(tmp, "mesh_ck")], termed)
+    MESH_LAUNCHES.update(launches)
+    gate(launches["tau_sweep"] == launches["swap"] == MESH_SWEEPS - at,
+         f"the 1x1 resume from it={at} launched tau and swap {MESH_SWEEPS - at} times")
+    agreement(termed, ref.tau_star[0], t.tau_idx, f"--mesh 1x2 preempted at {at}, "
+              "resumed on 1x1")
+
+    # the host µs of a collective, two ranks on cuda:0 over gloo
+    us_file = os.path.join(tmp, "mesh_us.json")
+    gate(launch(mesh_collective_us, 2, (us_file,)) == 0, "the collective timing ran")
+    with open(us_file) as f:
+        two_us = json.load(f)
+    print(f"# a [2,{S}] sum through the collective layer (one all_reduce), 2 ranks over "
+          f"{two_us['backend']}: {two_us['us']:.2f} µs host a call")
+
+    # (g) with four cards or more: --mesh 2x2 --chains 2 over NCCL, one card a rank
+    if torch.cuda.device_count() >= 4:
+        out = os.path.join(tmp, "mesh_2x2")
+        rc, err = finish(desman_process([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s",
+                                         "0", "--mesh", "2x2", "--chains", "2", "-o", out]))
+        gate(rc == 0, f"desman --mesh 2x2 --chains 2 exits 0 ({err.strip()[-300:]})")
+        record_of(out, "--mesh 2x2 --chains 2", "tau_sweep", 2, 2, ranks=4)
+        with open(os.path.join(out, "chains.json")) as f:
+            best = json.load(f)["best_seed"]
+        agreement(out, ref.tau_star[best], t.tau_idx,
+                  f"--mesh 2x2 --chains 2 (best seed {best})")
+
+    # (a), (b): a 1x1 mesh over NCCL, in process
+    distributed.join(0, 1, f"127.0.0.1:{distributed.free_port()}", "cuda")
+    try:
+        gate(distributed.backend() == "nccl", "a world of one rank on its own card: NCCL")
+        out = os.path.join(tmp, "mesh_nccl")
+        rc = run.RunConfig(G=G, iterations=MESH_SWEEPS, seed=0, out_dir=out)
+        ops.reset_launches()
+        res = run.run_multi(t.data, rc, 1, device="cuda", kernel="cuda",
+                            mesh=make_mesh(1, 1))
+        launches = read_launches()
+        MESH_LAUNCHES.update(launches)
+        m = read_metrics(out)
+        print(f"# 1x1 mesh over {m['backend']}: launches {launches}, collectives a sweep "
+              f"{m['collectives_per_sweep']}, {m['sweeps_per_s']:.3f} sweeps/s")
+        gate(launches["tau_sweep"] == launches["swap"] == MESH_SWEEPS,
+             f"1x1 mesh: tau and swap launched {MESH_SWEEPS} times")
+        gate(m["collectives_per_sweep"] <= 3, "1x1 mesh: <= 3 collectives a sweep")
+        trace, want = res.loglik_trace.cpu(), ref.loglik_trace[0].cpu()
+        bitwise = torch.equal(res.tau_star.cpu(), ref.tau_star[0].cpu()) and torch.equal(
+            trace, want)
+        print(f"# 1x1 mesh against run_chain: bitwise {bitwise}, trace max rel "
+              f"{((trace - want).abs() / want.abs()).max().item():.3e}")
+        gate(torch.equal(res.tau_star.cpu(), ref.tau_star[0].cpu())
+             and torch.allclose(trace, want, rtol=1e-5, atol=0),
+             "1x1 mesh: tau_star equal to run_chain's, trace within rtol 1e-5")
+
+        # the host µs of the layer's all_reduce over NCCL (a 1-rank axis
+        # makes none in a sweep: timed on the world group directly)
+        sh = Shard(t.data.counts, make_mesh(1, 1), "cuda", "cuda")
+        buf = torch.ones((1, 2, S), device=dev)
+        for _ in range(20):
+            distributed.exchange(buf, sh.world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            distributed.exchange(buf, sh.world)
+        torch.cuda.synchronize()
+        nccl_us = (time.perf_counter() - t0) * 1e3
+        print(f"# one [1,2,{S}] all_reduce through the layer's exchange, 1 rank over "
+              f"NCCL: {nccl_us:.2f} µs host a call")
+        times = {"plain": [], "mesh": []}
+        for mode in ("plain", "mesh", "mesh", "plain") * 2:
+            gen = sampler.chain_generator(0, dev)
+            torch.cuda.synchronize()
+            if mode == "plain":
+                st = sampler.init_state(n, cfg, gen)
+                t0 = time.perf_counter()
+                sampler.run_segment(n, cfg, st, sampler.init_accum(V, S, G, dev), 0,
+                                    MESH_SWEEPS, sampler.TorchNoise(gen), sh.ks)
+            else:
+                st = sh.init(cfg, [gen])[0]
+                t0 = time.perf_counter()
+                sh.segment(cfg, st, sh.accum(cfg), 0, MESH_SWEEPS, sh.noise(gen))
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3 / MESH_SWEEPS)
+        ops.reset_launches()
+        print(f"# ms a sweep at V={V} S={S} G={G}, {MESH_SWEEPS} sweeps, in turns: plain "
+              f"{times['plain']}, 1x1 mesh {times['mesh']}; median ratio "
+              f"{np.median(times['mesh']) / np.median(times['plain']):.4f}")
+    finally:
+        distributed.leave()
+    print(f"# phase 13 wall {time.time() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -1862,9 +2200,15 @@ def main() -> int:
             phase_run_length(tmp)
             phase_pt(tmp)
             phase_multibin(tmp)
+            phase_mesh(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
+            if r["name"] in MESH_CHECK:
+                r["mesh_launches"] = MESH_LAUNCHES[r["name"]]
+                r["mesh_agreement"] = MESH_CHECK[r["name"]]["agreement"]
+                r["mesh_max_abs_err"] = MESH_CHECK[r["name"]]["max_abs_err"]
+                gate(r["mesh_launches"] > 0, f"{r['name']} launched on the mesh path")
             if r["name"] in ("tau_sweep", "swap"):
                 r["multibin_launches"] = MULTIBIN_LAUNCHES[r["name"]]
                 r["multibin_agreement"] = MULTIBIN_CHECK[r["name"]]["agreement"]

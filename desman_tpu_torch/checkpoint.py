@@ -68,12 +68,19 @@ def install_preemption_handler() -> None:
     signal.signal(signal.SIGTERM, _on_sigterm)
 
 
-def check_preempted() -> None:
+PREEMPTED_MESSAGE = "SIGTERM received; checkpoint committed — rerun to resume"
+
+
+def take_preempted() -> bool:
+    """Whether a SIGTERM came since the last look (and forget it)."""
     global _PREEMPTED
-    if _PREEMPTED:
-        _PREEMPTED = False
-        raise Preempted("SIGTERM received; checkpoint committed — rerun to "
-                        "resume")
+    was, _PREEMPTED = _PREEMPTED, False
+    return was
+
+
+def check_preempted() -> None:
+    if take_preempted():
+        raise Preempted(PREEMPTED_MESSAGE)
 
 
 def _numpy(t) -> np.ndarray:

@@ -15,7 +15,7 @@
 
     desman       tau/gamma/eta Gibbs deconvolution (--chains, --pt, -t/-f,
                  --eta_update, --store_every, --checkpoint, --auto_burn,
-                 --auto_samples, --profile,
+                 --auto_samples, --profile, --mesh,
                  --kernel cuda|cuda_resident|cuda_topk|torch)
     filter       variant-position LLR filter -> sel_var/p/q/tran_df CSVs
     pipeline     filter -> G-grid -> selection (-> genes) from one YAML/JSON
@@ -31,8 +31,11 @@
                  multi-sample samtools mpileup (C++ scanner; --python)
     strainfasta  strain haplotype sequences from Filtered_Tau_star calls
 
-The JAX package's --mesh exits with code 2 and names the ROADMAP item that
-will port it; no flag is silently ignored.
+``desman --mesh CxD`` runs on a (chain, data) mesh of C*D ranks: under
+torchrun it joins torchrun's world (C*D must be its size); otherwise it
+starts the C*D ranks on this host itself, forwards SIGTERM to them, and
+kills the rest when one fails. With --pt or --auto_* it exits with code 2
+naming the ROADMAP item that will port them; no flag is silently ignored.
 ``--device cuda`` (the default) never falls back to the CPU: without CUDA it
 exits with code 2. ``--kernel cuda_topk`` on counts with a cell of more
 than two observed bases exits with code 1 and says so; it never switches to
@@ -47,12 +50,6 @@ import glob as globlib
 import json
 import os
 import sys
-
-# flag -> the ROADMAP queue-1 item that ports it
-_WAITING_FLAGS = {
-    "--mesh": "14 (multi-GPU)",
-}
-
 
 def _expand_dirs(patterns) -> list:
     """Glob-expand run-dir patterns, deduplicated, order-preserving."""
@@ -84,20 +81,7 @@ def _add_device(ap) -> None:
                     help="where the work runs; cuda never falls back to cpu")
 
 
-def _waiting_flag(argv) -> str:
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in _WAITING_FLAGS:
-            return flag
-    return ""
-
-
-def _desman(argv) -> int:
-    flag = _waiting_flag(argv)
-    if flag:
-        print(f"desman: {flag} is not ported to desman_tpu_torch yet "
-              f"(ROADMAP queue 1 item {_WAITING_FLAGS[flag]})", file=sys.stderr)
-        return 2
+def _desman_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="desman",
         description="Strain deconvolution (tau/gamma/eta Gibbs sampler), PyTorch/CUDA")
@@ -157,6 +141,11 @@ def _desman(argv) -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the chain to "
                     "DIR/trace.json (one chain; --chains > 1 runs untraced)")
+    ap.add_argument("--mesh", default=None, metavar="CHAINxDATA",
+                    help="shard over a mesh of ranks, e.g. 2x4 (chain x "
+                    "position axes); requires --chains a multiple of the "
+                    "chain axis (with --checkpoint, a directory); joins "
+                    "torchrun's world, else starts the ranks on this host")
     _add_device(ap)
     ap.add_argument("--kernel",
                     choices=["cuda", "cuda_resident", "cuda_topk", "torch"],
@@ -170,26 +159,81 @@ def _desman(argv) -> int:
                     "bases (refuses other counts); "
                     "torch: the plain PyTorch versions (on a cpu device "
                     "cuda and torch are the same)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _desman_refusal(args) -> str:
+    """The JAX CLI's checks of a flag combination, and what a mesh does
+    not run yet: the message of a refused combination, else ''."""
+    from .run import AUTO_PT_SINGLE_CHAIN, mesh_waiting
+
     auto = args.auto_burn or args.auto_samples > 0
+    waiting = args.mesh and mesh_waiting(args.pt >= 2, auto)
+    if waiting:
+        return waiting
     # the JAX CLI's capability check: auto-length PT runs one chain,
     # without checkpoints
     if auto and args.pt >= 2 and (args.checkpoint or args.chains > 1):
-        from .run import AUTO_PT_SINGLE_CHAIN
-
-        print(f"desman: {AUTO_PT_SINGLE_CHAIN}", file=sys.stderr)
-        return 2
+        return AUTO_PT_SINGLE_CHAIN
     if args.kernel == "cuda_resident" and (
-            args.pt >= 2 or auto or args.checkpoint or args.store_every
-            or args.tau_fixed or args.eta_update == "rows"):
-        print("desman: --kernel cuda_resident is the single-device speed mode "
-              "for plain runs (composes with --chains and -t only); use "
-              "--kernel cuda for --pt/--auto_*/--checkpoint/--store_every/-f/"
-              "--eta_update rows", file=sys.stderr)
+            args.mesh or args.pt >= 2 or auto or args.checkpoint
+            or args.store_every or args.tau_fixed or args.eta_update == "rows"):
+        return ("--kernel cuda_resident is the single-device speed mode for "
+                "plain runs (composes with --chains and -t only); use --kernel "
+                "cuda for --pt/--auto_*/--checkpoint/--store_every/-f/"
+                "--eta_update rows/--mesh")
+    if args.mesh:
+        try:
+            c, _ = _mesh_shape(args.mesh)
+        except ValueError:
+            return f"--mesh expects CHAINxDATA, e.g. 2x4, not {args.mesh!r}"
+        if not (args.checkpoint and args.chains <= 1) and args.chains % c:
+            return (f"--mesh {args.mesh} needs --chains a multiple of its "
+                    f"chain axis {c}, not {args.chains}")
+    return ""
+
+
+def _mesh_shape(text: str):
+    from .parallel.mesh import parse_mesh
+
+    c, d = parse_mesh(text)
+    if c < 1 or d < 1:
+        raise ValueError(text)
+    return c, d
+
+
+def _desman(argv) -> int:
+    args = _desman_parser().parse_args(argv)
+    refusal = _desman_refusal(args)
+    if refusal:
+        print(f"desman: {refusal}", file=sys.stderr)
         return 2
     if _cuda_missing("desman", args.device):
         return 2
+    if args.mesh:
+        from .parallel import distributed
 
+        c, d = _mesh_shape(args.mesh)
+        if c * d > 1 and not (distributed.initialized()
+                              or "RANK" in os.environ):
+            # no world to join: start the ranks here, one process each
+            return distributed.launch(_desman_rank, c * d, (argv,))
+    return _desman_main(args)
+
+
+def _desman_rank(argv) -> int:
+    """One rank of a world `desman --mesh` started: CPU ranks share the
+    host's cores."""
+    args = _desman_parser().parse_args(argv)
+    if args.device == "cpu":
+        import torch
+
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+        torch.set_num_threads(max(1, torch.get_num_threads() // local))
+    return _desman_main(args)
+
+
+def _desman_main(args) -> int:
     from . import io
     from .checkpoint import Preempted, install_preemption_handler
     from .ops import TopkInapplicable
@@ -211,14 +255,30 @@ def _desman(argv) -> int:
         store_every=args.store_every, pt_replicas=args.pt,
         pt_max_temp=args.pt_max_temp, profile_dir=args.profile,
     )
+    mesh = None
+    if args.mesh:
+        from .parallel import distributed
+        from .parallel.mesh import make_mesh
+
+        distributed.maybe_initialize(args.device)
+        try:
+            mesh = make_mesh(*_mesh_shape(args.mesh))
+        except ValueError as e:
+            print(f"desman: {e}", file=sys.stderr)
+            return 2
     if args.checkpoint:
         # SIGTERM (preemption) -> finish the in-flight segment, commit its
         # checkpoint, exit 75 (resumable)
         install_preemption_handler()
     try:
-        if args.chains > 1:
+        if mesh is not None and args.checkpoint and args.chains <= 1:
+            from .run import run_sharded_checkpointed
+
+            run_sharded_checkpointed(data, rc, mesh, device=args.device,
+                                     kernel=args.kernel)
+        elif args.chains > 1 or mesh is not None:
             run_multi(data, rc, n_chains=args.chains, device=args.device,
-                      kernel=args.kernel)
+                      kernel=args.kernel, mesh=mesh)
         else:
             run(data, rc, device=args.device, kernel=args.kernel)
     except TopkInapplicable as e:
@@ -228,7 +288,8 @@ def _desman(argv) -> int:
     except Preempted as e:
         print(f"desman: preempted — {e}", file=sys.stderr)
         return 75  # EX_TEMPFAIL: rerun the same command to resume
-    print(f"desman: wrote {args.output_dir}/fit.txt")
+    if mesh is None or distributed.is_coordinator():
+        print(f"desman: wrote {args.output_dir}/fit.txt")
     return 0
 
 

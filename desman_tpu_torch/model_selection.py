@@ -4,9 +4,10 @@
 ``fit_grid`` runs the (G, seed) grid on one device: for each G, one chain
 per seed (``sampler.run_chains``, or ``converge.run_chains_auto`` to an
 ESS target), with the kernel choice bound to the counts once for the
-whole grid. The JAX package compiles one program per G
-ahead of time in a thread pool; eager PyTorch has nothing to compile, so
-the port loops over G. ``resolve_nhap`` picks G from the runs' posterior
+whole grid; or on a (chain, data) mesh of ranks, the seeds over its chain
+axis (``parallel.run_chains_sharded``). The JAX package compiles one
+program per G ahead of time in a thread pool; eager PyTorch has nothing to
+compile, so the port loops over G. ``resolve_nhap`` picks G from the runs' posterior
 mean deviances and SNV uncertainties, over the same fit.txt conventions.
 
 Selection rule: for each G take the best replicate by posterior mean
@@ -33,7 +34,9 @@ from .likelihood import (
 from .converge import run_chains_auto
 from .ops import resolve
 from .run import write_outputs
-from .sampler import SamplerConfig, chain_result, run_chains
+from .sampler import (
+    RESIDENT_SINGLE_DEVICE, SamplerConfig, chain_result, run_chains,
+)
 
 _RUN_FILES = ("fit.txt", "metrics.json", "Tau_mean.csv")
 
@@ -126,20 +129,34 @@ def fit_grid(
     with another config (or ESS regime) recomputes. resume=False always
     recomputes.
 
-    Not ported yet: ``mesh`` (ROADMAP queue 1 item 14) raises
-    NotImplementedError.
+    ``mesh``: a ``parallel.Mesh`` over the joined world's ranks (call
+    fit_grid on every rank with the same arguments): each G's seeds split
+    over its chain axis (len(seeds) a multiple of it), positions over its
+    data axis, `device` each rank's by the device rule; the coordinator
+    decides elastic resume and writes the run directories. Refused with
+    ``cuda_resident`` (single-device) and with ``ess_target`` (ROADMAP
+    queue 1 item 15).
     """
+    axes = None
     if mesh is not None:
-        raise NotImplementedError(
-            "fit_grid(mesh=...) is not ported yet (ROADMAP queue 1 item 14)")
+        from .parallel.distributed import mesh_axes, rank_device
+
+        if kernel == "cuda_resident":
+            raise ValueError(RESIDENT_SINGLE_DEVICE)
+        if ess_target > 0:
+            raise ValueError("fit_grid(mesh=...) with ess_target is not ported "
+                             "to desman_tpu_torch yet (ROADMAP queue 1 item 15)")
+        device = rank_device(device)
+        axes = mesh_axes(mesh, device)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
-    n = torch.as_tensor(np.asarray(counts), device=device).to(torch.float32)
-    ks = resolve(kernel, n)
-    if ks.resident and ess_target > 0:
-        raise ValueError("ess_target needs the segmented converge path; "
-                         "use kernel 'cuda' with it")
+    if mesh is None:
+        n = torch.as_tensor(np.asarray(counts), device=device).to(torch.float32)
+        ks = resolve(kernel, n)
+        if ks.resident and ess_target > 0:
+            raise ValueError("ess_target needs the segmented converge path; "
+                             "use kernel 'cuda' with it")
     coeff = total_coeff_host_f64(counts)
     burn = iterations // 2
     eta = (None if eta_init is None else
@@ -159,6 +176,11 @@ def fit_grid(
         )
 
     def done_on_disk(G: int) -> bool:
+        if axes is not None:   # the coordinator decides for every rank
+            return axes.world.any(axes.world.index == 0 and on_disk(G))
+        return on_disk(G)
+
+    def on_disk(G: int) -> bool:
         if not (resume and out_stub is not None and data is not None):
             return False
         cfg = make_cfg(G)
@@ -179,7 +201,12 @@ def fit_grid(
                 [f"{out_stub}_{G}_{int(s)}" for s in seeds], unc_threshold))
             continue
         cfg = fp_cfg = make_cfg(G)
-        if ess_target > 0:
+        if mesh is not None:
+            from .parallel.sharded import run_chains_sharded
+
+            res = run_chains_sharded(counts, cfg, seeds, mesh, eta_init=eta,
+                                     kernel=kernel, device=device)
+        elif ess_target > 0:
             res, _, samples_used = run_chains_auto(
                 n, cfg, seeds, eta_init=eta, max_burn=cfg.burn, kernel=ks,
                 ess_target=ess_target, max_samples=max_samples)
@@ -201,6 +228,7 @@ def fit_grid(
             run_dir = None
             if out_stub is not None and data is not None:
                 run_dir = f"{out_stub}_{G}_{seed}"
+            if run_dir is not None and (axes is None or axes.world.index == 0):
                 write_outputs(
                     run_dir, data, chain_result(res, i), cfg,
                     seed=int(seed), extra_metrics={
@@ -209,6 +237,8 @@ def fit_grid(
                         "device": device_name, "kernel": kernel})
             records.append(RunRecord(G=G, seed=int(seed), mean_deviance=mean_dev,
                                      uncertainty=unc, run_dir=run_dir))
+    if axes is not None:
+        axes.world.barrier()   # the coordinator's files are on disk
     return records
 
 

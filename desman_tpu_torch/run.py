@@ -1,5 +1,5 @@
 """End-to-end run: counts -> sampler -> DESMAN-format output dir
-(counterpart of ``desman_tpu.run`` without its mesh branches).
+(counterpart of ``desman_tpu.run``).
 
 Load the counts, optionally subsample positions (-r) and apply min coverage
 (-m), run one Gibbs chain (``run``) or several (``run_multi``) on the
@@ -10,6 +10,9 @@ write fit.txt, Gamma_{mean,star}.csv, Eta_{mean,star}.csv,
 Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and loglik_trace.csv
 (and chains.json for several chains; draws.npz with --store_every). A
 haplotype file (-t, or -f to hold it fixed) starts tau from known strains.
+On a (chain, data) mesh of ranks (``parallel``), ``run_multi(mesh=...)``
+and ``run_sharded_checkpointed`` run on every rank and write the files on
+the coordinator.
 """
 from __future__ import annotations
 
@@ -128,6 +131,16 @@ def load_tau_init(tau_file: str, data: io.CountsData) -> np.ndarray:
 AUTO_PT_SINGLE_CHAIN = (
     "--auto_burn/--auto_samples with --pt composes only single-chain "
     "without --mesh/--checkpoint (pin -i for those combinations)")
+
+
+def mesh_waiting(pt: bool, auto: bool) -> Optional[str]:
+    """What a mesh does not run yet, naming the ROADMAP item that ports it
+    (None when the run modes are ported)."""
+    modes = [m for m, on in (("--pt", pt), ("--auto_burn/--auto_samples", auto)) if on]
+    if not modes:
+        return None
+    return (f"--mesh with {' and '.join(modes)} is not ported to desman_tpu_torch "
+            "yet (ROADMAP queue 1 item 15)")
 
 
 def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
@@ -259,7 +272,7 @@ def _write_draws(out_dir: str, res: SamplerResult, cfg: SamplerConfig) -> None:
 
 
 def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
-              kernel: str = "cuda", nmf_iters: Optional[int] = None
+              kernel: str = "cuda", nmf_iters: Optional[int] = None, mesh=None
               ) -> SamplerResult:
     """Run n_chains chains (seeds rc.seed .. rc.seed + n_chains - 1) on
     `device`, write the outputs of the chain with the best star loglik, and
@@ -267,17 +280,26 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
     ESS of the post-burn loglik traces, and the pairwise SNP distances of
     the chains' tau-stars. Returns the best chain's result.
 
-    The counterpart of the JAX package's ``run_multi`` without its mesh
-    mode, with its branches in its order: rc.auto_burn/auto_samples burn
+    The counterpart of the JAX package's ``run_multi``, with its branches
+    in its order: rc.auto_burn/auto_samples burn
     until every chain plateaus (``converge.run_chains_auto``, checkpointed
     with rc.checkpoint_path; with PT refused); rc.pt_replicas >= 2 runs
     ``sampler.run_chains_pt``, and, as in the JAX package, without
     checkpoints even when rc.checkpoint_path is set; rc.checkpoint_path
     alone runs ``checkpoint.run_chains_checkpointed``. As in the JAX
     package, no branch opens a trace: rc.profile_dir is ignored here.
-    """
-    from .diagnostics import ess_bulk, replicate_agreement, split_rhat
 
+    mesh: a ``parallel.Mesh`` over the ranks of the joined world (called on
+    every rank): positions over its data axis, the chains split over its
+    chain axis (n_chains a multiple of it); ``parallel.run_chains_sharded``,
+    or with rc.checkpoint_path ``run_chains_sharded_checkpointed`` (a
+    directory of shard files). `device` is each rank's by the device rule
+    (``parallel.distributed.rank_device``). Only the coordinator writes.
+    With PT or auto-length runs a mesh is refused (``mesh_waiting``), and
+    "cuda_resident" is single-device.
+    """
+    if mesh is not None:
+        return _run_multi_mesh(data, rc, n_chains, device, kernel, nmf_iters, mesh)
     device, data, cfg, eta_init, tau_init, n, ks = _prepare(
         data, rc, device, kernel, nmf_iters, n_chains)
     seeds = list(range(rc.seed, rc.seed + n_chains))
@@ -296,16 +318,23 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
                                       checkpoint_every=rc.checkpoint_every, **init)
     else:
         res = run_chains(n, cfg, seeds, **init)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    elapsed = time.time() - t0
+    _sync(device)
+    return _write_multi(rc, data, res, cfg, seeds, time.time() - t0,
+                        {"device": _device_name(device), "kernel": kernel,
+                         "chains": n_chains})
+
+
+def _write_multi(rc: RunConfig, data: io.CountsData, res: SamplerResult,
+                 cfg: SamplerConfig, seeds, elapsed: float, extra: dict
+                 ) -> SamplerResult:
+    """run_multi's files: the best chain's outputs and chains.json."""
+    from .diagnostics import ess_bulk, replicate_agreement, split_rhat
 
     star = _np(res.star_loglik)
     best = int(np.argmax(star))
     best_res = chain_result(res, best)
     write_outputs(rc.out_dir, data, best_res, cfg, elapsed, seed=seeds[best],
-                  extra_metrics={"device": _device_name(device), "kernel": kernel,
-                                 "chains": n_chains})
+                  extra_metrics=extra)
     _write_draws(rc.out_dir, best_res, cfg)
     post = _np(res.loglik_trace)[:, cfg.burn:]
     with open(os.path.join(rc.out_dir, "chains.json"), "w") as f:
@@ -317,6 +346,120 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
              "tau_star_pairwise_snp": replicate_agreement(
                  list(_np(res.tau_star))).tolist()}, f, indent=2)
     return best_res
+
+
+def _mesh_prepare(data: io.CountsData, rc: RunConfig, device, nmf_iters):
+    """What the mesh runs share: the refusals, the rank's device, the
+    prepared data, the sampler config, eta and the known haplotypes (host
+    arrays: the shards place them)."""
+    from .parallel.distributed import rank_device
+
+    waiting = mesh_waiting(rc.pt_replicas >= 2, _auto(rc))
+    if waiting:
+        raise ValueError(waiting)
+    device = rank_device(device)
+    data = prepare_data(data, rc.min_coverage, rc.n_positions, rc.seed)
+    cfg = sampler_config(rc)
+    if nmf_iters is not None:
+        cfg = replace(cfg, nmf_iters=nmf_iters)
+    eta_init = io.read_eta_csv(rc.eta_file) if rc.eta_file else None
+    tau_init = load_tau_init(rc.tau_file, data) if rc.tau_file else None
+    if rc.fix_tau and tau_init is None:
+        raise ValueError("fix_tau requires tau_file")
+    return device, data, cfg, eta_init, tau_init
+
+
+# the kernels a mesh run launches, counted in its run record
+_MESH_KERNELS = ("tau_sweep", "swap", "tau_sweep_topk")
+
+
+def _mesh_counts() -> dict:
+    """This process's kernel launches and shard sweep statistics so far."""
+    from . import ops
+    from .parallel.sharded import SWEEP_STATS
+
+    return dict({k: getattr(ops, k).launches for k in _MESH_KERNELS}, **SWEEP_STATS)
+
+
+def _mesh_metrics(device, kernel: str, mesh, before: dict) -> dict:
+    """The run record of a mesh run (every rank calls it: one collective):
+    device, kernel, mesh, backend, ranks, each kernel's launches since
+    `before` summed over the ranks, and the collectives a sweep made on
+    this rank."""
+    from .parallel import distributed
+
+    after = _mesh_counts()
+    launched = torch.tensor([after[k] - before[k] for k in _MESH_KERNELS],
+                            dtype=torch.int64, device=device)
+    launched = distributed.mesh_axes(mesh, device).world.sum(launched)
+    sweeps = after["sweeps"] - before["sweeps"]
+    return {"device": _device_name(device), "kernel": kernel, "mesh": str(mesh),
+            "backend": distributed.backend(), "ranks": distributed.world_ranks(),
+            "launches": dict(zip(_MESH_KERNELS, launched.tolist())),
+            "collectives_per_sweep": (after["collectives"] - before["collectives"])
+            / max(sweeps, 1)}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_multi_mesh(data, rc: RunConfig, n_chains: int, device, kernel: str,
+                    nmf_iters, mesh) -> SamplerResult:
+    from .parallel import distributed
+    from .parallel.sharded import (
+        run_chains_sharded, run_chains_sharded_checkpointed,
+    )
+
+    device, data, cfg, eta_init, tau_init = _mesh_prepare(data, rc, device,
+                                                          nmf_iters)
+    seeds = list(range(rc.seed, rc.seed + n_chains))
+    init = dict(mesh=mesh, eta_init=eta_init, tau_init=tau_init, kernel=kernel,
+                device=device)
+    before = _mesh_counts()
+    t0 = time.time()
+    if rc.checkpoint_path:
+        res = run_chains_sharded_checkpointed(
+            data.counts, cfg, seeds, rc.checkpoint_path,
+            checkpoint_every=rc.checkpoint_every, **init)
+    else:
+        res = run_chains_sharded(data.counts, cfg, seeds, **init)
+    _sync(device)
+    elapsed = time.time() - t0
+    extra = dict(_mesh_metrics(device, kernel, mesh, before), chains=n_chains)
+    if distributed.is_coordinator():
+        return _write_multi(rc, data, res, cfg, seeds, elapsed, extra)
+    return chain_result(res, int(np.argmax(_np(res.star_loglik))))
+
+
+def run_sharded_checkpointed(data: io.CountsData, rc: RunConfig, mesh,
+                             device="cuda", kernel: str = "cuda",
+                             nmf_iters: Optional[int] = None) -> SamplerResult:
+    """One chain (seed rc.seed) on a mesh with sharded checkpoints in the
+    directory rc.checkpoint_path (``desman --mesh --checkpoint``): positions
+    over the data axis, every chain row running the chain alike. Called on
+    every rank; the coordinator writes the files. Refuses what
+    ``run_multi(mesh=...)`` refuses."""
+    from .parallel import distributed
+    from .parallel.sharded import run_chain_sharded_checkpointed
+
+    device, data, cfg, eta_init, tau_init = _mesh_prepare(data, rc, device,
+                                                          nmf_iters)
+    before = _mesh_counts()
+    t0 = time.time()
+    res = run_chain_sharded_checkpointed(
+        data.counts, cfg, rc.seed, rc.checkpoint_path,
+        checkpoint_every=rc.checkpoint_every, mesh=mesh, eta_init=eta_init,
+        tau_init=tau_init, kernel=kernel, device=device)
+    _sync(device)
+    elapsed = time.time() - t0
+    extra = _mesh_metrics(device, kernel, mesh, before)
+    if distributed.is_coordinator():
+        write_outputs(rc.out_dir, data, res, cfg, elapsed, seed=rc.seed,
+                      extra_metrics=extra)
+        _write_draws(rc.out_dir, res, cfg)
+    return res
 
 
 def _np(t) -> np.ndarray:

@@ -198,9 +198,15 @@ def _dirichlet(gammas):
     return g / torch.sum(g, dim=-1, keepdim=True)
 
 
-def _loglik(n, mix, eta):
-    """sum n * log(mix @ eta)."""
-    return torch.sum(n * safe_log(torch.einsum("vsa,ab->vsb", mix, eta)))
+def _own(x):
+    """The one-device reduction over positions: the local sum is the sum."""
+    return x
+
+
+def _loglik(n, mix, eta, psum=_own):
+    """sum n * log(mix @ eta); psum adds the position shards' sums
+    (``parallel.distributed``), the identity on one device."""
+    return psum(torch.sum(n * safe_log(torch.einsum("vsa,ab->vsb", mix, eta))))
 
 
 def _eta_prior(cfg: SamplerConfig, device) -> torch.Tensor:
@@ -240,10 +246,10 @@ def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
 
 
 def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
-               it: int, beta=1.0):
+               it: int, beta=1.0, psum=_own):
     """Parallel per-sample Dirichlet-random-walk MH on gamma; beta < 1
     tempers the likelihood term only (replica exchange's target
-    prior * L^beta).
+    prior * L^beta); psum adds the position shards' [2,S] sums.
 
     Returns (gamma, mix, accept_rate, loglik): the per-sample old/new
     likelihood terms of the MH ratio already give the post-update total
@@ -253,9 +259,9 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
                                                        noise, it)
     mix_prop = mixture(one_hot_tau(tau), gamma_prop)                  # [V,S,4]
     both = torch.stack([mix, mix_prop])                               # [2,V,S,4]
-    ll = torch.sum(
+    ll = psum(torch.sum(
         n[None] * safe_log(torch.einsum("kvsa,ab->kvsb", both, eta)),
-        dim=(1, 3))                                                   # [2,S]
+        dim=(1, 3)))                                                  # [2,S]
     accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd,
                                           alpha_rev, ll[0], ll[1], noise, it, beta)
     mix = torch.where(accept[None, :, None], mix_prop, mix)
@@ -292,17 +298,17 @@ def _eta_accept(cfg: SamplerConfig, eta, eta_prop, alpha_fwd, alpha_rev,
 
 
 def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise,
-                   it: int, beta=1.0):
+                   it: int, beta=1.0, psum=_own):
     """Blocked MH on the whole 4x4 error matrix: all four rows proposed at
     once, one accept/reject, one likelihood pass; beta tempers the
     likelihood term only."""
     eta_prop, alpha_fwd, alpha_rev = _eta_proposal(cfg, eta, kappa, noise, it)
     return _eta_accept(cfg, eta, eta_prop, alpha_fwd, alpha_rev,
-                       _loglik(n, mix, eta_prop), loglik, noise, it, beta)
+                       _loglik(n, mix, eta_prop, psum), loglik, noise, it, beta)
 
 
 def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
-             beta=1.0):
+             beta=1.0, psum=_own):
     """Sequential per-row Dirichlet MH on the 4x4 error matrix
     (``eta_update="rows"``): for each row in turn one proposal, one
     likelihood pass, that row's prior term and one MH decision.
@@ -319,7 +325,7 @@ def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
         alpha_rev = kappa * row_prop + cfg.proposal_floor
         eta_prop = eta.clone()
         eta_prop[a] = row_prop
-        ll_new = _loglik(n, mix, eta_prop)
+        ll_new = _loglik(n, mix, eta_prop, psum)
         log_ratio = (
             beta * (ll_new - loglik)
             + torch.sum((prior_alpha[a] - 1.0)
@@ -335,7 +341,7 @@ def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
 
 
 def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
-                  noise, temp, beta=1.0):
+                  noise, temp, beta=1.0, psum=_own):
     """The sweep's tau, gamma and eta updates as separate steps: the tau
     sweep and swap kernels (or their plain versions), then gamma_step and
     eta_step_joint (or eta_step) as plain PyTorch ops.
@@ -343,7 +349,8 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     temp scales the Gumbel noise (a host float, or PT's 0-d device
     tensor); beta tempers every MH ratio, the swap's as a threshold
     logu / beta (the JAX package's Pallas swap; its XLA swap compares
-    logu < beta * dll, the same decision but at float near-ties).
+    logu < beta * dll, the same decision but at float near-ties). psum
+    adds the position shards' likelihood sums (the identity on one device).
     Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta).
     """
     V, S, _ = n.shape
@@ -363,17 +370,18 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
             tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu)
     if cfg.fix_gamma:
         gamma, acc_g = state.gamma, torch.zeros((), device=n.device)
-        loglik = _loglik(n, mix, state.eta)
+        loglik = _loglik(n, mix, state.eta, psum)
     else:
         gamma, mix, acc_g, loglik = gamma_step(
             cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
-            noise, it, beta)
+            noise, it, beta, psum)
     if cfg.fix_eta:
         eta, acc_e = state.eta, torch.zeros((), device=n.device)
     else:
         eta_fn = eta_step_joint if cfg.eta_update == "joint" else eta_step
         eta, loglik, acc_e = eta_fn(
-            cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it, beta)
+            cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it, beta,
+            psum)
     return tau, mix, gamma, eta, loglik, acc_g, acc_e
 
 
@@ -382,9 +390,12 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
 RESIDENT_PLAIN_ONLY = (
     "the resident kernel supports plain/--chains runs only — "
     "auto_burn/auto_samples/pt/checkpoint need the composable 'cuda' kernel")
+# and of a mesh (the JAX package's fit_grid wording, in the port's names)
+RESIDENT_SINGLE_DEVICE = ("kernel 'cuda_resident' is single-device; "
+                          "use 'cuda' with a mesh")
 
 
-def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
+def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
     """Build the (n, state, accum, it, noise, burn=None, temp=None,
     beta=1.0) -> (state, accum, loglik) step; ``burn`` replaces cfg.burn in
     the kappa-adaptation and accumulation gates for that sweep (the anneal
@@ -403,8 +414,15 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
     n)``; "torch" runs the plain versions everywhere. The kernel choice
     changes only the front half: adaptation and accumulators are this
     function's, for every choice.
+
+    psum: the sum over position shards of a sharded chain
+    (``parallel.sharded``: n, tau and mix hold one block of positions, and
+    every likelihood sum goes through psum); the identity on one device.
+    The resident kernels take no shards.
     """
     ks = kernel if isinstance(kernel, Kernels) else resolve(kernel)
+    if ks.resident and psum is not _own:
+        raise ValueError(RESIDENT_SINGLE_DEVICE)
     if ks.resident:
         from . import resident
 
@@ -432,7 +450,7 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda"):
         temp = temperature(it) if temp is None else temp
         args = (cfg, ks, n, state, it, noise, temp)
         tau, mix, gamma, eta, loglik, acc_g, acc_e = (
-            front(*args) if ks.resident else front(*args, beta))
+            front(*args) if ks.resident else front(*args, beta, psum))
 
         # diminishing adaptation, burn-in only: larger kappa -> smaller
         # Dirichlet steps -> higher acceptance (frozen post-burn)
@@ -478,12 +496,19 @@ def init_state(
     eta_init: Optional[torch.Tensor] = None,
     tau_init: Optional[torch.Tensor] = None,
     gamma_init: Optional[torch.Tensor] = None,
+    block: Optional[tuple] = None,
+    psum=_own,
 ) -> SamplerState:
     """NMF-initialized (or user-supplied) chain state on n's device.
 
     With tau_init and no gamma_init (known haplotypes, desman -t/-f) gamma
     starts from ``nmf.em_gamma`` and no NMF runs, so the generator is not
     drawn from.
+
+    block = (lo, hi): a position shard's state (``parallel.sharded``). The
+    NMF or EM start runs on the full counts n, as on one device, so the
+    generator is drawn from alike; tau and mix keep rows [lo, hi), and the
+    loglik and the kappa warm start's total sum through psum.
     """
     dev = n.device
     if eta_init is None:
@@ -503,11 +528,14 @@ def init_state(
         tau, gamma = tau_init, gamma_init
     tau = torch.as_tensor(tau, device=dev).to(torch.int32).contiguous()
     gamma = torch.as_tensor(gamma, device=dev).to(torch.float32).contiguous()
+    if block is not None:
+        lo, hi = block
+        n, tau = n[lo:hi], tau[lo:hi].contiguous()
     mix = mixture(one_hot_tau(tau), gamma)
-    loglik = _loglik(n, mix, eta)
+    loglik = _loglik(n, mix, eta, psum)
     # curvature warm start, floored at the classic fixed scales so tiny
     # datasets keep usable step sizes
-    total = torch.sum(n)
+    total = psum(torch.sum(n))
     if cfg.kappa_gamma > 0:
         kg0 = torch.tensor(cfg.kappa_gamma, dtype=torch.float32, device=dev)
     else:
@@ -577,7 +605,8 @@ def stored_slots(start_it: int, n_sweeps: int, burn: int, thin: int) -> list:
 
 def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
                 accum: SamplerAccum, start_it: int, n_sweeps: int, noise,
-                kernel="cuda", burn: Optional[int] = None, store: bool = False):
+                kernel="cuda", burn: Optional[int] = None, store: bool = False,
+                psum=_own):
     """Advance a chain n_sweeps sweeps from absolute sweep index start_it.
 
     Returns (state, accum, trace): the [n_sweeps] loglik trace is
@@ -586,12 +615,13 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     eta) draws [k, ...] of the k sweeps ``stored_slots`` selects (burn: the
     override or cfg.burn; thin: cfg.store_thin), copied into buffers on the
     device; storing reads the state and changes nothing. ``burn`` has the
-    sweep's meaning (``make_sweep_fn``). Segments run in order from one
-    noise source give the draws and the trajectory of one long segment.
+    sweep's meaning (``make_sweep_fn``), and so has psum. Segments run in
+    order from one noise source give the draws and the trajectory of one
+    long segment.
     """
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    sweep = make_sweep_fn(cfg, kernel)
+    sweep = make_sweep_fn(cfg, kernel, psum)
     V, S, _ = n.shape
     dev = n.device
     trace = torch.empty(n_sweeps, dtype=torch.float32, device=dev)

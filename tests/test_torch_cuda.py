@@ -750,3 +750,84 @@ def test_profile_trace_names_the_kernels(cuda, tmp_path):
                sum("swap_kernel" in k for k in kernels))
     assert counted == launched, counted
     assert io.read_fit_txt(str(tmp_path / "o" / "fit.txt"))["V"] == 500
+
+
+# ---- a mesh of ranks on the card ----
+
+
+def _mesh_world(tmp_path, fn, nprocs, *args):
+    """fn as every rank of a world of nprocs processes (tests/mesh_workers.py);
+    rank 0's npz."""
+    import mesh_workers
+    from desman_tpu_torch.parallel import launch
+
+    out = str(tmp_path / f"{fn}_{nprocs}_{len(list(tmp_path.iterdir()))}.npz")
+    assert launch(getattr(mesh_workers, fn), nprocs, (out, *args),
+                  timeout_s=4 * mesh_workers.WORLD_TIMEOUT_S) == 0
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_mesh_1x1_over_nccl_is_run_chains(cuda):
+    """A world of one rank on its own card joins over NCCL; its 1x1 mesh
+    chains (V=2000, a tail tile) are run_chains', field for field."""
+    from desman_tpu_torch.parallel import distributed, make_mesh, run_chains_sharded
+    from desman_tpu_torch.sampler import SamplerConfig, run_chains
+
+    t = synth.generate(V=2001, S=32, G=4, coverage=50.0, seed=3)
+    cfg = SamplerConfig(G=4, burn=20, samples=20, nmf_iters=50)
+    distributed.join(0, 1, f"127.0.0.1:{distributed.free_port()}", "cuda")
+    try:
+        assert distributed.backend() == "nccl"
+        ops.reset_launches()
+        got = run_chains_sharded(t.data.counts, cfg, [0, 1], make_mesh(1, 1), device="cuda")
+        assert ops.tau_sweep.launches == ops.swap.launches == 2 * 40
+    finally:
+        distributed.leave()
+    ref = run_chains(torch.as_tensor(t.data.counts, device=cuda), cfg, [0, 1])
+    for name, a, b in zip(ref._fields, ref, got):
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+def test_mesh_two_ranks_are_bitwise_repeatable(cuda, tmp_path):
+    """Two ranks at 1x2 (sharing one card over gloo; one card each over
+    NCCL where there are two): two runs in one world and a second world
+    give the same bits; against run_chains on one device, tau_star
+    agreement >= 0.99 and the trace to rtol 1e-5."""
+    from desman_tpu_torch.sampler import SamplerConfig, run_chains
+
+    t = synth.generate(V=2001, S=32, G=4, coverage=50.0, seed=3)
+    cfg = dict(G=4, burn=20, samples=20, nmf_iters=50)
+    args = (t.data.counts, cfg, [0], (1, 2), "cuda", "cuda", 2)
+    a = _mesh_world(tmp_path, "chains", 2, *args)
+    b = _mesh_world(tmp_path, "chains", 2, *args)
+    assert str(a["backend"]) == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    for k in a:
+        if k.startswith("0_"):
+            assert np.array_equal(a[k], a["1" + k[1:]]) and np.array_equal(a[k], b[k]), k
+    ref = run_chains(torch.as_tensor(t.data.counts, device=cuda), SamplerConfig(**cfg), [0])
+    padded_v = a["0_tau_star"].shape[1]
+    assert padded_v == 2001
+    assert (a["0_tau_star"] == ref.tau_star.cpu().numpy()).all(-1).mean() >= 0.99
+    np.testing.assert_allclose(a["0_loglik_trace"], ref.loglik_trace.cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "cuda_topk"])
+def test_mesh_checkpoint_resumes_bitwise_on_the_card(cuda, kernel, tmp_path):
+    """Two ranks on the card at 1x2, V=2001 (cuda_topk: biallelic
+    counts): stopped after a segment and resumed, the sharded chain is
+    bitwise the uninterrupted one, its stored draws included."""
+    two = dict(error_rate=0.0, max_alleles=2) if kernel == "cuda_topk" else {}
+    t = synth.generate(V=2001, S=32, G=4, coverage=50.0, seed=3, **two)
+    cfg = dict(G=4, burn=20, samples=20, nmf_iters=50, store_samples=True, store_thin=4)
+    ck = str(tmp_path / "ck")
+    got = _mesh_world(tmp_path, "checkpointed", 2, t.data.counts, cfg, [
+        ("whole", [0], str(tmp_path / "whole"), 15, None, True),
+        ("stop", [0], ck, 15, 15, True),
+        ("resumed", [0], ck, 15, None, True)], (1, 2), "cuda", None, kernel)
+    assert got["stop_stopped"] == 1
+    whole = {k[6:]: v for k, v in got.items() if k.startswith("whole_")}
+    assert whole["tau_samples"].shape == (5, 2001, 4)
+    for k, v in whole.items():
+        assert np.array_equal(got[f"resumed_{k}"], v), k

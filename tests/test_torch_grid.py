@@ -8,6 +8,7 @@ XLA compile); the grid is held to JAX through its parts, and the port's
 grid to the truth of the JAX package's pipeline test data.
 """
 import csv
+import dataclasses
 import json
 import os
 
@@ -168,20 +169,35 @@ def test_fit_grid_resumes_finished_runs(grid_dirs, pipeline_data, monkeypatch):
     assert calls == [2, 1, 2, 1, 2]
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 14"),
+@pytest.mark.parametrize("kw,item", [(dict(mesh=(1, 1)), "item 14"),
                                      (dict(ess_target=100.0), "item 11")])
 def test_fit_grid_refuses_unported_modes(kw, item, pipeline_data):
-    """mesh (item 14) raises naming its item; ess_target (item 11) is
-    ported: it samples until the target or max_samples."""
+    """mesh (item 14) and ess_target (item 11) are ported. On a 1x1 mesh
+    (no process group: this process is the world) the grid is bitwise
+    the one-device grid; with a mesh, ess_target raises naming item 15 and
+    cuda_resident is single-device. ess_target samples until the target or
+    max_samples."""
+    if item == "item 14":
+        from desman_tpu_torch.parallel import make_mesh
+
+        counts = pipeline_data.data.counts
+        common = dict(iterations=20, device="cpu")
+        got = model_selection.fit_grid(counts, [1, 2], [0], mesh=make_mesh(*kw["mesh"]),
+                                       **common)
+        want = model_selection.fit_grid(counts, [1, 2], [0], **common)
+        assert [dataclasses.astuple(r) for r in got] == [dataclasses.astuple(r) for r in want]
+        for bad, words in ((dict(ess_target=100.0), "item 15"),
+                           (dict(kernel="cuda_resident"), "single-device")):
+            with pytest.raises(ValueError, match=words):
+                model_selection.fit_grid(counts, [1], [0], mesh=make_mesh(1, 1),
+                                         **common, **bad)
+        return
     if item == "item 11":
         records = model_selection.fit_grid(
             pipeline_data.data.counts, [1, 2], [0], iterations=20, max_samples=30,
             device="cpu", **kw)
         assert [(r.G, r.seed) for r in records] == [(1, 0), (2, 0)]
         assert all(np.isfinite(r.mean_deviance) for r in records)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        model_selection.fit_grid(np.ones((4, 2, 4)), [1], [0], device="cpu", **kw)
 
 
 def test_replicate_agreement_matches_jax():

@@ -28,6 +28,9 @@ MODULES = [
     "desman_tpu_torch.kernel_bench", "desman_tpu_torch.native",
     "desman_tpu_torch.pileup", "desman_tpu_torch.strainfasta",
     "desman_tpu_torch.profiling", "desman_tpu_torch.multibin",
+    "desman_tpu_torch.parallel", "desman_tpu_torch.parallel.mesh",
+    "desman_tpu_torch.parallel.distributed", "desman_tpu_torch.parallel.sharded",
+    "desman_tpu_torch.parallel.shard_ckpt",
 ]
 
 

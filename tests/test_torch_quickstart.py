@@ -86,12 +86,14 @@ def test_cuda_device_without_cuda_exits_nonzero(variant_half, tmp_path, capsys):
     (["-f", "tau.csv"], "item 5"),
     (["--eta_update", "rows"], "item 3"),
     (["--store_every", "5"], "item 3"),
+    (["--mesh=1x2", "--pt", "4"], "item 15"),
+    (["--mesh=1x2", "--auto_burn"], "item 15"),
 ])
 def test_unported_flags_exit_2(argv, item, variant_half, port_out, tmp_path, capsys):
-    """A flag of an item still to port exits 2 naming its item. The flags
-    of items 3, 5, 11 and 12 are ported: each runs on the quickstart input
-    (``_ported_flag``)."""
-    if item in ("item 3", "item 5", "item 11", "item 12"):
+    """A flag of an item still to port exits 2 naming its item: --mesh with
+    --pt or --auto_* (item 15). The flags of items 3, 5, 11, 12 and 14 are
+    ported: each runs on the quickstart input (``_ported_flag``)."""
+    if item in ("item 3", "item 5", "item 11", "item 12", "item 14"):
         _ported_flag(argv, variant_half, str(tmp_path / "out"), port_out)
         return
     rc = cli.main(["desman", variant_half, "-g", "2", "--device", "cpu", *argv])
@@ -115,7 +117,15 @@ def _ported_flag(argv, variant_half, out, port_out):
     the files of the run without it (port_out), and leaves its snapshot at
     the last sweep; --auto_burn burns at least -i/2 sweeps; --pt 4 runs
     four tempered replicas and reports their exchange rate. The runs meet
-    the quickstart gates."""
+    the quickstart gates. --mesh=2x4 with --chains 2 runs on eight ranks
+    the CLI starts (gloo on the CPU), the best chain's files within the
+    gates, chains.json beside them."""
+    if argv[0] == "--mesh=2x4":
+        m = _run_mode(variant_half, out, ["-e", ETA, *argv, "--chains", "2"])
+        assert (m["mesh"], m["ranks"], m["backend"], m["chains"]) == ("2x4", 8, "gloo", 2)
+        with open(os.path.join(out, "chains.json")) as f:
+            assert json.load(f)["seeds"] == [0, 1]
+        return
     if argv[0] == "--checkpoint":
         ck = os.path.join(os.path.dirname(out), argv[1])
         m = _run_mode(variant_half, out, ["-e", ETA, "--checkpoint", ck])

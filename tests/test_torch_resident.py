@@ -169,18 +169,13 @@ def test_resident_cli_writes_every_output(tmp_path):
 ])
 def test_resident_cli_refuses_what_the_jax_cli_refuses(argv, tmp_path, capsys):
     """The flags the JAX CLI refuses with --kernel pallas_resident exit 2:
-    --pt, --auto_burn, --checkpoint, --store_every, -f and --eta_update rows
-    with the JAX CLI's message (use --kernel cuda), the flags not ported
-    yet with their not-ported message."""
+    --mesh, --pt, --auto_burn, --checkpoint, --store_every, -f and
+    --eta_update rows, with the JAX CLI's message (use --kernel cuda)."""
     rc = cli.main(["desman", "x.csv", "-g", "2", "-o", str(tmp_path / "o"),
                    "--device", "cpu", "--kernel", "cuda_resident", *argv])
     assert rc == 2
     err = capsys.readouterr().err
-    if argv[0] in ("--pt", "--auto_burn", "--checkpoint", "--store_every", "-f",
-                   "--eta_update"):
-        assert "single-device speed mode" in err and "--kernel cuda" in err
-    else:
-        assert "not ported" in err
+    assert "single-device speed mode" in err and "--kernel cuda" in err
     assert not (tmp_path / "o").exists()
 
 
