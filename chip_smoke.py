@@ -142,9 +142,10 @@ Phases, each printing its own '# ...' lines:
    equal to `run_chain`'s and the trace within rtol 1e-5, tau and swap
    launched 200 times; (b) the host µs of the layer's all_reduce over NCCL,
    and ms a sweep of the 1x1 mesh against the plain chain, in turns, four
-   runs each; (g) with four cards or more, `desman --mesh 2x2 --chains 2`
-   over NCCL, a card a rank, held as (c). Two ranks take NCCL where there
-   are two cards (the backend rule).
+   runs each; (g) with two cards or more, `desman --mesh 1x2` alone over
+   NCCL, a card a rank, held as (c) and with its in-sweep collectives
+   counted, and with four or more `desman --mesh 2x2 --chains 2` too. Two
+   ranks take NCCL where there are two cards (the backend rule).
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
@@ -1957,6 +1958,29 @@ def mesh_collective_us(out):
     return 0
 
 
+@contextlib.contextmanager
+def one_rank_world():
+    """A world of one rank on this card, joined as torchrun's environment
+    describes it (``maybe_initialize``); the group is left and the
+    environment restored afterwards."""
+    from desman_tpu_torch.parallel import distributed
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(distributed.free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        gate(distributed.maybe_initialize("cuda"), "a world of one rank joined")
+        yield
+    finally:
+        distributed.leave()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def mesh_manifest_it(ck):
     try:
         with open(os.path.join(ck, "manifest.json")) as f:
@@ -2092,21 +2116,29 @@ def phase_mesh(tmp):
     print(f"# a [2,{S}] sum through the collective layer (one all_reduce), 2 ranks over "
           f"{two_us['backend']}: {two_us['us']:.2f} µs host a call")
 
-    # (g) with four cards or more: --mesh 2x2 --chains 2 over NCCL, one card a rank
+    # (g) with two cards or more: --mesh 1x2 alone over NCCL, one card a
+    # rank; with four or more, --mesh 2x2 --chains 2 too
+    multi = [("1x2", 1, 2)] if torch.cuda.device_count() >= 2 else []
     if torch.cuda.device_count() >= 4:
-        out = os.path.join(tmp, "mesh_2x2")
+        multi.append(("2x2", 2, 2))
+    for shape, chains, d in multi:
+        out = os.path.join(tmp, f"mesh_nccl_{shape}")
+        extra = ["--chains", str(chains)] if chains > 1 else []
         rc, err = finish(desman_process([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s",
-                                         "0", "--mesh", "2x2", "--chains", "2", "-o", out]))
-        gate(rc == 0, f"desman --mesh 2x2 --chains 2 exits 0 ({err.strip()[-300:]})")
-        record_of(out, "--mesh 2x2 --chains 2", "tau_sweep", 2, 2, ranks=4)
-        with open(os.path.join(out, "chains.json")) as f:
-            best = json.load(f)["best_seed"]
-        agreement(out, ref.tau_star[best], t.tau_idx,
-                  f"--mesh 2x2 --chains 2 (best seed {best})")
+                                         "0", "--mesh", shape, *extra, "-o", out]))
+        what = f"--mesh {shape}{' --chains 2' if chains > 1 else ''} over NCCL"
+        gate(rc == 0, f"desman {what} exits 0 ({err.strip()[-300:]})")
+        record_of(out, what, "tau_sweep", chains, d, ranks=chains * d)
+        gate(read_metrics(out)["collectives_per_sweep"] >= 1,
+             f"{what}: the sweeps' sums crossed the ranks over NCCL")
+        best = 0
+        if chains > 1:
+            with open(os.path.join(out, "chains.json")) as f:
+                best = json.load(f)["best_seed"]
+        agreement(out, ref.tau_star[best], t.tau_idx, f"{what} (best seed {best})")
 
     # (a), (b): a 1x1 mesh over NCCL, in process
-    distributed.join(0, 1, f"127.0.0.1:{distributed.free_port()}", "cuda")
-    try:
+    with one_rank_world():
         gate(distributed.backend() == "nccl", "a world of one rank on its own card: NCCL")
         out = os.path.join(tmp, "mesh_nccl")
         rc = run.RunConfig(G=G, iterations=MESH_SWEEPS, seed=0, out_dir=out)
@@ -2163,8 +2195,6 @@ def phase_mesh(tmp):
         print(f"# ms a sweep at V={V} S={S} G={G}, {MESH_SWEEPS} sweeps, in turns: plain "
               f"{times['plain']}, 1x1 mesh {times['mesh']}; median ratio "
               f"{np.median(times['mesh']) / np.median(times['plain']):.4f}")
-    finally:
-        distributed.leave()
     print(f"# phase 13 wall {time.time() - t_phase:.2f} s")
 
 

@@ -217,6 +217,13 @@ def fit_grid(
         else:
             res = run_chains(n, cfg, seeds, eta_init=eta, kernel=ks)
         trace = res.loglik_trace.cpu().numpy().astype(np.float64)
+        uncs = [0.0] * len(seeds)
+        if res.tau_mean is not None:
+            uncs = [float(snv_uncertainty(res.tau_mean[i].to(device), unc_threshold))
+                    for i in range(len(seeds))]
+        if axes is not None:   # tau_mean reaches the coordinator alone
+            uncs = axes.world.sum(torch.tensor(uncs, dtype=torch.float64,
+                                               device=device)).tolist()
         for i, seed in enumerate(seeds):
             # f64 compensated mean over the post-burn trace: the deviance
             # differences this grid compares must not carry f32 sum error
@@ -224,7 +231,6 @@ def fit_grid(
             mean_ll = (math.fsum(post.tolist()) / post.size if post.size
                        else float(res.mean_loglik[i]))
             mean_dev = deviance_from_loglik(mean_ll, coeff)
-            unc = float(snv_uncertainty(res.tau_mean[i], unc_threshold))
             run_dir = None
             if out_stub is not None and data is not None:
                 run_dir = f"{out_stub}_{G}_{seed}"
@@ -236,7 +242,7 @@ def fit_grid(
                                                               int(seed)),
                         "device": device_name, "kernel": kernel})
             records.append(RunRecord(G=G, seed=int(seed), mean_deviance=mean_dev,
-                                     uncertainty=unc, run_dir=run_dir))
+                                     uncertainty=uncs[i], run_dir=run_dir))
     if axes is not None:
         axes.world.barrier()   # the coordinator's files are on disk
     return records

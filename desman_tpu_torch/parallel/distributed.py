@@ -3,8 +3,10 @@ run (counterpart of ``desman_tpu.parallel.distributed``).
 
 One process a rank, one device a rank. A world is joined from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
-``MASTER_ADDR``, ``MASTER_PORT``) by ``maybe_initialize``, or started on
-this host by ``launch`` (the ``desman --mesh`` CLI without torchrun).
+``MASTER_ADDR``, ``MASTER_PORT``) by ``maybe_initialize``, the one entry
+point that creates a group; ``launch`` starts a world on this host (the
+``desman --mesh`` CLI without torchrun) by setting those variables for
+each rank.
 
 The device rule: rank r runs on ``cuda:{LOCAL_RANK % device_count}``; with
 no card ``rank_device("cuda")`` raises, as every entry point of the port
@@ -30,7 +32,12 @@ the backend and its ring order. ``Axis.sum`` then adds the slots in index
 order, so every rank of a chain row holds bitwise the same gamma, eta and
 loglik: an MH decision that differed between ranks would split the chain
 without a word. ``all_reduce`` is one of the two collectives gloo takes
-on CUDA tensors; nothing else crosses ranks.
+on CUDA tensors; nothing else crosses ranks on the device.
+
+A run's result reaches the coordinator alone through ``Axis.collect``:
+each rank's part moves to the host and is gathered to rank 0 over gloo
+(the world's own group when it is gloo, else a gloo group beside NCCL's),
+so no card holds more than its own part of the per-position fields.
 """
 from __future__ import annotations
 
@@ -112,19 +119,6 @@ def _timeout() -> datetime.timedelta:
     return datetime.timedelta(seconds=TIMEOUT_S)
 
 
-def join(rank_: int, world: int, address: str, device="cuda") -> torch.device:
-    """Join a world of `world` ranks at tcp://`address` as rank `rank_`,
-    with the backend rule for this rank's device; returns the device."""
-    os.environ.setdefault("LOCAL_RANK", str(rank_))
-    os.environ.setdefault("LOCAL_WORLD_SIZE", str(world))
-    dev = rank_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group(backend_for(dev), init_method=f"tcp://{address}",
-                            rank=rank_, world_size=world, timeout=_timeout())
-    return dev
-
-
 def maybe_initialize(device="cuda") -> bool:
     """Join the world torchrun's environment describes. A no-op when a
     group is joined already (returns True) or no such environment is set
@@ -162,8 +156,10 @@ class Axis:
     """The ranks one reduction runs over (a chain row's data ranks, or the
     whole world) and this rank's slot among them."""
 
-    def __init__(self, group, size: int, index: int, device: torch.device):
+    def __init__(self, group, size: int, index: int, device: torch.device,
+                 host=None):
         self.group, self.size, self.index, self.device = group, size, index, device
+        self.host = host   # a gloo group over the same ranks (the world's)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's x stacked on a new leading axis, exactly. An axis of
@@ -174,6 +170,17 @@ class Axis:
                           device=x.device)
         buf[self.index] = x
         return exchange(buf, self)
+
+    def collect(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every rank's x, moved to the host, stacked on a new leading axis
+        on the axis's rank 0 alone (None on the others): a gather over the
+        host group. Its dtype is kept."""
+        x = x.detach().cpu().contiguous()
+        if self.size == 1:
+            return x.unsqueeze(0)
+        parts = [torch.empty_like(x) for _ in range(self.size)] if self.index == 0 else None
+        dist.gather(x, parts, dst=dist.get_global_rank(self.host, 0), group=self.host)
+        return None if parts is None else torch.stack(parts)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' x added in index order: bitwise the same on every
@@ -205,8 +212,9 @@ _AXES: dict = {}
 
 
 def mesh_axes(mesh, device: torch.device) -> MeshAxes:
-    """The rank's MeshAxes; the row groups are made once a mesh (every
-    rank makes every group, in the same order)."""
+    """The rank's MeshAxes; the row groups (and, beside NCCL, the world's
+    gloo group for ``Axis.collect``) are made once a mesh (every rank
+    makes every group, in the same order)."""
     if not initialized():
         if mesh.size != 1:
             raise RuntimeError(
@@ -220,9 +228,11 @@ def mesh_axes(mesh, device: torch.device) -> MeshAxes:
     key = (mesh.n_chain, mesh.n_data, str(device))
     if key not in _AXES:
         rows = [dist.new_group(mesh.row(c)) for c in range(mesh.n_chain)]
+        host = (dist.group.WORLD if dist.get_backend() == "gloo"
+                else dist.new_group(backend="gloo"))
         c, d = mesh.coords(r)
         _AXES[key] = MeshAxes(mesh, c, d, Axis(rows[c], mesh.n_data, d, device),
-                              Axis(dist.group.WORLD, world, r, device))
+                              Axis(dist.group.WORLD, world, r, device, host))
     return _AXES[key]
 
 
@@ -266,10 +276,11 @@ def combined_exit(codes, first_failure=None) -> int:
 
 # the exit code of a world that outlived launch's timeout (as timeout(1))
 TIMED_OUT_EXIT = 124
+# how often launch looks at its ranks
+POLL_S = 0.05
 
 
-def launch(fn, nprocs: int, args=(), timeout_s: Optional[float] = None,
-           poll_s: float = 0.05) -> int:
+def launch(fn, nprocs: int, args=(), timeout_s: Optional[float] = None) -> int:
     """Run ``fn(*args)`` as every rank of a world of `nprocs` processes on
     this host (the spawn context, a free port on 127.0.0.1, torchrun's
     environment variables); each rank exits with fn's return value.
@@ -304,7 +315,7 @@ def launch(fn, nprocs: int, args=(), timeout_s: Optional[float] = None,
                           if p.exitcode not in (None, 0, PREEMPTED_EXIT)), None)
             if deadline is not None and time.monotonic() > deadline:
                 first = TIMED_OUT_EXIT
-            time.sleep(poll_s)
+            time.sleep(POLL_S)
     finally:
         for p in procs:
             if p.is_alive():

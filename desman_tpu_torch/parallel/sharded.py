@@ -19,9 +19,11 @@ the padded counts up to the order of the likelihood sums, and on a 1x1
 mesh bit for bit. Pad rows get +inf swap thresholds and never accept.
 
 Chains are split over the chain axis: row c runs its contiguous share of
-the seeds one after another, as ``run_chains`` does. Every rank ends with
-the whole result (``Shard.gather``), padding stripped; callers write files
-on the coordinator only.
+the seeds one after another, as ``run_chains`` does. The whole result is
+gathered with the padding stripped (``Shard.gather``): the per-position
+fields and the stored draws on the coordinator alone, on the host, and
+the per-chain fields on every rank; callers write files on the
+coordinator only.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ from .shard_ckpt import (
 
 # result fields with a position axis, and where it is after the chain axis
 _ROW_AXIS = {"tau_mean": 1, "tau_star": 1, "tau_samples": 2}
+# the fields gathered to the coordinator alone, on the host
+_HOST_FIELDS = frozenset(_ROW_AXIS) | frozenset(DRAW_FIELDS)
 # this process's sweeps on a shard and the collectives they made (the run
 # record's collectives a sweep)
 SWEEP_STATS = {"sweeps": 0, "collectives": 0}
@@ -158,15 +162,20 @@ class Shard:
     def gather(self, local: SamplerResult, replicated: bool = False) -> SamplerResult:
         """The whole result from every rank's part (this rank's chains
         stacked on a leading axis, rows [lo, hi)): chains in seed order,
-        positions cut to the true V. Every rank gets it."""
+        positions cut to the true V. The fields with a position axis and
+        the stored draws reach the coordinator alone, on the host, in
+        their own dtype (``Axis.collect``; None on the other ranks); the
+        rest reach every rank, on its device."""
         mesh = self.mesh
         out = []
         for name, x in zip(SamplerResult._fields, local):
-            if x is None:
+            parts = None
+            if x is not None:
+                parts = (self.world.collect(x) if name in _HOST_FIELDS
+                         else self.world.gather(x))
+            if parts is None:
                 out.append(None)
                 continue
-            small = x.dtype in (torch.int8, torch.bool)
-            parts = self.world.gather(x.to(torch.int32) if small else x)
             parts = parts.reshape((mesh.n_chain, mesh.n_data) + tuple(x.shape))
             if replicated:
                 parts = parts[:1]
@@ -176,8 +185,7 @@ class Shard:
                 whole = whole.narrow(1 + ax, 0, self.V)
             else:
                 whole = parts[:, 0]
-            whole = whole.reshape((-1,) + tuple(whole.shape[2:]))
-            out.append(whole.to(x.dtype) if small else whole)
+            out.append(whole.reshape((-1,) + tuple(whole.shape[2:])))
         return SamplerResult(*out)
 
 
@@ -198,7 +206,9 @@ def run_chains_sharded(
     """Chains over seeds on a (chain, data) mesh: positions over the data
     axis, seeds split over the chain axis (len(seeds) a multiple of it).
     Called on every rank of the mesh's world with the same arguments; each
-    rank returns the whole result, stacked over seeds, padding stripped.
+    rank returns the result stacked over seeds, padding stripped
+    (``Shard.gather``: tau_mean, tau_star and the draws on the coordinator
+    alone, on the host).
 
     counts: host [V,S,4]; V is padded with zero rows to a multiple of the
     data axis. Chain i is ``run_chain`` of seeds[i] on the padded counts up
@@ -246,7 +256,7 @@ def run_chains_sharded_checkpointed(
     sweeps are committed, the directory resumable (a crash, for tests).
     ``replicated``: every chain row runs all the chains (a single chain on
     an n_chain > 1 mesh). cfg.store_samples keeps the thinned draws in
-    per-rank files, assembled at the end.
+    per-rank files, assembled on the coordinator at the end.
     """
     check_store_thin(cfg)
     sh = Shard(counts, mesh, device, kernel)
@@ -296,10 +306,11 @@ def run_chains_sharded_checkpointed(
     res = sh.gather(local, replicated)
     if cfg.store_samples:
         sh.world.barrier()   # every rank's draw files are on disk
-        draws = assemble_draws(checkpoint_path, C, sh.V, sh.S, cfg.G)
-        res = res._replace(**{f: torch.as_tensor(draws[k], device=sh.device)
-                              for f, k in zip(DRAW_FIELDS, ("tau", "gamma", "eta"))
-                              if k in draws})
+        if is_coordinator():
+            draws = assemble_draws(checkpoint_path, C, sh.V, sh.S, cfg.G)
+            res = res._replace(**{f: torch.from_numpy(draws[k])
+                                  for f, k in zip(DRAW_FIELDS, ("tau", "gamma", "eta"))
+                                  if k in draws})
     return res
 
 

@@ -143,6 +143,23 @@ def mesh_waiting(pt: bool, auto: bool) -> Optional[str]:
             "yet (ROADMAP queue 1 item 15)")
 
 
+def _prepare_host(data: io.CountsData, rc: RunConfig, nmf_iters: Optional[int]):
+    """The host part of a run's preparation: the prepared data, the sampler
+    config, eta and the known haplotypes as host arrays (None when not
+    given), and the fix_tau refusal."""
+    data = prepare_data(data, rc.min_coverage, rc.n_positions, rc.seed)
+    cfg = sampler_config(rc)
+    if nmf_iters is not None:
+        cfg = replace(cfg, nmf_iters=nmf_iters)
+    eta_init = io.read_eta_csv(rc.eta_file) if rc.eta_file else None
+    tau_init = None
+    if rc.tau_file:
+        tau_init = load_tau_init(rc.tau_file, data)
+    elif rc.fix_tau:
+        raise ValueError("fix_tau requires tau_file")
+    return data, cfg, eta_init, tau_init
+
+
 def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
              nmf_iters: Optional[int], n_chains: int = 1):
     """What run and run_multi share: the refusals, the prepared data, the
@@ -156,20 +173,11 @@ def _prepare(data: io.CountsData, rc: RunConfig, device, kernel: str,
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
-    data = prepare_data(data, rc.min_coverage, rc.n_positions, rc.seed)
-    cfg = sampler_config(rc)
-    if nmf_iters is not None:
-        cfg = replace(cfg, nmf_iters=nmf_iters)
-    eta_init = None
-    if rc.eta_file:
-        eta_init = torch.as_tensor(io.read_eta_csv(rc.eta_file),
-                                   dtype=torch.float32, device=device)
-    tau_init = None
-    if rc.tau_file:
-        tau_init = torch.as_tensor(load_tau_init(rc.tau_file, data),
-                                   dtype=torch.int32, device=device)
-    elif rc.fix_tau:
-        raise ValueError("fix_tau requires tau_file")
+    data, cfg, eta_init, tau_init = _prepare_host(data, rc, nmf_iters)
+    if eta_init is not None:
+        eta_init = torch.as_tensor(eta_init, dtype=torch.float32, device=device)
+    if tau_init is not None:
+        tau_init = torch.as_tensor(tau_init, dtype=torch.int32, device=device)
     n = torch.as_tensor(data.counts, device=device).to(torch.float32)
     ks = resolve(kernel, n)
     if ks.resident and (_auto(rc) or pt or rc.checkpoint_path):
@@ -349,24 +357,15 @@ def _write_multi(rc: RunConfig, data: io.CountsData, res: SamplerResult,
 
 
 def _mesh_prepare(data: io.CountsData, rc: RunConfig, device, nmf_iters):
-    """What the mesh runs share: the refusals, the rank's device, the
-    prepared data, the sampler config, eta and the known haplotypes (host
-    arrays: the shards place them)."""
+    """What the mesh runs share: the refusal of what a mesh does not run
+    yet, the rank's device, and ``_prepare_host`` (host arrays: the shards
+    place them)."""
     from .parallel.distributed import rank_device
 
     waiting = mesh_waiting(rc.pt_replicas >= 2, _auto(rc))
     if waiting:
         raise ValueError(waiting)
-    device = rank_device(device)
-    data = prepare_data(data, rc.min_coverage, rc.n_positions, rc.seed)
-    cfg = sampler_config(rc)
-    if nmf_iters is not None:
-        cfg = replace(cfg, nmf_iters=nmf_iters)
-    eta_init = io.read_eta_csv(rc.eta_file) if rc.eta_file else None
-    tau_init = load_tau_init(rc.tau_file, data) if rc.tau_file else None
-    if rc.fix_tau and tau_init is None:
-        raise ValueError("fix_tau requires tau_file")
-    return device, data, cfg, eta_init, tau_init
+    return (rank_device(device),) + _prepare_host(data, rc, nmf_iters)
 
 
 # the kernels a mesh run launches, counted in its run record

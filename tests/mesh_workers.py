@@ -142,11 +142,44 @@ def grid(out, counts, data, stub, g_values, seeds, shape):
     first = fit_grid(counts, g_values, seeds, **kw)
     swept = sharded.SWEEP_STATS["sweeps"]
     again = fit_grid(counts, g_values, seeds, **kw)
-    _save(out, records=np.array([(r.G, r.seed, r.mean_deviance, r.uncertainty)
-                                 for r in first]),
+    rows = torch.tensor([(r.G, r.seed, r.mean_deviance, r.uncertainty) for r in first],
+                        dtype=torch.float64)
+    by_rank = distributed.mesh_axes(kw["mesh"], torch.device("cpu")).world.gather(rows)
+    _save(out, records=rows.numpy(), by_rank=by_rank.numpy(),
           again=np.array([(r.G, r.seed, r.mean_deviance, r.uncertainty) for r in again]),
           swept_again=np.int64(sharded.SWEEP_STATS["sweeps"] - swept),
           swept=np.int64(swept))
+    return 0
+
+
+def peak_memory(out, data, rc_kw, shape=None):
+    """run_multi of one chain on the card, on the mesh (shape) or on one
+    device (None); every rank's peak allocated device bytes over the run,
+    from a fresh process: cuBLAS's workspace included ("peaks", by rank)."""
+    from desman_tpu_torch import run
+
+    _join("cuda")
+    dev = distributed.rank_device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = None if shape is None else make_mesh(*shape)
+    run.run_multi(data, run.RunConfig(**rc_kw), 1, device=dev, kernel="cuda", mesh=mesh)
+    torch.cuda.synchronize(dev)
+    peak = torch.tensor(torch.cuda.max_memory_allocated(dev), device=dev)
+    peaks = distributed.mesh_axes(mesh or make_mesh(1, 1), dev).world.gather(peak)
+    _save(out, peaks=peaks.cpu().numpy())
+    return 0
+
+
+def placement(out, counts, cfg_kw, seeds, shape):
+    """run_chains_sharded with stored draws; which result fields each rank
+    holds ("held", [rank, field]: 1 where not None), and rank 0's fields."""
+    _join("cpu")
+    mesh = make_mesh(*shape)
+    res = sharded.run_chains_sharded(counts, sampler.SamplerConfig(**cfg_kw), seeds, mesh,
+                                     device="cpu")
+    held = torch.tensor([x is not None for x in res], dtype=torch.int64)
+    held = distributed.mesh_axes(mesh, torch.device("cpu")).world.gather(held)
+    _save(out, held=held.numpy(), **_arrays(res, "0_"))
     return 0
 
 

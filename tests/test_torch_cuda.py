@@ -768,15 +768,21 @@ def _mesh_world(tmp_path, fn, nprocs, *args):
         return {k: z[k] for k in z.files}
 
 
-def test_mesh_1x1_over_nccl_is_run_chains(cuda):
-    """A world of one rank on its own card joins over NCCL; its 1x1 mesh
-    chains (V=2000, a tail tile) are run_chains', field for field."""
+def test_mesh_1x1_over_nccl_is_run_chains(cuda, monkeypatch):
+    """A world of one rank on its own card, joined from torchrun's
+    environment, runs over NCCL; its 1x1 mesh chains (V=2001, a tail tile)
+    are run_chains', field for field (the per-position fields on the
+    host)."""
     from desman_tpu_torch.parallel import distributed, make_mesh, run_chains_sharded
     from desman_tpu_torch.sampler import SamplerConfig, run_chains
 
     t = synth.generate(V=2001, S=32, G=4, coverage=50.0, seed=3)
     cfg = SamplerConfig(G=4, burn=20, samples=20, nmf_iters=50)
-    distributed.join(0, 1, f"127.0.0.1:{distributed.free_port()}", "cuda")
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(distributed.free_port())}.items():
+        monkeypatch.setenv(k, v)
+    assert distributed.maybe_initialize("cuda")
     try:
         assert distributed.backend() == "nccl"
         ops.reset_launches()
@@ -786,7 +792,8 @@ def test_mesh_1x1_over_nccl_is_run_chains(cuda):
         distributed.leave()
     ref = run_chains(torch.as_tensor(t.data.counts, device=cuda), cfg, [0, 1])
     for name, a, b in zip(ref._fields, ref, got):
-        assert (a is None and b is None) or torch.equal(a, b), name
+        assert (a is None and b is None) or torch.equal(a.cpu(), b.cpu()), name
+    assert got.tau_star.device.type == "cpu" and got.gamma_mean.is_cuda
 
 
 def test_mesh_two_ranks_are_bitwise_repeatable(cuda, tmp_path):
@@ -831,3 +838,28 @@ def test_mesh_checkpoint_resumes_bitwise_on_the_card(cuda, kernel, tmp_path):
     assert whole["tau_samples"].shape == (5, 2001, 4)
     for k, v in whole.items():
         assert np.array_equal(got[f"resumed_{k}"], v), k
+
+
+def test_mesh_store_every_holds_no_more_on_a_card_than_one_device(cuda, tmp_path):
+    """run_multi with --store_every (200 draws of V=4001, G=4) at 1x2, two
+    ranks on the card, against one device, each run in fresh processes: no
+    rank's peak allocated device memory exceeds the single-device run's
+    (the draws reach the coordinator on the host, as int8); the draws file
+    matches the single-device run's in shape and dtype and its tau draws
+    agree on >= 99% of the positions."""
+    from desman_tpu_torch import io
+
+    data = synth.generate(V=4001, S=16, G=4, coverage=50.0, seed=3).data
+    rc_kw = dict(G=4, iterations=400, seed=0, store_every=1)
+    got = _mesh_world(tmp_path, "peak_memory", 2, data,
+                      dict(rc_kw, out_dir=str(tmp_path / "mesh")), (1, 2))
+    one = _mesh_world(tmp_path, "peak_memory", 1, data,
+                      dict(rc_kw, out_dir=str(tmp_path / "one")))
+    print(f"peak device bytes: ranks {got['peaks'].tolist()}, one device "
+          f"{one['peaks'].tolist()}")
+    assert got["peaks"].shape == (2,) and (got["peaks"] <= one["peaks"][0]).all()
+    mesh_draws = io.read_draws(str(tmp_path / "mesh" / "draws.npz"))
+    one_draws = io.read_draws(str(tmp_path / "one" / "draws.npz"))
+    assert mesh_draws["tau"].shape == one_draws["tau"].shape == (200, 4001, 4)
+    assert mesh_draws["tau"].dtype == one_draws["tau"].dtype
+    assert (mesh_draws["tau"] == one_draws["tau"]).all(-1).mean() >= 0.99

@@ -140,6 +140,27 @@ def test_mesh_shapes_agree_and_a_layout_repeats_bitwise(tmp_path, counts):
         np.testing.assert_allclose(b["0_loglik_trace"], a["0_loglik_trace"], rtol=1e-5)
 
 
+def test_position_fields_reach_the_coordinator_alone(tmp_path, counts):
+    """At 2x2 with stored draws: rank 0 holds every field, tau_samples
+    int8 at the true V; the other ranks hold None for tau_mean, tau_star
+    and the draws, and the per-chain fields as rank 0 does."""
+    from desman_tpu_torch.sampler import SamplerResult
+
+    cfg = dict(CFG, store_samples=True, store_thin=2)
+    got = world(tmp_path, mesh_workers.placement, 4, counts[:119], cfg, [0, 1], (2, 2))
+    host = {"tau_mean", "tau_star", "tau_samples", "gamma_samples", "eta_samples"}
+    fields = SamplerResult._fields
+    want_rank0 = [f != "pt_swap_accept" for f in fields]
+    assert got["held"][0].tolist() == want_rank0
+    for r in (1, 2, 3):
+        assert got["held"][r].tolist() == [w and f not in host
+                                           for f, w in zip(fields, want_rank0)], r
+    assert got["0_tau_samples"].dtype == np.int8
+    assert got["0_tau_samples"].shape == (2, 2, 119, 2)
+    ref = single_device(counts[:119], [0, 1], 2, cfg)
+    assert np.array_equal(got["0_tau_star"], ref.tau_star.numpy())
+
+
 def test_replicated_state_is_bitwise_equal_on_every_rank(tmp_path, counts):
     got = world(tmp_path, mesh_workers.replicated, 4, counts[:118],
                 dict(G=3, burn=4, samples=4, nmf_iters=20, eta_update="rows"), (1, 4), 8)
@@ -173,5 +194,6 @@ def test_fit_grid_on_a_mesh(tmp_path, counts):
     want = np.array([(r.G, r.seed, r.mean_deviance, r.uncertainty) for r in ref])
     np.testing.assert_allclose(got["records"], want, rtol=1e-5)
     np.testing.assert_allclose(got["again"], got["records"], rtol=1e-6)
+    assert (got["by_rank"] == got["records"]).all()   # every rank's records
     assert got["swept"] == 2 * 20 and got["swept_again"] == 0
     assert (tmp_path / "g_2_1" / "fit.txt").exists()
