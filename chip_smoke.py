@@ -144,8 +144,27 @@ Phases, each printing its own '# ...' lines:
    and ms a sweep of the 1x1 mesh against the plain chain, in turns, four
    runs each; (g) with two cards or more, `desman --mesh 1x2` alone over
    NCCL, a card a rank, held as (c) and with its in-sweep collectives
-   counted, and with four or more `desman --mesh 2x2 --chains 2` too. Two
-   ranks take NCCL where there are two cards (the backend rule).
+   counted, and with four or more `desman --mesh 2x2 --chains 2` and
+   `--mesh 2x2 --pt 4` too. Two ranks take NCCL where there are two cards
+   (the backend rule). Parallel tempering and auto-length runs on the
+   mesh, side by side as (c)-(e): (h) `desman --mesh 1x2 --pt 4`, `--mesh
+   2x1 --pt 4` and `--mesh 1x2 --pt 4 --kernel cuda_topk` (biallelic
+   counts): the replicas' tau (or top-2) and swap kernels launched exactly
+   4 x 200 x data ranks over the ranks, exactly 8 (1x2) and 1 (2x1)
+   collectives an ensemble sweep, tau_star agreement >= 0.99 with the
+   single-device `run_chain_pt` of the same seed and no more SNP errors,
+   pt_swap_accept printed; (i) `--mesh 2x1 --pt 4 --checkpoint`
+   SIGTERMed after a segment (exit 75) and resumed on 1x2: tau_star
+   agreement 1.000000 with the uninterrupted 2x1 run; (j) `desman --mesh
+   1x2 --auto_burn` (burn within 100-2000) and `--mesh 1x2 --auto_samples
+   200 --checkpoint` SIGTERMed after its first segment (exit 75) and
+   resumed on 1x1 in process: the burn and sampling length of the
+   uninterrupted `--mesh 1x2 --auto_samples 200`; (k) a 1x1 world over
+   NCCL in process: `run_chain_pt_sharded` bitwise `run_chain_pt`, 4 x 200
+   launches; (l) at V=1e5 S=96 G=16, `--pt 4` for 20 sweeps through
+   `run.run_pt_sharded` at 1x2 and 2x1 and through `run.run` on one
+   device, each world in fresh processes: every rank's peak allocated
+   device bytes beside the one device's; the phase's seconds printed.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
@@ -2024,11 +2043,180 @@ def mesh_cli_runs(tmp, csv, bi_csv):
     return results, seen
 
 
+def mesh_agreement(out, want, truth, what):
+    """Gate a mesh run's tau_star (out's Filtered_Tau_star.csv) against the
+    single-device chain's `want`: agreement >= 0.99 and no more SNP errors
+    against the truth."""
+    from desman_tpu_torch.utils import snp_distance_perm
+
+    tau, _, _ = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
+    want = want.cpu().numpy()
+    agree = (tau == want).all(axis=1).mean()
+    snp, snp_ref = snp_distance_perm(truth, tau), snp_distance_perm(truth, want)
+    print(f"# {what}: tau_star agreement {agree:.6f} with the single-device chain, "
+          f"SNP errors {snp} of {tau.size} against the truth (that chain: {snp_ref})")
+    gate(agree >= 0.99 and snp <= snp_ref, f"{what}: agreement >= 0.99, SNP errors "
+         f"no more than the single-device chain's ({snp_ref})")
+
+
+def mesh_backend(ranks):
+    """The backend rule: NCCL when each rank has a card of its own."""
+    return "nccl" if ranks <= torch.cuda.device_count() else "gloo"
+
+
+def mesh_record(out, what, kernel, chains, d, ranks=2, collectives=None):
+    """Gate a mesh run's record: its ranks and backend, `kernel` and swap
+    launched exactly chains (or PT replicas) x d x MESH_SWEEPS times over
+    the ranks, and exactly `collectives` an (ensemble) sweep (None: at most
+    3). Adds the launches to MESH_LAUNCHES."""
+    m = read_metrics(out)
+    runs = chains * d * MESH_SWEEPS
+    print(f"# {what}: backend {m['backend']}, {m['ranks']} ranks, launches "
+          f"{m['launches']}, collectives a sweep {m['collectives_per_sweep']}, "
+          f"{m['sweeps_per_s']:.3f} sweeps/s")
+    gate(m["backend"] == mesh_backend(ranks) and m["ranks"] == ranks,
+         f"{what}: {ranks} ranks over {mesh_backend(ranks)}")
+    gate(m["launches"][kernel] == runs and m["launches"]["swap"] == runs
+         and all(v == 0 for k, v in m["launches"].items() if k not in (kernel, "swap")),
+         f"{what}: {kernel} and swap launched exactly {runs} times over the ranks")
+    if collectives is None:
+        gate(m["collectives_per_sweep"] <= 3, f"{what}: <= 3 collectives a sweep")
+    else:
+        gate(m["collectives_per_sweep"] == collectives,
+             f"{what}: {collectives} collectives an ensemble sweep")
+    MESH_LAUNCHES.update(m["launches"])
+
+
+def mesh_nccl(tmp, csv, t, ref, ref_pt):
+    """(g) with two cards or more, one card a rank: `desman --mesh 1x2`
+    over NCCL; with four or more `--mesh 2x2 --chains 2` and `--mesh 2x2
+    --pt 4` too, each against the single-device chains `ref` (seeds 0 and
+    1) and `ref_pt` (run_chain_pt of seed 0) on the counts of `csv` (truth
+    `t`)."""
+    multi = [("1x2", 1, 2)] if torch.cuda.device_count() >= 2 else []
+    if torch.cuda.device_count() >= 4:
+        multi += [("2x2", 2, 2), ("2x2", "pt", 2)]
+    for shape, chains, d in multi:
+        base = [csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0", "--mesh", shape]
+        if chains == "pt":
+            out = os.path.join(tmp, "mesh_nccl_2x2_pt")
+            rc, err = finish(desman_process([*base, "--pt", str(MESH_R), "-o", out]))
+            what = f"--mesh 2x2 --pt {MESH_R} over NCCL"
+            gate(rc == 0, f"desman {what} exits 0 ({err.strip()[-300:]})")
+            mesh_record(out, what, "tau_sweep", MESH_R, d, ranks=4, collectives=5.0)
+            mesh_agreement(out, ref_pt.tau_star, t.tau_idx, f"{what} against run_chain_pt")
+            continue
+        out = os.path.join(tmp, f"mesh_nccl_{shape}")
+        extra = ["--chains", str(chains)] if chains > 1 else []
+        rc, err = finish(desman_process([*base, *extra, "-o", out]))
+        what = f"--mesh {shape}{' --chains 2' if chains > 1 else ''} over NCCL"
+        gate(rc == 0, f"desman {what} exits 0 ({err.strip()[-300:]})")
+        mesh_record(out, what, "tau_sweep", chains, d, ranks=chains * d)
+        gate(read_metrics(out)["collectives_per_sweep"] >= 1,
+             f"{what}: the sweeps' sums crossed the ranks over NCCL")
+        best = 0
+        if chains > 1:
+            with open(os.path.join(out, "chains.json")) as f:
+                best = json.load(f)["best_seed"]
+        mesh_agreement(out, ref.tau_star[best], t.tau_idx, f"{what} (best seed {best})")
+
+
+# the replicas of phase 13's PT runs; the auto runs' ESS target
+MESH_R = 4
+MESH_ESS = 200
+
+
+def mesh_pt_auto_runs(tmp, csv, bi_csv):
+    """(h)-(j): the PT and auto mesh CLI runs, side by side on the card
+    (each a world of two ranks sharing cuda:0); the two checkpointed ones
+    get SIGTERM once their manifest shows a committed segment (and, for
+    PT, 0 < it < MESH_SWEEPS). Returns ({name: (rc, stderr)}, {name: it
+    at the signal})."""
+    base = ["-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0"]
+    pt = ["--pt", str(MESH_R)]
+    auto = ["--auto_samples", str(MESH_ESS)]
+
+    def out(k):
+        return os.path.join(tmp, f"mesh_{k}")
+
+    runs = {
+        "pt_1x2": [csv, *base, *pt, "--mesh", "1x2", "-o", out("pt_1x2")],
+        "pt_2x1": [csv, *base, *pt, "--mesh", "2x1", "-o", out("pt_2x1")],
+        "pt_topk": [bi_csv, *base, *pt, "--mesh", "1x2", "--kernel", "cuda_topk",
+                    "-o", out("pt_topk")],
+        "pt_termed": [csv, *base, *pt, "--mesh", "2x1", "--checkpoint_every", "50",
+                      "--checkpoint", out("pt_ck"), "-o", out("pt_termed")],
+        "auto_burn": [csv, *base, "--mesh", "1x2", "--auto_burn", "-o", out("auto_burn")],
+        "auto_samples": [csv, *base, "--mesh", "1x2", *auto, "-o", out("auto_samples")],
+        "auto_termed": [csv, *base, "--mesh", "1x2", *auto, "--checkpoint",
+                        out("auto_ck"), "-o", out("auto_termed")],
+    }
+    pending = {"pt_termed": out("pt_ck"), "auto_termed": out("auto_ck")}
+    t0 = time.time()
+    procs = {k: desman_process(argv) for k, argv in runs.items()}
+    seen = {}
+    try:
+        deadline = time.time() + 900
+        while pending and time.time() < deadline:
+            for k, ck in list(pending.items()):
+                it = mesh_manifest_it(ck)
+                if procs[k].poll() is not None:
+                    del pending[k]
+                elif it is not None and 0 < it < MESH_SWEEPS:
+                    procs[k].send_signal(signal.SIGTERM)
+                    seen[k] = it
+                    del pending[k]
+            time.sleep(0.002)
+    finally:
+        results = {k: finish(p, timeout=900) for k, p in procs.items()}
+    print(f"# {len(runs)} desman --mesh PT and auto runs side by side: "
+          f"{time.time() - t0:.2f} s wall; SIGTERM at {seen}")
+    for k, (rc, err) in results.items():
+        print(f"# desman --mesh {k}: rc {rc} {err.strip()[-300:] if rc else ''}")
+    return results, seen
+
+
+def mesh_pt_peak(out, shape):
+    """A rank of a world at `shape` (None: one device, ``run.run``):
+    `--pt 4` for 20 sweeps at V=1e5 S=96 G=16 (nmf_iters 50, as phase 11's
+    record) through ``run.run_pt_sharded``, from a fresh process; rank 0
+    writes every rank's peak allocated device bytes and the run's
+    collectives a sweep to `out`."""
+    from desman_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.maybe_initialize("cuda")
+    dev = distributed.rank_device("cuda")
+    torch.cuda.set_device(dev)
+    big = synth.generate(V=100_000, S=96, G=16, coverage=50.0, seed=0)
+    rc = run.RunConfig(G=16, iterations=20, seed=0, pt_replicas=MESH_R,
+                       out_dir=out + ".run")
+    torch.cuda.reset_peak_memory_stats(dev)
+    if shape is None:
+        res = run.run(big.data, rc, device=dev, kernel="cuda", nmf_iters=50)
+        mesh = make_mesh(1, 1)
+    else:
+        mesh = make_mesh(*shape)
+        res = run.run_pt_sharded(big.data, rc, mesh, device=dev, kernel="cuda",
+                                 nmf_iters=50)
+    torch.cuda.synchronize(dev)
+    peak = torch.tensor(torch.cuda.max_memory_allocated(dev), device=dev)
+    peaks = distributed.mesh_axes(mesh, dev).world.gather(peak)
+    finite = bool(torch.isfinite(res.loglik_trace).all())
+    if distributed.is_coordinator():
+        m = read_metrics(out + ".run")
+        with open(out, "w") as f:
+            json.dump({"peaks": peaks.cpu().tolist(), "finite": finite,
+                       "collectives_per_sweep": m.get("collectives_per_sweep"),
+                       "launches": m.get("launches")}, f)
+    return 0
+
+
 def phase_mesh(tmp):
     """Phase 13: position sharding over a mesh of ranks (see the module
     docstring)."""
-    from desman_tpu_torch.parallel import Shard, distributed, launch, make_mesh
-    from desman_tpu_torch.utils import snp_distance_perm
+    from desman_tpu_torch.parallel import (
+        Shard, distributed, launch, make_mesh, run_chain_pt_sharded,
+    )
 
     t_phase = time.time()
     dev = torch.device("cuda")
@@ -2045,35 +2233,9 @@ def phase_mesh(tmp):
     ref = sampler.run_chains(n, cfg, [0, 1], kernel="cuda")
     n_bi = torch.as_tensor(bi.data.counts, dtype=torch.float32, device=dev)
     ref_topk = sampler.run_chains(n_bi, cfg, [0], kernel="cuda_topk")
+    ref_pt = sampler.run_chain_pt(n, cfg, 0, MESH_R, 8.0, kernel="cuda")
+    ref_pt_topk = sampler.run_chain_pt(n_bi, cfg, 0, MESH_R, 8.0, kernel="cuda_topk")
     ops.reset_launches()
-
-    def agreement(out, want, truth, what):
-        tau, _, _ = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))
-        want = want.cpu().numpy()
-        agree = (tau == want).all(axis=1).mean()
-        snp, snp_ref = snp_distance_perm(truth, tau), snp_distance_perm(truth, want)
-        print(f"# {what}: tau_star agreement {agree:.6f} with the single-device chain, "
-              f"SNP errors {snp} of {tau.size} against the truth (that chain: {snp_ref})")
-        gate(agree >= 0.99 and snp <= snp_ref, f"{what}: agreement >= 0.99, SNP errors "
-             f"no more than the single-device chain's ({snp_ref})")
-
-    def record_of(out, what, kernel, chains, d, ranks=2):
-        m = read_metrics(out)
-        runs = chains * d * MESH_SWEEPS
-        print(f"# {what}: backend {m['backend']}, {m['ranks']} ranks, launches "
-              f"{m['launches']}, collectives a sweep {m['collectives_per_sweep']}, "
-              f"{m['sweeps_per_s']:.3f} sweeps/s")
-        gate(m["backend"] == backend_of(ranks) and m["ranks"] == ranks,
-             f"{what}: {ranks} ranks over {backend_of(ranks)}")
-        gate(m["launches"][kernel] == runs and m["launches"]["swap"] == runs
-             and all(v == 0 for k, v in m["launches"].items() if k not in (kernel, "swap")),
-             f"{what}: {kernel} and swap launched exactly {runs} times over the ranks")
-        gate(m["collectives_per_sweep"] <= 3, f"{what}: <= 3 collectives a sweep")
-        MESH_LAUNCHES.update(m["launches"])
-
-    def backend_of(ranks):
-        """The backend rule: NCCL when each rank has a card of its own."""
-        return "nccl" if ranks <= torch.cuda.device_count() else "gloo"
 
     # (f) the kernels on a shard's block
     mesh_block_kernels()
@@ -2085,16 +2247,16 @@ def phase_mesh(tmp):
     rc_t, err_t = results["termed"]
     gate(rc_t == 75 and "preempted" in err_t and seen is not None,
          "desman --mesh 1x2 --checkpoint: SIGTERM mid-run exits 75 naming the preemption")
-    record_of(os.path.join(tmp, "mesh_1x2"), "--mesh 1x2", "tau_sweep", 1, 2)
-    record_of(os.path.join(tmp, "mesh_2x1"), "--mesh 2x1 --chains 2", "tau_sweep", 2, 1)
-    record_of(os.path.join(tmp, "mesh_topk"), "--mesh 1x2 --kernel cuda_topk",
+    mesh_record(os.path.join(tmp, "mesh_1x2"), "--mesh 1x2", "tau_sweep", 1, 2)
+    mesh_record(os.path.join(tmp, "mesh_2x1"), "--mesh 2x1 --chains 2", "tau_sweep", 2, 1)
+    mesh_record(os.path.join(tmp, "mesh_topk"), "--mesh 1x2 --kernel cuda_topk",
               "tau_sweep_topk", 1, 2)
-    agreement(os.path.join(tmp, "mesh_1x2"), ref.tau_star[0], t.tau_idx, "--mesh 1x2")
+    mesh_agreement(os.path.join(tmp, "mesh_1x2"), ref.tau_star[0], t.tau_idx, "--mesh 1x2")
     with open(os.path.join(tmp, "mesh_2x1", "chains.json")) as f:
         best = json.load(f)["best_seed"]
-    agreement(os.path.join(tmp, "mesh_2x1"), ref.tau_star[best], t.tau_idx,
+    mesh_agreement(os.path.join(tmp, "mesh_2x1"), ref.tau_star[best], t.tau_idx,
               f"--mesh 2x1 --chains 2 (best seed {best})")
-    agreement(os.path.join(tmp, "mesh_topk"), ref_topk.tau_star[0], bi.tau_idx,
+    mesh_agreement(os.path.join(tmp, "mesh_topk"), ref_topk.tau_star[0], bi.tau_idx,
               "--mesh 1x2 --kernel cuda_topk")
     # the preempted run resumed on a 1x1 mesh, in process
     at = mesh_manifest_it(os.path.join(tmp, "mesh_ck"))
@@ -2105,7 +2267,7 @@ def phase_mesh(tmp):
     MESH_LAUNCHES.update(launches)
     gate(launches["tau_sweep"] == launches["swap"] == MESH_SWEEPS - at,
          f"the 1x1 resume from it={at} launched tau and swap {MESH_SWEEPS - at} times")
-    agreement(termed, ref.tau_star[0], t.tau_idx, f"--mesh 1x2 preempted at {at}, "
+    mesh_agreement(termed, ref.tau_star[0], t.tau_idx, f"--mesh 1x2 preempted at {at}, "
               "resumed on 1x1")
 
     # the host µs of a collective, two ranks on cuda:0 over gloo
@@ -2116,26 +2278,105 @@ def phase_mesh(tmp):
     print(f"# a [2,{S}] sum through the collective layer (one all_reduce), 2 ranks over "
           f"{two_us['backend']}: {two_us['us']:.2f} µs host a call")
 
-    # (g) with two cards or more: --mesh 1x2 alone over NCCL, one card a
-    # rank; with four or more, --mesh 2x2 --chains 2 too
-    multi = [("1x2", 1, 2)] if torch.cuda.device_count() >= 2 else []
-    if torch.cuda.device_count() >= 4:
-        multi.append(("2x2", 2, 2))
-    for shape, chains, d in multi:
-        out = os.path.join(tmp, f"mesh_nccl_{shape}")
-        extra = ["--chains", str(chains)] if chains > 1 else []
-        rc, err = finish(desman_process([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s",
-                                         "0", "--mesh", shape, *extra, "-o", out]))
-        what = f"--mesh {shape}{' --chains 2' if chains > 1 else ''} over NCCL"
-        gate(rc == 0, f"desman {what} exits 0 ({err.strip()[-300:]})")
-        record_of(out, what, "tau_sweep", chains, d, ranks=chains * d)
-        gate(read_metrics(out)["collectives_per_sweep"] >= 1,
-             f"{what}: the sweeps' sums crossed the ranks over NCCL")
-        best = 0
-        if chains > 1:
-            with open(os.path.join(out, "chains.json")) as f:
-                best = json.load(f)["best_seed"]
-        agreement(out, ref.tau_star[best], t.tau_idx, f"{what} (best seed {best})")
+    # (h)-(j) PT and auto-length runs on the mesh, side by side
+    results, seen = mesh_pt_auto_runs(tmp, csv, bi_csv)
+    for k in ("pt_1x2", "pt_2x1", "pt_topk", "auto_burn", "auto_samples"):
+        gate(results[k][0] == 0, f"desman --mesh {k} exits 0")
+    for k in ("pt_termed", "auto_termed"):
+        rc_k, err_k = results[k]
+        gate(rc_k == 75 and "preempted" in err_k and k in seen,
+             f"desman --mesh {k}: SIGTERM after a segment exits 75 naming the preemption")
+    for k, kernel, d, coll in (("pt_1x2", "tau_sweep", 2, 8.0), ("pt_2x1", "tau_sweep", 1, 1.0),
+                               ("pt_topk", "tau_sweep_topk", 2, 8.0)):
+        out = os.path.join(tmp, f"mesh_{k}")
+        mesh_record(out, f"--mesh {k} --pt {MESH_R}", kernel, MESH_R, d, collectives=coll)
+        m = read_metrics(out)
+        gate(0.0 < m["pt_swap_accept"] <= 1.0, f"--mesh {k}: 0 < pt_swap_accept <= 1")
+        print(f"# --mesh {k} --pt {MESH_R}: pt_swap_accept {m['pt_swap_accept']:.6f}, "
+              f"collectives an ensemble sweep {m['collectives_per_sweep']}")
+        if k == "pt_topk":
+            mesh_agreement(out, ref_pt_topk.tau_star, bi.tau_idx, f"--mesh 1x2 --pt {MESH_R} "
+                      "--kernel cuda_topk against run_chain_pt")
+        else:
+            mesh_agreement(out, ref_pt.tau_star, t.tau_idx,
+                      f"--mesh {k[3:]} --pt {MESH_R} against run_chain_pt")
+    print(f"# run_chain_pt (one device) pt_swap_accept {float(ref_pt.pt_swap_accept):.6f}, "
+          f"cuda_topk {float(ref_pt_topk.pt_swap_accept):.6f}")
+    # (i) the preempted PT run resumed on 1x2
+    at = mesh_manifest_it(os.path.join(tmp, "mesh_pt_ck"))
+    resumed = os.path.join(tmp, "mesh_pt_resumed")
+    rc_r, err_r = finish(desman_process(
+        [csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0", "--pt", str(MESH_R),
+         "--mesh", "1x2", "--checkpoint_every", "50", "--checkpoint",
+         os.path.join(tmp, "mesh_pt_ck"), "-o", resumed]))
+    gate(rc_r == 0, f"--mesh 1x2 --pt resumes the 2x1 checkpoint ({err_r.strip()[-300:]})")
+    m = read_metrics(resumed)
+    MESH_LAUNCHES.update(m["launches"])
+    gate(m["launches"]["tau_sweep"] == m["launches"]["swap"]
+         == MESH_R * 2 * (MESH_SWEEPS - at),
+         f"the 1x2 resume from it={at}: tau and swap launched {MESH_R} x 2 x "
+         f"{MESH_SWEEPS - at} times over the ranks")
+    whole, _, _ = io.read_tau_star_csv(os.path.join(tmp, "mesh_pt_2x1", "Filtered_Tau_star.csv"))
+    got, _, _ = io.read_tau_star_csv(os.path.join(resumed, "Filtered_Tau_star.csv"))
+    agree = (got == whole).all(axis=1).mean()
+    print(f"# --mesh 2x1 --pt {MESH_R} --checkpoint preempted at it={at}, resumed on 1x2: "
+          f"tau_star agreement {agree:.6f} with the uninterrupted 2x1 run")
+    gate(agree == 1.0, "the PT run resumed on another mesh shape: tau_star agreement "
+         "1.000000 with the uninterrupted run")
+    # (j) auto length on the mesh
+    m = read_metrics(os.path.join(tmp, "mesh_auto_burn"))
+    burn = m["sweeps"] - m["sampling_sweeps"]
+    MESH_LAUNCHES.update(m["launches"])
+    print(f"# --mesh 1x2 --auto_burn: burn {burn}, sampling {m['sampling_sweeps']}, "
+          f"launches {m['launches']}, collectives a sweep {m['collectives_per_sweep']}")
+    gate(100 <= burn <= 2000 and m["sampling_sweeps"] == MESH_SWEEPS // 2,
+         "--mesh 1x2 --auto_burn: 100 <= burn <= 2000, -i/2 sampling sweeps")
+    gate(m["launches"]["tau_sweep"] == m["launches"]["swap"] == 2 * m["sweeps"],
+         "--mesh 1x2 --auto_burn: tau and swap launched 2 x the sweeps run")
+    mesh_agreement(os.path.join(tmp, "mesh_auto_burn"), ref.tau_star[0], t.tau_idx,
+              "--mesh 1x2 --auto_burn")
+    whole = read_metrics(os.path.join(tmp, "mesh_auto_samples"))
+    MESH_LAUNCHES.update(whole["launches"])
+    at = mesh_manifest_it(os.path.join(tmp, "mesh_auto_ck"))
+    auto_out = os.path.join(tmp, "mesh_auto_termed")
+    launches, _ = drive_cli([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0",
+                             "--auto_samples", str(MESH_ESS), "--mesh", "1x1",
+                             "--checkpoint", os.path.join(tmp, "mesh_auto_ck")], auto_out)
+    MESH_LAUNCHES.update(launches)
+    m = read_metrics(auto_out)
+    print(f"# --mesh 1x2 --auto_samples {MESH_ESS}: burn "
+          f"{whole['sweeps'] - whole['sampling_sweeps']}, sampling "
+          f"{whole['sampling_sweeps']}, loglik_ess_bulk {whole.get('loglik_ess_bulk')}; "
+          f"preempted at it={at} and resumed on 1x1: burn "
+          f"{m['sweeps'] - m['sampling_sweeps']}, sampling {m['sampling_sweeps']}")
+    gate((m["sweeps"], m["sampling_sweeps"]) == (whole["sweeps"], whole["sampling_sweeps"]),
+         "--mesh 1x2 --auto_samples preempted and resumed on 1x1: the burn and sampling "
+         "length of the uninterrupted run")
+    gate(100 <= whole["sweeps"] - whole["sampling_sweeps"] <= 2000,
+         "--auto_samples on the mesh: 100 <= burn <= 2000")
+    gate(launches["tau_sweep"] == launches["swap"] == m["sweeps"] - at,
+         f"the 1x1 auto resume from it={at} launched tau and swap for the sweeps left")
+    mesh_agreement(auto_out, ref.tau_star[0], t.tau_idx,
+              f"--mesh 1x2 --auto_samples {MESH_ESS} preempted, resumed on 1x1")
+
+    # (l) peak device bytes a rank at V=1e5 S=96 G=16, --pt 4, 20 sweeps
+    peaks = {}
+    for shape, nprocs in ((None, 1), ((1, 2), 2), ((2, 1), 2)):
+        name = "one" if shape is None else f"{shape[0]}x{shape[1]}"
+        pfile = os.path.join(tmp, f"mesh_peak_{name}.json")
+        t0 = time.time()
+        gate(launch(mesh_pt_peak, nprocs, (pfile, shape)) == 0,
+             f"the V=1e5 --pt {MESH_R} peak run at {name} ran")
+        with open(pfile) as f:
+            peaks[name] = json.load(f)
+        gate(peaks[name]["finite"], f"the V=1e5 --pt run at {name}: finite cold logliks")
+        print(f"# V=1e5 S=96 G=16 --pt {MESH_R}, 20 sweeps, {name}: peak allocated device "
+              f"bytes by rank {peaks[name]['peaks']} (one device: "
+              f"{peaks.get('one', {}).get('peaks')}), collectives "
+              f"a sweep {peaks[name]['collectives_per_sweep']}, {time.time() - t0:.2f} s")
+
+    # (g) with two cards or more: the mesh over NCCL, one card a rank
+    mesh_nccl(tmp, csv, t, ref, ref_pt)
 
     # (a), (b): a 1x1 mesh over NCCL, in process
     with one_rank_world():
@@ -2161,6 +2402,20 @@ def phase_mesh(tmp):
         gate(torch.equal(res.tau_star.cpu(), ref.tau_star[0].cpu())
              and torch.allclose(trace, want, rtol=1e-5, atol=0),
              "1x1 mesh: tau_star equal to run_chain's, trace within rtol 1e-5")
+
+        # (k) parallel tempering on the 1x1 mesh: run_chain_pt bit for bit
+        ops.reset_launches()
+        res = run_chain_pt_sharded(t.data.counts, cfg, 0, MESH_R, 8.0, make_mesh(1, 1),
+                                   device="cuda")
+        launches = read_launches()
+        MESH_LAUNCHES.update(launches)
+        same = [name for name, a, b in zip(ref_pt._fields, res, ref_pt)
+                if not ((a is None and b is None) or torch.equal(a.cpu(), b.cpu()))]
+        print(f"# 1x1 mesh run_chain_pt_sharded over NCCL: launches {launches}, fields "
+              f"not bitwise run_chain_pt's: {same}")
+        gate(not same, "1x1 mesh: run_chain_pt_sharded bitwise run_chain_pt in every field")
+        gate(launches["tau_sweep"] == launches["swap"] == MESH_R * MESH_SWEEPS,
+             f"1x1 mesh PT: tau and swap launched {MESH_R} x {MESH_SWEEPS} times")
 
         # the host µs of the layer's all_reduce over NCCL (a 1-rank axis
         # makes none in a sweep: timed on the world group directly)

@@ -7,7 +7,9 @@ against; this package imports neither jax nor pandas.
 """
 
 from .io import CountsData, read_counts_csv
-from .sampler import SamplerConfig, SamplerResult, run_chain
+from .sampler import (
+    SamplerConfig, SamplerResult, run_chain, run_chain_pt, run_chains,
+)
 
 __version__ = "0.1.0"
 
@@ -17,4 +19,6 @@ __all__ = [
     "SamplerConfig",
     "SamplerResult",
     "run_chain",
+    "run_chain_pt",
+    "run_chains",
 ]

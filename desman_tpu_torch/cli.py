@@ -34,8 +34,13 @@
 ``desman --mesh CxD`` runs on a (chain, data) mesh of C*D ranks: under
 torchrun it joins torchrun's world (C*D must be its size); otherwise it
 starts the C*D ranks on this host itself, forwards SIGTERM to them, and
-kills the rest when one fails. With --pt or --auto_* it exits with code 2
-naming the ROADMAP item that will port them; no flag is silently ignored.
+kills the rest when one fails. It composes with --chains (a multiple of
+C), --pt R (the replicas on the chain axis: R a multiple of C, no
+--chains), --auto_* and --checkpoint (a directory), and refuses what the
+JAX CLI refuses with exit code 2; no flag is silently ignored.
+``--debug`` (anywhere in the arguments) turns on the NaN trap: every sweep's
+loglik, gamma, eta and mix are checked, and the first non-finite value
+raises FloatingPointError naming the sweep and the field.
 ``--device cuda`` (the default) never falls back to the CPU: without CUDA it
 exits with code 2. ``--kernel cuda_topk`` on counts with a cell of more
 than two observed bases exits with code 1 and says so; it never switches to
@@ -143,9 +148,10 @@ def _desman_parser() -> argparse.ArgumentParser:
                     "DIR/trace.json (one chain; --chains > 1 runs untraced)")
     ap.add_argument("--mesh", default=None, metavar="CHAINxDATA",
                     help="shard over a mesh of ranks, e.g. 2x4 (chain x "
-                    "position axes); requires --chains a multiple of the "
-                    "chain axis (with --checkpoint, a directory); joins "
-                    "torchrun's world, else starts the ranks on this host")
+                    "position axes); requires --chains (or --pt's replicas) "
+                    "a multiple of the chain axis (with --checkpoint, a "
+                    "directory); joins torchrun's world, else starts the "
+                    "ranks on this host")
     _add_device(ap)
     ap.add_argument("--kernel",
                     choices=["cuda", "cuda_resident", "cuda_topk", "torch"],
@@ -163,18 +169,18 @@ def _desman_parser() -> argparse.ArgumentParser:
 
 
 def _desman_refusal(args) -> str:
-    """The JAX CLI's checks of a flag combination, and what a mesh does
-    not run yet: the message of a refused combination, else ''."""
-    from .run import AUTO_PT_SINGLE_CHAIN, mesh_waiting
+    """The JAX CLI's checks of a flag combination, in its order: the
+    message of a refused combination, else ''."""
+    from .run import AUTO_PT_SINGLE_CHAIN, PT_MESH_CHAINS, pt_mesh_split
 
     auto = args.auto_burn or args.auto_samples > 0
-    waiting = args.mesh and mesh_waiting(args.pt >= 2, auto)
-    if waiting:
-        return waiting
-    # the JAX CLI's capability check: auto-length PT runs one chain,
-    # without checkpoints
-    if auto and args.pt >= 2 and (args.checkpoint or args.chains > 1):
+    pt = args.pt >= 2
+    # the JAX CLI's capability check: auto-length PT runs one chain, on one
+    # device, without checkpoints
+    if auto and pt and (args.mesh or args.checkpoint or args.chains > 1):
         return AUTO_PT_SINGLE_CHAIN
+    if args.mesh and pt and args.chains > 1:
+        return PT_MESH_CHAINS
     if args.kernel == "cuda_resident" and (
             args.mesh or args.pt >= 2 or auto or args.checkpoint
             or args.store_every or args.tau_fixed or args.eta_update == "rows"):
@@ -187,7 +193,11 @@ def _desman_refusal(args) -> str:
             c, _ = _mesh_shape(args.mesh)
         except ValueError:
             return f"--mesh expects CHAINxDATA, e.g. 2x4, not {args.mesh!r}"
-        if not (args.checkpoint and args.chains <= 1) and args.chains % c:
+        if pt:
+            return pt_mesh_split(args.pt, c) or ""
+        # one checkpointed chain runs on every chain row alike
+        single = args.checkpoint and args.chains <= 1 and not auto
+        if not single and args.chains % c:
             return (f"--mesh {args.mesh} needs --chains a multiple of its "
                     f"chain axis {c}, not {args.chains}")
     return ""
@@ -217,13 +227,18 @@ def _desman(argv) -> int:
         if c * d > 1 and not (distributed.initialized()
                               or "RANK" in os.environ):
             # no world to join: start the ranks here, one process each
-            return distributed.launch(_desman_rank, c * d, (argv,))
+            from .sampler import nan_trap
+
+            return distributed.launch(_desman_rank, c * d, (argv, nan_trap()))
     return _desman_main(args)
 
 
-def _desman_rank(argv) -> int:
+def _desman_rank(argv, debug: bool = False) -> int:
     """One rank of a world `desman --mesh` started: CPU ranks share the
-    host's cores."""
+    host's cores; `debug` carries --debug's NaN trap to the rank."""
+    from .sampler import set_nan_trap
+
+    set_nan_trap(debug)
     args = _desman_parser().parse_args(argv)
     if args.device == "cpu":
         import torch
@@ -237,7 +252,9 @@ def _desman_main(args) -> int:
     from . import io
     from .checkpoint import Preempted, install_preemption_handler
     from .ops import TopkInapplicable
-    from .run import RunConfig, run, run_multi
+    from .run import (
+        RunConfig, run, run_multi, run_pt_sharded, run_sharded_checkpointed,
+    )
 
     data = io.read_counts_csv(args.variant_file)
     rc = RunConfig(
@@ -270,10 +287,11 @@ def _desman_main(args) -> int:
         # SIGTERM (preemption) -> finish the in-flight segment, commit its
         # checkpoint, exit 75 (resumable)
         install_preemption_handler()
-    try:
-        if mesh is not None and args.checkpoint and args.chains <= 1:
-            from .run import run_sharded_checkpointed
-
+    auto = args.auto_burn or args.auto_samples > 0
+    try:   # the JAX CLI's routing, in its order
+        if mesh is not None and args.pt >= 2:
+            run_pt_sharded(data, rc, mesh, device=args.device, kernel=args.kernel)
+        elif mesh is not None and args.checkpoint and args.chains <= 1 and not auto:
             run_sharded_checkpointed(data, rc, mesh, device=args.device,
                                      kernel=args.kernel)
         elif args.chains > 1 or mesh is not None:
@@ -812,6 +830,22 @@ _COMMANDS = {
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if "--debug" in argv:
+        # the NaN trap (the JAX CLI's jax_debug_nans), taken from anywhere in
+        # the arguments, for this call
+        from .sampler import nan_trap, set_nan_trap
+
+        argv.remove("--debug")
+        was = nan_trap()
+        set_nan_trap(True)
+        try:
+            return _main(argv)
+        finally:
+            set_nan_trap(was)
+    return _main(argv)
+
+
+def _main(argv) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0 if argv else 1

@@ -1,6 +1,7 @@
 """Convergence-adaptive runs: stop burning in when the chain plateaus, and
-optionally sample until an ESS target (counterpart of ``desman_tpu.converge``
-without its mesh part; ``run_chain_pt_auto`` for parallel tempering).
+optionally sample until an ESS target (counterpart of ``desman_tpu.converge``;
+``run_chain_pt_auto`` for parallel tempering, ``run_chains_auto(mesh=)`` on
+a mesh of ranks).
 
 Burn-in advances in segments (``sampler.run_segment``) that accumulate
 nothing until the segment-mean log-likelihood stops improving; then at
@@ -18,14 +19,16 @@ import numpy as np
 import torch
 
 from .checkpoint import (
-    _DrawBuf, advance_chains, check_preempted, init_chains, load, load_extras,
-    prepare, restore_generators, save, stack, stacked_result, unstack,
+    PREEMPTED_MESSAGE, Preempted, _DrawBuf, _numpy, advance_chains, init_chains,
+    load, load_extras, prepare, restore_generators, save, stack, stacked_result,
+    take_preempted, unstack,
 )
 from .diagnostics import ess_bulk
 from .sampler import (
-    SamplerConfig, TorchNoise, _result_from_accum, chain_generator,
-    chain_result, init_accum, make_pt_step, pt_generators, pt_init,
-    pt_merge_accums, pt_noises, pt_swap_rate, run_pt_segment,
+    DRAW_FIELDS, SamplerConfig, SamplerResult, TorchNoise, _result_from_accum,
+    chain_generator, chain_result, check_store_thin, init_accum, make_pt_step,
+    pt_generators, pt_init, pt_merge_accums, pt_noises, pt_swap_rate,
+    run_pt_segment, stored_slots,
 )
 
 # phase 1's burn override: no sweep accumulates, kappa keeps adapting
@@ -143,13 +146,13 @@ def run_chain_auto(
     chain of ``run_chains_auto``.
     """
     res, burn_used, samples_used = _run_auto(
-        n, cfg, [generator], eta_init, tau_init, check_every, rel_tol, max_burn,
-        kernel, None, ess_target, max_samples)
+        _Chains(n, cfg, [generator], eta_init, tau_init, kernel, None), cfg,
+        check_every, rel_tol, max_burn, ess_target, max_samples)
     return chain_result(res, 0), burn_used, samples_used
 
 
 def run_chains_auto(
-    n: torch.Tensor,
+    n,
     cfg: SamplerConfig,
     seeds: Sequence[int],
     eta_init=None,
@@ -161,6 +164,8 @@ def run_chains_auto(
     checkpoint_path: Optional[str] = None,
     ess_target: float = 0.0,
     max_samples: int = 0,
+    mesh=None,
+    device="cuda",
 ):
     """Multi-chain ``run_chain_auto`` with optional checkpoint/resume.
 
@@ -176,17 +181,185 @@ def run_chains_auto(
     SIGTERM raises ``checkpoint.Preempted`` at the next segment boundary,
     and a resumed run reproduces an uninterrupted one. Returns (stacked
     SamplerResult, burn_used, samples_used).
+
+    ``mesh``: run on a (chain, data) mesh of ranks (call on every rank
+    with the same arguments; n is then the host counts and `device` each
+    rank's by the device rule): positions over the data axis, the chains
+    split over the chain axis (len(seeds) a multiple of it), as
+    ``parallel.run_chains_sharded``. Every rank decides each plateau and
+    ESS verdict on the whole [C, seg] trace, gathered over the chain axis,
+    so all decide alike. ``checkpoint_path`` is then a directory of shard
+    files (``parallel.shard_ckpt``, the detector's state in its extras
+    channel; SIGTERM agreed at each segment head), and a step resumes on
+    another mesh shape. Without a checkpoint the chains' gamma draws are
+    gathered for the ESS verdict; with one they stay in the shard files and
+    the loglik bulk ESS alone gates, as in the JAX package. The result is
+    ``Shard.gather``'s: tau_mean, tau_star and the draws on the
+    coordinator alone.
     """
-    generators = [chain_generator(s, n.device) for s in seeds]
-    return _run_auto(n, cfg, generators, eta_init, tau_init, check_every, rel_tol,
-                     max_burn, kernel, checkpoint_path, ess_target, max_samples)
+    if mesh is None:
+        chains = _Chains(n, cfg, [chain_generator(s, n.device) for s in seeds],
+                         eta_init, tau_init, kernel, checkpoint_path)
+    else:
+        chains = _ShardChains(n, cfg, seeds, mesh, device, kernel, eta_init,
+                              tau_init, checkpoint_path)
+    return _run_auto(chains, cfg, check_every, rel_tol, max_burn, ess_target,
+                     max_samples)
 
 
-def _run_auto(n, cfg: SamplerConfig, generators, eta_init, tau_init,
-              check_every: int, rel_tol: float, max_burn: int, kernel,
-              checkpoint_path: Optional[str], ess_target: float, max_samples: int):
-    n, ks = prepare(n, cfg, kernel)
-    C = len(generators)
+class _Chains:
+    """The chains of an auto run on one device: their states, accumulators,
+    generators and stored draws, and the snapshot file."""
+
+    def __init__(self, n, cfg: SamplerConfig, generators, eta_init, tau_init,
+                 kernel, checkpoint_path: Optional[str]):
+        self.n, self.ks = prepare(n, cfg, kernel)
+        self.cfg, self.generators, self.path = cfg, generators, checkpoint_path
+        self.n_chains, self.device = len(generators), self.n.device
+        self.draws = _DrawBuf()
+        self.eta_init, self.tau_init = eta_init, tau_init
+
+    def start(self):
+        """Restore the committed snapshot: (it, trace [C, it], extras); or
+        start the chains afresh: None."""
+        if self.path and os.path.exists(self.path):
+            state, accum, it, trace_done, gen_state = load(self.path, self.device)
+            self.states, self.accums = unstack(state), unstack(accum)
+            restore_generators(self.generators, gen_state)
+            ex = load_extras(self.path)
+            self.draws = _DrawBuf(ex)  # phase-2 draws stored so far (if any)
+            out = it, np.asarray(trace_done)[:, :it], ex
+        else:
+            self.states, self.accums = init_chains(
+                self.n, self.cfg, self.generators, self.eta_init, self.tau_init)
+            out = None
+        self.noises = [TorchNoise(g) for g in self.generators]
+        return out
+
+    def preempted(self) -> bool:
+        return take_preempted()
+
+    def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
+        """Every chain one segment; the host trace [C, seg]."""
+        trace, seg_draws = advance_chains(self.n, self.cfg, self.states, self.accums,
+                                          self.noises, it, seg, self.ks, burn=burn,
+                                          store=store)
+        if seg_draws is not None:
+            self.draws.append(*seg_draws, axis=1)
+        return trace
+
+    def fresh_accums(self) -> None:
+        V, S, _ = self.n.shape
+        self.accums[:] = [init_accum(V, S, self.cfg.G, self.device)
+                          for _ in range(self.n_chains)]
+
+    def gamma_draws(self):
+        """Every chain's stored gamma draws [C, k, S, G], or None."""
+        return self.draws.extras(axis=1).get("draw_gamma")
+
+    def snapshot(self, it: int, trace: np.ndarray, extras: dict) -> None:
+        save(self.path, stack(self.states), stack(self.accums), it, trace,
+             self.generators, extras={**extras, **self.draws.extras(axis=1)})
+
+    def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
+        return stacked_result(self.accums, cfg, trace, self.draws, self.device)
+
+
+class _ShardChains(_Chains):
+    """The chains of an auto run on a mesh: this rank's share of them on its
+    block of positions (``parallel.sharded.Shard``)."""
+
+    def __init__(self, counts, cfg: SamplerConfig, seeds, mesh, device, kernel,
+                 eta_init, tau_init, checkpoint_path: Optional[str]):
+        from .parallel.sharded import Shard
+
+        check_store_thin(cfg)
+        self.sh = sh = Shard(counts, mesh, device, kernel)
+        self.mine = sh.chains(len(seeds))
+        self.generators = [chain_generator(seeds[i], sh.device) for i in self.mine]
+        self.cfg, self.path, self.n_chains = cfg, checkpoint_path, len(seeds)
+        self.device, self.draws, self.gamma = sh.device, _DrawBuf(), []
+        self.eta_init, self.tau_init = eta_init, tau_init
+
+    def start(self):
+        from .parallel import shard_ckpt
+
+        sh, out = self.sh, None
+        if self.path and shard_ckpt.latest_step(self.path) is not None:
+            self.states, self.accums, it, _, gen_state = shard_ckpt.load_sharded(
+                self.path, sh, self.mine, self.n_chains, sh.device)
+            restore_generators(self.generators, gen_state)
+            ex = shard_ckpt.load_extras_sharded(self.path)
+            out = it, ex["trace"][:, :it], ex
+        else:
+            self.states = sh.init(self.cfg, self.generators, self.eta_init, self.tau_init)
+            self.fresh_accums()
+        if self.path:
+            if sh.world.index == 0:
+                shard_ckpt.clear_draws_from(self.path, 0 if out is None else out[0])
+            sh.world.barrier()
+        self.noises = [sh.noise(g) for g in self.generators]
+        return out
+
+    def preempted(self) -> bool:
+        return self.sh.world.any(take_preempted())
+
+    def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
+        from .parallel import shard_ckpt
+
+        sh, traces, seg_draws = self.sh, [], []
+        for i, noise in enumerate(self.noises):
+            out = sh.segment(self.cfg, self.states[i], self.accums[i], it, seg, noise,
+                             burn=burn, store=store)
+            self.states[i], self.accums[i] = out[:2]
+            traces.append(out[2])
+            if store:
+                seg_draws.append(out[3])
+        slots = stored_slots(it, seg, burn, self.cfg.store_thin) if store else []
+        if slots:
+            draws = tuple(torch.stack(d) for d in zip(*seg_draws))
+            if self.path:   # each rank its blocks, in the shard files
+                shard_ckpt.save_draw_shards(self.path, sh, self.mine, it,
+                                            [it + j for j in slots],
+                                            tuple(_numpy(d) for d in draws))
+            else:   # kept here; every chain's gamma draws for the verdict
+                self.draws.append(*(_numpy(d) for d in draws), axis=1)
+                self.gamma.append(_numpy(sh.chain.gather(draws[1]).flatten(0, 1)))
+        return _numpy(sh.chain.gather(torch.stack(traces)).flatten(0, 1))
+
+    def fresh_accums(self) -> None:
+        self.accums = [self.sh.accum(self.cfg) for _ in self.mine]
+
+    def gamma_draws(self):
+        return np.concatenate(self.gamma, axis=1) if self.gamma else None
+
+    def snapshot(self, it: int, trace: np.ndarray, extras: dict) -> None:
+        from .parallel import shard_ckpt
+
+        shard_ckpt.save_sharded(self.path, self.sh, self.mine, self.n_chains,
+                                self.states, self.accums, self.generators, it, None,
+                                extras={**extras, "trace": trace})
+
+    def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
+        from .parallel import shard_ckpt
+
+        sh = self.sh
+        mine = stacked_result(self.accums, cfg, trace[self.mine.start:self.mine.stop],
+                              self.draws, sh.device)
+        res = sh.gather(mine)
+        if self.cfg.store_samples and self.path:
+            sh.world.barrier()   # every rank's draw files are on disk
+            if sh.world.index == 0:
+                draws = shard_ckpt.assemble_draws(self.path, self.n_chains, sh.V, sh.S,
+                                                  cfg.G)
+                res = res._replace(**{f: torch.from_numpy(draws[k]) for f, k in zip(
+                    DRAW_FIELDS, ("tau", "gamma", "eta")) if k in draws})
+        return res
+
+
+def _run_auto(chains: _Chains, cfg: SamplerConfig, check_every: int, rel_tol: float,
+              max_burn: int, ess_target: float, max_samples: int):
+    C = chains.n_chains
     max_burn = max(max_burn, cfg.burn)
 
     it = 0
@@ -195,35 +368,27 @@ def _run_auto(n, cfg: SamplerConfig, generators, eta_init, tau_init,
     done = np.zeros(C, bool)
     hits = np.zeros(C, np.int64)  # consecutive plateau verdicts per chain
     trace_parts = []
-    draws = _DrawBuf()
-    if checkpoint_path and os.path.exists(checkpoint_path):
-        state, accum, it, trace_done, gen_state = load(checkpoint_path, n.device)
-        states, accums = unstack(state), unstack(accum)
-        restore_generators(generators, gen_state)
-        ex = load_extras(checkpoint_path)
+    resumed = chains.start()
+    if resumed is not None:
+        it, trace_done, ex = resumed
         burn_used = int(ex["burn_used"])
         prev_mean = np.asarray(ex["prev_mean"], np.float64)
         done = np.asarray(ex["done"]).astype(bool)
         hits = np.asarray(ex["hits"], np.int64)
-        trace_parts = [np.asarray(trace_done)[:, :it]]
-        draws = _DrawBuf(ex)  # phase-2 draws stored so far (if any)
-    else:
-        states, accums = init_chains(n, cfg, generators, eta_init, tau_init)
-    noises = [TorchNoise(g) for g in generators]
+        trace_parts = [np.asarray(trace_done)]
+    checkpointed = bool(chains.path)
 
     def snapshot():
-        if not checkpoint_path:
+        if not checkpointed:
             return
         trace = (np.concatenate(trace_parts, axis=1) if trace_parts
                  else np.zeros((C, 0), np.float32))
-        save(checkpoint_path, stack(states), stack(accums), it, trace,
-             generators, extras={"burn_used": burn_used, "prev_mean": prev_mean,
-                                 "done": done, "hits": hits,
-                                 **draws.extras(axis=1)})
+        chains.snapshot(it, trace, {"burn_used": burn_used, "prev_mean": prev_mean,
+                                    "done": done, "hits": hits})
 
     def segment_head():
-        if checkpoint_path:
-            check_preempted()
+        if checkpointed and chains.preempted():
+            raise Preempted(PREEMPTED_MESSAGE)
 
     # phase 1: burn until every chain plateaus (the accums are scratch)
     while burn_used < 0:
@@ -233,8 +398,7 @@ def _run_auto(n, cfg: SamplerConfig, generators, eta_init, tau_init,
             break
         segment_head()
         seg = min(check_every, max_burn - it)
-        trace, _ = advance_chains(n, cfg, states, accums, noises, it, seg, ks,
-                                  burn=_NEVER)
+        trace = chains.advance(it, seg, _NEVER)
         it += seg
         trace_parts.append(trace)
         prev_mean, hits = plateau_step(trace, prev_mean, hits, it, cfg.burn,
@@ -255,29 +419,21 @@ def _run_auto(n, cfg: SamplerConfig, generators, eta_init, tau_init,
             if not (ess_target > 0 and it < cap):
                 break
             post = np.concatenate(trace_parts, axis=1)[:, burn_used:]
-            gd = draws.extras(axis=1).get("draw_gamma")  # [C,k,S,G] or None
-            if not _need_extension(post, gd, ess_target):
+            if not _need_extension(post, chains.gamma_draws(), ess_target):
                 break
             target = min(it + check_every, cap)
         segment_head()
         if it == burn_used:  # entering phase 2: drop the scratch accums
-            V, S, _ = n.shape
-            accums[:] = [init_accum(V, S, cfg.G, n.device) for _ in range(C)]
+            chains.fresh_accums()
         seg = (min(check_every, target - it)
-               if (checkpoint_path or ess_target > 0) else target - it)
-        trace, seg_draws = advance_chains(n, cfg, states, accums, noises, it, seg,
-                                          ks, burn=burn_used,
-                                          store=cfg.store_samples)
-        if seg_draws is not None:
-            draws.append(*seg_draws, axis=1)
+               if (checkpointed or ess_target > 0) else target - it)
+        trace_parts.append(chains.advance(it, seg, burn_used, cfg.store_samples))
         it += seg
-        trace_parts.append(trace)
         snapshot()
 
     res_cfg = replace(cfg, burn=0, samples=it - burn_used)
-    res = stacked_result(accums, res_cfg, np.concatenate(trace_parts, axis=1),
-                         draws, n.device)
-    return res, burn_used, it - burn_used
+    return (chains.result(res_cfg, np.concatenate(trace_parts, axis=1)), burn_used,
+            it - burn_used)
 
 
 def run_chain_pt_auto(

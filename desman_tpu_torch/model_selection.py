@@ -5,7 +5,8 @@
 per seed (``sampler.run_chains``, or ``converge.run_chains_auto`` to an
 ESS target), with the kernel choice bound to the counts once for the
 whole grid; or on a (chain, data) mesh of ranks, the seeds over its chain
-axis (``parallel.run_chains_sharded``). The JAX package compiles one
+axis (``parallel.run_chains_sharded``, or ``converge.run_chains_auto(mesh=)``
+to an ESS target). The JAX package compiles one
 program per G ahead of time in a thread pool; eager PyTorch has nothing to
 compile, so the port loops over G. ``resolve_nhap`` picks G from the runs' posterior
 mean deviances and SNV uncertainties, over the same fit.txt conventions.
@@ -133,9 +134,9 @@ def fit_grid(
     fit_grid on every rank with the same arguments): each G's seeds split
     over its chain axis (len(seeds) a multiple of it), positions over its
     data axis, `device` each rank's by the device rule; the coordinator
-    decides elastic resume and writes the run directories. Refused with
-    ``cuda_resident`` (single-device) and with ``ess_target`` (ROADMAP
-    queue 1 item 15).
+    decides elastic resume and writes the run directories; with
+    ``ess_target`` each G runs ``converge.run_chains_auto(mesh=...)``.
+    Refused with ``cuda_resident`` (single-device).
     """
     axes = None
     if mesh is not None:
@@ -143,9 +144,6 @@ def fit_grid(
 
         if kernel == "cuda_resident":
             raise ValueError(RESIDENT_SINGLE_DEVICE)
-        if ess_target > 0:
-            raise ValueError("fit_grid(mesh=...) with ess_target is not ported "
-                             "to desman_tpu_torch yet (ROADMAP queue 1 item 15)")
         device = rank_device(device)
         axes = mesh_axes(mesh, device)
     device = torch.device(device)
@@ -201,19 +199,23 @@ def fit_grid(
                 [f"{out_stub}_{G}_{int(s)}" for s in seeds], unc_threshold))
             continue
         cfg = fp_cfg = make_cfg(G)
-        if mesh is not None:
-            from .parallel.sharded import run_chains_sharded
-
-            res = run_chains_sharded(counts, cfg, seeds, mesh, eta_init=eta,
-                                     kernel=kernel, device=device)
-        elif ess_target > 0:
-            res, _, samples_used = run_chains_auto(
-                n, cfg, seeds, eta_init=eta, max_burn=cfg.burn, kernel=ks,
-                ess_target=ess_target, max_samples=max_samples)
+        if ess_target > 0:
+            ess = dict(eta_init=eta, max_burn=cfg.burn, ess_target=ess_target,
+                       max_samples=max_samples)
+            if mesh is None:
+                res, _, samples_used = run_chains_auto(n, cfg, seeds, kernel=ks, **ess)
+            else:
+                res, _, samples_used = run_chains_auto(
+                    counts, cfg, seeds, kernel=kernel, mesh=mesh, device=device, **ess)
             # write_outputs reports the sampling length run; the
             # fingerprint stays on the base config (the regime salts the
             # digest)
             cfg = dataclasses.replace(cfg, samples=samples_used)
+        elif mesh is not None:
+            from .parallel.sharded import run_chains_sharded
+
+            res = run_chains_sharded(counts, cfg, seeds, mesh, eta_init=eta,
+                                     kernel=kernel, device=device)
         else:
             res = run_chains(n, cfg, seeds, eta_init=eta, kernel=ks)
         trace = res.loglik_trace.cpu().numpy().astype(np.float64)

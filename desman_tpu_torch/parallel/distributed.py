@@ -196,42 +196,54 @@ class Axis:
         one = torch.tensor(int(bool(flag)), dtype=torch.int32, device=self.device)
         return bool(self.sum(one).item())
 
+    def pick(self, x: torch.Tensor, mine) -> torch.Tensor:
+        """x of the one rank whose ``mine`` (a 0-d bool tensor) is true, on
+        every rank: the others add zeros, so the sum is exact. An axis of
+        one rank exchanges nothing."""
+        if self.size == 1:
+            return x
+        return exchange(torch.where(mine, x, torch.zeros_like(x)), self)
+
     def barrier(self) -> None:
         self.any(False)
 
 
 class MeshAxes:
     """This rank's place on a mesh: its chain row c and data column d, the
-    row's data axis and the world axis."""
+    row's data axis, the column's chain axis (one rank of each row, in row
+    order) and the world axis."""
 
-    def __init__(self, mesh, c: int, d: int, data: Axis, world: Axis):
-        self.mesh, self.c, self.d, self.data, self.world = mesh, c, d, data, world
+    def __init__(self, mesh, c: int, d: int, data: Axis, chain: Axis, world: Axis):
+        self.mesh, self.c, self.d = mesh, c, d
+        self.data, self.chain, self.world = data, chain, world
 
 
 _AXES: dict = {}
 
 
 def mesh_axes(mesh, device: torch.device) -> MeshAxes:
-    """The rank's MeshAxes; the row groups (and, beside NCCL, the world's
-    gloo group for ``Axis.collect``) are made once a mesh (every rank
-    makes every group, in the same order)."""
+    """The rank's MeshAxes; the row groups, the column groups (and, beside
+    NCCL, the world's gloo group for ``Axis.collect``) are made once a mesh
+    (every rank makes every group, in the same order)."""
     if not initialized():
         if mesh.size != 1:
             raise RuntimeError(
                 f"a {mesh} mesh needs a process group of {mesh.size} ranks: run "
                 "under torchrun, or through `desman --mesh`, which starts them")
         return MeshAxes(mesh, 0, 0, Axis(None, 1, 0, device),
-                        Axis(None, 1, 0, device))
+                        Axis(None, 1, 0, device), Axis(None, 1, 0, device))
     world, r = dist.get_world_size(), dist.get_rank()
     if mesh.size != world:
         raise ValueError(f"mesh {mesh.n_chain}x{mesh.n_data} != {world} devices")
     key = (mesh.n_chain, mesh.n_data, str(device))
     if key not in _AXES:
         rows = [dist.new_group(mesh.row(c)) for c in range(mesh.n_chain)]
+        cols = [dist.new_group(mesh.column(d)) for d in range(mesh.n_data)]
         host = (dist.group.WORLD if dist.get_backend() == "gloo"
                 else dist.new_group(backend="gloo"))
         c, d = mesh.coords(r)
         _AXES[key] = MeshAxes(mesh, c, d, Axis(rows[c], mesh.n_data, d, device),
+                              Axis(cols[d], mesh.n_chain, c, device),
                               Axis(dist.group.WORLD, world, r, device, host))
     return _AXES[key]
 

@@ -48,6 +48,10 @@ class Mesh:
         """The ranks of chain row c, in data order."""
         return list(range(c * self.n_data, (c + 1) * self.n_data))
 
+    def column(self, d: int) -> list:
+        """The ranks of data column d, in chain order."""
+        return list(range(d, self.size, self.n_data))
+
     def block(self, Vp: int, d: int) -> Tuple[int, int]:
         """[lo, hi) of data column d's positions, of Vp (a multiple of
         n_data)."""

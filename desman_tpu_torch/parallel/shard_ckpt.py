@@ -17,13 +17,19 @@ A checkpoint directory (on a file system every rank shares):
                          written by the row's first rank only
     p{rank}_draws_s{s}.npz  the thinned draws of the segment from sweep s
                          (--store_every), keyed the same way
+    extras_it{it}.npz    the extras channel: what every rank holds alike
+                         and no field above carries (a PT run's rung
+                         vector, exchange counters, exchange generator and
+                         cold trace; an auto run's plateau state), written
+                         by the coordinator before the manifest
     manifest.json        the commit record: it, V, the padded V, the chain
                          count, the mesh, each field's global shape and
                          dtype. The coordinator writes it last, by rename,
                          after every rank's file is on disk.
 
 When chain rows replicate one chain (a single chain on an n_chain > 1
-mesh), only row 0 writes.
+mesh), only row 0 writes. A PT ensemble's R replicas take the place of
+chains, so its checkpoint resumes on another mesh shape as chains do.
 """
 from __future__ import annotations
 
@@ -76,12 +82,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def save_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, states,
-                 accums, generators, it: int, trace: np.ndarray,
-                 replicated: bool = False) -> None:
+                 accums, generators, it: int, trace: Optional[np.ndarray],
+                 replicated: bool = False, extras: Optional[dict] = None) -> None:
     """Write one step: every rank its blocks, then (after a barrier) the
-    coordinator's manifest, the commit point; then the coordinator drops
-    the files of earlier steps. trace: the rank's chains' [k, it] host
-    loglik traces."""
+    coordinator's extras and manifest, the commit point; then the
+    coordinator drops the files of earlier steps. trace: the rank's chains'
+    [k, it] host loglik traces (None: none per chain). extras: host arrays
+    every rank holds alike, read back by ``load_extras_sharded``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     write_rows, write_chain = _writes(shard, replicated)
     c0 = chains.start
@@ -89,7 +96,8 @@ def save_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, states,
     leaves = [(f"state_{k}", v) for k, v in zip(_STATE_FIELDS, st)]
     leaves += [(f"accum_{k}", v) for k, v in zip(_ACCUM_FIELDS, ac)]
     leaves.append(("generator_state", torch.stack([g.get_state() for g in generators])))
-    leaves.append(("trace", torch.as_tensor(np.asarray(trace, np.float32))))
+    if trace is not None:
+        leaves.append(("trace", torch.as_tensor(np.asarray(trace, np.float32))))
     fields, payload = {}, {}
     for name, x in leaves:
         x = _numpy(x)
@@ -107,6 +115,9 @@ def save_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, states,
         _atomic_savez(spath, payload)
     shard.world.barrier()               # every rank's blocks are on disk ...
     if is_coordinator():                # ... before the commit record
+        if extras is not None:
+            _atomic_savez(os.path.join(ckpt_dir, f"extras_it{it}.npz"),
+                          {k: np.asarray(v) for k, v in extras.items()})
         mpath = os.path.join(ckpt_dir, "manifest.json")
         with open(mpath + ".tmp", "w") as f:
             json.dump({"it": int(it), "V": shard.V, "Vp": shard.Vp,
@@ -114,10 +125,21 @@ def save_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, states,
                                                     shard.mesh.n_data],
                        "n_proc": shard.world.size, "fields": fields}, f)
         os.replace(mpath + ".tmp", mpath)
-        for old in glob.glob(os.path.join(ckpt_dir, "p*_it*.npz")):
-            if not old.endswith(f"_it{it}.npz"):
-                os.remove(old)
+        for pattern in ("p*_it*.npz", "extras_it*.npz"):
+            for old in glob.glob(os.path.join(ckpt_dir, pattern)):
+                if not old.endswith(f"_it{it}.npz"):
+                    os.remove(old)
     shard.world.barrier()
+
+
+def load_extras_sharded(ckpt_dir: str) -> dict:
+    """The committed step's extras (``save_sharded``), {} when it has
+    none."""
+    path = os.path.join(ckpt_dir, f"extras_it{latest_step(ckpt_dir)}.npz")
+    if not os.path.isfile(path):
+        return {}
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _offsets(tag: str, ndim: int) -> tuple:
@@ -165,9 +187,10 @@ def _blocks(paths) -> dict:
 
 def load_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, device):
     """The committed step rebuilt for this rank's place: (states, accums,
-    it, trace [k, it] host, generator states [k, ...] uint8) of its chains
-    and its rows. Rows past the writer's padded V (a layout that pads
-    further) start as pad rows: base A, the mixture of gamma."""
+    it, trace [k, it] host (None when the step has none per chain),
+    generator states [k, ...] uint8) of its chains and its rows. Rows past
+    the writer's padded V (a layout that pads further) start as pad rows:
+    base A, the mixture of gamma."""
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
         manifest = json.load(f)
     it = int(manifest["it"])
@@ -203,7 +226,8 @@ def load_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, device):
             mix = s.mix.clone()
             mix[start:] = mixture(one_hot_tau(s.tau[start:]), s.gamma)
             states[i] = s._replace(mix=mix)
-    return states, accums, it, build("trace"), build("generator_state")
+    trace = build("trace") if "trace" in manifest["fields"] else None
+    return states, accums, it, trace, build("generator_state")
 
 
 def save_draw_shards(ckpt_dir: str, shard, chains: range, start_it: int, sweeps,

@@ -1,5 +1,5 @@
 """Sampler runs over a (chain, data) mesh, one process a rank (counterpart
-of ``desman_tpu.parallel.sharded`` without parallel tempering).
+of ``desman_tpu.parallel.sharded``).
 
 Each rank holds one block of positions ``[lo, hi)`` of the counts padded
 to a multiple of the data axis, and runs the ordinary sweep on it: the
@@ -24,6 +24,19 @@ gathered with the padding stripped (``Shard.gather``): the per-position
 fields and the stored draws on the coordinator alone, on the host, and
 the per-chain fields on every rank; callers write files on the
 coordinator only.
+
+Parallel tempering (``run_chain_pt_sharded``) puts the R replicas in the
+place of chains: row c holds replicas [c R/C, (c+1) R/C) and their
+generators, every rank holds the exchange generator. After the row's
+replica sweeps one exchange on the chain axis (``Axis.gather`` of the
+[3, R/C] loglik and kappas; none on a chain axis of one rank) gives every
+rank the ensemble's [3, R], so every rank draws the same uniforms and
+computes the same rung (``sampler.make_pt_step``'s ``shard``). Only the
+winning row's blocks cross rows at the end: the star replica's through a
+masked exchange, the cold-rung sums (integer counts for tau) added over
+the rows, the stored draws (zeros on the rows not holding rung 0) added
+on the coordinator's host. So a 1x1 mesh is ``run_chain_pt`` bit for bit,
+and a Cx1 one too: its chain axis moves values, never adds them.
 """
 from __future__ import annotations
 
@@ -38,15 +51,17 @@ from ..checkpoint import (
 )
 from ..ops import compress_counts, resolve
 from ..sampler import (
-    DRAW_FIELDS, RESIDENT_SINGLE_DEVICE, SamplerConfig, SamplerResult,
-    TorchNoise, _result_from_accum, chain_generator, check_store_thin,
-    init_accum, init_state, make_sweep_fn, run_segment, stored_slots,
+    DRAW_FIELDS, RESIDENT_SINGLE_DEVICE, ExchangeNoise, ReplicaShard,
+    SamplerAccum, SamplerConfig, SamplerResult, TorchNoise, _result_from_accum,
+    chain_generator, chain_result, check_store_thin, init_accum, init_state,
+    make_sweep_fn, pt_generators, pt_merge_accums, pt_merge_stacked,
+    pt_swap_rate, run_pt_segment, run_segment, stored_slots,
 )
 from .distributed import exchange, is_coordinator, mesh_axes, rank_device
 from .mesh import Mesh, make_mesh, pad_positions, pad_tau
 from .shard_ckpt import (
-    assemble_draws, clear_draws_from, latest_step, load_sharded,
-    save_draw_shards, save_sharded,
+    assemble_draws, clear_draws_from, latest_step, load_extras_sharded,
+    load_sharded, save_draw_shards, save_sharded,
 )
 
 # result fields with a position axis, and where it is after the chain axis
@@ -104,7 +119,8 @@ class Shard:
         self.mesh = mesh or make_mesh()
         self.device = rank_device(device)
         ax = mesh_axes(self.mesh, self.device)
-        self.c, self.d, self.data, self.world = ax.c, ax.d, ax.data, ax.world
+        self.c, self.d = ax.c, ax.d
+        self.data, self.chain, self.world = ax.data, ax.chain, ax.world
         self.padded, self.V = pad_positions(np.asarray(counts, np.float32),
                                             self.mesh.n_data)
         self.Vp, self.S = self.padded.shape[:2]
@@ -112,14 +128,15 @@ class Shard:
         self.n = torch.as_tensor(self.padded[self.lo:self.hi], device=self.device)
         self.ks = shard_kernels(kernel, self.padded, self.n)
 
-    def chains(self, n_chains: int, replicated: bool = False) -> range:
-        """This row's chains of n_chains: a contiguous share, or all of
-        them when every row runs the same chains."""
+    def chains(self, n_chains: int, replicated: bool = False,
+               what: str = "chains") -> range:
+        """This row's chains (or PT replicas) of n_chains: a contiguous
+        share, or all of them when every row runs the same chains."""
         if replicated:
             return range(n_chains)
         k, r = divmod(n_chains, self.mesh.n_chain)
         if r or not k:
-            raise ValueError(f"{n_chains} chains do not split over the mesh's "
+            raise ValueError(f"{n_chains} {what} do not split over the mesh's "
                              f"chain axis of {self.mesh.n_chain}")
         return range(self.c * k, (self.c + 1) * k)
 
@@ -150,22 +167,56 @@ class Shard:
         """``sampler.run_segment`` on this block."""
         before = exchange.calls
         out = run_segment(self.n, cfg, state, accum, start_it, n_sweeps, noise,
-                          self.ks, burn=burn, store=store, psum=self.data.sum)
+                          self.ks, burn=burn, store=store, psum=self.data.sum,
+                          agree=self.world.sum)
         SWEEP_STATS["sweeps"] += n_sweeps
         SWEEP_STATS["collectives"] += exchange.calls - before
         return out
+
+    def replica_shard(self, R: int) -> ReplicaShard:
+        """This rank's part of an R-replica ensemble: its row's replicas,
+        the row's sums, the chain axis's gather (None on an axis of one
+        rank) and the world's NaN-trap agreement."""
+        replicas = self.chains(R, what="replicas")
+        gather = None
+        if self.chain.size > 1:
+            def gather(stats):   # [3, k] -> [C, 3, k] -> [3, R]
+                return self.chain.gather(stats).permute(1, 0, 2).reshape(3, R)
+        return ReplicaShard(replicas, self.data.sum, gather, self.world.sum)
+
+    def pt_segment(self, cfg: SamplerConfig, states, accums, rung, start_it: int,
+                   n_sweeps: int, noises, exchange_noise, max_temp: float,
+                   replicas: ReplicaShard, burn: Optional[int] = None,
+                   store: bool = False):
+        """``sampler.run_pt_segment`` of this rank's replicas on its block."""
+        before = exchange.calls
+        out = run_pt_segment(self.n, cfg, states, accums, rung, start_it, n_sweeps,
+                             noises, exchange_noise, max_temp, self.ks, burn=burn,
+                             store=store, shard=replicas)
+        SWEEP_STATS["sweeps"] += n_sweeps
+        SWEEP_STATS["collectives"] += exchange.calls - before
+        return out
+
+    def rows_add(self, x: torch.Tensor) -> torch.Tensor:
+        """The chain rows' x added (exact where at most one row's element
+        is not zero: a stored draw of the row that held rung 0)."""
+        return x if self.chain.size == 1 else exchange(x.clone(), self.chain)
 
     def sweep_fn(self, cfg: SamplerConfig):
         """``sampler.make_sweep_fn`` on this block's kernels and row."""
         return make_sweep_fn(cfg, self.ks, psum=self.data.sum)
 
-    def gather(self, local: SamplerResult, replicated: bool = False) -> SamplerResult:
+    def gather(self, local: SamplerResult, replicated: bool = False,
+               add_rows: bool = False) -> SamplerResult:
         """The whole result from every rank's part (this rank's chains
         stacked on a leading axis, rows [lo, hi)): chains in seed order,
         positions cut to the true V. The fields with a position axis and
         the stored draws reach the coordinator alone, on the host, in
         their own dtype (``Axis.collect``; None on the other ranks); the
-        rest reach every rank, on its device."""
+        rest reach every rank, on its device. ``replicated``: every row
+        holds the same chains, row 0's are kept; ``add_rows`` then adds the
+        rows' stored draws instead (a PT run's, each the zeros of the rows
+        that did not hold rung 0)."""
         mesh = self.mesh
         out = []
         for name, x in zip(SamplerResult._fields, local):
@@ -177,7 +228,9 @@ class Shard:
                 out.append(None)
                 continue
             parts = parts.reshape((mesh.n_chain, mesh.n_data) + tuple(x.shape))
-            if replicated:
+            if replicated and add_rows and name in DRAW_FIELDS:
+                parts = parts.sum(0, keepdim=True).to(x.dtype)   # exact: see above
+            elif replicated:
                 parts = parts[:1]
             if name in _ROW_AXIS:
                 ax = _ROW_AXIS[name]
@@ -202,6 +255,7 @@ def run_chains_sharded(
     tau_init=None,
     kernel: str = "cuda",
     device="cuda",
+    replicated: bool = False,
 ) -> SamplerResult:
     """Chains over seeds on a (chain, data) mesh: positions over the data
     axis, seeds split over the chain axis (len(seeds) a multiple of it).
@@ -214,10 +268,12 @@ def run_chains_sharded(
     data axis. Chain i is ``run_chain`` of seeds[i] on the padded counts up
     to the order of the likelihood sums (bitwise on a 1x1 mesh). kernel:
     "cuda", "cuda_topk" or "torch" ("cuda_resident" is refused).
+    ``replicated``: every chain row runs all the seeds alike (one chain on
+    an n_chain > 1 mesh).
     """
     check_store_thin(cfg)
     sh = Shard(counts, mesh, device, kernel)
-    chains = sh.chains(len(seeds))
+    chains = sh.chains(len(seeds), replicated)
     gens = [chain_generator(seeds[i], sh.device) for i in chains]
     states = sh.init(cfg, gens, eta_init, tau_init)
     results = []
@@ -226,7 +282,7 @@ def run_chains_sharded(
                          sh.noise(gen), store=cfg.store_samples)
         draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
         results.append(_result_from_accum(out[1], cfg, out[2], **draws))
-    return sh.gather(stack(results))
+    return sh.gather(stack(results), replicated)
 
 
 def run_chains_sharded_checkpointed(
@@ -333,6 +389,179 @@ def run_chain_sharded_checkpointed(
     res = run_chains_sharded_checkpointed(
         counts, cfg, [seed], checkpoint_path, checkpoint_every, mesh, eta_init,
         tau_init, kernel, device, stop_after, replicated=True)
-    return None if res is None else SamplerResult(
-        *(None if x is None else x[0] for x in res))
+    return None if res is None else chain_result(res, 0)
 
+
+
+# --------------------------------------------------------------------------
+# parallel tempering: replicas over the chain axis
+# --------------------------------------------------------------------------
+
+def _pt_start(sh: Shard, cfg: SamplerConfig, seed: int, R: int):
+    """(replica shard, the R + 1 generators of ``sampler.pt_generators``,
+    this row's replicas' generators)."""
+    check_store_thin(cfg)
+    part = sh.replica_shard(R)
+    gens = pt_generators(seed, R, sh.device)
+    return part, gens, [gens[i] for i in part.replicas]
+
+
+def _pt_merge(sh: Shard, accums, replicas: range, R: int) -> SamplerAccum:
+    """``sampler.pt_merge_accums`` of the whole ensemble, the same on every
+    rank: the [S]- and [4,4]-sized fields of every replica through the
+    chain axis's gather (added in replica order, as on one device), tau's
+    counts added over the rows (integers: exact in any order), the star
+    replica's tau from its row alone (``Axis.pick``)."""
+    if len(replicas) == R:
+        return pt_merge_accums(accums)
+    local = stack(accums)
+    rows = ("sum_tau", "star_tau")
+    whole = SamplerAccum(*(None if f in rows else sh.chain.gather(x).flatten(0, 1)
+                           for f, x in zip(SamplerAccum._fields, local)))
+    star = torch.argmax(whole.star_loglik).reshape(1)
+    mine = (star >= replicas.start) & (star < replicas.stop)
+    own = torch.clamp(star - replicas.start, 0, len(replicas) - 1)
+    return pt_merge_stacked(whole, star)._replace(
+        sum_tau=exchange(local.sum_tau.sum(0), sh.chain),
+        star_tau=sh.chain.pick(local.star_tau.index_select(0, own)[0], mine))
+
+
+def run_chain_pt_sharded(
+    counts: np.ndarray,
+    cfg: SamplerConfig,
+    seed: int,
+    n_replicas: int = 4,
+    max_temp: float = 8.0,
+    mesh: Optional[Mesh] = None,
+    eta_init=None,
+    tau_init=None,
+    kernel: str = "cuda",
+    device="cuda",
+) -> SamplerResult:
+    """Parallel tempering on a (chain, data) mesh: the replicas over the
+    chain axis (n_replicas a multiple of it), positions over the data axis
+    (counterpart of the JAX package's ``run_chain_pt_sharded``). Called on
+    every rank with the same arguments; each returns the result with the
+    padding stripped, tau_mean, tau_star and the stored cold draws on the
+    coordinator alone, on the host.
+
+    The run is ``sampler.run_chain_pt`` of `seed` on the padded counts up
+    to the order of the likelihood sums (a data axis of one rank: bitwise):
+    the same generators (``pt_generators``), ladder, exchange and merge.
+    A sweep adds one exchange on the chain axis to the row sums of the
+    replica sweeps. R < 2 is one chain of ``run_chains_sharded`` on a
+    generator seeded `seed`, as ``run_chain_pt`` falls back to
+    ``run_chain``.
+    """
+    R = int(n_replicas)
+    if R < 2:
+        res = run_chains_sharded(counts, cfg, [seed], mesh, eta_init, tau_init, kernel,
+                                 device, replicated=True)
+        return chain_result(res, 0)
+    sh = Shard(counts, mesh, device, kernel)
+    part, gens, own = _pt_start(sh, cfg, seed, R)
+    states = sh.init(cfg, own, eta_init, tau_init)
+    accums = [sh.accum(cfg) for _ in own]
+    rung = torch.arange(R, device=sh.device)
+    out = sh.pt_segment(cfg, states, accums, rung, 0, cfg.total_sweeps,
+                        [sh.noise(g) for g in own], ExchangeNoise(gens[-1]), max_temp,
+                        part, store=cfg.store_samples)
+    draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
+    res = _result_from_accum(_pt_merge(sh, out[1], part.replicas, R), cfg, out[3],
+                             pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
+    return chain_result(sh.gather(stack([res]), replicated=True, add_rows=True), 0)
+
+
+def run_chain_pt_sharded_checkpointed(
+    counts: np.ndarray,
+    cfg: SamplerConfig,
+    seed: int,
+    checkpoint_path: str,
+    checkpoint_every: int = 50,
+    n_replicas: int = 4,
+    max_temp: float = 8.0,
+    mesh: Optional[Mesh] = None,
+    eta_init=None,
+    tau_init=None,
+    kernel: str = "cuda",
+    device="cuda",
+    stop_after: Optional[int] = None,
+) -> Optional[SamplerResult]:
+    """``run_chain_pt_sharded`` with a sharded checkpoint every
+    checkpoint_every sweeps in the directory checkpoint_path, resumed from
+    it when it holds a committed step (counterpart of the JAX package's
+    ``run_chain_pt_sharded_checkpointed``). The replicas take the place of
+    chains in ``shard_ckpt``, so a step resumes on another mesh shape; the
+    rung vector, the exchange counters, the exchange generator's state and
+    the cold trace ride the extras channel. On the same mesh the result is
+    bitwise the uninterrupted run's.
+
+    SIGTERM is agreed at each segment head (every rank raises
+    ``Preempted`` with the step committed); ``stop_after`` returns None
+    once that many sweeps are committed. With cfg.store_samples the cold
+    replica's draws of a segment are added over the rows and written by
+    row 0. R < 2 is ``run_chain_sharded_checkpointed`` of `seed`.
+    """
+    R = int(n_replicas)
+    if R < 2:
+        return run_chain_sharded_checkpointed(
+            counts, cfg, seed, checkpoint_path, checkpoint_every, mesh, eta_init,
+            tau_init, kernel, device, stop_after)
+    sh = Shard(counts, mesh, device, kernel)
+    part, gens, own = _pt_start(sh, cfg, seed, R)
+    if latest_step(checkpoint_path) is not None:
+        states, accums, it, _, gen_state = load_sharded(
+            checkpoint_path, sh, part.replicas, R, sh.device)
+        ex = load_extras_sharded(checkpoint_path)
+        restore_generators(own + [gens[-1]],
+                           np.concatenate([gen_state, ex["exchange_generator"][None]]))
+        rung = torch.as_tensor(ex["rung"].astype(np.int64), device=sh.device)
+        acc_sum, head_sum = float(ex["n_acc"]), float(ex["n_heads"])
+        trace_parts = [ex["trace"][:it]]
+    else:
+        states = sh.init(cfg, own, eta_init, tau_init)
+        accums = [sh.accum(cfg) for _ in own]
+        rung = torch.arange(R, device=sh.device)
+        it, acc_sum, head_sum, trace_parts = 0, 0.0, 0.0, []
+    if is_coordinator():
+        clear_draws_from(checkpoint_path, it)
+    sh.world.barrier()
+    noises, exchange_noise = [sh.noise(g) for g in own], ExchangeNoise(gens[-1])
+    n_acc = torch.tensor(acc_sum, dtype=torch.float32, device=sh.device)
+
+    while it < cfg.total_sweeps:
+        if sh.world.any(take_preempted()):
+            raise Preempted(PREEMPTED_MESSAGE)
+        if stop_after is not None and it >= stop_after:
+            return None
+        seg = min(checkpoint_every, cfg.total_sweeps - it)
+        out = sh.pt_segment(cfg, states, accums, rung, it, seg, noises, exchange_noise,
+                            max_temp, part, store=cfg.store_samples)
+        states, accums, rung, trace, seg_acc, seg_heads = out[:6]
+        slots = stored_slots(it, seg, cfg.burn, cfg.store_thin) if cfg.store_samples else []
+        if slots:
+            draws = tuple(_numpy(sh.rows_add(d))[None] for d in out[6])
+            save_draw_shards(checkpoint_path, sh, range(1), it, [it + j for j in slots],
+                             draws, replicated=True)
+        it += seg
+        n_acc = n_acc + seg_acc
+        head_sum += seg_heads
+        trace_parts.append(_numpy(trace))
+        save_sharded(checkpoint_path, sh, part.replicas, R, states, accums, own, it,
+                     None, extras={
+                         "rung": _numpy(rung), "n_acc": float(n_acc),
+                         "n_heads": head_sum, "trace": np.concatenate(trace_parts),
+                         "exchange_generator": _numpy(gens[-1].get_state())})
+
+    trace = torch.as_tensor(np.concatenate(trace_parts), device=sh.device)
+    res = _result_from_accum(_pt_merge(sh, accums, part.replicas, R), cfg, trace,
+                             pt_swap_accept=pt_swap_rate(n_acc, head_sum))
+    res = chain_result(sh.gather(stack([res]), replicated=True), 0)
+    if cfg.store_samples:
+        sh.world.barrier()   # row 0's draw files are on disk
+        if is_coordinator():
+            draws = assemble_draws(checkpoint_path, 1, sh.V, sh.S, cfg.G)
+            res = res._replace(**{f: torch.from_numpy(draws[k][0])
+                                  for f, k in zip(DRAW_FIELDS, ("tau", "gamma", "eta"))
+                                  if k in draws})
+    return res

@@ -11,8 +11,8 @@ Filtered_Tau_star.csv, Tau_mean.csv, metrics.json and loglik_trace.csv
 (and chains.json for several chains; draws.npz with --store_every). A
 haplotype file (-t, or -f to hold it fixed) starts tau from known strains.
 On a (chain, data) mesh of ranks (``parallel``), ``run_multi(mesh=...)``
-and ``run_sharded_checkpointed`` run on every rank and write the files on
-the coordinator.
+(with --auto_* too), ``run_sharded_checkpointed`` and ``run_pt_sharded``
+run on every rank and write the files on the coordinator.
 """
 from __future__ import annotations
 
@@ -127,20 +127,22 @@ def load_tau_init(tau_file: str, data: io.CountsData) -> np.ndarray:
     return tau[rows]
 
 
-# the JAX CLI's refusal of auto-length PT with --checkpoint or --chains
+# the JAX CLI's refusals: auto-length PT with --mesh, --checkpoint or
+# --chains; PT on a mesh with --chains; replicas that do not split over the
+# mesh's chain axis (``pt_mesh_split``)
 AUTO_PT_SINGLE_CHAIN = (
     "--auto_burn/--auto_samples with --pt composes only single-chain "
     "without --mesh/--checkpoint (pin -i for those combinations)")
+PT_MESH_CHAINS = ("--pt --mesh does not compose with --chains "
+                  "(replicas already occupy the mesh chain axis)")
 
 
-def mesh_waiting(pt: bool, auto: bool) -> Optional[str]:
-    """What a mesh does not run yet, naming the ROADMAP item that ports it
-    (None when the run modes are ported)."""
-    modes = [m for m, on in (("--pt", pt), ("--auto_burn/--auto_samples", auto)) if on]
-    if not modes:
-        return None
-    return (f"--mesh with {' and '.join(modes)} is not ported to desman_tpu_torch "
-            "yet (ROADMAP queue 1 item 15)")
+def pt_mesh_split(R: int, n_chain: int) -> Optional[str]:
+    """The JAX CLI's refusal of --pt R on a chain axis of n_chain that does
+    not divide it, else None."""
+    if R >= 2 and R % n_chain:
+        return f"--pt {R} must be a multiple of the mesh chain axis {n_chain}"
+    return None
 
 
 def _prepare_host(data: io.CountsData, rc: RunConfig, nmf_iters: Optional[int]):
@@ -299,12 +301,15 @@ def run_multi(data: io.CountsData, rc: RunConfig, n_chains: int, device="cuda",
 
     mesh: a ``parallel.Mesh`` over the ranks of the joined world (called on
     every rank): positions over its data axis, the chains split over its
-    chain axis (n_chains a multiple of it); ``parallel.run_chains_sharded``,
-    or with rc.checkpoint_path ``run_chains_sharded_checkpointed`` (a
-    directory of shard files). `device` is each rank's by the device rule
-    (``parallel.distributed.rank_device``). Only the coordinator writes.
-    With PT or auto-length runs a mesh is refused (``mesh_waiting``), and
-    "cuda_resident" is single-device.
+    chain axis (n_chains a multiple of it); with rc.auto_burn/auto_samples
+    ``converge.run_chains_auto(mesh=...)`` (checkpointed in a directory of
+    shard files with rc.checkpoint_path), else
+    ``parallel.run_chains_sharded``, or with rc.checkpoint_path
+    ``run_chains_sharded_checkpointed``. `device` is each rank's by the
+    device rule (``parallel.distributed.rank_device``). Only the
+    coordinator writes. rc.pt_replicas >= 2 raises ValueError naming
+    ``run_pt_sharded`` (PT on a mesh puts the replicas on the chain axis:
+    one run, not n_chains); "cuda_resident" is single-device.
     """
     if mesh is not None:
         return _run_multi_mesh(data, rc, n_chains, device, kernel, nmf_iters, mesh)
@@ -356,15 +361,22 @@ def _write_multi(rc: RunConfig, data: io.CountsData, res: SamplerResult,
     return best_res
 
 
-def _mesh_prepare(data: io.CountsData, rc: RunConfig, device, nmf_iters):
-    """What the mesh runs share: the refusal of what a mesh does not run
-    yet, the rank's device, and ``_prepare_host`` (host arrays: the shards
-    place them)."""
+def _mesh_prepare(data: io.CountsData, rc: RunConfig, device, nmf_iters,
+                  entry: str, pt: bool = False, auto: bool = False):
+    """What the mesh runs share: the refusal of auto-length PT and of a run
+    mode another entry point runs (none is dropped without a word), the
+    rank's device, and ``_prepare_host`` (host arrays: the shards place
+    them)."""
     from .parallel.distributed import rank_device
 
-    waiting = mesh_waiting(rc.pt_replicas >= 2, _auto(rc))
-    if waiting:
-        raise ValueError(waiting)
+    if _auto(rc) and rc.pt_replicas >= 2:
+        raise ValueError(AUTO_PT_SINGLE_CHAIN)
+    if rc.pt_replicas >= 2 and not pt:
+        raise ValueError(f"{entry} runs no parallel tempering: on a mesh that "
+                         "is run.run_pt_sharded")
+    if _auto(rc) and not auto:
+        raise ValueError(f"{entry} runs no auto-length run: on a mesh that is "
+                         "run.run_multi(mesh=...)")
     return (rank_device(device),) + _prepare_host(data, rc, nmf_iters)
 
 
@@ -411,14 +423,19 @@ def _run_multi_mesh(data, rc: RunConfig, n_chains: int, device, kernel: str,
         run_chains_sharded, run_chains_sharded_checkpointed,
     )
 
-    device, data, cfg, eta_init, tau_init = _mesh_prepare(data, rc, device,
-                                                          nmf_iters)
+    device, data, cfg, eta_init, tau_init = _mesh_prepare(
+        data, rc, device, nmf_iters, "run_multi(mesh=...)", auto=True)
     seeds = list(range(rc.seed, rc.seed + n_chains))
     init = dict(mesh=mesh, eta_init=eta_init, tau_init=tau_init, kernel=kernel,
                 device=device)
     before = _mesh_counts()
     t0 = time.time()
-    if rc.checkpoint_path:
+    if _auto(rc):
+        res, burn_used, samples_used = run_chains_auto(
+            data.counts, cfg, seeds, checkpoint_path=rc.checkpoint_path, **init,
+            **_auto_kw(rc, cfg))
+        cfg = replace(cfg, burn=burn_used, samples=samples_used)
+    elif rc.checkpoint_path:
         res = run_chains_sharded_checkpointed(
             data.counts, cfg, seeds, rc.checkpoint_path,
             checkpoint_every=rc.checkpoint_every, **init)
@@ -438,19 +455,61 @@ def run_sharded_checkpointed(data: io.CountsData, rc: RunConfig, mesh,
     """One chain (seed rc.seed) on a mesh with sharded checkpoints in the
     directory rc.checkpoint_path (``desman --mesh --checkpoint``): positions
     over the data axis, every chain row running the chain alike. Called on
-    every rank; the coordinator writes the files. Refuses what
-    ``run_multi(mesh=...)`` refuses."""
+    every rank; the coordinator writes the files. PT and auto-length runs
+    raise ValueError naming the entry point that runs them."""
     from .parallel import distributed
     from .parallel.sharded import run_chain_sharded_checkpointed
 
-    device, data, cfg, eta_init, tau_init = _mesh_prepare(data, rc, device,
-                                                          nmf_iters)
+    device, data, cfg, eta_init, tau_init = _mesh_prepare(
+        data, rc, device, nmf_iters, "run_sharded_checkpointed")
     before = _mesh_counts()
     t0 = time.time()
     res = run_chain_sharded_checkpointed(
         data.counts, cfg, rc.seed, rc.checkpoint_path,
         checkpoint_every=rc.checkpoint_every, mesh=mesh, eta_init=eta_init,
         tau_init=tau_init, kernel=kernel, device=device)
+    _sync(device)
+    elapsed = time.time() - t0
+    extra = _mesh_metrics(device, kernel, mesh, before)
+    if distributed.is_coordinator():
+        write_outputs(rc.out_dir, data, res, cfg, elapsed, seed=rc.seed,
+                      extra_metrics=extra)
+        _write_draws(rc.out_dir, res, cfg)
+    return res
+
+
+def run_pt_sharded(data: io.CountsData, rc: RunConfig, mesh, device="cuda",
+                   kernel: str = "cuda", nmf_iters: Optional[int] = None
+                   ) -> SamplerResult:
+    """Parallel tempering on a mesh (``desman --mesh CxD --pt R``, the
+    JAX package's ``run_pt_sharded``): the rc.pt_replicas replicas over the
+    chain axis (a multiple of it), positions over the data axis
+    (``parallel.run_chain_pt_sharded``); with rc.checkpoint_path checkpointed
+    in a directory of shard files
+    (``parallel.run_chain_pt_sharded_checkpointed``). Called on every rank;
+    the coordinator writes the files, metrics.json with pt_swap_accept and
+    the mesh record. Auto-length runs raise ``AUTO_PT_SINGLE_CHAIN``, as
+    the JAX CLI refuses them."""
+    from .parallel import distributed
+    from .parallel.sharded import (
+        run_chain_pt_sharded, run_chain_pt_sharded_checkpointed,
+    )
+
+    split = pt_mesh_split(rc.pt_replicas, mesh.n_chain)
+    if split:
+        raise ValueError(split)
+    device, data, cfg, eta_init, tau_init = _mesh_prepare(
+        data, rc, device, nmf_iters, "run_pt_sharded", pt=True)
+    init = dict(n_replicas=rc.pt_replicas, max_temp=rc.pt_max_temp, mesh=mesh,
+                eta_init=eta_init, tau_init=tau_init, kernel=kernel, device=device)
+    before = _mesh_counts()
+    t0 = time.time()
+    if rc.checkpoint_path:
+        res = run_chain_pt_sharded_checkpointed(
+            data.counts, cfg, rc.seed, rc.checkpoint_path,
+            checkpoint_every=rc.checkpoint_every, **init)
+    else:
+        res = run_chain_pt_sharded(data.counts, cfg, rc.seed, **init)
     _sync(device)
     elapsed = time.time() - t0
     extra = _mesh_metrics(device, kernel, mesh, before)

@@ -203,6 +203,41 @@ def _own(x):
     return x
 
 
+# desman --debug: the NaN trap (``set_nan_trap``); off, no sweep is checked
+_NAN_TRAP = False
+_CHECKED = ("loglik", "gamma", "eta", "mix")
+
+
+def set_nan_trap(on: bool) -> None:
+    """Turn the NaN trap on or off (``desman --debug``, the JAX package's
+    ``jax_debug_nans``). On, every sweep of every chain or replica is
+    followed by ``check_finite`` of its state, which waits for the device;
+    off (the default), a sweep checks nothing and waits for nothing."""
+    global _NAN_TRAP
+    _NAN_TRAP = bool(on)
+
+
+def nan_trap() -> bool:
+    """Whether the NaN trap is on."""
+    return _NAN_TRAP
+
+
+def check_finite(it: int, states, agree=None) -> None:
+    """Raise FloatingPointError naming sweep `it` and the field when the
+    loglik, gamma, eta or mix of any of `states` holds a non-finite value.
+    agree: the sum of the [4] int32 flags over the ranks of a sharded run
+    (``parallel.distributed.Axis.sum`` on the world), so that every rank
+    raises at the same sweep and none is left waiting in a collective."""
+    flags = torch.stack([
+        torch.stack([~torch.isfinite(getattr(s, f)).all() for f in _CHECKED])
+        for s in states]).any(0).to(torch.int32)
+    if agree is not None:
+        flags = agree(flags)
+    for name, bad in zip(_CHECKED, flags.tolist()):
+        if bad:
+            raise FloatingPointError(f"sweep {it}: non-finite {name} (desman --debug)")
+
+
 def _loglik(n, mix, eta, psum=_own):
     """sum n * log(mix @ eta); psum adds the position shards' sums
     (``parallel.distributed``), the identity on one device."""
@@ -606,7 +641,7 @@ def stored_slots(start_it: int, n_sweeps: int, burn: int, thin: int) -> list:
 def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
                 accum: SamplerAccum, start_it: int, n_sweeps: int, noise,
                 kernel="cuda", burn: Optional[int] = None, store: bool = False,
-                psum=_own):
+                psum=_own, agree=None):
     """Advance a chain n_sweeps sweeps from absolute sweep index start_it.
 
     Returns (state, accum, trace): the [n_sweeps] loglik trace is
@@ -615,9 +650,9 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     eta) draws [k, ...] of the k sweeps ``stored_slots`` selects (burn: the
     override or cfg.burn; thin: cfg.store_thin), copied into buffers on the
     device; storing reads the state and changes nothing. ``burn`` has the
-    sweep's meaning (``make_sweep_fn``), and so has psum. Segments run in
-    order from one noise source give the draws and the trajectory of one
-    long segment.
+    sweep's meaning (``make_sweep_fn``), and so has psum; agree has
+    ``check_finite``'s (the NaN trap, when on). Segments run in order from
+    one noise source give the draws and the trajectory of one long segment.
     """
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
@@ -634,6 +669,8 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     j = 0
     for i in range(n_sweeps):
         state, accum, ll = sweep(n, state, accum, start_it + i, noise, burn=burn)
+        if _NAN_TRAP:
+            check_finite(start_it + i, [state], agree)
         trace[i] = ll
         if j < k and slots[j] == i:
             draws[0][j], draws[1][j], draws[2][j] = state.tau, state.gamma, state.eta
@@ -787,8 +824,23 @@ def _keep_cold(is_cold, new: SamplerAccum, old: SamplerAccum) -> SamplerAccum:
                           for x, o in zip(new, old)))
 
 
+class ReplicaShard(NamedTuple):
+    """This rank's part of a PT ensemble on a mesh (``parallel.sharded``):
+    the global indices of the replicas it holds (its chain row's share of
+    the R), psum over the row's position blocks, gather from the row's
+    stacked [3, k] (loglik, kappa_gamma, kappa_eta) to the ensemble's
+    [3, R] (the chain axis's one exchange a sweep; None on a chain axis of
+    one rank) and agree, the NaN trap's sum over the world."""
+
+    replicas: range
+    psum: object
+    gather: object
+    agree: object
+
+
 def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
-                 kernel="cuda", burn: Optional[int] = None):
+                 kernel="cuda", burn: Optional[int] = None,
+                 shard: Optional[ReplicaShard] = None):
     """One PT ensemble sweep + exchange: the JAX package's ``make_pt_step``
     with the replicas in turn.
 
@@ -801,11 +853,20 @@ def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
     n_acc the accepted exchanges (0-d f32 on the device), n_heads the
     proposals (a host int: it depends on it and R only). ``rung`` stays on
     the device and nothing waits for it. ``burn`` has the sweep's meaning.
+
+    ``shard``: the step of one rank of a mesh, n its block of positions.
+    states, accums and noises are those of ``shard.replicas``; the exchange
+    takes every replica's loglik and kappas through ``shard.gather``, so
+    every rank holds the same [R] vectors, draws the same uniforms from its
+    copy of the exchange generator and computes the same rung. None: all R
+    replicas here, the one-device step.
     """
     ks = kernel if isinstance(kernel, Kernels) else resolve(kernel, n)
     if ks.resident:
         raise ValueError(RESIDENT_PLAIN_ONLY)
-    sweep = make_sweep_fn(cfg, ks)
+    local = range(R) if shard is None else shard.replicas
+    gather = None if shard is None else shard.gather
+    sweep = make_sweep_fn(cfg, ks, _own if shard is None else shard.psum)
     dev = n.device
     ladder = pt_ladder(R, max_temp, dev)
     beta_ladder = 1.0 / ladder
@@ -824,15 +885,19 @@ def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
         betas = 1.0 / temps
         is_cold = rung == 0
         new_states, new_accums, lls = [], [], []
-        for i in range(R):
-            st, ac, ll = sweep(n, states[i], accums[i], it, noises[i],
+        for j, i in enumerate(local):
+            st, ac, ll = sweep(n, states[j], accums[j], it, noises[j],
                                burn=burn, temp=temps[i], beta=betas[i])
             new_states.append(st)
             # hot replicas draw from tempered targets: keep their
             # pre-sweep accumulators, star included
-            new_accums.append(_keep_cold(is_cold[i], ac, accums[i]))
+            new_accums.append(_keep_cold(is_cold[i], ac, accums[j]))
             lls.append(ll)
         lls = torch.stack(lls)
+        kg = torch.stack([s.kappa_gamma for s in new_states])
+        ke = torch.stack([s.kappa_eta for s in new_states])
+        if gather is not None:   # the other rows' replicas: one exchange
+            lls, kg, ke = gather(torch.stack([lls, kg, ke]))
 
         order = torch.argsort(rung)                  # rung -> replica
         ll_by_rung = lls.index_select(0, order)
@@ -847,10 +912,9 @@ def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
         # adapted proposal scales belong to the rung, not the replica: the
         # new holder of rung new_rung[i] takes its old holder's kappas
         src = order.index_select(0, new_rung)
-        kg = torch.stack([s.kappa_gamma for s in new_states]).index_select(0, src)
-        ke = torch.stack([s.kappa_eta for s in new_states]).index_select(0, src)
+        kg, ke = kg.index_select(0, src), ke.index_select(0, src)
         new_states = [s._replace(kappa_gamma=kg[i], kappa_eta=ke[i])
-                      for i, s in enumerate(new_states)]
+                      for i, s in zip(local, new_states)]
         cold_ll = torch.sum(torch.where(is_cold, lls, 0.0))
         n_acc = torch.sum(acc.to(torch.float32))
         return new_states, new_accums, new_rung, cold_ll, n_acc, n_heads[it % 2]
@@ -866,7 +930,8 @@ def pt_noises(generators):
 
 def run_pt_segment(n, cfg: SamplerConfig, states, accums, rung, start_it: int,
                    n_sweeps: int, noises, exchange, max_temp: float,
-                   kernel="cuda", burn: Optional[int] = None, store: bool = False):
+                   kernel="cuda", burn: Optional[int] = None, store: bool = False,
+                   shard: Optional[ReplicaShard] = None):
     """Advance a PT ensemble n_sweeps from absolute sweep index start_it.
 
     Returns (states, accums, rung, trace, n_acc, n_heads): trace [n_sweeps]
@@ -877,11 +942,17 @@ def run_pt_segment(n, cfg: SamplerConfig, states, accums, rung, start_it: int,
     0 after the sweep's exchange. ``burn`` has the sweep's meaning.
     Segments run in order from the same noise sources give the draws and
     the trajectory of one long segment.
+
+    ``shard``: one rank's part of the ensemble on a mesh (``make_pt_step``);
+    the rung, trace and n_acc are the whole ensemble's on every rank, and a
+    stored draw is the cold replica's where this rank holds it, zeros where
+    another row does (``parallel.sharded`` adds the rows' draws).
     """
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    R = len(states)
-    step = make_pt_step(n, cfg, R, max_temp, kernel, burn=burn)
+    local = range(len(states)) if shard is None else shard.replicas
+    R = len(rung)
+    step = make_pt_step(n, cfg, R, max_temp, kernel, burn=burn, shard=shard)
     V, S, _ = n.shape
     dev = n.device
     trace = torch.empty(n_sweeps, dtype=torch.float32, device=dev)
@@ -893,18 +964,25 @@ def run_pt_segment(n, cfg: SamplerConfig, states, accums, rung, start_it: int,
     draws = (torch.empty((k, V, cfg.G), dtype=torch.int8, device=dev),
              torch.empty((k, S, cfg.G), dtype=torch.float32, device=dev),
              torch.empty((k, NBASES, NBASES), dtype=torch.float32, device=dev))
+    agree = None if shard is None else shard.agree
     j = 0
     for i in range(n_sweeps):
         states, accums, rung, cold_ll, acc, heads = step(
             states, accums, rung, start_it + i, noises, exchange)
+        if _NAN_TRAP:
+            check_finite(start_it + i, states, agree)
         trace[i] = cold_ll
         n_acc = n_acc + acc
         n_heads += heads
         if j < k and slots[j] == i:
             cold = torch.argmin(rung).reshape(1)   # the holder of rung 0
+            if len(local) < R:   # on this row, or zeros
+                mine = (cold >= local.start) & (cold < local.stop)
+                cold = torch.clamp(cold - local.start, 0, len(local) - 1)
             for buf, field in zip(draws, ("tau", "gamma", "eta")):
                 stacked = torch.stack([getattr(s, field) for s in states])
-                buf[j] = stacked.index_select(0, cold)[0]
+                x = stacked.index_select(0, cold)[0]
+                buf[j] = x if len(local) == R else torch.where(mine, x, 0)
             j += 1
     out = (states, accums, rung, trace, n_acc, n_heads)
     return out + (draws,) if store else out
@@ -914,15 +992,24 @@ def pt_merge_accums(accums) -> SamplerAccum:
     """Merge the replicas' cold-rung records: sums add, the star is the
     replica's with the highest star loglik (the first on a tie)."""
     stacked = SamplerAccum(*(torch.stack(f) for f in zip(*accums)))
-    star = torch.argmax(stacked.star_loglik).reshape(1)
+    return pt_merge_stacked(stacked, torch.argmax(stacked.star_loglik).reshape(1))
+
+
+def pt_merge_stacked(stacked: SamplerAccum, star: torch.Tensor) -> SamplerAccum:
+    """``pt_merge_accums`` of the replicas' accumulators stacked on a
+    leading [R] axis, the star replica's index given ([1]). Fields given as
+    None stay None (a mesh merges its per-position fields itself)."""
 
     def pick(x):
-        return x.index_select(0, star)[0]
+        return None if x is None else x.index_select(0, star)[0]
+
+    def total(x):
+        return None if x is None else x.sum(0)
 
     # exactly one replica is cold each sweep, so the acceptance sums across
     # replicas already total one value a sweep
     return SamplerAccum(
-        sum_tau=stacked.sum_tau.sum(0), sum_gamma=stacked.sum_gamma.sum(0),
+        sum_tau=total(stacked.sum_tau), sum_gamma=stacked.sum_gamma.sum(0),
         sum_eta=stacked.sum_eta.sum(0), sum_loglik=stacked.sum_loglik.sum(0),
         n_samples=stacked.n_samples.sum(0),
         star_loglik=pick(stacked.star_loglik), star_tau=pick(stacked.star_tau),

@@ -49,17 +49,18 @@ def chains(out, counts, cfg_kw, seeds, shape, device="cpu", kernel="cuda", runs=
     return 0
 
 
-def _sigterm_after_first_segment():
-    """This rank gets SIGTERM once its first segment has run."""
-    real = sharded.Shard.segment
+def _sigterm_after_first_segment(method="segment"):
+    """This rank gets SIGTERM once its first segment (``Shard.<method>``)
+    has run."""
+    real = getattr(sharded.Shard, method)
 
     def segment(self, *args, **kw):
-        sharded.Shard.segment = real
+        setattr(sharded.Shard, method, real)
         result = real(self, *args, **kw)
         os.kill(os.getpid(), signal.SIGTERM)
         return result
 
-    sharded.Shard.segment = segment
+    setattr(sharded.Shard, method, segment)
 
 
 def checkpointed(out, counts, cfg_kw, jobs, shape, device="cpu", term_rank=None,
@@ -89,6 +90,108 @@ def checkpointed(out, counts, cfg_kw, jobs, shape, device="cpu", term_rank=None,
             arrays[f"{name}_stopped"] = np.int64(1)
         arrays.update(_arrays(res, f"{name}_"))
     _save(out, **arrays)
+    return 0
+
+
+def pt(out, counts, cfg_kw, jobs, shape, device="cpu", term_rank=None, kernel="cuda"):
+    """PT runs on the mesh in turn; jobs: (name, seed, R, ckpt dir or None,
+    every, stop_after) each, saved as "{name}_{field}" ("{name}_stopped"
+    for a run that stopped) with "{name}_collectives", this rank's
+    collectives an ensemble sweep. With term_rank, that rank gets SIGTERM
+    after its first segment: every rank must exit 75."""
+    _join(device)
+    checkpoint.install_preemption_handler()
+    if term_rank is not None and distributed.rank() == term_rank:
+        _sigterm_after_first_segment("pt_segment")
+    arrays = {}
+    for name, seed, R, ck, every, stop_after in jobs:
+        cfg = sampler.SamplerConfig(**cfg_kw)
+        kw = dict(n_replicas=R, mesh=make_mesh(*shape), kernel=kernel, device=device)
+        before = dict(sharded.SWEEP_STATS)
+        try:
+            if ck is None:
+                res = sharded.run_chain_pt_sharded(counts, cfg, seed, **kw)
+            else:
+                res = sharded.run_chain_pt_sharded_checkpointed(
+                    counts, cfg, seed, ck, every, stop_after=stop_after, **kw)
+        except checkpoint.Preempted:
+            _save(out, preempted=np.int64(1))
+            return distributed.PREEMPTED_EXIT
+        if res is None:
+            arrays[f"{name}_stopped"] = np.int64(1)
+        arrays.update(_arrays(res, f"{name}_"))
+        sweeps = sharded.SWEEP_STATS["sweeps"] - before["sweeps"]
+        arrays[f"{name}_collectives"] = np.float64(
+            (sharded.SWEEP_STATS["collectives"] - before["collectives"]) / max(sweeps, 1))
+    _save(out, **arrays)
+    return 0
+
+
+def auto(out, counts, cfg_kw, jobs, shape, device="cpu", term_rank=None):
+    """converge.run_chains_auto on the mesh in turn; jobs: (name, seeds,
+    ckpt dir or None, auto keywords) each, saved as "{name}_{field}" with
+    "{name}_burn" and "{name}_samples". With term_rank, that rank gets
+    SIGTERM after its first segment: every rank must exit 75."""
+    from desman_tpu_torch import converge
+
+    _join(device)
+    checkpoint.install_preemption_handler()
+    if term_rank is not None and distributed.rank() == term_rank:
+        _sigterm_after_first_segment()
+    arrays = {}
+    for name, seeds, ck, kw in jobs:
+        try:
+            res, burn, samples = converge.run_chains_auto(
+                counts, sampler.SamplerConfig(**cfg_kw), seeds, checkpoint_path=ck,
+                mesh=make_mesh(*shape), device=device, **kw)
+        except checkpoint.Preempted:
+            _save(out, preempted=np.int64(1))
+            return distributed.PREEMPTED_EXIT
+        arrays.update(_arrays(res, f"{name}_"))
+        arrays[f"{name}_burn"], arrays[f"{name}_samples"] = np.int64(burn), np.int64(samples)
+    _save(out, **arrays)
+    return 0
+
+
+class TraceFeed:
+    """A stand-in for the sharded chains' ``run_segment`` that hands back a
+    JAX run's loglik trace [C, sweeps] (and its stored gamma draws) for the
+    sweeps asked; a rank of chain row c runs chains c k .. c k + k - 1 in
+    turn (k = C / n_chain). The chain state does not move."""
+
+    def __init__(self, trace, burn_used, gamma, first, k):
+        self.trace, self.burn_used, self.gamma = trace, burn_used, gamma
+        self.first, self.k, self.calls = first, k, 0
+
+    def __call__(self, n, cfg, state, accum, start_it, n_sweeps, noise, kernel="cuda",
+                 burn=None, store=False, psum=None, agree=None):
+        c = self.first + self.calls % self.k
+        self.calls += 1
+        trace = torch.tensor(self.trace[c, start_it:start_it + n_sweeps])
+        assert trace.shape[0] == n_sweeps, "the port ran past JAX's run"
+        if not store:
+            return state, accum, trace
+        assert burn == self.burn_used
+        slots = checkpoint.stored_slots(start_it, n_sweeps, burn, cfg.store_thin)
+        gamma = torch.tensor(self.gamma[c][[start_it + j - burn for j in slots]])
+        return state, accum, trace, (
+            torch.zeros((len(slots), n.shape[0], cfg.G), dtype=torch.int8), gamma,
+            torch.zeros((len(slots), 4, 4)))
+
+
+def auto_feed(out, counts, cfg_kw, seeds, shape, trace, burn, gamma, ck, kw):
+    """converge.run_chains_auto on the mesh fed a JAX run's traces
+    (``TraceFeed``); saves the burn and sampling length chosen and the
+    result's trace and gamma draws."""
+    from desman_tpu_torch import converge
+
+    _join("cpu")
+    m = make_mesh(*shape)
+    k = len(seeds) // m.n_chain
+    sharded.run_segment = TraceFeed(trace, burn, gamma, distributed.rank() // m.n_data * k, k)
+    res, b, s = converge.run_chains_auto(counts, sampler.SamplerConfig(**cfg_kw), seeds,
+                                         checkpoint_path=ck, mesh=m, device="cpu", **kw)
+    _save(out, burn=np.int64(b), samples=np.int64(s), **_arrays(res))
     return 0
 
 
@@ -132,13 +235,14 @@ def collectives(out, counts, shape):
     return 0
 
 
-def grid(out, counts, data, stub, g_values, seeds, shape):
-    """fit_grid on the mesh twice: the second call must find every run on
-    disk and sweep nothing."""
+def grid(out, counts, data, stub, g_values, seeds, shape, extra=None):
+    """fit_grid on the mesh twice (extra: more fit_grid keywords): the
+    second call must find every run on disk and sweep nothing."""
     from desman_tpu_torch.model_selection import fit_grid
 
     _join("cpu")
-    kw = dict(iterations=20, out_stub=stub, data=data, mesh=make_mesh(*shape), device="cpu")
+    kw = dict(iterations=20, out_stub=stub, data=data, mesh=make_mesh(*shape), device="cpu",
+              **(extra or {}))
     first = fit_grid(counts, g_values, seeds, **kw)
     swept = sharded.SWEEP_STATS["sweeps"]
     again = fit_grid(counts, g_values, seeds, **kw)
@@ -153,16 +257,21 @@ def grid(out, counts, data, stub, g_values, seeds, shape):
 
 
 def peak_memory(out, data, rc_kw, shape=None):
-    """run_multi of one chain on the card, on the mesh (shape) or on one
-    device (None); every rank's peak allocated device bytes over the run,
-    from a fresh process: cuBLAS's workspace included ("peaks", by rank)."""
+    """run_multi of one chain (or, with pt_replicas, of one PT run) on the
+    card, on the mesh (shape: run_pt_sharded for PT) or on one device
+    (None); every rank's peak allocated device bytes over the run, from a
+    fresh process: cuBLAS's workspace included ("peaks", by rank)."""
     from desman_tpu_torch import run
 
     _join("cuda")
     dev = distributed.rank_device("cuda")
     torch.cuda.reset_peak_memory_stats(dev)
     mesh = None if shape is None else make_mesh(*shape)
-    run.run_multi(data, run.RunConfig(**rc_kw), 1, device=dev, kernel="cuda", mesh=mesh)
+    rc = run.RunConfig(**rc_kw)
+    if mesh is not None and rc.pt_replicas >= 2:
+        run.run_pt_sharded(data, rc, mesh, device=dev, kernel="cuda")
+    else:
+        run.run_multi(data, rc, 1, device=dev, kernel="cuda", mesh=mesh)
     torch.cuda.synchronize(dev)
     peak = torch.tensor(torch.cuda.max_memory_allocated(dev), device=dev)
     peaks = distributed.mesh_axes(mesh or make_mesh(1, 1), dev).world.gather(peak)
@@ -228,6 +337,68 @@ def replay(out, counts, cfg_kw, shape, key, jstates, jaccums):
                       "loglik": new.loglik.numpy(), "kappa_gamma": new.kappa_gamma.numpy(),
                       "kappa_eta": new.kappa_eta.numpy(), "ll": ll.numpy(),
                       "star_loglik": acc_new.star_loglik.numpy()})
+    for k in steps[0]:
+        arrays[f"step_{k}"] = np.stack([s[k] for s in steps])
+    _save(out, **arrays)
+    return 0
+
+
+def pt_replay(out, counts, cfg_kw, shape, R, key, jstates, jaccums, jrungs):
+    """The sharded PT step fed the JAX package's streams (each replica's
+    ``ReplayNoise`` of its state key, cut to each rank's block, and
+    ``ReplayExchange`` of the run key): the port's own run of the sweeps
+    from JAX's start (jstates[0]), and one step from each of JAX's
+    ensembles (jstates[it], jaccums[it], jrungs[it]). Saves the own run's
+    tau_star and cold trace, and each step's rung, n_acc, cold loglik and
+    every replica's whole tau, mix and replicated fields."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from torch_helpers import ReplayExchange, ReplayNoise
+
+    _join("cpu")
+    cfg = sampler.SamplerConfig(**cfg_kw)
+    sh = sharded.Shard(counts, make_mesh(*shape), "cpu")
+    part = sh.replica_shard(R)
+    rows = ("tau", "mix", "sum_tau", "star_tau")
+
+    def block(tree, i):
+        return {k: (v[i][sh.lo:sh.hi] if k in rows else v[i]) for k, v in tree.items()}
+
+    def whole(x):
+        return torch.cat(list(sh.data.gather(x)), dim=0).numpy()
+
+    noises = [sh.noise(ReplayNoise(jnp.asarray(jstates[0]["key"][i])))
+              for i in part.replicas]
+    exchange = ReplayExchange(jnp.asarray(key))
+    states = [convert.state_from_numpy(block(jstates[0], i)) for i in part.replicas]
+    accums = [sh.accum(cfg) for _ in part.replicas]
+    sweeps = len(jstates) - 1
+    rung = torch.as_tensor(np.asarray(jrungs[0]), dtype=torch.int64)
+    own = sh.pt_segment(cfg, states, accums, rung, 0, sweeps, noises, exchange, 8.0, part)
+    merged = sharded._pt_merge(sh, own[1], part.replicas, R)
+    arrays = {"own_tau_star": whole(merged.star_tau), "own_trace": own[3].numpy()}
+    step = sampler.make_pt_step(sh.n, cfg, R, 8.0, sh.ks, shard=part)
+    steps = []
+    for it in range(sweeps):
+        st = [convert.state_from_numpy(block(jstates[it], i)) for i in part.replicas]
+        ac = [convert.accum_from_numpy(block(jaccums[it], i)) for i in part.replicas]
+        new, acc_new, rung, cold, n_acc, heads = step(
+            st, ac, torch.as_tensor(np.asarray(jrungs[it]), dtype=torch.int64), it,
+            noises, exchange)
+        rec = {"rung": rung.numpy(), "cold": cold.numpy(), "n_acc": n_acc.numpy(),
+               "heads": np.int64(heads)}
+        for j, i in enumerate(part.replicas):
+            s_ = new[j]
+            rec.update({f"{i}_tau": whole(s_.tau), f"{i}_mix": whole(s_.mix),
+                        f"{i}_gamma": s_.gamma.numpy(), f"{i}_eta": s_.eta.numpy(),
+                        f"{i}_loglik": s_.loglik.numpy(),
+                        f"{i}_kappa_gamma": s_.kappa_gamma.numpy(),
+                        f"{i}_kappa_eta": s_.kappa_eta.numpy(),
+                        f"{i}_star_loglik": acc_new[j].star_loglik.numpy()})
+        steps.append(rec)
     for k in steps[0]:
         arrays[f"step_{k}"] = np.stack([s[k] for s in steps])
     _save(out, **arrays)

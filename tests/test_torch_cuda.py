@@ -863,3 +863,103 @@ def test_mesh_store_every_holds_no_more_on_a_card_than_one_device(cuda, tmp_path
     assert mesh_draws["tau"].shape == one_draws["tau"].shape == (200, 4001, 4)
     assert mesh_draws["tau"].dtype == one_draws["tau"].dtype
     assert (mesh_draws["tau"] == one_draws["tau"]).all(-1).mean() >= 0.99
+
+
+def _parted(trace, want):
+    """The first sweep whose cold loglik differs from want's by more than
+    rtol 1e-5 (len(trace) when none does)."""
+    off = np.abs(trace - want) > 1e-5 * np.abs(want)
+    return int(np.argmax(off)) if off.any() else len(trace)
+
+
+def test_mesh_pt_two_ranks_are_bitwise_repeatable(cuda, tmp_path):
+    """Four replicas at 1x2 (two ranks sharing one card over gloo; one card
+    each over NCCL where there are two), V=2001: two runs in one world and
+    a second world give the same bits; against run_chain_pt on one device,
+    tau_star agreement >= 0.99. The position shards' sums add in another
+    order, so an exchange whose log-uniform falls within their f32
+    difference of its threshold can go the other way, and the replicas'
+    paths (the cold trace, pt_swap_accept) part from there: printed, not
+    held (phase 13 of chip_smoke.py: at V=1e4 with cuda_topk the one
+    device accepted 0.136667 of the exchanges, the 1x2 mesh 0.143333)."""
+    from desman_tpu_torch.sampler import SamplerConfig, run_chain_pt
+
+    t = synth.generate(V=2001, S=32, G=4, coverage=50.0, seed=3)
+    cfg = dict(G=4, burn=20, samples=20, nmf_iters=50)
+    jobs = [("a", 0, 4, None, 0, None), ("b", 0, 4, None, 0, None)]
+    a = _mesh_world(tmp_path, "pt", 2, t.data.counts, cfg, jobs, (1, 2), "cuda")
+    b = _mesh_world(tmp_path, "pt", 2, t.data.counts, cfg, jobs, (1, 2), "cuda")
+    for k in a:
+        if k.startswith("a_"):
+            assert np.array_equal(a[k], a["b" + k[1:]]) and np.array_equal(a[k], b[k]), k
+    assert a["a_collectives"] == 8.0
+    ref = run_chain_pt(torch.as_tensor(t.data.counts, device=cuda), SamplerConfig(**cfg), 0)
+    want = ref.loglik_trace.cpu().numpy()
+    print(f"1x2 PT against run_chain_pt: pt_swap_accept {float(a['a_pt_swap_accept'])} / "
+          f"{float(ref.pt_swap_accept)}, the cold traces part at sweep "
+          f"{_parted(a['a_loglik_trace'], want)} of {len(want)}, max rel "
+          f"{(np.abs(a['a_loglik_trace'] - want) / np.abs(want)).max():.3e}")
+    assert (a["a_tau_star"] == ref.tau_star.cpu().numpy()).all(-1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("kernel,shape", [("cuda", (2, 1)), ("cuda_topk", (1, 2))],
+                         ids=["cuda-2x1", "cuda_topk-1x2"])
+def test_mesh_pt_checkpoint_resumes_bitwise_on_the_card(cuda, kernel, shape, tmp_path):
+    """Four replicas on two ranks on the card (2x1: the chain-axis exchange
+    and the cold draws added over the rows; 1x2 with cuda_topk on
+    biallelic counts), stored cold draws: stopped after a segment and
+    resumed, bitwise the uninterrupted run."""
+    two = dict(error_rate=0.0, max_alleles=2) if kernel == "cuda_topk" else {}
+    t = synth.generate(V=2001, S=32, G=4, coverage=50.0, seed=3, **two)
+    cfg = dict(G=4, burn=20, samples=20, nmf_iters=50, store_samples=True, store_thin=4)
+    ck = str(tmp_path / "ck")
+    got = _mesh_world(tmp_path, "pt", 2, t.data.counts, cfg, [
+        ("whole", 0, 4, str(tmp_path / "whole"), 15, None), ("stop", 0, 4, ck, 15, 15),
+        ("resumed", 0, 4, ck, 15, None)], shape, "cuda", None, kernel)
+    assert got["stop_stopped"] == 1
+    whole = {k[6:]: v for k, v in got.items() if k.startswith("whole_")}
+    assert whole["tau_samples"].shape == (5, 2001, 4)
+    for k, v in whole.items():
+        if k != "collectives":
+            assert np.array_equal(got[f"resumed_{k}"], v), k
+
+
+def test_mesh_pt_store_every_holds_no_more_on_a_card_than_one_device(cuda, tmp_path):
+    """run_pt_sharded with --pt 4 --store_every 1 (200 cold draws of
+    V=4001, G=4) at 1x2, two ranks on the card, against the PT run on one
+    device, each in fresh processes: no rank's peak allocated device memory
+    exceeds the single-device run's; the draws file matches in shape and
+    dtype, its first draw agrees with one device's on >= 99% of the
+    positions, and every draw is one device's up to the strains' labels
+    (SNP distance <= 1% after matching them). The draws part (printed)
+    where an exchange whose uniform lies within the f32 difference of the
+    two runs' row sums goes the other way
+    (test_mesh_pt_two_ranks_are_bitwise_repeatable): here between replicas
+    at the same mode with the strains labelled otherwise, whose logliks
+    agree to rtol 1e-5, so the cold traces do not show it."""
+    from desman_tpu_torch import io
+    from desman_tpu_torch.utils import snp_distance_perm
+
+    data = synth.generate(V=4001, S=16, G=4, coverage=50.0, seed=3).data
+    rc_kw = dict(G=4, iterations=400, seed=0, store_every=1, pt_replicas=4)
+    got = _mesh_world(tmp_path, "peak_memory", 2, data,
+                      dict(rc_kw, out_dir=str(tmp_path / "mesh")), (1, 2))
+    one = _mesh_world(tmp_path, "peak_memory", 1, data,
+                      dict(rc_kw, out_dir=str(tmp_path / "one")))
+    print(f"PT peak device bytes: ranks {got['peaks'].tolist()}, one device "
+          f"{one['peaks'].tolist()}")
+    assert got["peaks"].shape == (2,) and (got["peaks"] <= one["peaks"][0]).all()
+    mesh_draws = io.read_draws(str(tmp_path / "mesh" / "draws.npz"))
+    one_draws = io.read_draws(str(tmp_path / "one" / "draws.npz"))
+    assert mesh_draws["tau"].shape == one_draws["tau"].shape == (200, 4001, 4)
+    assert mesh_draws["tau"].dtype == one_draws["tau"].dtype
+    same = (mesh_draws["tau"] == one_draws["tau"]).all(-1).mean(-1)   # by draw
+    k = int(np.argmax(same < 0.99)) if (same < 0.99).any() else len(same)
+    parted = [snp_distance_perm(a, b) for a, b in zip(one_draws["tau"][k:],
+                                                      mesh_draws["tau"][k:])]
+    traces = [np.loadtxt(str(tmp_path / d / "loglik_trace.csv")) for d in ("mesh", "one")]
+    print(f"the draws agree on >= 99% of the positions up to draw {k} of {len(same)}; "
+          f"after it, SNP distances up to the strains' labels "
+          f"{min(parted, default=0)}-{max(parted, default=0)} of {4001 * 4}; the cold "
+          f"traces part at sweep {_parted(*traces)}")
+    assert k > 0 and max(parted, default=0) <= 0.01 * 4001 * 4

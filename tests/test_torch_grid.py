@@ -174,7 +174,7 @@ def test_fit_grid_resumes_finished_runs(grid_dirs, pipeline_data, monkeypatch):
 def test_fit_grid_refuses_unported_modes(kw, item, pipeline_data):
     """mesh (item 14) and ess_target (item 11) are ported. On a 1x1 mesh
     (no process group: this process is the world) the grid is bitwise
-    the one-device grid; with a mesh, ess_target raises naming item 15 and
+    the one-device grid, with ess_target too; with a mesh
     cuda_resident is single-device. ess_target samples until the target or
     max_samples."""
     if item == "item 14":
@@ -186,11 +186,14 @@ def test_fit_grid_refuses_unported_modes(kw, item, pipeline_data):
                                        **common)
         want = model_selection.fit_grid(counts, [1, 2], [0], **common)
         assert [dataclasses.astuple(r) for r in got] == [dataclasses.astuple(r) for r in want]
-        for bad, words in ((dict(ess_target=100.0), "item 15"),
-                           (dict(kernel="cuda_resident"), "single-device")):
-            with pytest.raises(ValueError, match=words):
-                model_selection.fit_grid(counts, [1], [0], mesh=make_mesh(1, 1),
-                                         **common, **bad)
+        ess = dict(ess_target=100.0, max_samples=30)
+        got = model_selection.fit_grid(counts, [1, 2], [0], mesh=make_mesh(1, 1),
+                                       **common, **ess)
+        want = model_selection.fit_grid(counts, [1, 2], [0], **common, **ess)
+        assert [dataclasses.astuple(r) for r in got] == [dataclasses.astuple(r) for r in want]
+        with pytest.raises(ValueError, match="single-device"):
+            model_selection.fit_grid(counts, [1], [0], mesh=make_mesh(1, 1), **common,
+                                     kernel="cuda_resident")
         return
     if item == "item 11":
         records = model_selection.fit_grid(

@@ -30,7 +30,7 @@ MODULES = [
     "desman_tpu_torch.profiling", "desman_tpu_torch.multibin",
     "desman_tpu_torch.parallel", "desman_tpu_torch.parallel.mesh",
     "desman_tpu_torch.parallel.distributed", "desman_tpu_torch.parallel.sharded",
-    "desman_tpu_torch.parallel.shard_ckpt",
+    "desman_tpu_torch.parallel.shard_ckpt", "desman_tpu_torch.baseline_numpy",
 ]
 
 
@@ -82,3 +82,21 @@ def test_config_fields_match_the_jax_package(name):
         return [(f.name, f.default) for f in dataclasses.fields(c)]
 
     assert spec(ours) == spec(theirs)
+
+
+def test_exports_hold_the_jax_packages():
+    """The port's package exports every name of the JAX package's
+    ``__all__``; its ``parallel`` package every run entry point of JAX's
+    (the JAX-only placement helpers, ``shard_counts``/``shard_keys``/
+    ``make_*_sweep_sharded``, have no counterpart: a rank holds its block)."""
+    import desman_tpu
+    import desman_tpu.parallel
+    import desman_tpu_torch
+    import desman_tpu_torch.parallel
+
+    assert set(desman_tpu.__all__) <= set(desman_tpu_torch.__all__)
+    for name in desman_tpu_torch.__all__:
+        assert callable(getattr(desman_tpu_torch, name)), name
+    runs = {n for n in desman_tpu.parallel.__all__ if n.startswith("run_")}
+    assert runs <= set(desman_tpu_torch.parallel.__all__)
+    from desman_tpu_torch import run_chain_pt, run_chains  # noqa: F401

@@ -1,9 +1,9 @@
 """``desman --mesh CxD`` through the port's CLI on the CPU (gloo): the ranks
 it starts itself, with --chains, --store_every, --checkpoint (SIGTERM ->
-exit 75 -> resume on another mesh shape), -f, --eta_update rows and each
-kernel choice that takes a mesh; the torchrun path (a world already
-joined, whose size the mesh must match); the refusals, at the CLI and at
-the API, message for message.
+exit 75 -> resume on another mesh shape), -f, --eta_update rows, --pt,
+--auto_samples and each kernel choice that takes a mesh; the torchrun path
+(a world already joined, whose size the mesh must match); the refusals, at
+the CLI and at the API, message for message.
 
 Each CLI run's best chain is held against the same run on one device
 (tau_star agreement >= 0.99, the position shards' sums adding in another
@@ -21,7 +21,10 @@ import pytest
 import torch
 
 from desman_tpu_torch import cli, io, synth
-from desman_tpu_torch.run import RunConfig, mesh_waiting, run_multi, run_sharded_checkpointed
+from desman_tpu_torch.run import (
+    AUTO_PT_SINGLE_CHAIN, PT_MESH_CHAINS, RunConfig, run_multi, run_pt_sharded,
+    run_sharded_checkpointed,
+)
 from desman_tpu_torch.parallel import launch, make_mesh
 
 import mesh_workers
@@ -177,17 +180,39 @@ def test_cli_joins_a_world_and_checks_its_size(case, tmp_path):
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["--mesh", "1x2", "--pt", "4"], "--mesh with --pt is not ported"),
-    (["--mesh", "1x2", "--auto_burn"], "--mesh with --auto_burn/--auto_samples"),
-    (["--mesh", "1x2", "--auto_samples", "50"], "item 15"),
+    (["--mesh", "1x2", "--pt", "4", "--chains", "2"], PT_MESH_CHAINS),
+    (["--mesh", "1x2", "--pt", "4", "--auto_burn"], AUTO_PT_SINGLE_CHAIN),
+    (["--mesh", "1x2", "--auto_samples", "50", "--auto_max_samples", "40"], None),
     (["--mesh", "2"], "--mesh expects CHAINxDATA"),
     (["--mesh", "0x2"], "--mesh expects CHAINxDATA"),
     (["--mesh", "2x1"], "needs --chains a multiple of its chain axis 2, not 1"),
     (["--mesh", "2x1", "--chains", "3"], "not 3"),
     (["--mesh", "1x2", "--kernel", "cuda_resident"], "single-device speed mode"),
+    (["--mesh", "2x1", "--pt", "3"], "--pt 3 must be a multiple of the mesh chain axis 2"),
+    (["--mesh", "2x1", "--pt", "3", "--checkpoint", "ck"],
+     "--pt 3 must be a multiple of the mesh chain axis 2"),
+    (["--mesh", "1x2", "--pt", "4", "--auto_samples", "50", "--checkpoint", "ck"],
+     AUTO_PT_SINGLE_CHAIN),
+    (["--mesh", "2x1", "--auto_burn", "--checkpoint", "ck"],
+     "needs --chains a multiple of its chain axis 2, not 1"),
 ], ids=["pt", "auto_burn", "auto_samples", "shape", "zero", "chains", "chains3",
-        "resident"])
-def test_cli_mesh_refusals(argv, words, tmp_path, capsys):
+        "resident", "pt3", "pt3-checkpoint", "pt-auto-checkpoint", "auto-checkpoint"])
+def test_cli_mesh_refusals(argv, words, case, tmp_path, capsys):
+    """The JAX CLI's refusals, message for message, with exit code 2 and
+    no output: --pt --mesh with --chains, --pt with --auto_* on a mesh,
+    --pt R not a multiple of the chain axis; --chains not a multiple of it
+    (one checkpointed chain runs on every row, but not an auto run's). A
+    mesh with --auto_samples is no refusal: it runs (checked against
+    --auto_samples on one device)."""
+    if words is None:
+        csv, _ = case
+        one, sharded = str(tmp_path / "one"), str(tmp_path / "mesh")
+        assert cli.main(_argv(csv, one, *argv[2:])) == 0
+        _mesh_cli(_argv(csv, sharded, *argv))
+        assert _metrics(sharded)["mesh"] == "1x2"
+        assert _metrics(sharded)["sampling_sweeps"] == _metrics(one)["sampling_sweeps"]
+        assert _agree(_tau(sharded), _tau(one)) >= 0.99
+        return
     rc = cli.main(["desman", "x.csv", "-g", "2", "-o", str(tmp_path / "o"),
                    "--device", "cpu", *argv])
     assert rc == 2
@@ -197,17 +222,34 @@ def test_cli_mesh_refusals(argv, words, tmp_path, capsys):
 
 @pytest.mark.parametrize("kw", [dict(pt_replicas=4), dict(auto_burn=True),
                                 dict(auto_samples=50.0)], ids=["pt", "auto_burn", "auto_samples"])
-def test_run_refuses_what_the_cli_refuses(case, kw):
-    """run_multi(mesh=...) and run_sharded_checkpointed raise ValueError
-    with the CLI's item-15 text; a mesh refuses cuda_resident."""
+def test_run_refuses_what_the_cli_refuses(case, kw, tmp_path):
+    """No mesh entry point drops a run mode without a word: PT raises
+    ValueError naming run_pt_sharded in run_multi(mesh=...) and
+    run_sharded_checkpointed, an auto run names run_multi(mesh=...) in
+    run_sharded_checkpointed and run_pt_sharded refuses it with the CLI's
+    AUTO_PT_SINGLE_CHAIN; run_multi(mesh=...) runs the auto one. A mesh
+    refuses cuda_resident."""
     _, t = case
-    rc = RunConfig(G=2, iterations=10, checkpoint_path="unused", **kw)
-    text = mesh_waiting(True, False) if "pt_replicas" in kw else mesh_waiting(False, True)
-    for fn in (lambda: run_multi(t.data, rc, 1, device="cpu", mesh=make_mesh(1, 1)),
-               lambda: run_sharded_checkpointed(t.data, rc, make_mesh(1, 1), device="cpu")):
+    rc = RunConfig(G=2, iterations=10, checkpoint_path=str(tmp_path / "ck"),
+                   out_dir=str(tmp_path / "o"), **kw)
+    fns = [lambda: run_sharded_checkpointed(t.data, rc, make_mesh(1, 1), device="cpu")]
+    if "pt_replicas" in kw:
+        fns.append(lambda: run_multi(t.data, rc, 1, device="cpu", mesh=make_mesh(1, 1)))
+        words = "runs no parallel tempering: on a mesh that is run.run_pt_sharded"
+    else:
+        words = "runs no auto-length run: on a mesh that is run.run_multi(mesh=...)"
+    for fn in fns:
         with pytest.raises(ValueError) as e:
             fn()
-        assert str(e.value) == text
+        assert words in str(e.value)
+    if "pt_replicas" in kw:
+        with pytest.raises(ValueError) as e:
+            run_pt_sharded(t.data, RunConfig(G=2, iterations=10, pt_replicas=4,
+                                             auto_burn=True), make_mesh(1, 1), device="cpu")
+        assert str(e.value) == AUTO_PT_SINGLE_CHAIN
+    else:
+        run_multi(t.data, rc, 1, device="cpu", mesh=make_mesh(1, 1))
+        assert _metrics(str(tmp_path / "o"))["mesh"] == "1x1"
     with pytest.raises(ValueError, match="single-device"):
         run_multi(t.data, RunConfig(G=2, iterations=10), 1, device="cpu",
                   kernel="cuda_resident", mesh=make_mesh(1, 1))

@@ -90,15 +90,9 @@ def test_cuda_device_without_cuda_exits_nonzero(variant_half, tmp_path, capsys):
     (["--mesh=1x2", "--auto_burn"], "item 15"),
 ])
 def test_unported_flags_exit_2(argv, item, variant_half, port_out, tmp_path, capsys):
-    """A flag of an item still to port exits 2 naming its item: --mesh with
-    --pt or --auto_* (item 15). The flags of items 3, 5, 11, 12 and 14 are
-    ported: each runs on the quickstart input (``_ported_flag``)."""
-    if item in ("item 3", "item 5", "item 11", "item 12", "item 14"):
-        _ported_flag(argv, variant_half, str(tmp_path / "out"), port_out)
-        return
-    rc = cli.main(["desman", variant_half, "-g", "2", "--device", "cpu", *argv])
-    assert rc == 2
-    assert item in capsys.readouterr().err
+    """Every item's flags are ported (items 3, 5, 11, 12, 14 and 15): each
+    runs on the quickstart input (``_ported_flag``)."""
+    _ported_flag(argv, variant_half, str(tmp_path / "out"), port_out)
 
 
 def _run_mode(variant_half, out, argv):
@@ -119,7 +113,17 @@ def _ported_flag(argv, variant_half, out, port_out):
     four tempered replicas and reports their exchange rate. The runs meet
     the quickstart gates. --mesh=2x4 with --chains 2 runs on eight ranks
     the CLI starts (gloo on the CPU), the best chain's files within the
-    gates, chains.json beside them."""
+    gates, chains.json beside them. --mesh=1x2 --pt 4 runs the four
+    replicas on two ranks and reports their exchange rate and the mesh;
+    --mesh=1x2 --auto_burn burns at least -i/2 sweeps on them."""
+    if argv[0] == "--mesh=1x2":
+        m = _run_mode(variant_half, out, ["-e", ETA, *argv])
+        assert (m["mesh"], m["ranks"], m["backend"]) == ("1x2", 2, "gloo")
+        if "--pt" in argv:
+            assert 0.0 < m["pt_swap_accept"] <= 1.0 and m["sweeps"] == 150
+        else:
+            assert m["sampling_sweeps"] == 75 and m["sweeps"] - 75 >= 75
+        return
     if argv[0] == "--mesh=2x4":
         m = _run_mode(variant_half, out, ["-e", ETA, *argv, "--chains", "2"])
         assert (m["mesh"], m["ranks"], m["backend"], m["chains"]) == ("2x4", 8, "gloo", 2)
