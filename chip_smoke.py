@@ -164,15 +164,31 @@ Phases, each printing its own '# ...' lines:
    launches; (l) at V=1e5 S=96 G=16, `--pt 4` for 20 sweeps through
    `run.run_pt_sharded` at 1x2 and 2x1 and through `run.run` on one
    device, each world in fresh processes: every rank's peak allocated
-   device bytes beside the one device's; the phase's seconds printed.
+   device bytes beside the one device's; the phase's seconds printed;
+14. the drivers, each a subprocess from the checkout run as `python -m`
+   runs it (``runpy``), printing its launch counts at exit: (a) `python -m
+   desman_tpu_torch.bench --kernel cuda_resident` and `--kernel cuda`: the
+   last line bench.py's four keys, value and vs_baseline > 0, the path's
+   kernels (fused_sweep and gamma_apply_eta; tau_sweep and swap) launched
+   exactly 4 x 400 times each (a warm run and three timed ones); then in
+   process one `bench.measure` call a kernel choice, the counts set to 0
+   just before it: the same 4 x 400 launches and no other kernel's; (b)
+   `complete_example --paper --prune`: exit 0 with PASS, G=5, SNP error
+   rate and gamma MAE < 0.02, presence accuracy > 0.9, core_counts.csv
+   byte-identical to the committed JAX run's `complete_example_out/`,
+   tau and swap launched; (c) `bench_suite --quick`: the suite's entries
+   in its order, each value > 0, the tau, swap, fused and apply kernels
+   launched; each driver's output and wall printed, and the phase's
+   seconds.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every in-process path driven in phases 3-13,
-the tau and swap kernels' multibin launches beside them, and the tau, swap
+kernel's launches summed over every in-process path driven in phases 3-14,
+the tau and swap kernels' multibin launches beside them, the tau, swap
 and top-2 kernels' mesh launches over every rank of phase 13 with their
-agreement on a shard's block, each with
+agreement on a shard's block, and each driver subprocess's launches of
+phase 14 (`driver_launches`), each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
@@ -2453,6 +2469,121 @@ def phase_mesh(tmp):
     print(f"# phase 13 wall {time.time() - t_phase:.2f} s")
 
 
+# phase 14: each driver subprocess's launches of each kernel
+DRIVER_LAUNCHES = {}
+BENCH_PATHS = {"cuda_resident": ("fused_sweep", "gamma_apply_eta"),
+               "cuda": ("tau_sweep", "swap")}
+# the JAX suite's entries under the port's names, in its order (--quick)
+SUITE_QUICK = ("full_sweep_torch", "full_sweep_cuda", "full_sweep_resident",
+               "full_sweep_chains4", "time_to_converged_deviance", "filter",
+               "geneassign_enum", "csv_native", "csv_python", "extract_native",
+               "extract_python")
+# `python -m <module> <args>` with the launch counts printed to stderr at
+# exit: runpy runs the module as -m does, in a process whose counts start
+# at 0
+COUNTED = (
+    "import json, runpy, sys\n"
+    "from desman_tpu_torch import ops\n"
+    "module, sys.argv = sys.argv[1], sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps({k: getattr(ops, k).launches for k in %r}),\n"
+    "          file=sys.stderr)\n" % (LAUNCHED,))
+
+
+def driver(name, module, *args, timeout=600):
+    """`python -m desman_tpu_torch.<module> <args>` from the checkout, its
+    launches counted (DRIVER_LAUNCHES[name]). Returns (rc, stdout, stderr)."""
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-c", COUNTED, f"desman_tpu_torch.{module}",
+                             *args], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    said = [ln for ln in err.splitlines() if ln.startswith("LAUNCHES ")]
+    launches = json.loads(said[-1][len("LAUNCHES "):]) if said else {}
+    DRIVER_LAUNCHES[name] = launches
+    print(f"# {name}: rc {proc.returncode}, {time.time() - t0:.2f} s wall, "
+          f"launches {launches}")
+    if proc.returncode != 0:
+        print(f"# {name} stderr: {err.strip()[-2000:]}")
+    return proc.returncode, out, err
+
+
+def phase_drivers(tmp):
+    """Phase 14: the drivers (bench, complete_example, bench_suite) as a
+    user runs them, from the checkout."""
+    from desman_tpu_torch import bench
+
+    t_phase = time.time()
+    total = 4 * bench.SWEEPS      # one warm run and three timed ones
+    for kernel, path in BENCH_PATHS.items():
+        rc, out, err = driver(f"bench --kernel {kernel}", "bench", "--kernel", kernel)
+        for ln in err.splitlines():
+            if ln.startswith("# "):
+                print(f"# bench --kernel {kernel}: {ln[2:]}")
+        lines = out.strip().splitlines()
+        print(f"# bench --kernel {kernel} stdout: {lines[-1] if lines else ''}")
+        gate(rc == 0 and bool(lines), f"bench --kernel {kernel} exits 0")
+        line = json.loads(lines[-1])
+        gate(list(line) == ["metric", "value", "unit", "vs_baseline"]
+             and line["metric"] == bench.METRIC and line["unit"] == "sweeps/s",
+             f"bench --kernel {kernel}: the last line has bench.py's four keys")
+        gate(line["value"] > 0 and line["vs_baseline"] > 0,
+             f"bench --kernel {kernel}: value and vs_baseline > 0")
+        gate(all(DRIVER_LAUNCHES[f"bench --kernel {kernel}"].get(k) == total for k in path),
+             f"bench --kernel {kernel} launched {', '.join(path)} {total} times each")
+        # in process: one measure call, counts set to 0 just before it
+        ops.reset_launches()
+        m = bench.measure(kernel=kernel)
+        launches = read_launches()
+        print(f"# bench.measure(kernel={kernel!r}) V={bench.V} S={bench.S} G={bench.G}: "
+              f"times {m['times']} s, {m['sweeps_per_s']:.3f} sweeps/s, final loglik "
+              f"{m['final_loglik']:.6f}; launches {launches}")
+        gate(all(launches[k] == total for k in path)
+             and all(v == 0 for k, v in launches.items() if k not in path),
+             f"bench.measure(kernel={kernel!r}) launched {', '.join(path)} exactly "
+             f"{total} times each and nothing else")
+
+    out_dir = os.path.join(tmp, "complete_example_paper")
+    rc, out, err = driver("complete_example --paper --prune", "complete_example",
+                          "--paper", "--prune", "--outdir", out_dir)
+    for ln in out.strip().splitlines():
+        print(f"# complete_example: {ln}")
+    gate(rc == 0 and "COMPLETE_EXAMPLE PASS" in out,
+         "complete_example --paper exits 0 with PASS")
+    with open(os.path.join(out_dir, "summary.json")) as f:
+        summary = json.load(f)
+    gate(summary["selected_G"] == 5 and summary["snp_error_rate"] < 0.02
+         and summary["gamma_mae"] < 0.02 and summary["gene_presence_accuracy"] > 0.9,
+         f"complete_example --paper: G=5, SNP error rate and gamma MAE < 0.02, "
+         f"presence accuracy > 0.9 ({summary})")
+    with open(os.path.join(out_dir, "core_counts.csv"), "rb") as f, \
+            open(os.path.join(HERE, "complete_example_out", "core_counts.csv"), "rb") as g:
+        gate(f.read() == g.read(), "complete_example --paper's core_counts.csv is "
+             "byte-identical to the committed JAX run's")
+    gate(all(DRIVER_LAUNCHES["complete_example --paper --prune"].get(k, 0) > 0
+             for k in ("tau_sweep", "swap")),
+         "complete_example --paper launched tau_sweep and swap")
+
+    rc, out, err = driver("bench_suite --quick", "bench_suite", "--quick")
+    rows = [json.loads(ln) for ln in out.strip().splitlines()] if rc == 0 else []
+    for r in rows:
+        print(f"# bench_suite: {json.dumps(r)}")
+    gate(rc == 0 and tuple(r["bench"] for r in rows) == SUITE_QUICK,
+         "bench_suite --quick exits 0 with the suite's entries")
+    gate(all(r["value"] > 0 for r in rows), "bench_suite --quick: every value > 0")
+    gate(all(DRIVER_LAUNCHES["bench_suite --quick"].get(k, 0) > 0
+             for k in ("tau_sweep", "swap", "fused_sweep", "gamma_apply_eta")),
+         "bench_suite --quick launched tau_sweep, swap, fused_sweep and gamma_apply_eta")
+    print(f"# phase 14 wall {time.time() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -2486,6 +2617,7 @@ def main() -> int:
             phase_pt(tmp)
             phase_multibin(tmp)
             phase_mesh(tmp)
+            phase_drivers(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
@@ -2494,6 +2626,8 @@ def main() -> int:
                 r["mesh_agreement"] = MESH_CHECK[r["name"]]["agreement"]
                 r["mesh_max_abs_err"] = MESH_CHECK[r["name"]]["max_abs_err"]
                 gate(r["mesh_launches"] > 0, f"{r['name']} launched on the mesh path")
+            r["driver_launches"] = {name: launches.get(r.get("launched_in", r["name"]), 0)
+                                    for name, launches in DRIVER_LAUNCHES.items()}
             if r["name"] in ("tau_sweep", "swap"):
                 r["multibin_launches"] = MULTIBIN_LAUNCHES[r["name"]]
                 r["multibin_agreement"] = MULTIBIN_CHECK[r["name"]]["agreement"]

@@ -97,6 +97,7 @@ def mock_community(
     gamma_alpha: float = 0.6,
     max_alleles: int = 2,
     seed: int = 2017,
+    rng: np.random.Generator | None = None,
 ):
     """The mock community of the JAX package's examples/complete_example.py:
     V variant positions from ``generate`` (positions 0..V-1) followed by V
@@ -105,9 +106,14 @@ def mock_community(
     Its ``--paper`` scale is V=7000, S=64, G=5, gamma_alpha=0.6, biallelic
     (max_alleles=2), seed 2017.
 
+    The monomorphic positions are drawn from `rng` (default: a new
+    ``default_rng(seed)``); the example passes its own, as it goes on to
+    draw the accessory genes from the same stream.
+
     Returns (truth of the variant positions, CountsData of all 2V).
     """
-    rng = np.random.default_rng(seed)
+    if rng is None:
+        rng = np.random.default_rng(seed)
     t = generate(V=V, S=S, G=G, coverage=coverage, error_rate=error_rate,
                  gamma_alpha=gamma_alpha, seed=seed, max_alleles=max_alleles)
     mono_base = rng.integers(0, NBASES, size=V)

@@ -31,6 +31,8 @@ MODULES = [
     "desman_tpu_torch.parallel", "desman_tpu_torch.parallel.mesh",
     "desman_tpu_torch.parallel.distributed", "desman_tpu_torch.parallel.sharded",
     "desman_tpu_torch.parallel.shard_ckpt", "desman_tpu_torch.baseline_numpy",
+    "desman_tpu_torch.bench", "desman_tpu_torch.complete_example",
+    "desman_tpu_torch.bench_suite", "desman_tpu_torch.make_testdata",
 ]
 
 
