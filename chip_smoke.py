@@ -29,7 +29,16 @@ Phases, each printing its own '# ...' lines:
    memory of a block's reduction slots: the fused kernel bitwise the staged
    chain, swap(emit_ll), gamma_ll and gamma_apply_eta against their plain
    versions, and a 10-sweep cuda_resident chain (a main path: its launches
-   are counted);
+   are counted); then the chain axis: the tau, swap and top-2 kernels with
+   C = 1, 5 and 40 chains in one launch at V=1e4, S=64, G=8
+   (kernel_bench.chain_inputs: chain 0 phase 3's inputs, the others their
+   own tau, mix, gamma, eta, gz and swap pair, on shared counts): chain c
+   bitwise the solo launch on chain c's inputs, the launch against its
+   plain version (>= 99% agreement, mixture consistency), the digests at
+   C = 1, device ms of the launch against C solo launches (CUDA events)
+   and the bound at C (kernel_bench.bound); chain c bitwise its solo
+   launch also at V=9999, G=5, C=3 (chain slices of tau not on 16 bytes)
+   and with each chain's own copy of the counts (a chain stride);
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: the `desman` CLI on TestData's true-variant half with
    `--kernel cuda` and with `--kernel cuda_resident`, each held to the
@@ -176,19 +185,31 @@ Phases, each printing its own '# ...' lines:
    `complete_example --paper --prune`: exit 0 with PASS, G=5, SNP error
    rate and gamma MAE < 0.02, presence accuracy > 0.9, core_counts.csv
    byte-identical to the committed JAX run's `complete_example_out/`,
-   tau and swap launched; (c) `bench_suite --quick`: the suite's entries
+   the tau kernel launched 8 x 250 and the swap 7 x 250 times (the grid's
+   5 seeds on the chain axis: 10000 and 8750 chain launches); (c)
+   `bench_suite --quick`: the suite's entries
    in its order, each value > 0, the tau, swap, fused and apply kernels
    launched; each driver's output and wall printed, and the phase's
-   seconds.
+   seconds;
+15. independent chains on the chain axis: `run_chains` of seeds 0-4 at
+   V=1e4, S=64, G=8, 400 sweeps (nmf_iters 50), with `cuda` on the synth
+   counts and with `cuda_topk` on biallelic ones (a main path: counts set
+   to 0 just before it): the tau (top-2) and swap kernels launched 400
+   times each, 2000 chain launches, every chain bitwise `run_chain` of its
+   seed on the card (every result field), and the wall of the batched
+   call against five `run_chain` calls in turn (NMF starts included), in
+   rounds batched, loop, loop, batched: chain-sweeps/s of each.
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
 lines are the kernels' JSON record, one record per TPU kernel (each
-kernel's launches summed over every in-process path driven in phases 3-14,
+kernel's launches summed over every in-process path driven in phases 3-15,
 the tau and swap kernels' multibin launches beside them, the tau, swap
 and top-2 kernels' mesh launches over every rank of phase 13 with their
 agreement on a shard's block, and each driver subprocess's launches of
-phase 14 (`driver_launches`), each with
+phase 14 (`driver_launches`); the chain-axis kernels also carry their
+chain launches (`chain_launches`, `driver_chain_launches`), phase 3's
+numbers at each C (`chains`) and phase 15's walls (`chain_path`); each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
@@ -205,6 +226,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from collections import Counter
 
 import numpy as np
@@ -227,6 +249,17 @@ TESTDATA = os.path.join(HERE, "TestData")
 PATH_LAUNCHES = Counter()
 # launches a sweep of each kernel on the path that runs it (phases 4-6)
 SWEEP_LAUNCHES = {}
+# the chain-axis wrappers' chains over every main path driven, and the last
+# path's
+PATH_CHAIN_LAUNCHES = Counter()
+LAST_CHAIN_LAUNCHES = {}
+# phase 3's chain-axis launches: the chains a launch, and the numbers of each
+CHAIN_COUNTS = (1, 5, 40)
+CHAIN_CHECK = {}
+# phase 15: run_chains of these seeds, each this many sweeps
+CHAIN_SEEDS = [0, 1, 2, 3, 4]
+CHAIN_SWEEPS = 400
+CHAIN_PATH = {}
 # SHA-256 of (tau, mix) from tau_sweep and of (tau, mix, ll) from
 # fused_sweep on kernel_bench's inputs, as the one-warp-per-position
 # kernels gave them (python -m desman_tpu_torch.kernel_bench --against a
@@ -429,6 +462,83 @@ def topk_kernel():
         tau_sweep_device_ms=kernel_bench.profiled_ms(
             lambda: ops.tau_sweep(n, tau, mix, gamma, eta, gz))["total"], sha256=sha,
         **resident_info("tau_sweep_topk"))
+
+
+def chain_kernels(records):
+    """Phase 3's chain axis: each chain-axis kernel with C chains in one
+    launch (CHAIN_COUNTS) against the solo launches on each chain's inputs
+    (bitwise), its plain version and the digests; device ms against C solo
+    launches and the bound at C, into CHAIN_CHECK and the kernel's record.
+    Then the launches bitwise the solo ones where chain slices of tau do not
+    start on 16 bytes (V=9999, G=5) and with each chain's own counts."""
+    dev = torch.device("cuda")
+    plain = types.SimpleNamespace(tau_sweep=ops.tau_sweep_reference,
+                                  swap=ops.swap_reference,
+                                  tau_sweep_topk=ops.tau_sweep_topk_reference)
+    digests = {"tau_sweep": TAU_SHA256, "tau_sweep_topk": TOPK_SHA256}
+    for C in CHAIN_COUNTS:
+        inputs = {topk: {k: v.to(dev) for k, v in
+                         kernel_bench.chain_inputs(V, S, G, C, topk).items()}
+                  for topk in (False, True)}
+        for name in kernel_bench.CHAIN_AXIS:
+            d = inputs[name == "tau_sweep_topk"]
+            batched, one = kernel_bench.chain_calls(ops, name, d)
+            tau_k, mix_k = batched()
+            solo = [one(c) for c in range(C)]
+            tau_p, mix_p = kernel_bench.chain_calls(plain, name, d)[0]()
+            torch.cuda.synchronize()
+            gate(all(torch.equal(tau_k[c], t) and torch.equal(mix_k[c], m)
+                     for c, (t, m) in enumerate(solo)),
+                 f"{name} C={C}: chain c of the launch is bitwise the solo launch on "
+                 "chain c's inputs")
+            if name in digests and C == 1:
+                gate(kernel_bench.digest(tau_k[0], mix_k[0]) == digests[name][
+                    kernel_bench.METRIC], f"{name} C=1 keeps the digest")
+            same = (tau_k == tau_p).all(dim=-1)
+            agree = same.float().mean().item()
+            err = (mix_k[same] - mix_p[same]).abs().max().item()
+            gamma = d["gamma"]
+            consistent = all(torch.allclose(mix_k[c], mixture(one_hot_tau(tau_k[c]),
+                                                              gamma[c]),
+                                            rtol=1e-5, atol=1e-6) for c in range(C))
+            gate(agree >= 0.99 and consistent,
+                 f"{name} C={C} agrees with its plain version on >= 99% of positions "
+                 f"({agree:.6f}) with mix == mixture(onehot(tau), gamma)")
+            ms = kernel_bench.event_ms(batched)
+            solo_ms = kernel_bench.event_ms(lambda: [one(c) for c in range(C)])
+            b = kernel_bench.bound(name, V, S, G, C)
+            CHAIN_CHECK.setdefault(name, {})[C] = dict(
+                device_ms=ms, solo_ms=solo_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], share_of_bound=b["bound_ms"] / ms,
+                agreement=agree, max_abs_err=err)
+            print(f"# {name} C={C}: device {ms:.4f} ms a launch, {C} solo launches "
+                  f"{solo_ms:.4f} ms (CUDA events), bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f}; agreement "
+                  f"{agree:.6f}, max |mix kernel - plain| {err:.3e}")
+        del inputs
+    for r in records:
+        if r["name"] in CHAIN_CHECK:
+            r["chains"] = {str(c): v for c, v in CHAIN_CHECK[r["name"]].items()}
+
+    # tau slices off 16 bytes (9999 * 5 words a chain), and each chain's own
+    # copy of the counts (the kernels' chain stride)
+    for shape, own in (((9999, S, 5), False), ((V, S, G), True)):
+        for topk in (False, True):
+            d = {k: v.to(dev) for k, v in
+                 kernel_bench.chain_inputs(*shape, 3, topk).items()}
+            if own:
+                for k in ("n", "n_val", "b_idx"):
+                    if k in d:
+                        d[k] = d[k].expand(3, *d[k].shape).contiguous()
+            for name in (("tau_sweep_topk",) if topk else ("tau_sweep", "swap")):
+                batched, one = kernel_bench.chain_calls(ops, name, d)
+                tau_k, mix_k = batched()
+                solo = [one(c) for c in range(3)]
+                ok = all(torch.equal(tau_k[c], t) and torch.equal(mix_k[c], m)
+                         for c, (t, m) in enumerate(solo))
+                gate(ok, f"{name} at V={shape[0]} G={shape[2]} C=3"
+                     f"{' on each chain own counts' if own else ''}: chain c bitwise "
+                     "its solo launch")
 
 
 def ll_err(got, want, agree=1.0):
@@ -725,9 +835,14 @@ OUTPUTS = ("fit.txt", "Gamma_mean.csv", "Gamma_star.csv", "Eta_mean.csv",
 
 
 def read_launches() -> dict:
-    """The launch counts since the last reset, added to PATH_LAUNCHES."""
+    """The launch counts since the last reset, added to PATH_LAUNCHES; the
+    chain-axis wrappers' chain launches go to LAST_CHAIN_LAUNCHES and are
+    added to PATH_CHAIN_LAUNCHES."""
     launches = {k: getattr(ops, k).launches for k in LAUNCHED}
     PATH_LAUNCHES.update(launches)
+    LAST_CHAIN_LAUNCHES.clear()
+    LAST_CHAIN_LAUNCHES.update({w.__name__: w.chain_launches for w in ops.CHAIN_AXIS})
+    PATH_CHAIN_LAUNCHES.update(LAST_CHAIN_LAUNCHES)
     return launches
 
 
@@ -740,7 +855,7 @@ def drive_cli(argv, out):
     wall = time.time() - t0
     launches = read_launches()
     print(f"# cli {' '.join(argv[1:])}: rc {rc}, {wall:.2f} s wall, kernel "
-          f"launches {launches}")
+          f"launches {launches}, chain launches {LAST_CHAIN_LAUNCHES}")
     gate(rc == 0, "desman CLI exits 0")
     for f in OUTPUTS:
         gate(os.path.exists(os.path.join(out, f)), f"{f} written")
@@ -940,8 +1055,12 @@ def phase_grid(tmp):
             gate(summary["genes_assigned"] == N_GENES and acc > 0.9,
                  f"genes stage: presence accuracy > 0.9 over {N_GENES} genes")
         else:
-            gate(launches["tau_sweep_topk"] > 0 and launches["tau_sweep"] == 0,
-                 "grid (b) launched tau_sweep_topk and never tau_sweep")
+            grid = PAPER["g_max"] * PAPER["iterations"]
+            print(f"# grid (b) chain launches {LAST_CHAIN_LAUNCHES}")
+            gate(launches["tau_sweep_topk"] == grid and launches["tau_sweep"] == 0
+                 and LAST_CHAIN_LAUNCHES["tau_sweep_topk"] == grid * len(PAPER["seeds"]),
+                 f"grid (b) launched tau_sweep_topk once for each G and sweep ({grid}: "
+                 f"{grid * len(PAPER['seeds'])} chain launches) and never tau_sweep")
             same_chain(out)
 
 
@@ -1284,9 +1403,12 @@ def phase_run_length(tmp):
                          "--chains 4 --checkpoint"),
                         (["--auto_burn"], "--auto_burn --chains 4")):
         out = os.path.join(tmp, f"len_chains_{extra[0].strip('-')}")
-        drive_cli([half, "-g", "5", "-e", eta, "-i", "150", "-s", "0", "--chains", "4",
-                   *extra], out)
+        launches, _ = drive_cli([half, "-g", "5", "-e", eta, "-i", "150", "-s", "0",
+                                 "--chains", "4", *extra], out)
         quickstart_gates(out, what)
+        gate(all(LAST_CHAIN_LAUNCHES[k] == 4 * launches[k] > 0 for k in ("tau_sweep", "swap"))
+             and (launches["tau_sweep"] == 150 or "--auto_burn" in extra),
+             f"{what}: the 4 chains advance in one launch a sweep")
         with open(os.path.join(out, "chains.json")) as f:
             chains = json.load(f)
         gate(chains["seeds"] == [0, 1, 2, 3], f"{what}: chains.json of 4 chains")
@@ -2489,7 +2611,12 @@ COUNTED = (
     "    runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
     "finally:\n"
     "    print('LAUNCHES ' + json.dumps({k: getattr(ops, k).launches for k in %r}),\n"
-    "          file=sys.stderr)\n" % (LAUNCHED,))
+    "          file=sys.stderr)\n"
+    "    print('CHAIN_LAUNCHES ' + json.dumps({w.__name__: w.chain_launches\n"
+    "                                          for w in ops.CHAIN_AXIS}), file=sys.stderr)\n"
+    % (LAUNCHED,))
+# each driver subprocess's chain launches of the chain-axis kernels
+DRIVER_CHAIN_LAUNCHES = {}
 
 
 def driver(name, module, *args, timeout=600):
@@ -2508,8 +2635,11 @@ def driver(name, module, *args, timeout=600):
     said = [ln for ln in err.splitlines() if ln.startswith("LAUNCHES ")]
     launches = json.loads(said[-1][len("LAUNCHES "):]) if said else {}
     DRIVER_LAUNCHES[name] = launches
+    said = [ln for ln in err.splitlines() if ln.startswith("CHAIN_LAUNCHES ")]
+    DRIVER_CHAIN_LAUNCHES[name] = (json.loads(said[-1][len("CHAIN_LAUNCHES "):])
+                                   if said else {})
     print(f"# {name}: rc {proc.returncode}, {time.time() - t0:.2f} s wall, "
-          f"launches {launches}")
+          f"launches {launches}, chain launches {DRIVER_CHAIN_LAUNCHES[name]}")
     if proc.returncode != 0:
         print(f"# {name} stderr: {err.strip()[-2000:]}")
     return proc.returncode, out, err
@@ -2567,9 +2697,13 @@ def phase_drivers(tmp):
             open(os.path.join(HERE, "complete_example_out", "core_counts.csv"), "rb") as g:
         gate(f.read() == g.read(), "complete_example --paper's core_counts.csv is "
              "byte-identical to the committed JAX run's")
-    gate(all(DRIVER_LAUNCHES["complete_example --paper --prune"].get(k, 0) > 0
-             for k in ("tau_sweep", "swap")),
-         "complete_example --paper launched tau_sweep and swap")
+    name = "complete_example --paper --prune"
+    sweeps, seeds = PAPER["iterations"], len(PAPER["seeds"])
+    want = {"tau_sweep": PAPER["g_max"] * sweeps, "swap": (PAPER["g_max"] - 1) * sweeps}
+    gate(all(DRIVER_LAUNCHES[name].get(k) == n for k, n in want.items())
+         and all(DRIVER_CHAIN_LAUNCHES[name].get(k) == seeds * n for k, n in want.items()),
+         f"complete_example --paper launched tau_sweep and swap {want} times, the "
+         f"{seeds} seeds of each G on the chain axis ({seeds}x as many chain launches)")
 
     rc, out, err = driver("bench_suite --quick", "bench_suite", "--quick")
     rows = [json.loads(ln) for ln in out.strip().splitlines()] if rc == 0 else []
@@ -2582,6 +2716,66 @@ def phase_drivers(tmp):
              for k in ("tau_sweep", "swap", "fused_sweep", "gamma_apply_eta")),
          "bench_suite --quick launched tau_sweep, swap, fused_sweep and gamma_apply_eta")
     print(f"# phase 14 wall {time.time() - t_phase:.2f} s")
+
+
+def phase_chains(tmp):
+    """Phase 15: run_chains of CHAIN_SEEDS at the metric configuration with
+    cuda (synth counts) and cuda_topk (biallelic counts), each a main path
+    with its launch counts set to 0 just before it; each chain bitwise
+    run_chain of its seed; the batched call's wall against the chains' in
+    turn."""
+    dev = torch.device("cuda")
+    cfg = sampler.SamplerConfig(G=G, burn=CHAIN_SWEEPS // 2, samples=CHAIN_SWEEPS // 2,
+                                nmf_iters=50)
+    C = len(CHAIN_SEEDS)
+    for kernel, biallelic in (("cuda", False), ("cuda_topk", True)):
+        t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0,
+                           **(dict(error_rate=0.0, max_alleles=2) if biallelic else {}))
+        n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
+        ks = ops.resolve(kernel, n)
+        tau_name = "tau_sweep_topk" if kernel == "cuda_topk" else "tau_sweep"
+        ops.reset_launches()
+        res = sampler.run_chains(n, cfg, CHAIN_SEEDS, kernel=ks)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        chains = dict(LAST_CHAIN_LAUNCHES)
+        print(f"# run_chains of {C} seeds V={V} S={S} G={G} {CHAIN_SWEEPS} sweeps "
+              f"--kernel {kernel}: launches {launches}, chain launches {chains}")
+        gate(launches[tau_name] == CHAIN_SWEEPS and launches["swap"] == CHAIN_SWEEPS
+             and chains[tau_name] == C * CHAIN_SWEEPS and chains["swap"] == C * CHAIN_SWEEPS
+             and all(v == 0 for k, v in launches.items() if k not in (tau_name, "swap")),
+             f"run_chains --kernel {kernel}: {tau_name} and swap launched {CHAIN_SWEEPS} "
+             f"times for {C} chains x {CHAIN_SWEEPS} sweeps, nothing else")
+        gate(res.loglik_trace.shape == (C, CHAIN_SWEEPS)
+             and bool(torch.isfinite(res.loglik_trace).all()),
+             f"run_chains --kernel {kernel}: {C} x {CHAIN_SWEEPS} finite logliks")
+        for i, seed in enumerate(CHAIN_SEEDS):
+            one = sampler.run_chain(n, cfg, sampler.chain_generator(seed, dev), kernel=ks)
+            same = [f for f, a, b in zip(one._fields, res, one)
+                    if not (a is None and b is None or torch.equal(a[i], b))]
+            gate(not same, f"--kernel {kernel}: chain {i} of run_chains is bitwise "
+                 f"run_chain of seed {seed} (differs: {same})")
+
+        def batched():
+            sampler.run_chains(n, cfg, CHAIN_SEEDS, kernel=ks)
+            torch.cuda.synchronize()
+
+        def loop():
+            for seed in CHAIN_SEEDS:
+                sampler.run_chain(n, cfg, sampler.chain_generator(seed, dev), kernel=ks)
+            torch.cuda.synchronize()
+
+        walls = {"batched": [], "loop": []}
+        for which in ("batched", "loop", "loop", "batched"):
+            t0 = time.perf_counter()
+            (batched if which == "batched" else loop)()
+            walls[which].append(time.perf_counter() - t0)
+        rate = {k: [C * CHAIN_SWEEPS / w for w in v] for k, v in walls.items()}
+        CHAIN_PATH[kernel] = dict(chains=C, sweeps=CHAIN_SWEEPS, walls_s=walls,
+                                  chain_sweeps_per_s=rate)
+        print(f"# run_chains --kernel {kernel}: walls {walls} s (batched, loop of "
+              f"run_chain; NMF starts included): chain-sweeps/s batched "
+              f"{rate['batched']}, loop {rate['loop']}")
 
 
 def main() -> int:
@@ -2602,6 +2796,7 @@ def main() -> int:
         print(f"# build: {time.time() - t0:.2f} s -> "
               f"{os.path.relpath(lib, HERE)}")
         records = phase_kernels()
+        chain_kernels(records)
         scale = phase_scale()
         for r in records:
             if r["name"] in scale:
@@ -2618,8 +2813,14 @@ def main() -> int:
             phase_multibin(tmp)
             phase_mesh(tmp)
             phase_drivers(tmp)
+            phase_chains(tmp)
         for r in records:
             r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
+            if r["name"] in PATH_CHAIN_LAUNCHES:
+                r["chain_launches"] = PATH_CHAIN_LAUNCHES[r["name"]]
+                r["driver_chain_launches"] = {name: launches.get(r["name"], 0) for name,
+                                              launches in DRIVER_CHAIN_LAUNCHES.items()}
+                r["chain_path"] = CHAIN_PATH
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
             if r["name"] in MESH_CHECK:
                 r["mesh_launches"] = MESH_LAUNCHES[r["name"]]

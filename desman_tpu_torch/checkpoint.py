@@ -13,7 +13,10 @@ a snapshot also holds ``generator.get_state()`` of every chain as
 the mt19937 state on the CPU), and a resumed run restores it and never runs
 ``init_state`` again (the NMF start draws from the same generator). Segments
 run the same sweeps in the same order from the same draws, so a resumed run
-continues the exact trajectory of an uninterrupted one.
+continues the exact trajectory of an uninterrupted one. Chains advance
+together, one sweep of all of them at a time (``sampler.run_segment`` on a
+state with a leading chain axis), and their snapshot holds that state as it
+is.
 
 A PT snapshot (``save_pt``) holds the replicas' states and accumulators
 with a leading [R] axis, ``rung``, ``it``, the cold trace, ``n_acc`` and
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import os
 import signal
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,9 +38,9 @@ import torch
 from .convert import accum_from_numpy, state_from_numpy
 from .ops import Kernels, resolve
 from .sampler import (
-    DRAW_FIELDS, SamplerAccum, SamplerConfig, SamplerResult, SamplerState,
+    DRAW_FIELDS, ChainNoise, SamplerAccum, SamplerConfig, SamplerResult, SamplerState,
     TorchNoise, _result_from_accum, chain_generator, chain_result,
-    check_store_thin, init_accum, init_state, make_pt_step, make_sweep_fn,
+    check_store_thin, init_accum, init_states, make_pt_step, make_sweep_fn,
     pt_generators, pt_init, pt_merge_accums, pt_noises, pt_swap_rate,
     run_pt_segment, run_segment,
     stored_slots,  # noqa: F401 (checkpoint.stored_slots, as in the JAX package)
@@ -194,42 +197,39 @@ def prepare(n, cfg: SamplerConfig, kernel):
 
 def init_chains(n, cfg: SamplerConfig, generators: Sequence[torch.Generator],
                 eta_init=None, tau_init=None):
-    """Per-chain (states, accums) lists for a fresh multi-chain run, each
-    chain's NMF start drawn from its own generator."""
+    """(state, accum) of a fresh multi-chain run with a leading chain axis,
+    each chain's NMF start drawn from its own generator."""
     V, S, _ = n.shape
-    states = [init_state(n, cfg, g, eta_init, tau_init) for g in generators]
-    accums = [init_accum(V, S, cfg.G, n.device) for _ in generators]
-    return states, accums
+    return (init_states(n, cfg, generators, eta_init, tau_init),
+            init_accum(V, S, cfg.G, n.device, chains=len(generators)))
 
 
-def advance_chains(n, cfg: SamplerConfig, states: List[SamplerState],
-                   accums: List[SamplerAccum], noises, it: int, n_sweeps: int,
-                   kernel: Kernels, burn: Optional[int] = None,
-                   store: bool = False):
-    """Every chain one segment from sweep `it`, in turn (the lists are
-    updated in place). Returns the host trace [C, n_sweeps] and, with
-    store, the host draws [C, k, ...] (else None)."""
-    traces, draws = [], []
-    for c, noise in enumerate(noises):
-        out = run_segment(n, cfg, states[c], accums[c], it, n_sweeps, noise,
-                          kernel, burn=burn, store=store)
-        states[c], accums[c] = out[:2]
-        traces.append(out[2])
-        if store:
-            draws.append(out[3])
-    stacked = None
-    if store:
-        stacked = tuple(_numpy(torch.stack(d)) for d in zip(*draws))
-    return _numpy(torch.stack(traces)), stacked
+def chain_noise(generators: Sequence[torch.Generator]) -> ChainNoise:
+    """The chains' draws, chain c's from generators[c]."""
+    return ChainNoise(TorchNoise(g) for g in generators)
 
 
-def stacked_result(accums: List[SamplerAccum], cfg: SamplerConfig,
-                   trace: np.ndarray, draws: _DrawBuf, device) -> SamplerResult:
+def advance_chains(n, cfg: SamplerConfig, state: SamplerState, accum: SamplerAccum,
+                   noise: ChainNoise, it: int, n_sweeps: int, kernel: Kernels,
+                   burn: Optional[int] = None, store: bool = False):
+    """Every chain one segment from sweep `it`, one sweep of all of them at
+    a time (state and accum with a leading chain axis; ``run_segment``).
+    Returns (state, accum, the host trace [C, n_sweeps], and with store the
+    host draws [C, k, ...], else None)."""
+    out = run_segment(n, cfg, state, accum, it, n_sweeps, noise, kernel,
+                      burn=burn, store=store)
+    draws = tuple(_numpy(d) for d in out[3]) if store else None
+    return out[0], out[1], _numpy(out[2]), draws
+
+
+def stacked_result(accum, cfg: SamplerConfig, trace: np.ndarray, draws: _DrawBuf,
+                   device) -> SamplerResult:
     """The chains' results stacked on a leading axis, from their
-    accumulators, the host trace [C, sweeps] and the stored draws."""
-    trace = torch.as_tensor(trace, device=device)
-    res = stack([_result_from_accum(ac, cfg, trace[c])
-                 for c, ac in enumerate(accums)])
+    accumulators (with a leading chain axis, or a list of each chain's),
+    the host trace [C, sweeps] and the stored draws."""
+    if isinstance(accum, list):
+        accum = stack(accum)
+    res = _result_from_accum(accum, cfg, torch.as_tensor(trace, device=device))
     return res._replace(**draws.result_fields(device, axis=1))
 
 
@@ -245,7 +245,7 @@ def run_chains_checkpointed(
 ) -> SamplerResult:
     """``sampler.run_chains`` with periodic checkpoints and automatic resume.
 
-    Every chain advances one segment in turn, each from its own generator
+    The chains advance one segment together, each from its own generator
     (seeded seeds[i]); then one npz holds every chain's state, accumulators
     and generator state with a leading chain axis. The result is bitwise
     ``run_chains`` of the same seeds however often the run was interrupted,
@@ -284,32 +284,30 @@ def _run_checkpointed(n, cfg: SamplerConfig, generators, checkpoint_path: str,
     n, ks = prepare(n, cfg, kernel)
     if os.path.exists(checkpoint_path):
         state, accum, it, trace_done, gen_state = load(checkpoint_path, n.device)
-        states, accums = unstack(state), unstack(accum)
         restore_generators(generators, gen_state)
         trace_parts = [trace_done[:, :it]]
         draws = _DrawBuf(load_extras(checkpoint_path))
     else:
-        states, accums = init_chains(n, cfg, generators, eta_init, tau_init)
+        state, accum = init_chains(n, cfg, generators, eta_init, tau_init)
         it = 0
         trace_parts = []
         draws = _DrawBuf()
-    noises = [TorchNoise(g) for g in generators]
+    noise = chain_noise(generators)
 
     while it < cfg.total_sweeps:
         check_preempted()
         seg = min(checkpoint_every, cfg.total_sweeps - it)
-        trace, seg_draws = advance_chains(n, cfg, states, accums, noises, it, seg,
-                                          ks, store=cfg.store_samples)
+        state, accum, trace, seg_draws = advance_chains(
+            n, cfg, state, accum, noise, it, seg, ks, store=cfg.store_samples)
         if seg_draws is not None:
             draws.append(*seg_draws, axis=1)
         it += seg
         trace_parts.append(trace)
-        save(checkpoint_path, stack(states), stack(accums), it,
-             np.concatenate(trace_parts, axis=1), generators,
-             extras=draws.extras(axis=1))
+        save(checkpoint_path, state, accum, it, np.concatenate(trace_parts, axis=1),
+             generators, extras=draws.extras(axis=1))
 
-    return stacked_result(accums, cfg, np.concatenate(trace_parts, axis=1),
-                          draws, n.device)
+    return stacked_result(accum, cfg, np.concatenate(trace_parts, axis=1), draws,
+                          n.device)
 
 
 # --------------------------------------------------------------------------

@@ -118,9 +118,10 @@ def _desman_parser() -> argparse.ArgumentParser:
                     help="write every K-th post-burn (tau,gamma,eta) draw to "
                     "<out>/draws.npz (K must divide the sampling sweeps)")
     ap.add_argument("--chains", type=int, default=1,
-                    help="independent chains (seeds seed..seed+chains-1), run "
-                    "one after another; the best by star likelihood is "
-                    "written, with chains.json")
+                    help="independent chains (seeds seed..seed+chains-1), "
+                    "advanced together, one sweep of all of them at a time "
+                    "(with --kernel cuda_resident or --pt one after another); "
+                    "the best by star likelihood is written, with chains.json")
     ap.add_argument("--checkpoint", default=None,
                     help="npz path: checkpoint every --checkpoint_every "
                     "sweeps and resume from it if present")

@@ -19,13 +19,13 @@ import numpy as np
 import torch
 
 from .checkpoint import (
-    PREEMPTED_MESSAGE, Preempted, _DrawBuf, _numpy, advance_chains, init_chains,
-    load, load_extras, prepare, restore_generators, save, stack, stacked_result,
-    take_preempted, unstack,
+    PREEMPTED_MESSAGE, Preempted, _DrawBuf, _numpy, advance_chains, chain_noise,
+    init_chains, load, load_extras, prepare, restore_generators, save, stacked_result,
+    take_preempted,
 )
 from .diagnostics import ess_bulk
 from .sampler import (
-    DRAW_FIELDS, SamplerConfig, SamplerResult, TorchNoise, _result_from_accum,
+    DRAW_FIELDS, SamplerConfig, SamplerResult, _result_from_accum,
     chain_generator, chain_result, check_store_thin, init_accum, make_pt_step,
     pt_generators, pt_init, pt_merge_accums, pt_noises, pt_swap_rate,
     run_pt_segment, stored_slots,
@@ -170,7 +170,8 @@ def run_chains_auto(
     """Multi-chain ``run_chain_auto`` with optional checkpoint/resume.
 
     Chain i runs from its own generator, seeded seeds[i]. Burn-in advances
-    every chain one ``check_every`` segment in turn until EVERY chain has
+    every chain one ``check_every`` segment (one sweep of all the chains at
+    a time; on a mesh, a rank's chains in turn) until EVERY chain has
     plateaued (per-chain verdicts, the bar of run_chain_auto) or
     ``max_burn`` is reached; then at least ``cfg.samples`` sweeps are
     accumulated for all chains from that common point, extended in segments
@@ -208,8 +209,9 @@ def run_chains_auto(
 
 
 class _Chains:
-    """The chains of an auto run on one device: their states, accumulators,
-    generators and stored draws, and the snapshot file."""
+    """The chains of an auto run on one device: their state and
+    accumulators with a leading chain axis (every chain advances in one
+    sweep), generators and stored draws, and the snapshot file."""
 
     def __init__(self, n, cfg: SamplerConfig, generators, eta_init, tau_init,
                  kernel, checkpoint_path: Optional[str]):
@@ -223,17 +225,17 @@ class _Chains:
         """Restore the committed snapshot: (it, trace [C, it], extras); or
         start the chains afresh: None."""
         if self.path and os.path.exists(self.path):
-            state, accum, it, trace_done, gen_state = load(self.path, self.device)
-            self.states, self.accums = unstack(state), unstack(accum)
+            self.state, self.accum, it, trace_done, gen_state = load(self.path,
+                                                                     self.device)
             restore_generators(self.generators, gen_state)
             ex = load_extras(self.path)
             self.draws = _DrawBuf(ex)  # phase-2 draws stored so far (if any)
             out = it, np.asarray(trace_done)[:, :it], ex
         else:
-            self.states, self.accums = init_chains(
+            self.state, self.accum = init_chains(
                 self.n, self.cfg, self.generators, self.eta_init, self.tau_init)
             out = None
-        self.noises = [TorchNoise(g) for g in self.generators]
+        self.noise = chain_noise(self.generators)
         return out
 
     def preempted(self) -> bool:
@@ -241,33 +243,34 @@ class _Chains:
 
     def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
         """Every chain one segment; the host trace [C, seg]."""
-        trace, seg_draws = advance_chains(self.n, self.cfg, self.states, self.accums,
-                                          self.noises, it, seg, self.ks, burn=burn,
-                                          store=store)
+        self.state, self.accum, trace, seg_draws = advance_chains(
+            self.n, self.cfg, self.state, self.accum, self.noise, it, seg, self.ks,
+            burn=burn, store=store)
         if seg_draws is not None:
             self.draws.append(*seg_draws, axis=1)
         return trace
 
     def fresh_accums(self) -> None:
         V, S, _ = self.n.shape
-        self.accums[:] = [init_accum(V, S, self.cfg.G, self.device)
-                          for _ in range(self.n_chains)]
+        self.accum = init_accum(V, S, self.cfg.G, self.device, chains=self.n_chains)
 
     def gamma_draws(self):
         """Every chain's stored gamma draws [C, k, S, G], or None."""
         return self.draws.extras(axis=1).get("draw_gamma")
 
     def snapshot(self, it: int, trace: np.ndarray, extras: dict) -> None:
-        save(self.path, stack(self.states), stack(self.accums), it, trace,
-             self.generators, extras={**extras, **self.draws.extras(axis=1)})
+        save(self.path, self.state, self.accum, it, trace, self.generators,
+             extras={**extras, **self.draws.extras(axis=1)})
 
     def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
-        return stacked_result(self.accums, cfg, trace, self.draws, self.device)
+        return stacked_result(self.accum, cfg, trace, self.draws, self.device)
 
 
 class _ShardChains(_Chains):
     """The chains of an auto run on a mesh: this rank's share of them on its
-    block of positions (``parallel.sharded.Shard``)."""
+    block of positions (``parallel.sharded.Shard``), each chain's state and
+    accumulators on their own, advanced in turn (the mesh path has no chain
+    axis yet)."""
 
     def __init__(self, counts, cfg: SamplerConfig, seeds, mesh, device, kernel,
                  eta_init, tau_init, checkpoint_path: Optional[str]):

@@ -34,22 +34,25 @@ def _tensor(name: str, x, device) -> torch.Tensor:
 def state_from_numpy(d: Mapping, device="cpu", V: Optional[int] = None
                      ) -> SamplerState:
     """Port state from a mapping of SamplerState fields (extra keys such as
-    ``key`` are ignored).
+    ``key`` are ignored): one chain's, or chains' with a leading [C] axis
+    (the JAX package's ``checkpoint.init_chains`` or a vmapped
+    ``init_state``; the port's ``init_states``).
 
     Also takes the JAX package's resident state, whose ``mix`` is the
     base-major [Vp, 4S] mixture (lane a*S + s) and whose ``mix`` and
     ``tau`` carry pad rows past V: give V, and the mixture comes back as
-    [V,S,4] and both without the pad rows.
+    [V,S,4] and both without the pad rows (a leading chain axis kept).
     """
     d = dict(d)
     mix = np.asarray(d["mix"])
-    if mix.ndim == 2:
+    if mix.ndim == np.ndim(d["tau"]):   # base-major: [..., Vp, 4S] beside [..., Vp, G]
         if V is None:
             raise ValueError("a base-major [Vp, 4S] mixture needs V")
-        Vp, lanes = mix.shape
+        Vp, lanes = mix.shape[-2:]
         S = lanes // NBASES
-        d["mix"] = mix.reshape(Vp, NBASES, S).transpose(0, 2, 1)[:V]
-        d["tau"] = np.asarray(d["tau"])[:V]
+        mix = mix.reshape(*mix.shape[:-1], NBASES, S)
+        d["mix"] = np.swapaxes(mix, -1, -2)[..., :V, :, :]
+        d["tau"] = np.asarray(d["tau"])[..., :V, :]
     return SamplerState(**{f: _tensor(f, d[f], device)
                            for f in SamplerState._fields})
 

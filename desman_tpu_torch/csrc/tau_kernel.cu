@@ -29,6 +29,16 @@
 //     with a grid stride, and the compiler is held to 48 registers so that
 //     5 blocks (40 warps) stay resident to hide the copies and the shuffle
 //     and argmax chains (tile.cuh's kResidentBlocks).
+// Chains: the JAX package vmaps its chains, and under that vmap the
+// pallas_call gains a leading grid axis. Here one launch sweeps C chains,
+// chain c in grid row blockIdx.y: tau, mix, gz and the outputs are [C,...]
+// with chain c's slice at c times its size, gamma [C,S,G] and eta [C,4,4]
+// likewise (staged and loaded once a block, as for one chain), and the counts
+// n_stride cells a chain (0 where the chains share them). A block's tiles are
+// its chain's, so none straddles two chains; the grid's rows split the
+// persistent blocks evenly (ops/tau_kernel.py's resident_grid). Each
+// position's arithmetic is the one-chain kernel's, so chain c of a launch is
+// bitwise the launch on chain c's inputs alone, and C = 1 is that launch.
 // ops/tau_kernel.py's tile_plan stages one tile at a time where its rows fit
 // in 227 KB: with 5 blocks a SM the copy of one block's next tile overlaps
 // the others' work (a second buffer, the next tile's copy in flight while
@@ -61,12 +71,20 @@ tau_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
                  const float4* mix_in, const float* __restrict__ gamma,
                  const float* __restrict__ eta, const float4* __restrict__ gz,
                  int* __restrict__ tau_out, float4* mix_out, int V, int S, int G,
-                 int staged) {
+                 int staged, long n_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int tiles = (V + kTile - 1) / kTile;
+  const long c = blockIdx.y;  // this block's chain
+  n += c * n_stride;
+  tau_in += c * V * G;
+  tau_out += c * V * G;
+  gz += c * V * G;
+  mix_in += c * V * S;
+  mix_out += c * V * S;
+  gamma += c * S * G;
   float e[4][4];
-  load_eta(eta, e);
+  load_eta(eta + 16 * c, e);
 
   if (!kStaged) {
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -116,27 +134,32 @@ tau_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
 }  // namespace
 }  // namespace desman
 
-// n, mix, mix_out: [V,S,4] f32; tau_in, tau_out: [V,G] i32; gamma: [S,G]
-// f32; eta: [4,4] f32; gz: [V,G,4] f32. staged (0 or 1) and smem_bytes:
-// ops/tau_kernel.py's tile_plan(S, G), which must agree with tile.cuh's
-// TileLayout; grid: its resident_grid, blocks that walk the tiles (after
-// desman_tau_sweep_info has opted the kernel in to its shared memory on
-// this device). Launches on `stream`, does not synchronise, allocates
-// nothing; returns the launch's cudaError_t.
+// `chains` chains, C >= 1: n: [V,S,4] f32 shared by the chains (n_stride
+// 0), or [C,V,S,4] (n_stride V*S cells); mix, mix_out: [C,V,S,4] f32;
+// tau_in, tau_out: [C,V,G] i32; gamma: [C,S,G] f32; eta: [C,4,4] f32; gz:
+// [C,V,G,4] f32 (one chain: the same without the leading axis). staged (0
+// or 1) and smem_bytes: ops/tau_kernel.py's tile_plan(S, G), which must
+// agree with tile.cuh's TileLayout; grid: its resident_grid, blocks a chain
+// that walk the chain's tiles (after desman_tau_sweep_info has opted the
+// kernel in to its shared memory on this device). Launches on `stream`,
+// does not synchronise, allocates nothing; returns the launch's cudaError_t.
 extern "C" int desman_tau_sweep(const void* n, const void* tau_in, const void* mix_in,
                                 const void* gamma, const void* eta, const void* gz,
                                 void* tau_out, void* mix_out, int V, int S, int G, int staged,
-                                int smem_bytes, int grid, void* stream) {
+                                int smem_bytes, int grid, int chains, long long n_stride,
+                                void* stream) {
   if (V <= 0) return static_cast<int>(cudaSuccess);
   const desman::TileLayout L(S, G, staged != 0, desman::TileKind::kTau);
-  if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > desman::launch_blocks(V))
+  if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > desman::launch_blocks(V) ||
+      !desman::chains_ok(chains) || n_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = staged ? desman::tau_sweep_kernel<true> : desman::tau_sweep_kernel<false>;
-  kernel<<<grid, desman::kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(grid, chains), desman::kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(n), static_cast<const int*>(tau_in),
       static_cast<const float4*>(mix_in), static_cast<const float*>(gamma),
       static_cast<const float*>(eta), static_cast<const float4*>(gz),
-      static_cast<int*>(tau_out), static_cast<float4*>(mix_out), V, S, G, staged);
+      static_cast<int*>(tau_out), static_cast<float4*>(mix_out), V, S, G, staged,
+      static_cast<long>(n_stride));
   return static_cast<int>(cudaGetLastError());
 }
 

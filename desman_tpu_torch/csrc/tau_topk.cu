@@ -37,6 +37,10 @@
 // (ops/tau_kernel.py's resident_grid), 5 resident blocks a SM (48
 // registers); where one tile's rows do not fit in 227 KB (S > 900 or so),
 // the same kernel template reads them from device memory.
+// Chains: the tau kernel's chain axis (tau_kernel.cu): chain c in grid row
+// blockIdx.y, its tau, mix, gz, gamma, eta and outputs at c times their size,
+// and n_val/b_idx n_stride cells a chain (0 where the chains share them; an
+// even stride, so every chain's rows start on 16 bytes for the bulk copies).
 //
 // A lane evaluates the two slots in ascending base order, each term with the
 // tau kernel's own expression (q[b] by the same multiply-add chain, then
@@ -79,7 +83,7 @@ __device__ __forceinline__ void issue_topk_tile(unsigned char* smem, const TileL
   const uint32_t pair_bytes = pair_bulk_bytes(rows, S);
   const uint32_t row_bytes = static_cast<uint32_t>(rows) * S * 16;
   const uint32_t gz_bytes = static_cast<uint32_t>(rows) * G * 16;
-  const uint32_t tau_bytes = tau_bulk_bytes(rows, G);
+  const uint32_t tau_bytes = tau_bulk_bytes(tau + v0 * G, rows, G);
   const TileRows r = tile_rows(smem, L);
   const PairRows p = pair_rows(smem, L, S);
   mbar_expect_tx(bar, 2 * pair_bytes + row_bytes + gz_bytes + tau_bytes);
@@ -102,10 +106,20 @@ tau_topk_kernel(const float2* __restrict__ n_val, const int2* __restrict__ b_idx
                 const int* __restrict__ tau_in, const float4* mix_in,
                 const float* __restrict__ gamma, const float* __restrict__ eta,
                 const float4* __restrict__ gz, int* __restrict__ tau_out, float4* mix_out,
-                int V, int S, int G, int staged) {
+                int V, int S, int G, int staged, long n_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int tiles = (V + kTile - 1) / kTile;
+  const long c = blockIdx.y;  // this block's chain
+  n_val += c * n_stride;
+  b_idx += c * n_stride;
+  tau_in += c * V * G;
+  tau_out += c * V * G;
+  gz += c * V * G;
+  mix_in += c * V * S;
+  mix_out += c * V * S;
+  gamma += c * S * G;
+  eta += 16 * c;
   const TileLayout L(S, G, kStaged && staged != 0, TileKind::kTopk);
   float4* eta_col = reinterpret_cast<float4*>(smem + L.eta_cols);
   if (threadIdx.x < 4) {
@@ -166,31 +180,34 @@ tau_topk_kernel(const float2* __restrict__ n_val, const int2* __restrict__ b_idx
 }  // namespace
 }  // namespace desman
 
-// n_val: [V,S,2] f32 slot counts; b_idx: [V,S,2] i32 slot bases in ascending
-// order (unused slot: count 0, base 0); mix_in, mix_out: [V,S,4] f32;
-// tau_in, tau_out: [V,G] i32; gamma: [S,G] f32; eta: [4,4] f32; gz: [V,G,4]
-// f32 (already * temperature). staged (0 or 1) and smem_bytes:
-// ops/tau_kernel.py's tile_plan(S, G, topk=True), which must agree with
-// tile.cuh's TileLayout; grid: its resident_grid (after
-// desman_tau_sweep_topk_info has opted the kernel in to its shared memory on
-// this device). Launches on `stream`, does not synchronise, allocates
-// nothing; returns the launch's cudaError_t.
+// `chains` chains, C >= 1: n_val: [V,S,2] f32 slot counts and b_idx:
+// [V,S,2] i32 slot bases in ascending order (unused slot: count 0, base 0),
+// shared by the chains (n_stride 0) or [C,V,S,2] (n_stride V*S cells, even);
+// mix_in, mix_out: [C,V,S,4] f32; tau_in, tau_out: [C,V,G] i32; gamma:
+// [C,S,G] f32; eta: [C,4,4] f32; gz: [C,V,G,4] f32 (already * temperature;
+// one chain: the same without the leading axis). staged (0 or 1) and
+// smem_bytes: ops/tau_kernel.py's tile_plan(S, G, topk=True), which must
+// agree with tile.cuh's TileLayout; grid: its resident_grid, blocks a chain
+// (after desman_tau_sweep_topk_info has opted the kernel in to its shared
+// memory on this device). Launches on `stream`, does not synchronise,
+// allocates nothing; returns the launch's cudaError_t.
 extern "C" int desman_tau_sweep_topk(const void* n_val, const void* b_idx, const void* tau_in,
                                      const void* mix_in, const void* gamma, const void* eta,
                                      const void* gz, void* tau_out, void* mix_out, int V,
                                      int S, int G, int staged, int smem_bytes, int grid,
-                                     void* stream) {
+                                     int chains, long long n_stride, void* stream) {
   if (V <= 0) return static_cast<int>(cudaSuccess);
   const desman::TileLayout L(S, G, staged != 0, desman::TileKind::kTopk);
-  if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > desman::launch_blocks(V))
+  if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > desman::launch_blocks(V) ||
+      !desman::chains_ok(chains) || n_stride < 0 || n_stride % 2)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = staged ? desman::tau_topk_kernel<true> : desman::tau_topk_kernel<false>;
-  kernel<<<grid, desman::kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(grid, chains), desman::kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(n_val), static_cast<const int2*>(b_idx),
       static_cast<const int*>(tau_in), static_cast<const float4*>(mix_in),
       static_cast<const float*>(gamma), static_cast<const float*>(eta),
       static_cast<const float4*>(gz), static_cast<int*>(tau_out),
-      static_cast<float4*>(mix_out), V, S, G, staged);
+      static_cast<float4*>(mix_out), V, S, G, staged, static_cast<long>(n_stride));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -152,11 +152,14 @@ __device__ __forceinline__ int tile_rows_in(long t, int V) {
   return left < kTile ? static_cast<int>(left) : kTile;
 }
 
-// Bytes of the tile's tau rows the bulk copy takes: all of them unless the
-// ragged last tile's are not a multiple of 16 (then the warps load the
-// rest, tau_tail).
-__device__ __forceinline__ uint32_t tau_bulk_bytes(int rows, int G) {
-  return static_cast<uint32_t>(rows * G * 4) & ~15u;
+// Bytes of the tile's tau rows (starting at `src`) the bulk copy takes: all
+// of them unless the ragged last tile's are not a multiple of 16, and none
+// where the rows do not start on 16 bytes (a chain's [V,G] slice past chain
+// 0 of a chain-axis launch when V*G is not a multiple of 4). The warps load
+// the rest (tau_tail).
+__device__ __forceinline__ uint32_t tau_bulk_bytes(const int* src, int rows, int G) {
+  return (reinterpret_cast<uintptr_t>(src) & 15) ? 0u
+                                                 : static_cast<uint32_t>(rows * G * 4) & ~15u;
 }
 
 // The same for the top-2 kernel's n_val (float2) or b_idx (int2) rows of a
@@ -174,7 +177,7 @@ __device__ __forceinline__ void issue_tile(unsigned char* smem, const TileLayout
   const long v0 = t * kTile;
   const uint32_t row_bytes = static_cast<uint32_t>(rows) * S * 16;
   const uint32_t gz_bytes = static_cast<uint32_t>(rows) * G * 16;
-  const uint32_t tau_bytes = tau_bulk_bytes(rows, G);
+  const uint32_t tau_bytes = tau_bulk_bytes(tau + v0 * G, rows, G);
   TileRows r = tile_rows(smem, L);
   mbar_expect_tx(bar, 2 * row_bytes + gz_bytes + tau_bytes);
   bulk_load(const_cast<float4*>(r.n), n + v0 * S, row_bytes, bar);
@@ -187,7 +190,7 @@ __device__ __forceinline__ void issue_tile(unsigned char* smem, const TileLayout
 // out (only on a ragged last tile), then syncs the warp.
 __device__ __forceinline__ void tau_tail(int* tau_s, const int* tau, long t, int rows, int G,
                                          int w, int lane) {
-  const int bulk_words = static_cast<int>(tau_bulk_bytes(rows, G) / 4);
+  const int bulk_words = static_cast<int>(tau_bulk_bytes(tau + t * kTile * G, rows, G) / 4);
   if (bulk_words < rows * G) {
     for (int k = lane; k < G; k += kWarp) {
       const int i = w * G + k;
@@ -248,6 +251,10 @@ inline cudaError_t kernel_info(Kernel kernel, size_t smem, int* out) {
   out[1] = static_cast<int>(a.localSizeBytes);
   return cudaSuccess;
 }
+
+// Chains of a chain-axis launch: one grid row (blockIdx.y) a chain, within
+// the grid's y limit.
+inline bool chains_ok(int chains) { return chains >= 1 && chains <= 65535; }
 
 // The launch's checks: the plan is TileLayout's, within the card's shared
 // memory, and the grid (ops/tau_kernel.py's resident_grid: SMs x resident

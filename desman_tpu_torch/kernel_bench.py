@@ -27,6 +27,11 @@ against, this, this, against. For each tree and kernel:
 - registers and spill bytes of each kernel function (``nvcc -Xptxas -v``
   over the tree's ``csrc/``).
 
+The chain-axis kernels (the tau sweep, the swap and the top-2 sweep) are
+also timed at V=1e4 S=64 G=8 with C = 5 and 40 chains in one launch
+(``chain_inputs``), beside C solo launches; their bound counts the shared
+counts once and every chain's other bytes and logs C times.
+
 And the SASS instructions of one IEEE ``logf`` and of one ``log_normal``
 (probe kernels with and without them), the check of ``log_normal`` against
 ``logf`` on every float of [1e-12, FLT_MAX], and this tree's tile plan, registers and resident blocks of
@@ -69,6 +74,9 @@ RESIDENT = ("tau_sweep", "fused_sweep", "tau_sweep_topk")
 KERNELS = {METRIC: RESIDENT + ("gamma_ll", "swap", "swap_emit_ll", "gamma_apply_eta"),
            ONE_STRAIN: ("gamma_ll",),
            SCALE: RESIDENT + ("gamma_ll",)}
+# the kernels with a chain axis, and the chains measure() launches them with
+CHAIN_AXIS = ("tau_sweep", "swap", "tau_sweep_topk")
+CHAIN_COUNTS = (5, 40)
 EVENT_LAUNCHES, PROFILED_LAUNCHES = 200, 50
 
 
@@ -121,6 +129,46 @@ def phase3_inputs(V: int, S: int, G: int) -> dict:
     return d
 
 
+def chain_inputs(V: int, S: int, G: int, C: int, topk: bool = False) -> dict:
+    """C chains' inputs of the chain-axis kernels as CPU tensors with a
+    leading [C] axis, on counts the chains share: chain 0's are
+    phase3_inputs (topk: topk_inputs), so its outputs carry the digests;
+    chain c > 0 has its own random tau, gz and swap start (the truth with a
+    pair of its own exchanged at half the positions, g = c mod G and h its
+    neighbour), gamma from a flat Dirichlet and eta with its entries scaled
+    by 1 + U(0, 0.1) and its rows renormalised, from numpy's
+    default_rng(1000 + c).
+    Keys: the counts (n, and with topk n_val/b_idx) and tau, mix, gamma,
+    eta, gz, tau_s, mix_s, g, h, logu (topk: the first six)."""
+    first = topk_inputs(V, S, G) if topk else phase3_inputs(V, S, G)
+    truth = None if topk else synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
+    keys = ("tau", "mix", "gamma", "eta", "gz")
+    if not topk:
+        keys += ("tau_s", "mix_s", "g", "h", "logu")
+    chains = [{k: first[k] for k in keys}]
+    for c in range(1, C):
+        rng = np.random.default_rng(1000 + c)
+        tau = rng.integers(0, 4, size=(V, G))
+        gamma = rng.dirichlet(np.ones(G), size=S).astype(np.float32)
+        eta = first["eta"].numpy() * (1.0 + 0.1 * rng.random((4, 4)))
+        d = dict(tau=_i32(tau), mix=_f32(host_mixture(tau, gamma)), gamma=_f32(gamma),
+                 eta=_f32(eta / eta.sum(axis=1, keepdims=True)),
+                 gz=_f32(rng.gumbel(size=(V, G, 4))))
+        if not topk:
+            g, h = c % G, (c + 1) % G
+            tau_s = truth.tau_idx.copy()
+            flip = rng.random(V) < 0.5
+            tau_s[flip, g], tau_s[flip, h] = truth.tau_idx[flip, h], truth.tau_idx[flip, g]
+            d.update(tau_s=_i32(tau_s), mix_s=_f32(host_mixture(tau_s, gamma)),
+                     g=torch.tensor(g, dtype=torch.int32),
+                     h=torch.tensor(h, dtype=torch.int32),
+                     logu=_f32(np.log(rng.uniform(size=V))))
+        chains.append(d)
+    out = {k: torch.stack([d[k] for d in chains]) for k in keys}
+    out.update({k: first[k] for k in (("n", "n_val", "b_idx") if topk else ("n",))})
+    return out
+
+
 def tau_args(d: dict) -> tuple:
     """(n, tau, mix, gamma, eta, gz) of the tau sweep."""
     return tuple(d[k] for k in ("n", "tau", "mix", "gamma", "eta", "gz"))
@@ -167,7 +215,14 @@ def swap_args(d: dict) -> tuple:
     return tuple(d[k] for k in ("n", "tau_s", "mix_s", "gamma", "eta", "g", "h", "logu"))
 
 
-# each kernel's call on measure()'s inputs (the top-2 kernel's: topk_inputs)
+def topk_chain_args(d: dict) -> tuple:
+    """(n_val, b_idx, tau, mix, gamma, eta, gz) of the top-2 sweep on
+    chain_inputs(topk=True)."""
+    return tuple(d[k] for k in ("n_val", "b_idx", "tau", "mix", "gamma", "eta", "gz"))
+
+
+# each kernel's call on measure()'s inputs (the top-2 kernel's: topk_inputs;
+# with a chain axis, chain_inputs')
 CALLS = {
     "tau_sweep": lambda o, d: o.tau_sweep(*tau_args(d)),
     "fused_sweep": lambda o, d: o.fused_sweep(*fused_args(d)),
@@ -190,28 +245,32 @@ def digest(*tensors: torch.Tensor) -> str:
 
 # ---------------------------------------------------------------- bounds
 
-def kernel_work(name: str, V: int, S: int, G: int) -> tuple[int, int]:
+def kernel_work(name: str, V: int, S: int, G: int, C: int = 1) -> tuple[int, int]:
     """(logs, bytes) a call of kernel `name` needs at these shapes: every
     log the function takes, each input read once and each output written
-    once (f32/i32: 4 bytes; [V,S,4] rows 16 bytes a cell)."""
+    once (f32/i32: 4 bytes; [V,S,4] rows 16 bytes a cell). With C chains in
+    one launch the counts, which the chains share, are read once and every
+    other byte and every log counts C times."""
     cells = V * S
     row = 16 * cells                     # one [V,S,4] f32 tensor
     tau, gz, gam = 4 * V * G, 16 * V * G, 4 * S * G
-    if name == "tau_sweep":              # n, mix, tau, gz, gamma in; tau, mix out
-        return 16 * G * cells, 3 * row + 2 * tau + gz + gam + 64
-    if name == "tau_sweep_topk":         # n_val, b_idx (8 B a cell each) instead of n
-        return 8 * G * cells, 2 * row + 16 * cells + 2 * tau + gz + gam + 64
-    if name == "fused_sweep":            # + logu, gamma_prop in; ll [2,S] out
-        return (16 * G + 12) * cells, (3 * row + 2 * tau + gz + 2 * gam + 64
-                                       + 4 * V + 8 * S)
-    if name in ("swap", "swap_emit_ll"):  # n, mix, tau, gamma, logu in; tau, mix (ll) out
+    if name == "tau_sweep":              # n; mix, tau, gz, gamma, eta in; tau, mix out
+        logs, counts, chain = 16 * G * cells, row, 2 * row + 2 * tau + gz + gam + 64
+    elif name == "tau_sweep_topk":       # n_val, b_idx (8 B a cell each) instead of n
+        logs, counts, chain = 8 * G * cells, 16 * cells, 2 * row + 2 * tau + gz + gam + 64
+    elif name == "fused_sweep":          # + logu, gamma_prop in; ll [2,S] out
+        logs, counts = (16 * G + 12) * cells, row
+        chain = 2 * row + 2 * tau + gz + 2 * gam + 64 + 4 * V + 8 * S
+    elif name in ("swap", "swap_emit_ll"):  # n; mix, tau, gamma, logu in; tau, mix (ll) out
         ll = 4 * S if name == "swap_emit_ll" else 0
-        return 8 * cells, 3 * row + 2 * tau + gam + 4 * V + 64 + ll
-    if name == "gamma_ll":               # with_old: n, mix, tau, gamma_prop in; ll [2,S]
-        return 8 * cells, 2 * row + tau + gam + 64 + 8 * S
-    if name == "gamma_apply_eta":        # with_eta: n, mix, tau, gp, accept, eta_prop; mix, ll
-        return 4 * cells, 3 * row + tau + gam + S + 64 + 4 * S
-    raise ValueError(f"no work model for kernel {name!r}")
+        logs, counts, chain = 8 * cells, row, 2 * row + 2 * tau + gam + 4 * V + 64 + ll
+    elif name == "gamma_ll":             # with_old: n; mix, tau, gamma_prop in; ll [2,S]
+        logs, counts, chain = 8 * cells, row, row + tau + gam + 64 + 8 * S
+    elif name == "gamma_apply_eta":      # with_eta: n; mix, tau, gp, accept, eta_prop; mix, ll
+        logs, counts, chain = 4 * cells, row, 2 * row + tau + gam + S + 64 + 4 * S
+    else:
+        raise ValueError(f"no work model for kernel {name!r}")
+    return C * logs, counts + C * chain
 
 
 def log_issue_ms(name: str, V: int, S: int, G: int, instructions: dict) -> float:
@@ -223,10 +282,11 @@ def log_issue_ms(name: str, V: int, S: int, G: int, instructions: dict) -> float
     return kernel_work(name, V, S, G)[0] * per_log / 32 / INSTR_RATE * 1e3
 
 
-def bound(name: str, V: int, S: int, G: int) -> dict:
-    """The least time the card could take for kernel `name`: the larger of
-    its bytes over the memory rate and its logs over the SFU rate."""
-    logs, nbytes = kernel_work(name, V, S, G)
+def bound(name: str, V: int, S: int, G: int, C: int = 1) -> dict:
+    """The least time the card could take for kernel `name` (over C chains
+    in one launch): the larger of its bytes over the memory rate and its
+    logs over the SFU rate."""
+    logs, nbytes = kernel_work(name, V, S, G, C)
     t_logs, t_bytes = logs / LOG_RATE * 1e3, nbytes / MEM_RATE * 1e3
     return dict(logs=logs, bytes=nbytes, bound_ms=max(t_logs, t_bytes),
                 bound_by="operations" if t_logs >= t_bytes else "bytes")
@@ -304,11 +364,12 @@ def load_ops(root: Path, name: str = "desman_tpu_torch_against"):
 
 # the sources and kernel functions ptxas_registers reports
 REGISTER_KERNELS = {"tau_kernel.cu": "tau_sweep_kernel", "fused_sweep.cu": "fused_sweep_kernel",
-                    "tau_topk.cu": "tau_topk_kernel", "gamma_kernel.cu": "gamma_ll_kernel"}
+                    "tau_topk.cu": "tau_topk_kernel", "gamma_kernel.cu": "gamma_ll_kernel",
+                    "swap_kernel.cu": "swap_kernel"}
 
 
 def ptxas_registers(csrc: Path, workdir: Path) -> dict:
-    """nvcc -Xptxas -v of the tau, fused, top-2 and gamma kernels' sources in
+    """nvcc -Xptxas -v of the tau, fused, top-2, gamma and swap kernels' sources in
     csrc, with the package's flags: {kernel function: {registers,
     spill_stores, spill_loads}} for the kernel functions of
     REGISTER_KERNELS."""
@@ -409,6 +470,49 @@ def card_inputs(V: int, S: int, G: int, dev) -> dict:
     return {k: v.to(dev) for k, v in d.items()}
 
 
+def chain_calls(o, name: str, d: dict):
+    """(the chain-axis call, one(c): the call on chain c's inputs alone) of
+    kernel `name` of ops module `o` (or any namespace of its functions, such
+    as the plain versions) on chain_inputs' d, whose counts may carry a
+    chain axis of their own."""
+    if name == "tau_sweep_topk":
+        args = topk_chain_args(d)
+        shared, chained = args[:2], args[2:]
+    else:
+        keys = (("tau", "mix", "gamma", "eta", "gz") if name == "tau_sweep" else
+                ("tau_s", "mix_s", "gamma", "eta", "g", "h", "logu"))
+        shared, chained = (d["n"],), tuple(d[k] for k in keys)
+    fn = getattr(o, name)
+    # chain c's inputs copied out of the stack: a slice need not start on
+    # the 16 bytes the kernels take (a [V,G] i32 slice where V*G % 4 != 0)
+    return (lambda: fn(*shared, *chained)), (
+        lambda c: fn(*(k if k.dim() == 3 else k[c].clone() for k in shared),
+                     *(x[c].clone() for x in chained)))
+
+
+def measure_chains(trees: dict, rows: list) -> None:
+    """Each chain-axis kernel of each tree at METRIC with CHAIN_COUNTS
+    chains: CUDA-event ms of one launch of C chains and of C solo launches
+    in turn, in the order of `trees` and back, against the bound at C."""
+    V, S, G = METRIC
+    dev = torch.device("cuda")
+    for C in CHAIN_COUNTS:
+        inputs = {topk: {k: v.to(dev) for k, v in chain_inputs(V, S, G, C, topk).items()}
+                  for topk in (False, True)}
+        for kernel in CHAIN_AXIS:
+            d = inputs[kernel == "tau_sweep_topk"]
+            calls = {name: chain_calls(o, kernel, d) for name, o in trees.items()}
+            ev = {name: {"batched": [], "solo": []} for name in trees}
+            for name in list(trees) + list(reversed(trees)):
+                batched, one = calls[name]
+                ev[name]["batched"].append(event_ms(batched))
+                ev[name]["solo"].append(event_ms(lambda: [one(c) for c in range(C)]))
+            row = dict(kernel=kernel, V=V, S=S, G=G, C=C, **bound(kernel, V, S, G, C),
+                       event_ms=ev)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+
+
 def measure(trees: dict, shape, rows: list) -> None:
     """Each of KERNELS[shape] of each tree at `shape`: digests, then
     CUDA-event times in the order of `trees` and back, then profiler times,
@@ -475,6 +579,10 @@ def main(argv=None) -> int:
     rows = report["rows"] = []
     for shape in KERNELS:
         measure(trees, shape, rows)
+    # the trees whose wrappers take a chain axis (a checkout before it has none)
+    chained = {k: o for k, o in trees.items() if hasattr(o.tau_sweep, "chain_launches")}
+    if chained:
+        measure_chains(chained, rows)
     for row in rows:
         row["log_issue_ms"] = log_issue_ms(row["kernel"], row["V"], row["S"], row["G"],
                                            report["log_instructions"])

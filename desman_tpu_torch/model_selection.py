@@ -2,9 +2,10 @@
 ``desman_tpu.model_selection``; the reference's resolvenhap semantics).
 
 ``fit_grid`` runs the (G, seed) grid on one device: for each G, one chain
-per seed (``sampler.run_chains``, or ``converge.run_chains_auto`` to an
-ESS target), with the kernel choice bound to the counts once for the
-whole grid; or on a (chain, data) mesh of ranks, the seeds over its chain
+per seed, every seed's chain advanced in one sweep on the chain axis
+(``sampler.run_chains``, or ``converge.run_chains_auto`` to an ESS target;
+the JAX package's chains vmapped in one program per G), with the kernel
+choice bound to the counts once for the whole grid; or on a (chain, data) mesh of ranks, the seeds over its chain
 axis (``parallel.run_chains_sharded``, or ``converge.run_chains_auto(mesh=)``
 to an ESS target). The JAX package compiles one
 program per G ahead of time in a thread pool; eager PyTorch has nothing to

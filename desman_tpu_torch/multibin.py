@@ -4,9 +4,10 @@ A metagenome yields tens of bins that share one sample set. Each bin's
 variant positions are padded with zero rows to a common V (a zero row is
 likelihood-neutral: n=0 kills every log term and the multinomial
 coefficient) and one chain runs per bin. The JAX package vmaps the chain
-over bins; here the bins run one after another on their padded counts, as
-``sampler.run_chains`` runs chains, one padded bin on the device at a
-time, and each bin's results are cut back to its own V.
+over bins; here the bins still run one after another on their padded
+counts (the kernels' chain stride for per-bin counts is not used yet), one
+padded bin on the device at a time, and each bin's results are cut back to
+its own V.
 """
 from __future__ import annotations
 

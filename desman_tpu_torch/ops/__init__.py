@@ -3,6 +3,8 @@ PyTorch versions.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors; it keeps a ``launches`` count of kernel launches.
+The tau, swap and top-2 wrappers take a leading chain axis (C chains in one
+launch) and also count ``chain_launches``, the chains their launches swept.
 """
 from typing import Callable, NamedTuple, Optional
 
@@ -64,14 +66,22 @@ def resolve(kernel: str, n: Optional[torch.Tensor] = None) -> Kernels:
     raise ValueError(f"unknown kernel {kernel!r}; one of {', '.join(KERNELS)}")
 
 
+# the wrappers with a chain axis
+CHAIN_AXIS = (tau_sweep, swap, tau_sweep_topk)
+
+
 def reset_launches() -> None:
+    """Set every wrapper's launch count, and the chain-axis wrappers' chain
+    count, to 0."""
     for wrapper in _WRAPPERS + (tau_sweep_topk,):
         wrapper.launches = 0
+    for wrapper in CHAIN_AXIS:
+        wrapper.chain_launches = 0
 
 
 __all__ = [
-    "KERNELS", "Kernels", "TopkInapplicable", "compress_counts", "draw_gumbel",
-    "draw_swap_proposal", "fused_sweep", "fused_sweep_reference",
+    "CHAIN_AXIS", "KERNELS", "Kernels", "TopkInapplicable", "compress_counts",
+    "draw_gumbel", "draw_swap_proposal", "fused_sweep", "fused_sweep_reference",
     "gamma_apply_eta", "gamma_apply_eta_reference", "gamma_ll",
     "gamma_ll_reference", "reset_launches", "resolve", "swap",
     "swap_reference", "tau_sweep", "tau_sweep_reference", "tau_sweep_topk",

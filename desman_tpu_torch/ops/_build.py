@@ -9,8 +9,9 @@ and renames it into place, so concurrent processes never load a
 half-written library. A missing nvcc or a failed compile raises with the
 compiler's output.
 Beside the build: the checks every wrapper makes before it hands pointers
-to the library, the error check after each launch, and the scratch of the
-kernels' ``[S]`` reductions.
+to the library (with the chain axis of the tau, swap and top-2 wrappers),
+the error check after each launch, and the scratch of the kernels' ``[S]``
+reductions.
 """
 from __future__ import annotations
 
@@ -109,14 +110,14 @@ def load_library() -> ctypes.CDLL:
     global _library
     if _library is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.desman_tau_sweep.argtypes = [ptr] * 8 + [i32] * 7 + [i64, ptr]
         lib.desman_tau_sweep.restype = i32
         lib.desman_tau_sweep_info.argtypes = [i32, i32, ptr]
         lib.desman_tau_sweep_info.restype = i32
-        lib.desman_tau_sweep_topk.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+        lib.desman_tau_sweep_topk.argtypes = [ptr] * 9 + [i32] * 7 + [i64, ptr]
         lib.desman_tau_sweep_topk.restype = i32
-        lib.desman_swap.argtypes = [ptr] * 13 + [i32] * 3 + [ptr]
+        lib.desman_swap.argtypes = [ptr] * 13 + [i32] * 4 + [i64, ptr]
         lib.desman_swap.restype = i32
         lib.desman_gamma_ll.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.desman_gamma_ll.restype = i32
@@ -173,6 +174,33 @@ def slot_scratch(blocks: int, S: int, device):
         return None
     return torch.empty((blocks, SLOT_ROWS, TILE, S), dtype=torch.float32,
                        device=device)
+
+
+def chains_of(tau: torch.Tensor):
+    """The chains C of a chain-axis call (tau [C,V,G]), None for one chain
+    (tau [V,G])."""
+    return tau.shape[0] if tau.dim() == 3 else None
+
+
+def require_counts(name: str, n, dtype, last: int, chains, device) -> tuple:
+    """Check the counts of a call: [V,S,last], shared by the chains, or with
+    a chain axis [C,V,S,last]. Returns (V, S, the kernel's chain stride in
+    cells: 0 where shared)."""
+    if chains is not None and isinstance(n, torch.Tensor) and n.dim() == 4:
+        require(name, n, dtype, (chains, -1, -1, last), device)
+        return n.shape[1], n.shape[2], n.shape[1] * n.shape[2]
+    require(name, n, dtype, (-1, -1, last), device)
+    return n.shape[0], n.shape[1], 0
+
+
+def per_chain(fn, counts: tuple, *xs) -> tuple:
+    """A plain version over a chain axis: fn of each chain's counts (the
+    shared ones, or chain c's of [C,...] counts) and slices x[c], each
+    output stacked on a leading [C] axis. Chain c is fn's call on chain c
+    alone, bit for bit."""
+    outs = [fn(*(k if k.dim() == 3 else k[c] for k in counts), *(x[c] for x in xs))
+            for c in range(xs[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def ptr(t):

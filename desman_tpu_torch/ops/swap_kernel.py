@@ -7,7 +7,9 @@ proposal ``(g, h, logu)`` is drawn outside (``draw_swap_proposal``) and
 stays on the device: g and h are 0-d int32 tensors the kernel reads by
 pointer, so the sweep never waits for the host to pass them. With
 ``emit_ll`` both also return the post-swap per-sample loglik, the oracle of
-the fused front-half kernel's ll_old row.
+the fused front-half kernel's ll_old row. Without it both take a leading
+chain axis: C chains in one launch, each with its own pair, chain c bitwise
+its own move.
 """
 from __future__ import annotations
 
@@ -15,23 +17,26 @@ import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
 from ._build import (
-    check, load_library, partial_scratch, ptr, require, slot_scratch, stream_of,
+    chains_of, check, load_library, partial_scratch, per_chain, ptr, require,
+    require_counts, slot_scratch, stream_of,
 )
 
 
 def _check(n, tau, mix, gamma, eta, g, h, logu):
+    """(V, S, G, C, the counts' chain stride): C None for one chain."""
     dev = n.device
-    require("n", n, torch.float32, (-1, -1, NBASES), dev)
-    V, S, _ = n.shape
-    require("tau", tau, torch.int32, (V, -1), dev)
-    G = tau.shape[1]
-    require("mix", mix, torch.float32, (V, S, NBASES), dev)
-    require("gamma", gamma, torch.float32, (S, G), dev)
-    require("eta", eta, torch.float32, (NBASES, NBASES), dev)
-    require("g", g, torch.int32, (), dev)
-    require("h", h, torch.int32, (), dev)
-    require("logu", logu, torch.float32, (V,), dev)
-    return V, S, G
+    C = chains_of(tau)
+    lead = () if C is None else (C,)
+    V, S, stride = require_counts("n", n, torch.float32, NBASES, C, dev)
+    require("tau", tau, torch.int32, (*lead, V, -1), dev)
+    G = tau.shape[-1]
+    require("mix", mix, torch.float32, (*lead, V, S, NBASES), dev)
+    require("gamma", gamma, torch.float32, (*lead, S, G), dev)
+    require("eta", eta, torch.float32, (*lead, NBASES, NBASES), dev)
+    require("g", g, torch.int32, lead, dev)
+    require("h", h, torch.int32, lead, dev)
+    require("logu", logu, torch.float32, (*lead, V), dev)
+    return V, S, G, C, stride
 
 
 def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
@@ -41,8 +46,16 @@ def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
     g, h: 0-d int32 tensors in [0, G); logu: [V] log-uniform thresholds
     (already divided by any tempering beta). A position accepts where
     logu < dll; g == h never accepts. Inputs are not modified.
+
+    Chains (without emit_ll): tau [C,V,G], mix [C,V,S,4], gamma [C,S,G],
+    eta [C,4,4], g and h [C] and logu [C,V] move C chains in one launch, on
+    counts n shared by the chains ([V,S,4]) or their own ([C,V,S,4]); chain
+    c's outputs are bitwise its move alone. ``launches`` counts the
+    launches and ``chain_launches`` the chains they moved.
     """
-    V, S, G = _check(n, tau, mix, gamma, eta, g, h, logu)
+    V, S, G, C, stride = _check(n, tau, mix, gamma, eta, g, h, logu)
+    if C is not None and emit_ll:
+        raise ValueError("swap: emit_ll takes one chain")
     if n.device.type == "cpu":
         return swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll)
     if n.device.type != "cuda":
@@ -58,13 +71,15 @@ def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
             n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), g.data_ptr(), h.data_ptr(), logu.data_ptr(),
             tau_out.data_ptr(), mix_out.data_ptr(), ptr(partial), ptr(slots),
-            ptr(ll), V, S, G, stream_of(n))
+            ptr(ll), V, S, G, C or 1, stride, stream_of(n))
     check(lib, err, "swap")
     swap.launches += 1
+    swap.chain_launches += C or 1
     return (tau_out, mix_out, ll) if emit_ll else (tau_out, mix_out)
 
 
 swap.launches = 0
+swap.chain_launches = 0
 
 
 def swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
@@ -72,7 +87,12 @@ def swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
     proposal pre-drawn). The proposal is rank-1 in the mixture, so the MH
     log-ratio is one pass of sum n * (log p' - log p). emit_ll: also the
     post-swap per-sample loglik from those logs, sum over (v, b) of
-    n*log p + accept * n*(log p' - log p) (swap_pallas's emit_ll)."""
+    n*log p + accept * n*(log p' - log p) (swap_pallas's emit_ll). Over a
+    chain axis (without emit_ll), each chain in turn."""
+    if tau.dim() == 3:
+        if emit_ll:
+            raise ValueError("swap: emit_ll takes one chain")
+        return per_chain(swap_reference, (n,), tau, mix, gamma, eta, g, h, logu)
     V, G = tau.shape
     gi = g.long().reshape(1)
     hi = h.long().reshape(1)

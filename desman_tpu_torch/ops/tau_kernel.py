@@ -6,7 +6,9 @@ version ``tau_sweep_reference`` on CPU tensors; on any other device it
 raises. The plain version is the ``--kernel torch`` sweep and the oracle the
 kernel is held against. Both take the categorical noise pre-drawn
 (``draw_gumbel``, multiplied by the temperature by the caller), so the same
-noise gives the same draws up to float near-ties.
+noise gives the same draws up to float near-ties. Both take a leading chain
+axis: C chains in one launch (the JAX package's vmap over chains), chain c
+bitwise its own sweep.
 
 ``tile_plan`` is the shared-memory plan of the row-resident tau, fused and
 top-2 kernels (``csrc/tile.cuh``): whether a block stages its 8-position
@@ -23,7 +25,8 @@ import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
 from ._build import (
-    SMEM_LIMIT, TILE, check, load_library, require, slots_in_device_memory, stream_of,
+    SMEM_LIMIT, TILE, chains_of, check, load_library, per_chain, require, require_counts,
+    slots_in_device_memory, stream_of,
 )
 
 # the C entry point that reports each row-resident kernel's resources
@@ -107,42 +110,48 @@ def kernel_info(kernel: str, S: int, G: int) -> dict:
 
 
 def resident_grid(kernel: str, V: int, S: int, G: int, device: int,
-                  max_blocks: int = 0) -> tuple[TilePlan, int]:
+                  max_blocks: int = 0, chains: int = 1) -> tuple[TilePlan, int]:
     """(tile plan, grid) of a launch of a row-resident kernel on CUDA device
     `device`: the blocks the card holds at once (SMs x resident blocks a SM
-    for this shared memory), no more than the tiles and, when max_blocks >
-    0, no more than max_blocks."""
+    for this shared memory), split evenly over `chains` chains (at least one
+    block a chain; the launch's grid rows are the chains), no more than a
+    chain's tiles and, when max_blocks > 0, no more than max_blocks."""
     p, (_, _, per_sm, sms) = _info(kernel, S, G, device)
-    grid = min(sms * max(per_sm, 1), (V + TILE - 1) // TILE)
+    grid = min(max(sms * max(per_sm, 1) // chains, 1), (V + TILE - 1) // TILE)
     return p, min(grid, max_blocks) if max_blocks > 0 else grid
 
 
 def _check(n, tau, mix, gamma, eta, gz):
+    """(V, S, G, C, the counts' chain stride): C None for one chain."""
     dev = n.device
-    require("n", n, torch.float32, (-1, -1, NBASES), dev)
-    V, S, _ = n.shape
-    require("tau", tau, torch.int32, (V, -1), dev)
-    G = tau.shape[1]
-    require("mix", mix, torch.float32, (V, S, NBASES), dev)
-    require("gamma", gamma, torch.float32, (S, G), dev)
-    require("eta", eta, torch.float32, (NBASES, NBASES), dev)
-    require("gz", gz, torch.float32, (V, G, NBASES), dev)
-    return V, S, G
+    C = chains_of(tau)
+    lead = () if C is None else (C,)
+    V, S, stride = require_counts("n", n, torch.float32, NBASES, C, dev)
+    require("tau", tau, torch.int32, (*lead, V, -1), dev)
+    G = tau.shape[-1]
+    require("mix", mix, torch.float32, (*lead, V, S, NBASES), dev)
+    require("gamma", gamma, torch.float32, (*lead, S, G), dev)
+    require("eta", eta, torch.float32, (*lead, NBASES, NBASES), dev)
+    require("gz", gz, torch.float32, (*lead, V, G, NBASES), dev)
+    return V, S, G, C, stride
 
 
 def launch(lib, n, tau, mix, gamma, eta, gz, tau_out, mix_out, max_blocks=0):
-    """Launch the tau kernel on checked CUDA tensors into preallocated
-    outputs; max_blocks > 0 caps the persistent grid (the result does not
-    depend on it). Raises on a launch error."""
-    V, S, _ = n.shape
-    G = tau.shape[1]
-    plan, grid = resident_grid("tau_sweep", V, S, G, n.device.index, max_blocks)
+    """Launch the tau kernel on checked CUDA tensors (one chain, or a
+    leading chain axis) into preallocated outputs; max_blocks > 0 caps the
+    persistent grid's blocks a chain (the result does not depend on it).
+    Raises on a launch error."""
+    chains = chains_of(tau) or 1
+    V, G = tau.shape[-2:]
+    S = mix.shape[-2]
+    stride = V * S if n.dim() == 4 else 0
+    plan, grid = resident_grid("tau_sweep", V, S, G, n.device.index, max_blocks, chains)
     with torch.cuda.device(n.device):
         err = lib.desman_tau_sweep(
             n.data_ptr(), tau.data_ptr(), mix.data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
             mix_out.data_ptr(), V, S, G, plan.buffers, plan.smem_bytes, grid,
-            stream_of(n))
+            chains, stride, stream_of(n))
     check(lib, err, "tau_sweep")
 
 
@@ -152,8 +161,14 @@ def tau_sweep(n, tau, mix, gamma, eta, gz):
     n, mix: [V,S,4] f32; tau: [V,G] int32; gamma: [S,G]; eta: [4,4];
     gz: [V,G,4] Gumbel noise already multiplied by the temperature. All
     contiguous, on one device. Inputs are not modified.
+
+    Chains: tau [C,V,G], mix [C,V,S,4], gamma [C,S,G], eta [C,4,4] and gz
+    [C,V,G,4] sweep C chains in one launch, on counts n shared by the chains
+    ([V,S,4]) or their own ([C,V,S,4]); chain c's outputs are bitwise the
+    sweep of chain c alone. ``launches`` counts the launches and
+    ``chain_launches`` the chains they swept.
     """
-    V, S, G = _check(n, tau, mix, gamma, eta, gz)
+    V, S, G, C, _ = _check(n, tau, mix, gamma, eta, gz)
     if n.device.type == "cpu":
         return tau_sweep_reference(n, tau, mix, gamma, eta, gz)
     if n.device.type != "cuda":
@@ -162,17 +177,22 @@ def tau_sweep(n, tau, mix, gamma, eta, gz):
     mix_out = torch.empty_like(mix)
     launch(load_library(), n, tau, mix, gamma, eta, gz, tau_out, mix_out)
     tau_sweep.launches += 1
+    tau_sweep.chain_launches += C or 1
     return tau_out, mix_out
 
 
 tau_sweep.launches = 0
+tau_sweep.chain_launches = 0
 
 
 def tau_sweep_reference(n, tau, mix, gamma, eta, gz):
     """Plain PyTorch tau sweep (the JAX package's ``tau_sweep_xla`` with
     the noise pre-drawn): for each strain g in order, remove it from the
     mixture, score the 4 candidate bases, draw by Gumbel-argmax (first
-    maximum wins) and put the new base back."""
+    maximum wins) and put the new base back. Over a chain axis, each chain
+    in turn."""
+    if tau.dim() == 3:
+        return per_chain(tau_sweep_reference, (n,), tau, mix, gamma, eta, gz)
     G = tau.shape[1]
     tau = tau.clone()
     for g in range(G):
@@ -191,7 +211,11 @@ def tau_sweep_reference(n, tau, mix, gamma, eta, gz):
 
 def draw_gumbel(generator: torch.Generator, V: int, G: int) -> torch.Tensor:
     """Standard Gumbel noise [V,G,4] on the generator's device."""
-    u = torch.rand((V, G, NBASES), generator=generator,
-                   device=generator.device)
+    return gumbel_of(torch.rand((V, G, NBASES), generator=generator,
+                                device=generator.device))
+
+
+def gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise from uniforms u, elementwise (any shape)."""
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))

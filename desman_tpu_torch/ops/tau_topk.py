@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from ..utils import NBASES, one_hot_tau, safe_log
-from ._build import check, load_library, require, stream_of
+from ._build import (
+    chains_of, check, load_library, per_chain, require, require_counts, stream_of,
+)
 from .tau_kernel import resident_grid
 
 K_SLOTS = 2
@@ -80,34 +82,42 @@ def topk_layout(counts: np.ndarray, device) -> TopkLayout:
 
 
 def _check(n_val, b_idx, tau, mix, gamma, eta, gz):
+    """(V, S, G, C, the layout's chain stride): C None for one chain."""
     dev = n_val.device
-    require("n_val", n_val, torch.float32, (-1, -1, K_SLOTS), dev)
-    V, S, _ = n_val.shape
-    require("b_idx", b_idx, torch.int32, (V, S, K_SLOTS), dev)
-    require("tau", tau, torch.int32, (V, -1), dev)
-    G = tau.shape[1]
-    require("mix", mix, torch.float32, (V, S, NBASES), dev)
-    require("gamma", gamma, torch.float32, (S, G), dev)
-    require("eta", eta, torch.float32, (NBASES, NBASES), dev)
-    require("gz", gz, torch.float32, (V, G, NBASES), dev)
-    return V, S, G
+    C = chains_of(tau)
+    lead = () if C is None else (C,)
+    V, S, stride = require_counts("n_val", n_val, torch.float32, K_SLOTS, C, dev)
+    require("b_idx", b_idx, torch.int32, n_val.shape, dev)
+    require("tau", tau, torch.int32, (*lead, V, -1), dev)
+    G = tau.shape[-1]
+    require("mix", mix, torch.float32, (*lead, V, S, NBASES), dev)
+    require("gamma", gamma, torch.float32, (*lead, S, G), dev)
+    require("eta", eta, torch.float32, (*lead, NBASES, NBASES), dev)
+    require("gz", gz, torch.float32, (*lead, V, G, NBASES), dev)
+    if stride % 2:
+        raise ValueError("n_val: a chain's layout of odd V*S cells would not start "
+                         "on 16 bytes for the kernel")
+    return V, S, G, C, stride
 
 
 def launch(lib, n_val, b_idx, tau, mix, gamma, eta, gz, tau_out, mix_out,
            max_blocks=0):
-    """Launch the top-2 kernel on checked CUDA tensors into preallocated
-    outputs; max_blocks > 0 caps the persistent grid (the result does not
-    depend on it). Raises on a launch error."""
-    V, S, _ = n_val.shape
-    G = tau.shape[1]
+    """Launch the top-2 kernel on checked CUDA tensors (one chain, or a
+    leading chain axis) into preallocated outputs; max_blocks > 0 caps the
+    persistent grid's blocks a chain (the result does not depend on it).
+    Raises on a launch error."""
+    chains = chains_of(tau) or 1
+    V, G = tau.shape[-2:]
+    S = mix.shape[-2]
+    stride = V * S if n_val.dim() == 4 else 0
     plan, grid = resident_grid("tau_sweep_topk", V, S, G, n_val.device.index,
-                               max_blocks)
+                               max_blocks, chains)
     with torch.cuda.device(n_val.device):
         err = lib.desman_tau_sweep_topk(
             n_val.data_ptr(), b_idx.data_ptr(), tau.data_ptr(), mix.data_ptr(),
             gamma.data_ptr(), eta.data_ptr(), gz.data_ptr(), tau_out.data_ptr(),
             mix_out.data_ptr(), V, S, G, plan.buffers, plan.smem_bytes, grid,
-            stream_of(n_val))
+            chains, stride, stream_of(n_val))
     check(lib, err, "tau_sweep_topk")
 
 
@@ -118,8 +128,13 @@ def tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz):
     n_val, b_idx: a TopkLayout's tensors; the rest as ``ops.tau_sweep``
     (gz: [V,G,4] Gumbel noise already multiplied by the temperature). All
     contiguous, on one device. Inputs are not modified.
+
+    Chains: with a leading [C] axis on tau, mix, gamma, eta and gz, as
+    ``ops.tau_sweep``; the layout is shared by the chains ([V,S,2]) or
+    theirs ([C,V,S,2]). ``launches`` counts the launches and
+    ``chain_launches`` the chains they swept.
     """
-    V, S, G = _check(n_val, b_idx, tau, mix, gamma, eta, gz)
+    V, S, G, C, _ = _check(n_val, b_idx, tau, mix, gamma, eta, gz)
     if n_val.device.type == "cpu":
         return tau_sweep_topk_reference(n_val, b_idx, tau, mix, gamma, eta, gz)
     if n_val.device.type != "cuda":
@@ -128,10 +143,12 @@ def tau_sweep_topk(n_val, b_idx, tau, mix, gamma, eta, gz):
     mix_out = torch.empty_like(mix)
     launch(load_library(), n_val, b_idx, tau, mix, gamma, eta, gz, tau_out, mix_out)
     tau_sweep_topk.launches += 1
+    tau_sweep_topk.chain_launches += C or 1
     return tau_out, mix_out
 
 
 tau_sweep_topk.launches = 0
+tau_sweep_topk.chain_launches = 0
 
 
 def tau_sweep_topk_reference(n_val, b_idx, tau, mix, gamma, eta, gz):
@@ -139,7 +156,11 @@ def tau_sweep_topk_reference(n_val, b_idx, tau, mix, gamma, eta, gz):
     with the noise pre-drawn): for each strain g in order, remove it from
     the mixture, gather q at each cell's two selected bases, score the 4
     candidates from 2 logs per cell each, draw by Gumbel-argmax (first
-    maximum wins) and put the new base back."""
+    maximum wins) and put the new base back. Over a chain axis, each chain
+    in turn."""
+    if tau.dim() == 3:
+        return per_chain(tau_sweep_topk_reference, (n_val, b_idx), tau, mix, gamma,
+                         eta, gz)
     G = tau.shape[1]
     tau = tau.clone()
     # e_sel[v,s,k,a] = eta[a, b_k(v,s)]: the eta column at each slot's base
@@ -165,6 +186,8 @@ def bind_tau_sweep_topk(n: torch.Tensor):
     layout and refuses an ``n`` of another shape or device."""
     layout = topk_layout(n.detach().cpu().numpy(), n.device)
     shape, device = n.shape, n.device
+    # the bound sweep takes a chain axis on tau, mix, gamma, eta and gz, as
+    # ops.tau_sweep does, with the layout shared by the chains
 
     def tau_sweep_bound(n, tau, mix, gamma, eta, gz):
         if n.shape != shape or n.device != device:

@@ -19,7 +19,8 @@ the padded counts up to the order of the likelihood sums, and on a 1x1
 mesh bit for bit. Pad rows get +inf swap thresholds and never accept.
 
 Chains are split over the chain axis: row c runs its contiguous share of
-the seeds one after another, as ``run_chains`` does. The whole result is
+the seeds one after another (on one device ``run_chains`` advances its
+chains together; a rank's chains do not yet). The whole result is
 gathered with the padding stripped (``Shard.gather``): the per-position
 fields and the stored draws on the coordinator alone, on the host, and
 the per-chain fields on every rank; callers write files on the

@@ -20,6 +20,14 @@ profiles one parallel-tempering ensemble sweep instead (R replicas in turn
 and the exchange, ``sampler.make_pt_step``) on cuda with the synth counts,
 ladder to 8: the same items a sweep become a PT ensemble sweep's, over a
 quarter as many ensemble sweeps at R = 4 (WARM, WALL and TRACED / R).
+
+    python -m desman_tpu_torch.profile_sweep --chains C
+
+profiles one sweep of C chains on the chain axis (``sampler.run_chains``'
+sweep: one state with a leading [C] axis, seeds 0 .. C-1) with cuda on the
+synth counts and with cuda and cuda_topk on the biallelic counts, each
+beside the one-chain sweep of the same choice and counts, so the chain
+sweep's ms, busy ms and ops stand beside C times the one chain's.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -35,8 +44,8 @@ from torch.profiler import profile
 from . import ops, synth
 from .profiling import activities
 from .sampler import (
-    SamplerConfig, TorchNoise, init_accum, init_state, make_pt_step,
-    make_sweep_fn, pt_generators, pt_init, pt_noises,
+    ChainNoise, SamplerConfig, TorchNoise, chain_generator, init_accum, init_state,
+    init_states, make_pt_step, make_sweep_fn, pt_generators, pt_init, pt_noises,
 )
 
 
@@ -74,16 +83,23 @@ def _measure(run, per: int) -> dict:
                      e.count / traced) for e in items[:TOP]]}
 
 
-def profile_kernel(kernel: str, biallelic: bool = False) -> dict:
+def profile_kernel(kernel: str, biallelic: bool = False,
+                   chains: Optional[int] = None) -> dict:
+    """One sweep of a chain (seed 0), or with chains=C of C chains on the
+    chain axis (seeds 0 .. C-1)."""
     n = _counts(biallelic)
     dev = n.device
     cfg = SamplerConfig(G=G, burn=0, samples=WARM + WALL + TRACED, nmf_iters=50)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    state = init_state(n, cfg, gen)
-    accum = init_accum(V, S, G, dev)
+    if chains is None:
+        gen = chain_generator(0, dev)
+        state = init_state(n, cfg, gen)
+        noise = TorchNoise(gen)
+    else:
+        gens = [chain_generator(c, dev) for c in range(chains)]
+        state = init_states(n, cfg, gens)
+        noise = ChainNoise(TorchNoise(g) for g in gens)
+    accum = init_accum(V, S, G, dev, chains=chains)
     sweep = make_sweep_fn(cfg, ops.resolve(kernel, n))
-    noise = TorchNoise(gen)
     it = 0
 
     def run(k):
@@ -95,7 +111,7 @@ def profile_kernel(kernel: str, biallelic: bool = False) -> dict:
     m = _measure(run, 1)
     return {
         "kernel": kernel, "counts": "biallelic" if biallelic else "synth",
-        "V": V, "S": S, "G": G,
+        "V": V, "S": S, "G": G, "chains": chains or 1,
         "ms_per_sweep": m["ms"], "device_busy_ms_per_sweep": m["busy"],
         "device_ops_per_sweep": m["ops"], "idle_share": 1.0 - m["busy"] / m["ms"],
         "top": m["top"],
@@ -134,6 +150,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_sweep")
     ap.add_argument("--pt", type=int, default=0, metavar="R",
                     help="profile a PT ensemble sweep of R >= 2 replicas")
+    ap.add_argument("--chains", type=int, default=0, metavar="C",
+                    help="profile a sweep of C >= 1 chains on the chain axis, each "
+                         "beside the one-chain sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sweep: needs a CUDA device", file=sys.stderr)
@@ -142,6 +161,13 @@ def main(argv=None) -> int:
         if args.pt < 2:
             ap.error("--pt needs R >= 2")
         print(json.dumps(profile_pt(args.pt)))
+        return 0
+    if args.chains:
+        if args.chains < 1:
+            ap.error("--chains needs C >= 1")
+        for kernel, biallelic in (("cuda", False), ("cuda", True), ("cuda_topk", True)):
+            for chains in (None, args.chains):
+                print(json.dumps(profile_kernel(kernel, biallelic, chains)))
         return 0
     for kernel in ops.KERNELS:
         if kernel != "cuda_topk":

@@ -20,6 +20,19 @@ pair) stays on the device through ``torch.where``, so a sweep never waits
 for the device. All randomness comes from a noise source passed to the
 sweep: ``TorchNoise`` draws from the chain's ``torch.Generator``.
 
+Chains: the JAX package vmaps independent chains into one device program;
+here ``run_chains`` sweeps them as one state with a leading [C] axis (tau
+[C,V,G], mix [C,V,S,4], gamma [C,S,G], eta [C,4,4], loglik and kappas [C];
+the counts [V,S,4] are shared). One sweep launches the tau (or top-2) and
+swap kernels once for all C chains, and runs the elementwise ops once on
+the stacked state. Its draws come from ``ChainNoise``, chain c's from chain
+c's own generator, and every reduction and matrix product runs per chain on
+chain c's contiguous slice (``_each``), since torch may sum a stacked
+tensor in another order: so chain c of a batched run is bitwise
+``run_chain`` of its seed. The host branches on the sweep index (anneal,
+adaptation, accumulation) are shared by the chains; the decisions on data
+(MH accepts, the star, the swap pair) are per-chain masks.
+
 With ``kernel="cuda_resident"`` steps 1-3 run as two kernel launches a
 sweep (``resident.front``), with the same draws in the same order; only
 the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops.
@@ -27,8 +40,8 @@ the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops.
 Parallel tempering (``run_chain_pt``): R replicas on a temperature ladder,
 each a sweep with a fixed ``temp`` and a likelihood power ``beta``, then an
 exchange of adjacent rungs. The JAX package vmaps the replicas; here they
-run one after another, each on its own generator, and the exchange draws
-from one more (``pt_seeds``).
+still run one after another (the chain axis does not carry them yet), each
+on its own generator, and the exchange draws from one more (``pt_seeds``).
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ import torch
 from .likelihood import mixture
 from .nmf import em_gamma, nmf_init
 from .ops import Kernels, draw_gumbel, draw_swap_proposal, resolve
+from .ops.tau_kernel import gumbel_of
 from .utils import NBASES, one_hot_tau, safe_log
 
 _GAMMA_FLOOR = 1e-10
@@ -176,6 +190,105 @@ class TorchNoise:
                           device=self.generator.device)
 
 
+class ChainNoise:
+    """The draws of C chains, stacked on a leading [C] axis: chain c's from
+    its own source (a ``TorchNoise``, or any source with its methods, such
+    as a replay of another package's streams), so chain c's streams are
+    those of its source alone. Where every source is a ``TorchNoise``, each
+    chain's uniforms are drawn into its slice of one [C, ...] buffer and the
+    elementwise transforms (the Gumbel's logs, the swap's log) run once on
+    the stack: the same bits as each chain's own draw, in fewer launches."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+        self.generators = ([s.generator for s in self.sources]
+                           if all(type(s) is TorchNoise for s in self.sources)
+                           else None)
+
+    def _stack(self, draw):
+        return _stacked([draw(c, s) for c, s in enumerate(self.sources)])
+
+    def _rand(self, shape) -> torch.Tensor:
+        """[C, *shape] uniforms, slice c drawn by torch.rand from generator c."""
+        dev = self.generators[0].device
+        out = torch.empty((len(self.generators), *shape), device=dev)
+        for c, g in enumerate(self.generators):
+            torch.rand(shape, generator=g, device=dev, out=out[c])
+        return out
+
+    def gumbel(self, it: int, V: int, G: int) -> torch.Tensor:
+        if self.generators is None:
+            return self._stack(lambda c, s: s.gumbel(it, V, G))
+        return gumbel_of(self._rand((V, G, NBASES)))
+
+    def swap(self, it: int, V: int, G: int):
+        if self.generators is None or G < 2:
+            return tuple(_stacked(list(x)) for x in zip(
+                *(s.swap(it, V, G) for s in self.sources)))
+        # draw_swap_proposal's draws, chain by chain in its order
+        dev = self.generators[0].device
+        g = torch.empty(len(self.generators), dtype=torch.int32, device=dev)
+        off, u = torch.empty_like(g), torch.empty((len(g), V), device=dev)
+        for c, gen in enumerate(self.generators):
+            torch.randint(0, G, (), generator=gen, device=dev, out=g[c])
+            torch.randint(1, G, (), generator=gen, device=dev, out=off[c])
+            torch.rand((V,), generator=gen, device=dev, out=u[c])
+        return g, (g + off) % G, safe_log(u)
+
+    def gamma_prop(self, it: int, alpha: torch.Tensor) -> torch.Tensor:
+        return self._stack(lambda c, s: s.gamma_prop(it, alpha[c]))
+
+    def gamma_u(self, it: int, S: int) -> torch.Tensor:
+        if self.generators is None:
+            return self._stack(lambda c, s: s.gamma_u(it, S))
+        return self._rand((S,))
+
+    def eta_prop(self, it: int, alpha: torch.Tensor) -> torch.Tensor:
+        return self._stack(lambda c, s: s.eta_prop(it, alpha[c]))
+
+    def eta_u(self, it: int) -> torch.Tensor:
+        if self.generators is None:
+            return self._stack(lambda c, s: s.eta_u(it))
+        return self._rand(())
+
+    def eta_row_prop(self, it: int, a: int, alpha: torch.Tensor) -> torch.Tensor:
+        return self._stack(lambda c, s: s.eta_row_prop(it, a, alpha[c]))
+
+    def eta_row_u(self, it: int, a: int) -> torch.Tensor:
+        if self.generators is None:
+            return self._stack(lambda c, s: s.eta_row_u(it, a))
+        return self._rand(())
+
+
+def _stacked(xs: list) -> torch.Tensor:
+    """Tensors stacked on a new leading axis; one tensor as a view (no copy)."""
+    return xs[0].unsqueeze(0) if len(xs) == 1 else torch.stack(xs)
+
+
+def _chains(x: torch.Tensor, rank: int):
+    """The chains C of x, a tensor of `rank` dims a chain: None without a
+    chain axis."""
+    return x.shape[0] if x.dim() > rank else None
+
+
+def _each(C, fn, *xs):
+    """fn of one chain's tensors: fn(*xs) without a chain axis (C None);
+    over one, fn of each chain's slices x[c], stacked. The sweep's
+    reductions and matrix products go through here: torch may sum a stacked
+    tensor in another order than chain c's alone (the CUDA reduction's
+    block shape follows the number of outputs, a full sum splits across
+    blocks), and chain c must keep ``run_chain``'s bits."""
+    if C is None:
+        return fn(*xs)
+    return _stacked([fn(*(x[c] for x in xs)) for c in range(C)])
+
+
+def _per(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-chain value x ([C]) shaped to broadcast against like ([C,...]);
+    a 0-d x (one chain) as it is."""
+    return x if x.dim() == 0 else x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
 def _tempered(x) -> bool:
     """False only for the host float 1.0: an untempered step skips the
     multiply or divide (a 0-d device temp or beta, as PT passes them,
@@ -183,19 +296,23 @@ def _tempered(x) -> bool:
     return isinstance(x, torch.Tensor) or x != 1.0
 
 
-def _dirichlet_logpdf(x, alpha):
-    """Row-wise Dirichlet log-density; x, alpha [..., K] -> [...]."""
+def _dirichlet_logpdf(x, alpha, C=None):
+    """Row-wise Dirichlet log-density; x, alpha [..., K] -> [...] (C: the
+    chains of a leading chain axis, whose sums run per chain)."""
+    def rows(t):
+        return torch.sum(t, dim=-1)
+
     return (
-        torch.sum((alpha - 1.0) * safe_log(x), dim=-1)
-        + torch.lgamma(torch.sum(alpha, dim=-1))
-        - torch.sum(torch.lgamma(alpha), dim=-1)
+        _each(C, rows, (alpha - 1.0) * safe_log(x))
+        + torch.lgamma(_each(C, rows, alpha))
+        - _each(C, rows, torch.lgamma(alpha))
     )
 
 
-def _dirichlet(gammas):
+def _dirichlet(gammas, C=None):
     """Dirichlet draw from Gamma variates, floored away from the boundary."""
     g = torch.clamp_min(gammas, _GAMMA_FLOOR)
-    return g / torch.sum(g, dim=-1, keepdim=True)
+    return g / _each(C, lambda t: torch.sum(t, dim=-1, keepdim=True), g)
 
 
 def _own(x):
@@ -224,7 +341,8 @@ def nan_trap() -> bool:
 
 def check_finite(it: int, states, agree=None) -> None:
     """Raise FloatingPointError naming sweep `it` and the field when the
-    loglik, gamma, eta or mix of any of `states` holds a non-finite value.
+    loglik, gamma, eta or mix of any of `states` (each one chain's, or
+    chains' with a leading axis) holds a non-finite value.
     agree: the sum of the [4] int32 flags over the ranks of a sharded run
     (``parallel.distributed.Axis.sum`` on the world), so that every rank
     raises at the same sweep and none is left waiting in a collective."""
@@ -239,9 +357,11 @@ def check_finite(it: int, states, agree=None) -> None:
 
 
 def _loglik(n, mix, eta, psum=_own):
-    """sum n * log(mix @ eta); psum adds the position shards' sums
-    (``parallel.distributed``), the identity on one device."""
-    return psum(torch.sum(n * safe_log(torch.einsum("vsa,ab->vsb", mix, eta))))
+    """sum n * log(mix @ eta) (per chain over a chain axis: [C]); psum adds
+    the position shards' sums (``parallel.distributed``), the identity on
+    one device."""
+    return psum(_each(_chains(eta, 2), lambda m, e: torch.sum(
+        n * safe_log(torch.einsum("vsa,ab->vsb", m, e))), mix, eta))
 
 
 def _eta_prior(cfg: SamplerConfig, device) -> torch.Tensor:
@@ -253,8 +373,9 @@ def _eta_prior(cfg: SamplerConfig, device) -> torch.Tensor:
 def _gamma_proposal(cfg: SamplerConfig, gamma, kappa, noise, it: int):
     """The per-sample Dirichlet random-walk proposal:
     (gamma_prop, alpha_fwd, alpha_rev)."""
+    kappa = _per(kappa, gamma)
     alpha_fwd = kappa * gamma + cfg.proposal_floor                    # [S,G]
-    gamma_prop = _dirichlet(noise.gamma_prop(it, alpha_fwd))
+    gamma_prop = _dirichlet(noise.gamma_prop(it, alpha_fwd), _chains(gamma, 2))
     alpha_rev = kappa * gamma_prop + cfg.proposal_floor
     return gamma_prop, alpha_fwd, alpha_rev
 
@@ -265,18 +386,19 @@ def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
     (accept [S] bool, gamma, loglik). The old/new terms of the ratio
     already give the post-update total loglik. beta tempers the likelihood
     term only; the returned loglik is the untempered one."""
+    C = _chains(gamma, 2)
     dll = ll_new - ll_old
     if _tempered(beta):
         dll = beta * dll
     # symmetric Dirichlet(1) prior on gamma rows -> prior ratio = 0
     log_ratio = (
         dll
-        + _dirichlet_logpdf(gamma, alpha_rev)
-        - _dirichlet_logpdf(gamma_prop, alpha_fwd)
+        + _dirichlet_logpdf(gamma, alpha_rev, C)
+        - _dirichlet_logpdf(gamma_prop, alpha_fwd, C)
     )
-    accept = safe_log(noise.gamma_u(it, gamma.shape[0])) < log_ratio
-    gamma = torch.where(accept[:, None], gamma_prop, gamma)
-    loglik = torch.sum(torch.where(accept, ll_new, ll_old))
+    accept = safe_log(noise.gamma_u(it, gamma.shape[-2])) < log_ratio
+    gamma = torch.where(accept[..., None], gamma_prop, gamma)
+    loglik = _each(C, torch.sum, torch.where(accept, ll_new, ll_old))
     return accept, gamma, loglik
 
 
@@ -290,24 +412,30 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
     likelihood terms of the MH ratio already give the post-update total
     loglik, so the sweep needs no separate likelihood pass.
     """
+    C = _chains(gamma, 2)
     gamma_prop, alpha_fwd, alpha_rev = _gamma_proposal(cfg, gamma, kappa,
                                                        noise, it)
-    mix_prop = mixture(one_hot_tau(tau), gamma_prop)                  # [V,S,4]
-    both = torch.stack([mix, mix_prop])                               # [2,V,S,4]
-    ll = psum(torch.sum(
-        n[None] * safe_log(torch.einsum("kvsa,ab->kvsb", both, eta)),
-        dim=(1, 3)))                                                  # [2,S]
-    accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd,
-                                          alpha_rev, ll[0], ll[1], noise, it, beta)
-    mix = torch.where(accept[None, :, None], mix_prop, mix)
-    return gamma, mix, accept.to(torch.float32).mean(), loglik
+    mix_prop = _each(C, mixture, one_hot_tau(tau), gamma_prop)        # [V,S,4]
+
+    def ll_pair(mix, mix_prop, eta):
+        both = torch.stack([mix, mix_prop])                           # [2,V,S,4]
+        return torch.sum(
+            n[None] * safe_log(torch.einsum("kvsa,ab->kvsb", both, eta)),
+            dim=(1, 3))                                               # [2,S]
+
+    ll = psum(_each(C, ll_pair, mix, mix_prop, eta))
+    accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev,
+                                          ll[..., 0, :], ll[..., 1, :], noise, it, beta)
+    mix = torch.where(accept[..., None, :, None], mix_prop, mix)
+    return gamma, mix, _each(C, torch.mean, accept.to(torch.float32)), loglik
 
 
 def _eta_proposal(cfg: SamplerConfig, eta, kappa, noise, it: int):
     """The joint Dirichlet proposal of all four rows:
     (eta_prop, alpha_fwd, alpha_rev)."""
+    kappa = _per(kappa, eta)
     alpha_fwd = kappa * eta + cfg.proposal_floor                      # [4,4]
-    eta_prop = _dirichlet(noise.eta_prop(it, alpha_fwd))
+    eta_prop = _dirichlet(noise.eta_prop(it, alpha_fwd), _chains(eta, 2))
     alpha_rev = kappa * eta_prop + cfg.proposal_floor
     return eta_prop, alpha_fwd, alpha_rev
 
@@ -316,18 +444,19 @@ def _eta_accept(cfg: SamplerConfig, eta, eta_prop, alpha_fwd, alpha_rev,
                 ll_new, loglik, noise, it: int, beta=1.0):
     """The one MH decision of the joint eta step: (eta, loglik, accepted
     as f32); beta tempers the likelihood term only."""
+    C = _chains(eta, 2)
     prior_alpha = _eta_prior(cfg, eta.device)
     dll = ll_new - loglik
     if _tempered(beta):
         dll = beta * dll
     log_ratio = (
         dll
-        + torch.sum((prior_alpha - 1.0) * (safe_log(eta_prop) - safe_log(eta)))
-        + torch.sum(_dirichlet_logpdf(eta, alpha_rev))
-        - torch.sum(_dirichlet_logpdf(eta_prop, alpha_fwd))
+        + _each(C, torch.sum, (prior_alpha - 1.0) * (safe_log(eta_prop) - safe_log(eta)))
+        + _each(C, torch.sum, _dirichlet_logpdf(eta, alpha_rev, C))
+        - _each(C, torch.sum, _dirichlet_logpdf(eta_prop, alpha_fwd, C))
     )
     accept = safe_log(noise.eta_u(it)) < log_ratio
-    eta = torch.where(accept, eta_prop, eta)
+    eta = torch.where(_per(accept, eta), eta_prop, eta)
     loglik = torch.where(accept, ll_new, loglik)
     return eta, loglik, accept.to(torch.float32)
 
@@ -351,25 +480,27 @@ def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
     beta tempers the likelihood term only; the returned loglik is the
     untempered one. Returns (eta, loglik, accept rate over the four rows).
     """
+    C = _chains(eta, 2)
     prior_alpha = _eta_prior(cfg, eta.device)
-    n_acc = torch.zeros((), device=eta.device)
+    n_acc = torch.zeros(loglik.shape, device=eta.device)
+    kappa = _per(kappa, eta[..., 0, :])
     for a in range(NBASES):
-        row = eta[a]
+        row = eta[..., a, :]
         alpha_fwd = kappa * row + cfg.proposal_floor
-        row_prop = _dirichlet(noise.eta_row_prop(it, a, alpha_fwd))
+        row_prop = _dirichlet(noise.eta_row_prop(it, a, alpha_fwd), C)
         alpha_rev = kappa * row_prop + cfg.proposal_floor
         eta_prop = eta.clone()
-        eta_prop[a] = row_prop
+        eta_prop[..., a, :] = row_prop
         ll_new = _loglik(n, mix, eta_prop, psum)
         log_ratio = (
             beta * (ll_new - loglik)
-            + torch.sum((prior_alpha[a] - 1.0)
-                        * (safe_log(row_prop) - safe_log(row)))
-            + _dirichlet_logpdf(row, alpha_rev)
-            - _dirichlet_logpdf(row_prop, alpha_fwd)
+            + _each(C, torch.sum, (prior_alpha[a] - 1.0)
+                    * (safe_log(row_prop) - safe_log(row)))
+            + _dirichlet_logpdf(row, alpha_rev, C)
+            - _dirichlet_logpdf(row_prop, alpha_fwd, C)
         )
         accept = safe_log(noise.eta_row_u(it, a)) < log_ratio
-        eta = torch.where(accept, eta_prop, eta)
+        eta = torch.where(_per(accept, eta), eta_prop, eta)
         loglik = torch.where(accept, ll_new, loglik)
         n_acc = n_acc + accept.to(torch.float32)
     return eta, loglik, n_acc / NBASES
@@ -386,7 +517,8 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     logu / beta (the JAX package's Pallas swap; its XLA swap compares
     logu < beta * dll, the same decision but at float near-ties). psum
     adds the position shards' likelihood sums (the identity on one device).
-    Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta).
+    Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta). A state
+    with a chain axis sweeps every chain in one tau and one swap launch.
     """
     V, S, _ = n.shape
     G = cfg.G
@@ -404,14 +536,15 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
                 logu = logu / beta
             tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu)
     if cfg.fix_gamma:
-        gamma, acc_g = state.gamma, torch.zeros((), device=n.device)
+        gamma = state.gamma
+        acc_g = torch.zeros(state.loglik.shape, device=n.device)
         loglik = _loglik(n, mix, state.eta, psum)
     else:
         gamma, mix, acc_g, loglik = gamma_step(
             cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
             noise, it, beta, psum)
     if cfg.fix_eta:
-        eta, acc_e = state.eta, torch.zeros((), device=n.device)
+        eta, acc_e = state.eta, torch.zeros(state.loglik.shape, device=n.device)
     else:
         eta_fn = eta_step_joint if cfg.eta_update == "joint" else eta_step
         eta, loglik, acc_e = eta_fn(
@@ -454,6 +587,10 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
     (``parallel.sharded``: n, tau and mix hold one block of positions, and
     every likelihood sum goes through psum); the identity on one device.
     The resident kernels take no shards.
+
+    A state and accumulators with a leading [C] axis (``init_states``,
+    ``init_accum(chains=C)``) with a ``ChainNoise`` sweep C chains at once:
+    chain c bitwise its own sweep. The resident kernels take one chain.
     """
     ks = kernel if isinstance(kernel, Kernels) else resolve(kernel)
     if ks.resident and psum is not _own:
@@ -482,6 +619,8 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
         burn = cfg.burn if burn is None else burn
         if ks.resident and (temp is not None or _tempered(beta)):
             raise ValueError(RESIDENT_PLAIN_ONLY)
+        if ks.resident and state.tau.dim() == 3:
+            raise ValueError("the resident kernels sweep one chain at a time")
         temp = temperature(it) if temp is None else temp
         args = (cfg, ks, n, state, it, noise, temp)
         tau, mix, gamma, eta, loglik, acc_g, acc_e = (
@@ -503,9 +642,9 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
         is_star = loglik > accum.star_loglik
         upd = dict(
             star_loglik=torch.where(is_star, loglik, accum.star_loglik),
-            star_tau=torch.where(is_star, tau, accum.star_tau),
-            star_gamma=torch.where(is_star, gamma, accum.star_gamma),
-            star_eta=torch.where(is_star, eta, accum.star_eta),
+            star_tau=torch.where(_per(is_star, tau), tau, accum.star_tau),
+            star_gamma=torch.where(_per(is_star, gamma), gamma, accum.star_gamma),
+            star_eta=torch.where(_per(is_star, eta), eta, accum.star_eta),
             acc_gamma=accum.acc_gamma + acc_g,
             acc_eta=accum.acc_eta + acc_e,
         )
@@ -583,22 +722,36 @@ def init_state(
                         kappa_gamma=kg0, kappa_eta=ke0)
 
 
-def init_accum(V: int, S: int, G: int, device) -> SamplerAccum:
+def init_states(n: torch.Tensor, cfg: SamplerConfig, generators,
+                eta_init: Optional[torch.Tensor] = None,
+                tau_init: Optional[torch.Tensor] = None) -> SamplerState:
+    """The starts of len(generators) chains, stacked on a leading [C] axis:
+    chain c's ``init_state`` from generator c (its NMF start drawn from it,
+    as ``run_chain`` draws it)."""
+    states = [init_state(n, cfg, g, eta_init, tau_init) for g in generators]
+    return SamplerState(*(torch.stack(f) for f in zip(*states)))
+
+
+def init_accum(V: int, S: int, G: int, device, chains: Optional[int] = None
+               ) -> SamplerAccum:
+    """Fresh accumulators of one chain, or with chains=C of C chains on a
+    leading [C] axis."""
     f32 = dict(dtype=torch.float32, device=device)
+    lead = () if chains is None else (chains,)
 
     def scalar(x):
-        return torch.tensor(x, **f32)
+        return torch.full(lead, x, **f32)
 
     return SamplerAccum(
-        sum_tau=torch.zeros((V, G, NBASES), **f32),
-        sum_gamma=torch.zeros((S, G), **f32),
-        sum_eta=torch.zeros((NBASES, NBASES), **f32),
+        sum_tau=torch.zeros((*lead, V, G, NBASES), **f32),
+        sum_gamma=torch.zeros((*lead, S, G), **f32),
+        sum_eta=torch.zeros((*lead, NBASES, NBASES), **f32),
         sum_loglik=scalar(0.0),
         n_samples=scalar(0.0),
         star_loglik=scalar(-float("inf")),
-        star_tau=torch.zeros((V, G), dtype=torch.int32, device=device),
-        star_gamma=torch.zeros((S, G), **f32),
-        star_eta=torch.zeros((NBASES, NBASES), **f32),
+        star_tau=torch.zeros((*lead, V, G), dtype=torch.int32, device=device),
+        star_gamma=torch.zeros((*lead, S, G), **f32),
+        star_eta=torch.zeros((*lead, NBASES, NBASES), **f32),
         acc_gamma=scalar(0.0),
         acc_eta=scalar(0.0),
         acc_gamma_post=scalar(0.0),
@@ -608,15 +761,16 @@ def init_accum(V: int, S: int, G: int, device) -> SamplerAccum:
 
 def _result_from_accum(accum: SamplerAccum, cfg: SamplerConfig,
                        trace: torch.Tensor, **draws) -> SamplerResult:
-    """Posterior means + star snapshot from a finished accumulator (and the
-    stored draws, when there are any)."""
+    """Posterior means + star snapshot from a finished accumulator (one
+    chain's, or chains' with a leading axis) and the stored draws, when
+    there are any."""
     n_s = torch.clamp_min(accum.n_samples, 1.0)
     return SamplerResult(
-        tau_mean=accum.sum_tau / n_s,
+        tau_mean=accum.sum_tau / _per(n_s, accum.sum_tau),
         tau_star=accum.star_tau,
-        gamma_mean=accum.sum_gamma / n_s,
+        gamma_mean=accum.sum_gamma / _per(n_s, accum.sum_gamma),
         gamma_star=accum.star_gamma,
-        eta_mean=accum.sum_eta / n_s,
+        eta_mean=accum.sum_eta / _per(n_s, accum.sum_eta),
         eta_star=accum.star_eta,
         mean_loglik=accum.sum_loglik / n_s,
         star_loglik=accum.star_loglik,
@@ -653,27 +807,31 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     sweep's meaning (``make_sweep_fn``), and so has psum; agree has
     ``check_finite``'s (the NaN trap, when on). Segments run in order from
     one noise source give the draws and the trajectory of one long segment.
+    A state with a leading [C] axis and a ``ChainNoise`` advance C chains in
+    one sweep: the trace is [C, n_sweeps] and the draws [C, k, ...].
     """
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
     sweep = make_sweep_fn(cfg, kernel, psum)
     V, S, _ = n.shape
     dev = n.device
-    trace = torch.empty(n_sweeps, dtype=torch.float32, device=dev)
+    lead = state.loglik.shape   # () or the chains' (C,)
+    trace = torch.empty((*lead, n_sweeps), dtype=torch.float32, device=dev)
     slots = (stored_slots(start_it, n_sweeps, cfg.burn if burn is None else burn,
                           cfg.store_thin) if store else [])
     k = len(slots)
-    draws = (torch.empty((k, V, cfg.G), dtype=torch.int8, device=dev),
-             torch.empty((k, S, cfg.G), dtype=torch.float32, device=dev),
-             torch.empty((k, NBASES, NBASES), dtype=torch.float32, device=dev))
+    draws = (torch.empty((*lead, k, V, cfg.G), dtype=torch.int8, device=dev),
+             torch.empty((*lead, k, S, cfg.G), dtype=torch.float32, device=dev),
+             torch.empty((*lead, k, NBASES, NBASES), dtype=torch.float32, device=dev))
     j = 0
     for i in range(n_sweeps):
         state, accum, ll = sweep(n, state, accum, start_it + i, noise, burn=burn)
         if _NAN_TRAP:
             check_finite(start_it + i, [state], agree)
-        trace[i] = ll
+        trace[..., i] = ll
         if j < k and slots[j] == i:
-            draws[0][j], draws[1][j], draws[2][j] = state.tau, state.gamma, state.eta
+            for buf, x in zip(draws, (state.tau, state.gamma, state.eta)):
+                buf[..., j, :, :] = x
             j += 1
     return (state, accum, trace, draws) if store else (state, accum, trace)
 
@@ -735,20 +893,35 @@ def run_chains(
     tau_init: Optional[torch.Tensor] = None,
 ) -> SamplerResult:
     """Independent chains over seeds, stacked on a leading axis (the JAX
-    package's ``run_chains``, whose vmap becomes a loop here).
+    package's ``run_chains``, whose vmap is the chain axis here).
 
-    Chain i runs one after another on its own ``torch.Generator`` on n's
-    device, seeded with seeds[i], so it is bitwise ``run_chain`` of that
-    seed. The kernel choice is resolved once for all chains. Fields that
-    are None (no stored draws) stay None.
+    Chain i draws from its own ``torch.Generator`` on n's device, seeded
+    with seeds[i]; the chains start from their own NMF starts and then
+    advance together, one sweep of all of them at a time (``ChainNoise``,
+    the chain-axis kernels), so chain i is bitwise ``run_chain`` of that
+    seed. The kernel choice is resolved once for all chains; the resident
+    kernels take one chain, so with ``cuda_resident`` the chains run one
+    after another. Fields that are None (no stored draws) stay None.
     """
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    results = [run_chain(n, cfg, chain_generator(seed, n.device), eta_init=eta_init,
-                         tau_init=tau_init, kernel=kernel) for seed in seeds]
-    return SamplerResult(*(None if field[0] is None else torch.stack(field)
-                           for field in zip(*results)))
+    if kernel.resident:
+        results = [run_chain(n, cfg, chain_generator(seed, n.device),
+                             eta_init=eta_init, tau_init=tau_init, kernel=kernel)
+                   for seed in seeds]
+        return SamplerResult(*(None if field[0] is None else torch.stack(field)
+                               for field in zip(*results)))
+    check_store_thin(cfg)
+    V, S, _ = n.shape
+    generators = [chain_generator(seed, n.device) for seed in seeds]
+    state = init_states(n, cfg, generators, eta_init, tau_init)
+    accum = init_accum(V, S, cfg.G, n.device, chains=len(generators))
+    noise = ChainNoise(TorchNoise(g) for g in generators)
+    out = run_segment(n, cfg, state, accum, 0, cfg.total_sweeps, noise, kernel,
+                      store=cfg.store_samples)
+    draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
+    return _result_from_accum(out[1], cfg, out[2], **draws)
 
 
 def chain_result(res: SamplerResult, i: int) -> SamplerResult:
@@ -1082,8 +1255,9 @@ def run_chains_pt(
     kernel="cuda",
 ) -> SamplerResult:
     """Independent PT runs over seeds, stacked on a leading axis (the JAX
-    package's ``run_chains_pt``, whose vmap becomes a loop): run i is
-    bitwise ``run_chain_pt`` of seeds[i]."""
+    package's ``run_chains_pt``, whose vmap is still a loop here: the chain
+    axis does not carry replicas yet): run i is bitwise ``run_chain_pt`` of
+    seeds[i]."""
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)

@@ -52,7 +52,8 @@ def test_ess_helpers_match_jax(seed, phi):
 class TraceFeed:
     """A stand-in for ``sampler.run_segment`` that hands back a JAX run's
     loglik trace [C, sweeps] (and its stored gamma draws) for the sweeps
-    asked, chain by chain in turn; the chain state does not move."""
+    asked, for every chain of the state at once; the chain state does not
+    move."""
 
     def __init__(self, trace, burn_used, gamma=None):
         self.trace, self.burn_used, self.gamma = trace, burn_used, gamma
@@ -60,18 +61,20 @@ class TraceFeed:
 
     def __call__(self, n, cfg, state, accum, start_it, n_sweeps, noise,
                  kernel="cuda", burn=None, store=False):
-        c = self.calls % self.trace.shape[0]
         self.calls += 1
-        trace = torch.tensor(self.trace[c, start_it:start_it + n_sweeps])
-        assert trace.shape[0] == n_sweeps, "the port ran past JAX's run"
+        C = state.tau.shape[0]
+        assert C == self.trace.shape[0], "one segment advances every chain"
+        trace = torch.tensor(self.trace[:, start_it:start_it + n_sweeps])
+        assert trace.shape[1] == n_sweeps, "the port ran past JAX's run"
         if not store:
             return state, accum, trace
         assert burn == self.burn_used
         slots = checkpoint.stored_slots(start_it, n_sweeps, burn, cfg.store_thin)
-        gamma = torch.tensor(self.gamma[c][[start_it + j - burn for j in slots]])
+        gamma = torch.tensor(self.gamma[:, [start_it + j - burn for j in slots]])
         V = n.shape[0]
-        return state, accum, trace, (torch.zeros((len(slots), V, cfg.G), dtype=torch.int8),
-                                     gamma, torch.zeros((len(slots), 4, 4)))
+        return state, accum, trace, (
+            torch.zeros((C, len(slots), V, cfg.G), dtype=torch.int8), gamma,
+            torch.zeros((C, len(slots), 4, 4)))
 
 
 AUTO_KW = dict(check_every=20, max_burn=400, ess_target=10.0, max_samples=300)
@@ -328,14 +331,14 @@ def test_checkpointed_auto_run_is_preempted_at_a_segment_head(tmp_path, monkeypa
 
     def segment(*args, **k):
         calls.append(args[4])
-        if len(calls) == 3:   # during the second segment's first chain
+        if len(calls) == 2:   # during the second segment (every chain's)
             checkpoint._on_sigterm(None, None)
         return real(*args, **k)
 
     monkeypatch.setattr(checkpoint, "run_segment", segment)
     with pytest.raises(checkpoint.Preempted):
         converge.run_chains_auto(n, cfg, [0, 1], checkpoint_path=ck, **kw)
-    assert calls == [0, 0, 10, 10] and checkpoint.load(ck)[2] == 20
+    assert calls == [0, 10] and checkpoint.load(ck)[2] == 20
     monkeypatch.undo()
     got, b, s = converge.run_chains_auto(n, cfg, [0, 1], checkpoint_path=ck, **kw)
     assert (b, s) == (b_ref, s_ref)
