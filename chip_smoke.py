@@ -29,16 +29,19 @@ Phases, each printing its own '# ...' lines:
    memory of a block's reduction slots: the fused kernel bitwise the staged
    chain, swap(emit_ll), gamma_ll and gamma_apply_eta against their plain
    versions, and a 10-sweep cuda_resident chain (a main path: its launches
-   are counted); then the chain axis: the tau, swap and top-2 kernels with
-   C = 1, 5 and 40 chains in one launch at V=1e4, S=64, G=8
-   (kernel_bench.chain_inputs: chain 0 phase 3's inputs, the others their
-   own tau, mix, gamma, eta, gz and swap pair, on shared counts): chain c
-   bitwise the solo launch on chain c's inputs, the launch against its
-   plain version (>= 99% agreement, mixture consistency), the digests at
-   C = 1, device ms of the launch against C solo launches (CUDA events)
-   and the bound at C (kernel_bench.bound); chain c bitwise its solo
-   launch also at V=9999, G=5, C=3 (chain slices of tau not on 16 bytes)
-   and with each chain's own copy of the counts (a chain stride);
+   are counted); then the chain axis: every kernel (tau, swap, top-2,
+   gamma_ll, gamma_apply_eta, fused) with C = 1, 5 and 40 chains in one
+   launch at V=1e4, S=64, G=8 (kernel_bench.chain_inputs: chain 0 phase 3's
+   inputs, the others their own tau, mix, gamma, eta, gz, swap pair, gamma
+   proposal, accepts and eta proposal, on shared counts): chain c bitwise
+   the solo launch on chain c's inputs, the launch against its plain
+   version (>= 99% agreement: positions where there is tau, per-sample
+   sums within rtol 1e-5 otherwise; mixture consistency), the digests at
+   C = 1 (tau, top-2, fused, gamma_ll), device ms of the launch against C
+   solo launches (CUDA events) and the bound at C (kernel_bench.bound);
+   chain c bitwise its solo launch also at V=9999, G=5, C=3 (chain slices
+   of tau not on 16 bytes) and with each chain's own copy of the counts (a
+   chain stride);
 4. the main paths, each with the launch counts set to 0 just before it and
    read just after: the `desman` CLI on TestData's true-variant half with
    `--kernel cuda` and with `--kernel cuda_resident`, each held to the
@@ -57,7 +60,9 @@ Phases, each printing its own '# ...' lines:
    on (a)'s run dirs must pick best.txt's run; (b) must launch the top-2
    kernel and never the tau kernel; and a G=5 chain on (b)'s selected
    counts must have a loglik trace with `cuda_topk` equal to the one with
-   `cuda`;
+   `cuda`; (a) launches fused_sweep and gamma_apply_eta once for each G
+   and sweep, the five seeds on the chain axis (G=1: tau_sweep and
+   gamma_ll);
 7. GeneAssign at that scale: (a)'s pipeline also runs its `genes` stage on
    1500 accessory genes drawn from the mock's truth as complete_example.py
    draws them (presence/absence, every gene in some strain, Poisson
@@ -92,16 +97,22 @@ Phases, each printing its own '# ...' lines:
    the tau kernel); (d) `--chains 4 --checkpoint` and `--auto_burn --chains
    4` on TestData's half (quickstart gates, chains.json); (e) phase 6 (a)'s
    counts through `pipeline` with `grid: {kernel: cuda, auto_samples: 100,
-   auto_max_samples: 500}`: G=5 within the gates, every run's
+   auto_max_samples: 250}`: G=5 within the gates, every run's
    sampling_sweeps >= 125, and a rerun launches no sweep; (f)
    `--checkpoint` and `--auto_burn` with `--kernel cuda_resident` exit 2
    with the JAX CLI's message and launch nothing;
 11. parallel tempering, at V=1e4, S=64, G=8 with `--kernel cuda` unless
-   said otherwise: (a) run() with pt_replicas=4, pt_max_temp=8, 400
-   sweeps (nmf_iters 50): tau and swap launched exactly 4 x 400 times, 0 <
-   pt_swap_accept <= 1, a finite cold trace; then ms an ensemble sweep
-   beside 4 x ms a plain sweep, in turns plain, PT, PT, plain; and one
-   run() at V=1e5, S=96, G=16, R=4, 40 sweeps: wall and peak device memory;
+   said otherwise, the R replicas of an ensemble sweep on the chain axis:
+   (a) run() with pt_replicas=4, pt_max_temp=8, 400 sweeps (nmf_iters
+   50): tau and swap launched exactly once an ensemble sweep (400; 4 x 400
+   chain launches), 0 < pt_swap_accept <= 1, a finite cold trace; then ms
+   an ensemble sweep beside 4 x ms a plain sweep, in turns plain, PT, PT,
+   plain; 20 ensemble sweeps each bitwise the in-turn oracle (every
+   replica's own sweep at its temperature, then the exchange) in every
+   replica's state and accumulators, the rung, cold loglik and exchanges,
+   each sweep one tau and one swap launch; `profile_sweep --pt 4`'s ms,
+   device ops and idle share of an ensemble sweep; and one run() at
+   V=1e5, S=96, G=16, R=4, 40 sweeps: wall and peak device memory;
    (b) `desman --pt 4 -i 200` on TestData's half (quickstart gates) and
    with `cuda_topk` on grid (b)'s counts (the top-2 kernel, never the tau
    kernel); (c) tests/test_pt.py's mode-crossing case (V=40, swap moves
@@ -110,7 +121,9 @@ Phases, each printing its own '# ...' lines:
    subprocesses side by side, one uninterrupted, one SIGKILLed and one
    SIGTERMed (exit 75) mid-run, then rerun: files byte-identical to the
    uninterrupted run's; and in process run_chain_pt_checkpointed bitwise
-   run_chain_pt (V=2000, stored cold draws); (e) `--pt 4 --auto_burn
+   run_chain_pt (V=2000, stored cold draws), and run_chains_pt of 3 seeds
+   (3 x 4 replicas on one axis: one tau launch a sweep) with each run
+   bitwise run_chain_pt of its seed; (e) `--pt 4 --auto_burn
    --auto_samples 100` on TestData's half (quickstart gates); (f) `--pt`
    with `--auto_burn --checkpoint`, with `--auto_samples --chains 2` and
    with `--kernel cuda_resident` exit 2 with the JAX CLI's message and
@@ -118,9 +131,10 @@ Phases, each printing its own '# ...' lines:
 12. the rest of the single-card surface: (a) `multibin -g 5 -i 250
    --kernel cuda` on 12 genome bins of S=64 (synth seeds 200-211, true
    G=5, V from 1000 to 1e4 in equal steps, each padded to V=1e4 on the
-   card): tau and swap launched 12 x 250 times, every bin at SNP error
-   rate < 0.02 and gamma MAE < 0.02 with fit.txt's V its own, bin 0
-   bitwise run_chain of its padded counts, the tau and swap kernels
+   card, the bins on the chain axis): tau and swap launched once a sweep
+   (250; 12 x 250 chain launches), the peak device bytes, every bin at SNP
+   error rate 0 and gamma MAE < 0.02 with fit.txt's V its own, bins
+   0, 6 and 11 bitwise run_chain of their padded counts, the tau and swap kernels
    against their plain versions at G=5 on bins 0 and 1 padded to V=1e4
    and bin 1 padded to V=9999 (zero rows bitwise, >= 99% elsewhere),
    `--kernel cuda_topk` exits 2
@@ -158,8 +172,9 @@ Phases, each printing its own '# ...' lines:
    (the backend rule). Parallel tempering and auto-length runs on the
    mesh, side by side as (c)-(e): (h) `desman --mesh 1x2 --pt 4`, `--mesh
    2x1 --pt 4` and `--mesh 1x2 --pt 4 --kernel cuda_topk` (biallelic
-   counts): the replicas' tau (or top-2) and swap kernels launched exactly
-   4 x 200 x data ranks over the ranks, exactly 8 (1x2) and 1 (2x1)
+   counts): a rank's replicas on the chain axis, the tau (or top-2) and
+   swap kernels launched once a rank a sweep (200 x ranks over the ranks)
+   for 4 x 200 x data ranks chain launches, exactly 2 (1x2) and 1 (2x1)
    collectives an ensemble sweep, tau_star agreement >= 0.99 with the
    single-device `run_chain_pt` of the same seed and no more SNP errors,
    pt_swap_accept printed; (i) `--mesh 2x1 --pt 4 --checkpoint`
@@ -169,11 +184,11 @@ Phases, each printing its own '# ...' lines:
    200 --checkpoint` SIGTERMed after its first segment (exit 75) and
    resumed on 1x1 in process: the burn and sampling length of the
    uninterrupted `--mesh 1x2 --auto_samples 200`; (k) a 1x1 world over
-   NCCL in process: `run_chain_pt_sharded` bitwise `run_chain_pt`, 4 x 200
-   launches; (l) at V=1e5 S=96 G=16, `--pt 4` for 20 sweeps through
+   NCCL in process: `run_chain_pt_sharded` bitwise `run_chain_pt`, 200
+   launches (4 x 200 chain launches); (l) at V=1e5 S=96 G=16, `--pt 4` for 20 sweeps through
    `run.run_pt_sharded` at 1x2 and 2x1 and through `run.run` on one
-   device, each world in fresh processes: every rank's peak allocated
-   device bytes beside the one device's; the phase's seconds printed;
+   device, each world in fresh processes, the three side by side: every
+   rank's peak allocated device bytes beside the one device's;
 14. the drivers, each a subprocess from the checkout run as `python -m`
    runs it (``runpy``), printing its launch counts at exit: (a) `python -m
    desman_tpu_torch.bench --kernel cuda_resident` and `--kernel cuda`: the
@@ -189,16 +204,19 @@ Phases, each printing its own '# ...' lines:
    5 seeds on the chain axis: 10000 and 8750 chain launches); (c)
    `bench_suite --quick`: the suite's entries
    in its order, each value > 0, the tau, swap, fused and apply kernels
-   launched; each driver's output and wall printed, and the phase's
-   seconds;
+   launched; each driver's output and wall printed;
 15. independent chains on the chain axis: `run_chains` of seeds 0-4 at
-   V=1e4, S=64, G=8, 400 sweeps (nmf_iters 50), with `cuda` on the synth
-   counts and with `cuda_topk` on biallelic ones (a main path: counts set
-   to 0 just before it): the tau (top-2) and swap kernels launched 400
-   times each, 2000 chain launches, every chain bitwise `run_chain` of its
+   V=1e4, S=64, G=8, 400 sweeps (nmf_iters 50), with `cuda` and
+   `cuda_resident` on the synth counts and with `cuda_topk` on biallelic
+   ones (a main path: counts set to 0 just before it): the tau (top-2) and
+   swap kernels, or fused_sweep and gamma_apply_eta, launched 400 times
+   each, 2000 chain launches, every chain bitwise `run_chain` of its
    seed on the card (every result field), and the wall of the batched
    call against five `run_chain` calls in turn (NMF starts included), in
-   rounds batched, loop, loop, batched: chain-sweeps/s of each.
+   rounds batched, loop, loop, batched, the first two being the runs the
+   gates read: chain-sweeps/s of each.
+
+Each phase's wall is printed after it (``timed``).
 
 Any failed gate exits 1 before the result lines; outside a checkout of the
 repository the imports fail and nothing runs. On success the last three
@@ -207,14 +225,18 @@ kernel's launches summed over every in-process path driven in phases 3-15,
 the tau and swap kernels' multibin launches beside them, the tau, swap
 and top-2 kernels' mesh launches over every rank of phase 13 with their
 agreement on a shard's block, and each driver subprocess's launches of
-phase 14 (`driver_launches`); the chain-axis kernels also carry their
-chain launches (`chain_launches`, `driver_chain_launches`), phase 3's
-numbers at each C (`chains`) and phase 15's walls (`chain_path`); each with
+phase 14 (`driver_launches`); every kernel also carries its chain
+launches (`chain_launches`, `driver_chain_launches`), phase 3's numbers at
+each C (`chains`) and phase 15's walls of its kernel choices
+(`chain_path`); the tau and swap kernels phase 11's ensemble sweep
+profile (`pt_ensemble_sweep`) and phase 12's peak bytes (`multibin_peak`);
+each with
 the counts set to 0 just before it and read just after; the swap's
 emit_ll mode runs inside fused_sweep there and carries its launches), the
 card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import contextlib
 import gzip
 import io as stdio
@@ -260,6 +282,8 @@ CHAIN_CHECK = {}
 CHAIN_SEEDS = [0, 1, 2, 3, 4]
 CHAIN_SWEEPS = 400
 CHAIN_PATH = {}
+# phase 11: the PT ensemble sweep's profile (profile_sweep.profile_pt)
+PT_PATH = {}
 # SHA-256 of (tau, mix) from tau_sweep and of (tau, mix, ll) from
 # fused_sweep on kernel_bench's inputs, as the one-warp-per-position
 # kernels gave them (python -m desman_tpu_torch.kernel_bench --against a
@@ -464,6 +488,51 @@ def topk_kernel():
         **resident_info("tau_sweep_topk"))
 
 
+def outputs(x) -> tuple:
+    """A wrapper's outputs as a tuple (gamma_ll returns one tensor)."""
+    return x if isinstance(x, tuple) else (x,)
+
+
+# each chain-axis kernel's digest at C = 1 (chain 0: phase 3's inputs)
+CHAIN_DIGESTS = {"tau_sweep": TAU_SHA256, "tau_sweep_topk": TOPK_SHA256,
+                 "fused_sweep": FUSED_SHA256, "gamma_ll": GAMMA_LL_SHA256}
+
+
+def chain_plain_gate(name, C, got, plain, gamma) -> tuple:
+    """Gate a chain-axis launch against its plain version over [C]:
+    (agreement, max_abs_err). Kernels with tau: >= 99% of positions alike,
+    the mixture consistent with tau and gamma (fused_sweep: its [2,S] sums
+    within rtol 1e-5 on the chains whose tau agrees in full); gamma_ll and
+    gamma_apply_eta: >= 99% of the sums within rtol 1e-5 and all within
+    ll_err's gate (apply: the mixture within rtol 1e-5 / atol 1e-7)."""
+    if name in ("gamma_ll", "gamma_apply_eta"):
+        if name == "gamma_apply_eta":
+            gate(torch.allclose(got[0], plain[0], rtol=1e-5, atol=1e-7),
+                 f"gamma_apply_eta C={C}: mix within rtol 1e-5 / atol 1e-7 of its plain "
+                 "version")
+        ll_k, ll_p = got[-1], plain[-1]
+        agree = ((ll_k - ll_p).abs() <= 1e-5 * ll_p.abs() + 1e-3).float().mean().item()
+        err = worst(ll_err(ll_k, ll_p), (got[0] - plain[0]).abs().max().item()
+                    if name == "gamma_apply_eta" else None)
+        gate(agree >= 0.99, f"{name} C={C}: >= 99% of the sums agree with its plain "
+             f"version ({agree:.6f})")
+        return agree, err
+    tau_k, mix_k, tau_p, mix_p = got[0], got[1], plain[0], plain[1]
+    same = (tau_k == tau_p).all(dim=-1)
+    agree = same.float().mean().item()
+    err = (mix_k[same] - mix_p[same]).abs().max().item()
+    consistent = all(torch.allclose(mix_k[c], mixture(one_hot_tau(tau_k[c]), gamma[c]),
+                                    rtol=1e-5, atol=1e-6) for c in range(C))
+    gate(agree >= 0.99 and consistent,
+         f"{name} C={C} agrees with its plain version on >= 99% of positions "
+         f"({agree:.6f}) with mix == mixture(onehot(tau), gamma)")
+    if name == "fused_sweep":
+        for c in range(C):
+            if bool(same[c].all()):
+                err = worst(err, ll_err(got[2][c], plain[2][c]))
+    return agree, err
+
+
 def chain_kernels(records):
     """Phase 3's chain axis: each chain-axis kernel with C chains in one
     launch (CHAIN_COUNTS) against the solo launches on each chain's inputs
@@ -472,10 +541,8 @@ def chain_kernels(records):
     Then the launches bitwise the solo ones where chain slices of tau do not
     start on 16 bytes (V=9999, G=5) and with each chain's own counts."""
     dev = torch.device("cuda")
-    plain = types.SimpleNamespace(tau_sweep=ops.tau_sweep_reference,
-                                  swap=ops.swap_reference,
-                                  tau_sweep_topk=ops.tau_sweep_topk_reference)
-    digests = {"tau_sweep": TAU_SHA256, "tau_sweep_topk": TOPK_SHA256}
+    plain = types.SimpleNamespace(**{name: getattr(ops, f"{name}_reference")
+                                     for name in kernel_bench.CHAIN_AXIS})
     for C in CHAIN_COUNTS:
         inputs = {topk: {k: v.to(dev) for k, v in
                          kernel_bench.chain_inputs(V, S, G, C, topk).items()}
@@ -483,27 +550,18 @@ def chain_kernels(records):
         for name in kernel_bench.CHAIN_AXIS:
             d = inputs[name == "tau_sweep_topk"]
             batched, one = kernel_bench.chain_calls(ops, name, d)
-            tau_k, mix_k = batched()
-            solo = [one(c) for c in range(C)]
-            tau_p, mix_p = kernel_bench.chain_calls(plain, name, d)[0]()
+            got = outputs(batched())
+            solo = [outputs(one(c)) for c in range(C)]
+            want = outputs(kernel_bench.chain_calls(plain, name, d)[0]())
             torch.cuda.synchronize()
-            gate(all(torch.equal(tau_k[c], t) and torch.equal(mix_k[c], m)
-                     for c, (t, m) in enumerate(solo)),
+            gate(all(all(torch.equal(a[c], b) for a, b in zip(got, s))
+                     for c, s in enumerate(solo)),
                  f"{name} C={C}: chain c of the launch is bitwise the solo launch on "
                  "chain c's inputs")
-            if name in digests and C == 1:
-                gate(kernel_bench.digest(tau_k[0], mix_k[0]) == digests[name][
+            if name in CHAIN_DIGESTS and C == 1:
+                gate(kernel_bench.digest(*(x[0] for x in got)) == CHAIN_DIGESTS[name][
                     kernel_bench.METRIC], f"{name} C=1 keeps the digest")
-            same = (tau_k == tau_p).all(dim=-1)
-            agree = same.float().mean().item()
-            err = (mix_k[same] - mix_p[same]).abs().max().item()
-            gamma = d["gamma"]
-            consistent = all(torch.allclose(mix_k[c], mixture(one_hot_tau(tau_k[c]),
-                                                              gamma[c]),
-                                            rtol=1e-5, atol=1e-6) for c in range(C))
-            gate(agree >= 0.99 and consistent,
-                 f"{name} C={C} agrees with its plain version on >= 99% of positions "
-                 f"({agree:.6f}) with mix == mixture(onehot(tau), gamma)")
+            agree, err = chain_plain_gate(name, C, got, want, d["gamma"])
             ms = kernel_bench.event_ms(batched)
             solo_ms = kernel_bench.event_ms(lambda: [one(c) for c in range(C)])
             b = kernel_bench.bound(name, V, S, G, C)
@@ -514,7 +572,7 @@ def chain_kernels(records):
             print(f"# {name} C={C}: device {ms:.4f} ms a launch, {C} solo launches "
                   f"{solo_ms:.4f} ms (CUDA events), bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f}; agreement "
-                  f"{agree:.6f}, max |mix kernel - plain| {err:.3e}")
+                  f"{agree:.6f}, max abs err {err}")
         del inputs
     for r in records:
         if r["name"] in CHAIN_CHECK:
@@ -530,12 +588,13 @@ def chain_kernels(records):
                 for k in ("n", "n_val", "b_idx"):
                     if k in d:
                         d[k] = d[k].expand(3, *d[k].shape).contiguous()
-            for name in (("tau_sweep_topk",) if topk else ("tau_sweep", "swap")):
+            names = (("tau_sweep_topk",) if topk else
+                     tuple(k for k in kernel_bench.CHAIN_AXIS if k != "tau_sweep_topk"))
+            for name in names:
                 batched, one = kernel_bench.chain_calls(ops, name, d)
-                tau_k, mix_k = batched()
-                solo = [one(c) for c in range(3)]
-                ok = all(torch.equal(tau_k[c], t) and torch.equal(mix_k[c], m)
-                         for c, (t, m) in enumerate(solo))
+                got = outputs(batched())
+                ok = all(all(torch.equal(a[c], b) for a, b in zip(got, outputs(one(c))))
+                         for c in range(3))
                 gate(ok, f"{name} at V={shape[0]} G={shape[2]} C=3"
                      f"{' on each chain own counts' if own else ''}: chain c bitwise "
                      "its solo launch")
@@ -1038,8 +1097,18 @@ def phase_grid(tmp):
         gate(rep.error_rate < 0.02, f"grid ({tag}) SNP error rate < 0.02")
         gate(gmae < 0.02, f"grid ({tag}) gamma MAE < 0.02")
         if tag == "a":
-            gate(launches["fused_sweep"] > 0 and launches["gamma_apply_eta"] > 0,
-                 "grid (a) launched fused_sweep and gamma_apply_eta")
+            grid = PAPER["g_max"] * PAPER["iterations"]
+            seeds = len(PAPER["seeds"])
+            one = PAPER["iterations"]   # G=1: the tau kernel and gamma_ll, no swap
+            print(f"# grid (a) chain launches {LAST_CHAIN_LAUNCHES}")
+            gate(launches["fused_sweep"] == grid - one
+                 and launches["gamma_apply_eta"] == grid
+                 and launches["tau_sweep"] == launches["gamma_ll"] == one
+                 and LAST_CHAIN_LAUNCHES["fused_sweep"] == (grid - one) * seeds
+                 and LAST_CHAIN_LAUNCHES["gamma_apply_eta"] == grid * seeds,
+                 f"grid (a) launched fused_sweep and gamma_apply_eta once for each G and "
+                 f"sweep ({grid - one} and {grid}: the {seeds} seeds on the chain axis), "
+                 f"G=1 through tau_sweep and gamma_ll ({one})")
             picked = os.path.join(tmp, "resolvenhap_a.csv")
             with contextlib.redirect_stdout(stdio.StringIO()):
                 rc = cli.main(["resolvenhap", os.path.join(out, "run_*"), "-o", picked])
@@ -1333,7 +1402,6 @@ def checkpoint_cost(tmp, data):
 def phase_run_length(tmp):
     """Phase 10: checkpoint/resume and auto-length runs (see the module
     docstring)."""
-    t_phase = time.time()
     t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
     csv = os.path.join(tmp, "metric_counts.csv")
     io.write_counts_csv(csv, t.data)
@@ -1418,7 +1486,7 @@ def phase_run_length(tmp):
               "output_dir": os.path.join(tmp, "grid_e"),
               "grid": {"g_min": 1, "g_max": PAPER["g_max"], "seeds": PAPER["seeds"],
                        "iterations": PAPER["iterations"], "kernel": "cuda",
-                       "auto_samples": 100, "auto_max_samples": 500}}
+                       "auto_samples": 100, "auto_max_samples": 250}}
     config_path = os.path.join(tmp, "pipeline_e.json")
     with open(config_path, "w") as f:
         json.dump(config, f)
@@ -1448,7 +1516,7 @@ def phase_run_length(tmp):
         sampling = [read_metrics(os.path.join(config["output_dir"], f"run_{g}_{s}"))
                     ["sampling_sweeps"] for g in range(1, PAPER["g_max"] + 1)
                     for s in PAPER["seeds"]]
-        print(f"# ESS grid (auto_samples 100, cap 500, kernel cuda): G="
+        print(f"# ESS grid (auto_samples 100, cap 250, kernel cuda): G="
               f"{summary['selected_G']}, SNP error rate {rep.error_rate:.6f}, gamma MAE "
               f"{gmae:.6f}; sampling sweeps a run min {min(sampling)} median "
               f"{sorted(sampling)[len(sampling) // 2]} max {max(sampling)}; pipeline "
@@ -1469,7 +1537,6 @@ def phase_run_length(tmp):
             "--checkpoint --kernel cuda_resident")
     refused([half, "-g", "5", "-i", "10", "--kernel", "cuda_resident", "--auto_burn",
              "-o", os.path.join(tmp, "len_refused")], "--auto_burn --kernel cuda_resident")
-    print(f"# phase 10 wall {time.time() - t_phase:.2f} s")
 
 
 PT_R = 4
@@ -1507,6 +1574,110 @@ def pt_turns(data):
     return times
 
 
+# phase 11 (a): sweeps of the PT ensemble held against the in-turn oracle
+PT_ORACLE_SWEEPS = 20
+
+
+def pt_in_turn_step(n, cfg, R, max_temp, ks):
+    """The PT step with the replicas one after another, the oracle of the
+    batched step: each replica's own sweep (``make_sweep_fn``) at its rung's
+    temps[r] and betas[r] (0-d), its accumulators kept unless it held rung
+    0, then the exchange of adjacent rungs; lists of one state, accum and
+    noise source a replica."""
+    from desman_tpu_torch.utils import safe_log
+
+    sweep = sampler.make_sweep_fn(cfg, ks)
+    dev = n.device
+    ladder = sampler.pt_ladder(R, max_temp, dev)
+    beta_ladder = 1.0 / ladder
+    dbeta = beta_ladder - torch.roll(beta_ladder, -1)
+    idx = torch.arange(R, device=dev)
+    heads = [((idx % 2) == p) & (idx + 1 < R) for p in (0, 1)]
+    first = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    def step(states, accums, rung, it, noises, exchange):
+        temps = ladder.index_select(0, rung)
+        betas = 1.0 / temps
+        is_cold = rung == 0
+        new_states, new_accums, lls = [], [], []
+        for r in range(R):
+            st, ac, ll = sweep(n, states[r], accums[r], it, noises[r],
+                               temp=temps[r], beta=betas[r])
+            new_states.append(st)
+            new_accums.append(sampler.SamplerAccum(*(
+                o if x is o else torch.where(is_cold[r], x, o)
+                for x, o in zip(ac, accums[r]))))
+            lls.append(ll)
+        lls = torch.stack(lls)
+        kg = torch.stack([s.kappa_gamma for s in new_states])
+        ke = torch.stack([s.kappa_eta for s in new_states])
+        order = torch.argsort(rung)
+        ll_by_rung = lls.index_select(0, order)
+        delta = dbeta * (torch.roll(ll_by_rung, -1) - ll_by_rung)
+        acc = heads[it % 2] & (safe_log(exchange.exchange_u(it, R)) < delta)
+        rung_perm = torch.where(acc, idx + 1, torch.where(
+            torch.cat([first, acc[:-1]]), idx - 1, idx))
+        new_rung = rung_perm.index_select(0, rung)
+        src = order.index_select(0, new_rung)
+        kg, ke = kg.index_select(0, src), ke.index_select(0, src)
+        new_states = [s._replace(kappa_gamma=kg[i], kappa_eta=ke[i])
+                      for i, s in enumerate(new_states)]
+        return (new_states, new_accums, new_rung,
+                torch.sum(torch.where(is_cold, lls, 0.0)), torch.sum(acc.to(torch.float32)))
+
+    return step
+
+
+def pt_against_in_turn(data):
+    """PT_ORACLE_SWEEPS ensemble sweeps of PT_R replicas at V=1e4 S=64 G=8
+    (burn half of them) on the card: after each, every replica's state and
+    accumulators, the rung, cold_ll and n_acc of the batched step equal the
+    in-turn oracle's from the same start and generators, bit for bit. The
+    batched step's launches are counted (a main path)."""
+    from desman_tpu_torch import checkpoint
+
+    dev = torch.device("cuda")
+    n = torch.as_tensor(data.counts, dtype=torch.float32, device=dev)
+    cfg = sampler.SamplerConfig(G=G, burn=PT_ORACLE_SWEEPS // 2,
+                                samples=PT_ORACLE_SWEEPS // 2, nmf_iters=50)
+    ks = ops.resolve("cuda", n)
+    gens = sampler.pt_generators(0, PT_R, dev)
+    state, accum, rung = sampler.pt_init(n, cfg, gens[:PT_R])
+    states, accums = checkpoint.unstack(state), checkpoint.unstack(accum)
+    copies = [sampler.chain_generator(0, dev) for _ in gens]
+    for a, b in zip(gens, copies):
+        b.set_state(a.get_state())
+    noise, exchange = sampler.pt_noises(gens)
+    noises_b = [sampler.TorchNoise(g) for g in copies[:PT_R]]
+    exchange_b = sampler.ExchangeNoise(copies[PT_R])
+    step = sampler.make_pt_step(n, cfg, PT_R, 8.0, ks)
+    oracle = pt_in_turn_step(n, cfg, PT_R, 8.0, ks)
+    rung_b = rung.clone()
+    differ, once = [], True
+    for it in range(PT_ORACLE_SWEEPS):
+        ops.reset_launches()   # the batched step's launches alone
+        state, accum, rung, cold, n_acc, _ = step(state, accum, rung, it, noise, exchange)
+        launches = read_launches()
+        once &= (launches["tau_sweep"] == launches["swap"] == 1
+                 and LAST_CHAIN_LAUNCHES["tau_sweep"] == LAST_CHAIN_LAUNCHES["swap"] == PT_R)
+        states, accums, rung_b, cold_b, n_acc_b = oracle(states, accums, rung_b, it,
+                                                         noises_b, exchange_b)
+        ok = (torch.equal(rung, rung_b) and torch.equal(cold, cold_b)
+              and torch.equal(n_acc, n_acc_b))
+        for r, (st, ac) in enumerate(zip(checkpoint.unstack(state),
+                                         checkpoint.unstack(accum))):
+            ok &= all(torch.equal(a, b) for a, b in zip(st, states[r]))
+            ok &= all(torch.equal(a, b) for a, b in zip(ac, accums[r]))
+        if not ok:
+            differ.append(it)
+    print(f"# PT ensemble sweep against the in-turn oracle, {PT_ORACLE_SWEEPS} sweeps at "
+          f"V={V} S={S} G={G} R={PT_R}: sweeps that differ {differ}")
+    gate(once, f"every ensemble sweep of {PT_R} replicas launched tau_sweep and swap "
+         f"once ({PT_R} chain launches each)")
+    gate(not differ, f"replica r of the batched PT step is bitwise the in-turn oracle's "
+         f"for {PT_ORACLE_SWEEPS} sweeps")
+
+
 def crossing_case():
     """tests/test_pt.py::test_pt_crosses_modes_plain_gibbs_cannot's counts,
     truth and half label-swapped start."""
@@ -1530,7 +1701,6 @@ def phase_pt(tmp):
     from desman_tpu_torch import checkpoint
     from desman_tpu_torch.utils import snp_distance_perm
 
-    t_phase = time.time()
     dev = torch.device("cuda")
     t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
     # (a) run() at full width, then the plain chain and PT in turns
@@ -1546,8 +1716,11 @@ def phase_pt(tmp):
           f"{m['pt_swap_accept']:.6f}, final loglik {m['final_loglik']:.6f}, star "
           f"deviance {m['star_deviance']:.6f}, {m['sweeps_per_s']:.3f} ensemble "
           f"sweeps/s, launches {launches}")
-    gate(launches["tau_sweep"] == PT_R * CK_SWEEPS and launches["swap"] == PT_R * CK_SWEEPS,
-         f"--pt {PT_R}: tau_sweep and swap launched {PT_R} x {CK_SWEEPS} times")
+    gate(launches["tau_sweep"] == CK_SWEEPS and launches["swap"] == CK_SWEEPS
+         and LAST_CHAIN_LAUNCHES["tau_sweep"] == PT_R * CK_SWEEPS
+         and LAST_CHAIN_LAUNCHES["swap"] == PT_R * CK_SWEEPS,
+         f"--pt {PT_R}: tau_sweep and swap launched once an ensemble sweep ({CK_SWEEPS}), "
+         f"{PT_R} x {CK_SWEEPS} chain launches")
     gate(0.0 < m["pt_swap_accept"] <= 1.0, "0 < pt_swap_accept <= 1")
     gate(trace.shape == (CK_SWEEPS,) and bool(np.isfinite(trace).all()),
          f"--pt {PT_R}: {CK_SWEEPS} finite cold logliks")
@@ -1556,6 +1729,17 @@ def phase_pt(tmp):
           f"ms an ensemble sweep of {PT_R} {times['pt']}, {PT_R} x ms a plain sweep "
           f"{[PT_R * x for x in times['plain']]} (ratio of the sums "
           f"{sum(times['pt']) / (PT_R * sum(times['plain'])):.4f})")
+    pt_against_in_turn(t.data)
+    from desman_tpu_torch import profile_sweep
+
+    prof = profile_sweep.profile_pt(PT_R)
+    PT_PATH.update(ms=prof["ms_per_ensemble_sweep"],
+                   busy_ms=prof["device_busy_ms_per_ensemble_sweep"],
+                   ops=prof["device_ops_per_ensemble_sweep"], idle=prof["idle_share"])
+    print(f"# profile_sweep --pt {PT_R}: {prof['ms_per_ensemble_sweep']:.4f} ms an ensemble "
+          f"sweep, device busy {prof['device_busy_ms_per_ensemble_sweep']:.4f} ms, "
+          f"{prof['device_ops_per_ensemble_sweep']:.1f} device ops (717 with the replicas "
+          f"in turn), idle share {prof['idle_share']:.4f}")
 
     # one record at V=1e5 S=96 G=16: wall and peak memory
     big = synth.generate(V=100_000, S=96, G=16, coverage=50.0, seed=0)
@@ -1574,9 +1758,9 @@ def phase_pt(tmp):
     print(f"# run --pt {PT_R} V=1e5 S=96 G=16, 40 sweeps: wall {wall:.3f} s (chain "
           f"{m['elapsed_s']:.3f} s, {m['sweeps_per_s']:.3f} ensemble sweeps/s), peak "
           f"device memory {peak} bytes, pt_swap_accept {m['pt_swap_accept']:.6f}")
-    gate(launches["tau_sweep"] == PT_R * 40
+    gate(launches["tau_sweep"] == 40 and LAST_CHAIN_LAUNCHES["tau_sweep"] == PT_R * 40
          and bool(torch.isfinite(res.loglik_trace).all()),
-         "V=1e5 PT run: 160 tau launches, finite cold logliks")
+         f"V=1e5 PT run: 40 tau launches ({PT_R * 40} chain launches), finite cold logliks")
     del res, big
 
     # (b) accuracy through the CLI
@@ -1586,17 +1770,20 @@ def phase_pt(tmp):
     launches, _ = drive_cli([half, "-g", "5", "-e", eta, "-i", "200", "-s", "0",
                              "--pt", str(PT_R)], out)
     m = quickstart_gates(out, f"--pt {PT_R}")
-    gate(launches["tau_sweep"] == PT_R * 200 and 0.0 < m["pt_swap_accept"] <= 1.0,
-         f"--pt {PT_R} on TestData's half: {PT_R * 200} tau launches, "
-         f"pt_swap_accept {m['pt_swap_accept']:.6f}")
+    gate(launches["tau_sweep"] == 200 and LAST_CHAIN_LAUNCHES["tau_sweep"] == PT_R * 200
+         and 0.0 < m["pt_swap_accept"] <= 1.0,
+         f"--pt {PT_R} on TestData's half: 200 tau launches ({PT_R * 200} chain "
+         f"launches), pt_swap_accept {m['pt_swap_accept']:.6f}")
     out = os.path.join(tmp, "pt_topk")
     launches, _ = drive_cli([os.path.join(tmp, "grid_b", "sel_var.csv"), "-g", "5", "-i",
                              "200", "-s", "0", "--kernel", "cuda_topk", "--pt",
                              str(PT_R)], out)
     print(f"# --pt {PT_R} --kernel cuda_topk on grid (b)'s counts: pt_swap_accept "
           f"{read_metrics(out)['pt_swap_accept']:.6f}")
-    gate(launches["tau_sweep_topk"] == PT_R * 200 and launches["tau_sweep"] == 0,
-         "--pt --kernel cuda_topk launched tau_sweep_topk and never tau_sweep")
+    gate(launches["tau_sweep_topk"] == 200 and launches["tau_sweep"] == 0
+         and LAST_CHAIN_LAUNCHES["tau_sweep_topk"] == PT_R * 200,
+         "--pt --kernel cuda_topk launched tau_sweep_topk once an ensemble sweep and "
+         "never tau_sweep")
 
     # (c) mode crossing: PT's star within 2 SNPs of the truth, plain's worse
     counts, truth, tau0, gamma, eta_c = crossing_case()
@@ -1618,7 +1805,8 @@ def phase_pt(tmp):
     print(f"# mode crossing (V=40, 6 rungs to T=16, seeds 0-3): star SNP distances PT "
           f"{d_pt}, plain {d_plain}; launches {launches}")
     gate(max(d_pt) <= 2 and sum(d_plain) > sum(d_pt)
-         and launches["tau_sweep"] == 4 * (400 + 6 * 400),
+         and launches["tau_sweep"] == 4 * (400 + 400)
+         and LAST_CHAIN_LAUNCHES["tau_sweep"] == 4 * (400 + 6 * 400),
          "PT's stars within 2 SNPs of the truth, plain Gibbs's further from it")
 
     # (d) resume: --pt --checkpoint subprocesses SIGKILLed / SIGTERMed and rerun
@@ -1654,6 +1842,21 @@ def phase_pt(tmp):
     gate(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(ref, got)),
          "in process, run_chain_pt_checkpointed is bitwise run_chain_pt (stored "
          "cold draws included)")
+    # run_chains_pt: C runs x R replicas on one [C*R] chain axis
+    seeds = [3, 4, 5]
+    ops.reset_launches()
+    many = sampler.run_chains_pt(n, cfg, seeds, n_replicas=PT_R)
+    launches = read_launches()
+    print(f"# run_chains_pt of {len(seeds)} seeds x {PT_R} replicas at V=2000 S=32 G=4: "
+          f"launches {launches}, chain launches {LAST_CHAIN_LAUNCHES}")
+    gate(launches["tau_sweep"] == cfg.total_sweeps
+         and LAST_CHAIN_LAUNCHES["tau_sweep"] == len(seeds) * PT_R * cfg.total_sweeps,
+         f"run_chains_pt: one tau launch a sweep for {len(seeds)} x {PT_R} replicas")
+    for i, seed in enumerate(seeds):
+        one = sampler.run_chain_pt(n, cfg, seed, n_replicas=PT_R)
+        gate(all((a is None and b is None) or torch.equal(a[i], b)
+                 for a, b in zip(many, one)),
+             f"run_chains_pt run {i} is bitwise run_chain_pt of seed {seed}")
 
     # (e) auto length on TestData's half
     out = os.path.join(tmp, "pt_auto")
@@ -1674,14 +1877,17 @@ def phase_pt(tmp):
     refused([half, "-g", "5", "-i", "10", *pt, "--kernel", "cuda_resident"],
             "--pt --kernel cuda_resident",
             ("single-device speed mode", "--kernel cuda for --pt"))
-    print(f"# phase 11 wall {time.time() - t_phase:.2f} s")
 
 
 MB_BINS, MB_G, MB_SWEEPS = 12, 5, 250
+# the bins held bitwise against their own run_chain
+MB_SOLO = (0, MB_BINS // 2, MB_BINS - 1)
 # the multibin path's launches of each kernel (phase 12 (a))
 MULTIBIN_LAUNCHES = {}
 # the tau and swap kernels against their plain versions at its inputs
 MULTIBIN_CHECK = {}
+# the multibin CLI's peak device bytes (above its start) and wall
+MULTIBIN_PEAK = {}
 SAMPLED = ("Filtered_Tau_star.csv", "Gamma_mean.csv", "Gamma_star.csv",
            "Eta_mean.csv", "Eta_star.csv", "fit.txt")
 
@@ -1771,7 +1977,6 @@ def phase_multibin(tmp):
     from desman_tpu_torch import multibin, pileup, strainfasta
     from desman_tpu_torch.profiling import TRACE_FILE, activities
 
-    t_phase = time.time()
     dev = torch.device("cuda")
     bins = multibin_bins()
     big = bins[-1]
@@ -1780,8 +1985,8 @@ def phase_multibin(tmp):
         files.append(os.path.join(tmp, f"bin{b:02d}.csv"))
         io.write_counts_csv(files[-1], t.data)
     print(f"# multibin: {MB_BINS} bins, V {[t.data.V for t in bins]}, S={S}, true "
-          f"G={MB_G}; one bin's padded counts at a time on the card, {V * S * 4 * 4} "
-          "bytes f32")
+          f"G={MB_G}; every bin's padded counts on the card at once (the bin axis), "
+          f"{MB_BINS} x {V * S * 4 * 4} bytes f32")
 
     # (a) run() on the V=1e4 bin, the multibin CLI, run() again
     def run_big(k):
@@ -1795,22 +2000,32 @@ def phase_multibin(tmp):
 
     walls = [run_big(0)]
     stub = os.path.join(tmp, "mb_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     ops.reset_launches()
     t0 = time.time()
     rc = cli.main(["multibin", *files, "-g", str(MB_G), "-i", str(MB_SWEEPS), "-s", "0",
                    "--kernel", "cuda", "-o", stub])
     mb_wall = time.time() - t0
     launches = read_launches()
+    chains = dict(LAST_CHAIN_LAUNCHES)
     MULTIBIN_LAUNCHES.update(launches)
+    MULTIBIN_PEAK.update(peak_bytes=torch.cuda.max_memory_allocated() - base,
+                         wall_s=mb_wall)
     walls.append(run_big(1))
     ops.reset_launches()
     print(f"# multibin -g {MB_G} -i {MB_SWEEPS} --kernel cuda: rc {rc}, {mb_wall:.3f} s "
           f"wall, {mb_wall / MB_BINS:.3f} s a bin; run() on the V={V} bin in turns "
-          f"before and after: {walls[0]:.3f} s, {walls[1]:.3f} s; launches {launches}")
+          f"before and after: {walls[0]:.3f} s, {walls[1]:.3f} s; launches {launches}, "
+          f"chain launches {chains}; peak device bytes above the start "
+          f"{MULTIBIN_PEAK['peak_bytes']}")
     gate(rc == 0, "multibin exits 0")
-    gate(launches["tau_sweep"] == MB_BINS * MB_SWEEPS
-         and launches["swap"] == MB_BINS * MB_SWEEPS,
-         f"multibin launched tau_sweep and swap {MB_BINS} x {MB_SWEEPS} times each")
+    gate(launches["tau_sweep"] == MB_SWEEPS and launches["swap"] == MB_SWEEPS
+         and chains["tau_sweep"] == MB_BINS * MB_SWEEPS
+         and chains["swap"] == MB_BINS * MB_SWEEPS,
+         f"multibin launched tau_sweep and swap once a sweep of the {MB_BINS} bins "
+         f"({MB_SWEEPS} launches, {MB_BINS} x {MB_SWEEPS} chain launches each)")
     for b, t in enumerate(bins):
         out = f"{stub}bin{b:02d}"
         fit = io.read_fit_txt(os.path.join(out, "fit.txt"))
@@ -1822,27 +2037,32 @@ def phase_multibin(tmp):
               f"gamma MAE {gmae:.6f}, star deviance {fit['star_deviance']:.6f}")
         gate(fit["V"] == t.data.V and np.array_equal(pp, t.data.positions),
              f"bin {b}: fit.txt and the calls carry the bin's own {t.data.V} positions")
-        gate(rep.error_rate < 0.02 and gmae < 0.02,
-             f"bin {b}: SNP error rate < 0.02 and gamma MAE < 0.02")
-    # the smallest bin is bitwise run_chain of its padded counts
-    V0 = bins[0].data.V
-    padded = torch.as_tensor(multibin.pad_bins([bins[0].data.counts, big.data.counts])[0],
-                             device=dev)
+        gate(rep.error_rate == 0.0 and gmae < 0.02,
+             f"bin {b}: SNP error rate 0 and gamma MAE < 0.02")
+    # bin b is bitwise run_chain of its padded counts, on its own generator:
+    # the smallest bin, a middle one and the largest, unpadded (the tests
+    # hold every bin on the CPU)
     cfg = sampler.SamplerConfig(G=MB_G, burn=MB_SWEEPS // 2,
                                 samples=MB_SWEEPS - MB_SWEEPS // 2)
-    one = sampler.run_chain(padded, cfg, sampler.chain_generator(
-        sampler.spawn_seeds(0, MB_BINS)[0], dev), kernel="cuda")
+    seeds = sampler.spawn_seeds(0, MB_BINS)
+    for b in MB_SOLO:
+        t, seed = bins[b], seeds[b]
+        Vb = t.data.V
+        padded = torch.zeros((V, S, 4), dtype=torch.float32, device=dev)
+        padded[:Vb] = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
+        one = sampler.run_chain(padded, cfg, sampler.chain_generator(seed, dev),
+                                kernel="cuda")
+        out = f"{stub}bin{b:02d}"
+        tau = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))[0]
+        trace = np.loadtxt(os.path.join(out, "loglik_trace.csv"))
+        gstar = io.read_gamma_csv(os.path.join(out, "Gamma_star.csv")).astype(np.float32)
+        gate(np.array_equal(tau, one.tau_star[:Vb].cpu().numpy())
+             and np.array_equal(trace, one.loglik_trace.cpu().numpy().astype(np.float64))
+             and np.array_equal(gstar, one.gamma_star.cpu().numpy()),
+             f"bin {b} is bitwise run_chain of its counts padded to V={V} (tau star, "
+             "loglik trace, gamma star)")
+        del padded, one
     ops.reset_launches()
-    out = f"{stub}bin00"
-    tau = io.read_tau_star_csv(os.path.join(out, "Filtered_Tau_star.csv"))[0]
-    trace = np.loadtxt(os.path.join(out, "loglik_trace.csv"))
-    gstar = io.read_gamma_csv(os.path.join(out, "Gamma_star.csv")).astype(np.float32)
-    gate(np.array_equal(tau, one.tau_star[:V0].cpu().numpy())
-         and np.array_equal(trace, one.loglik_trace.cpu().numpy().astype(np.float64))
-         and np.array_equal(gstar, one.gamma_star.cpu().numpy()),
-         f"bin 0 is bitwise run_chain of its counts padded to V={V} (tau star, loglik "
-         "trace, gamma star)")
-    del padded, one
     for b, v_max in ((0, V), (1, V), (1, V - 1)):
         multibin_kernels(bins[b].data.counts, b, v_max)
     err = stdio.StringIO()
@@ -2007,7 +2227,6 @@ def phase_multibin(tmp):
           f"export {export:.3f} s; of the {chain_t - chain_u:.3f} s tracing added to the "
           f"CLI's chain, {chain_t - chain_u - (traced - untraced) - export:.3f} s are "
           "neither (the first session's start, the traced NMF start)")
-    print(f"# phase 12 wall {time.time() - t_phase:.2f} s")
 
 
 # phase 13: the mesh path's launches of each kernel over every rank, and
@@ -2202,21 +2421,26 @@ def mesh_backend(ranks):
     return "nccl" if ranks <= torch.cuda.device_count() else "gloo"
 
 
-def mesh_record(out, what, kernel, chains, d, ranks=2, collectives=None):
+def mesh_record(out, what, kernel, chains, d, ranks=2, collectives=None, pt=False):
     """Gate a mesh run's record: its ranks and backend, `kernel` and swap
-    launched exactly chains (or PT replicas) x d x MESH_SWEEPS times over
-    the ranks, and exactly `collectives` an (ensemble) sweep (None: at most
-    3). Adds the launches to MESH_LAUNCHES."""
+    swept chains (or PT replicas) x d x MESH_SWEEPS chains over the ranks,
+    launched as often (a rank's plain chains run in turn) or, with `pt`,
+    once a rank a sweep (a rank's replicas on the chain axis), and exactly
+    `collectives` an (ensemble) sweep (None: at most 3). Adds the launches
+    to MESH_LAUNCHES."""
     m = read_metrics(out)
     runs = chains * d * MESH_SWEEPS
+    launched = ranks * MESH_SWEEPS if pt else runs
     print(f"# {what}: backend {m['backend']}, {m['ranks']} ranks, launches "
-          f"{m['launches']}, collectives a sweep {m['collectives_per_sweep']}, "
-          f"{m['sweeps_per_s']:.3f} sweeps/s")
+          f"{m['launches']}, chain launches {m['chain_launches']}, collectives a sweep "
+          f"{m['collectives_per_sweep']}, {m['sweeps_per_s']:.3f} sweeps/s")
     gate(m["backend"] == mesh_backend(ranks) and m["ranks"] == ranks,
          f"{what}: {ranks} ranks over {mesh_backend(ranks)}")
-    gate(m["launches"][kernel] == runs and m["launches"]["swap"] == runs
+    gate(m["launches"][kernel] == launched and m["launches"]["swap"] == launched
+         and m["chain_launches"][kernel] == runs and m["chain_launches"]["swap"] == runs
          and all(v == 0 for k, v in m["launches"].items() if k not in (kernel, "swap")),
-         f"{what}: {kernel} and swap launched exactly {runs} times over the ranks")
+         f"{what}: {kernel} and swap launched exactly {launched} times over the ranks "
+         f"for {runs} chain launches")
     if collectives is None:
         gate(m["collectives_per_sweep"] <= 3, f"{what}: <= 3 collectives a sweep")
     else:
@@ -2241,7 +2465,7 @@ def mesh_nccl(tmp, csv, t, ref, ref_pt):
             rc, err = finish(desman_process([*base, "--pt", str(MESH_R), "-o", out]))
             what = f"--mesh 2x2 --pt {MESH_R} over NCCL"
             gate(rc == 0, f"desman {what} exits 0 ({err.strip()[-300:]})")
-            mesh_record(out, what, "tau_sweep", MESH_R, d, ranks=4, collectives=5.0)
+            mesh_record(out, what, "tau_sweep", MESH_R, d, ranks=4, collectives=3.0, pt=True)
             mesh_agreement(out, ref_pt.tau_star, t.tau_idx, f"{what} against run_chain_pt")
             continue
         out = os.path.join(tmp, f"mesh_nccl_{shape}")
@@ -2356,7 +2580,6 @@ def phase_mesh(tmp):
         Shard, distributed, launch, make_mesh, run_chain_pt_sharded,
     )
 
-    t_phase = time.time()
     dev = torch.device("cuda")
     t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
     bi = synth.generate(V=V, S=S, G=G, coverage=50.0, error_rate=0.0, max_alleles=2,
@@ -2424,10 +2647,11 @@ def phase_mesh(tmp):
         rc_k, err_k = results[k]
         gate(rc_k == 75 and "preempted" in err_k and k in seen,
              f"desman --mesh {k}: SIGTERM after a segment exits 75 naming the preemption")
-    for k, kernel, d, coll in (("pt_1x2", "tau_sweep", 2, 8.0), ("pt_2x1", "tau_sweep", 1, 1.0),
-                               ("pt_topk", "tau_sweep_topk", 2, 8.0)):
+    for k, kernel, d, coll in (("pt_1x2", "tau_sweep", 2, 2.0), ("pt_2x1", "tau_sweep", 1, 1.0),
+                               ("pt_topk", "tau_sweep_topk", 2, 2.0)):
         out = os.path.join(tmp, f"mesh_{k}")
-        mesh_record(out, f"--mesh {k} --pt {MESH_R}", kernel, MESH_R, d, collectives=coll)
+        mesh_record(out, f"--mesh {k} --pt {MESH_R}", kernel, MESH_R, d, collectives=coll,
+                    pt=True)
         m = read_metrics(out)
         gate(0.0 < m["pt_swap_accept"] <= 1.0, f"--mesh {k}: 0 < pt_swap_accept <= 1")
         print(f"# --mesh {k} --pt {MESH_R}: pt_swap_accept {m['pt_swap_accept']:.6f}, "
@@ -2440,78 +2664,93 @@ def phase_mesh(tmp):
                       f"--mesh {k[3:]} --pt {MESH_R} against run_chain_pt")
     print(f"# run_chain_pt (one device) pt_swap_accept {float(ref_pt.pt_swap_accept):.6f}, "
           f"cuda_topk {float(ref_pt_topk.pt_swap_accept):.6f}")
-    # (i) the preempted PT run resumed on 1x2
-    at = mesh_manifest_it(os.path.join(tmp, "mesh_pt_ck"))
+    # (i) the preempted PT run resumed on 1x2, in a subprocess that runs
+    # beside (j)
+    at_pt = mesh_manifest_it(os.path.join(tmp, "mesh_pt_ck"))
     resumed = os.path.join(tmp, "mesh_pt_resumed")
-    rc_r, err_r = finish(desman_process(
+    proc_r = desman_process(
         [csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0", "--pt", str(MESH_R),
          "--mesh", "1x2", "--checkpoint_every", "50", "--checkpoint",
-         os.path.join(tmp, "mesh_pt_ck"), "-o", resumed]))
+         os.path.join(tmp, "mesh_pt_ck"), "-o", resumed])
+    try:
+        # (j) auto length on the mesh
+        m = read_metrics(os.path.join(tmp, "mesh_auto_burn"))
+        burn = m["sweeps"] - m["sampling_sweeps"]
+        MESH_LAUNCHES.update(m["launches"])
+        print(f"# --mesh 1x2 --auto_burn: burn {burn}, sampling {m['sampling_sweeps']}, "
+              f"launches {m['launches']}, collectives a sweep {m['collectives_per_sweep']}")
+        gate(100 <= burn <= 2000 and m["sampling_sweeps"] == MESH_SWEEPS // 2,
+             "--mesh 1x2 --auto_burn: 100 <= burn <= 2000, -i/2 sampling sweeps")
+        gate(m["launches"]["tau_sweep"] == m["launches"]["swap"] == 2 * m["sweeps"],
+             "--mesh 1x2 --auto_burn: tau and swap launched 2 x the sweeps run")
+        mesh_agreement(os.path.join(tmp, "mesh_auto_burn"), ref.tau_star[0], t.tau_idx,
+                  "--mesh 1x2 --auto_burn")
+        whole = read_metrics(os.path.join(tmp, "mesh_auto_samples"))
+        MESH_LAUNCHES.update(whole["launches"])
+        at = mesh_manifest_it(os.path.join(tmp, "mesh_auto_ck"))
+        auto_out = os.path.join(tmp, "mesh_auto_termed")
+        launches, _ = drive_cli([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0",
+                                 "--auto_samples", str(MESH_ESS), "--mesh", "1x1",
+                                 "--checkpoint", os.path.join(tmp, "mesh_auto_ck")], auto_out)
+        MESH_LAUNCHES.update(launches)
+        m = read_metrics(auto_out)
+        print(f"# --mesh 1x2 --auto_samples {MESH_ESS}: burn "
+              f"{whole['sweeps'] - whole['sampling_sweeps']}, sampling "
+              f"{whole['sampling_sweeps']}, loglik_ess_bulk {whole.get('loglik_ess_bulk')}; "
+              f"preempted at it={at} and resumed on 1x1: burn "
+              f"{m['sweeps'] - m['sampling_sweeps']}, sampling {m['sampling_sweeps']}")
+        gate((m["sweeps"], m["sampling_sweeps"]) == (whole["sweeps"], whole["sampling_sweeps"]),
+             "--mesh 1x2 --auto_samples preempted and resumed on 1x1: the burn and sampling "
+             "length of the uninterrupted run")
+        gate(100 <= whole["sweeps"] - whole["sampling_sweeps"] <= 2000,
+             "--auto_samples on the mesh: 100 <= burn <= 2000")
+        gate(launches["tau_sweep"] == launches["swap"] == m["sweeps"] - at,
+             f"the 1x1 auto resume from it={at} launched tau and swap for the sweeps left")
+        mesh_agreement(auto_out, ref.tau_star[0], t.tau_idx,
+                  f"--mesh 1x2 --auto_samples {MESH_ESS} preempted, resumed on 1x1")
+    except BaseException:
+        proc_r.kill()
+        proc_r.wait(timeout=30)
+        raise
+
+    rc_r, err_r = finish(proc_r)
     gate(rc_r == 0, f"--mesh 1x2 --pt resumes the 2x1 checkpoint ({err_r.strip()[-300:]})")
     m = read_metrics(resumed)
     MESH_LAUNCHES.update(m["launches"])
-    gate(m["launches"]["tau_sweep"] == m["launches"]["swap"]
-         == MESH_R * 2 * (MESH_SWEEPS - at),
-         f"the 1x2 resume from it={at}: tau and swap launched {MESH_R} x 2 x "
-         f"{MESH_SWEEPS - at} times over the ranks")
+    gate(m["launches"]["tau_sweep"] == m["launches"]["swap"] == 2 * (MESH_SWEEPS - at_pt)
+         and m["chain_launches"]["tau_sweep"] == MESH_R * 2 * (MESH_SWEEPS - at_pt),
+         f"the 1x2 resume from it={at_pt}: tau and swap launched once a rank a sweep, "
+         f"2 x {MESH_SWEEPS - at_pt} times over the ranks ({MESH_R} x 2 x "
+         f"{MESH_SWEEPS - at_pt} chain launches)")
     whole, _, _ = io.read_tau_star_csv(os.path.join(tmp, "mesh_pt_2x1", "Filtered_Tau_star.csv"))
     got, _, _ = io.read_tau_star_csv(os.path.join(resumed, "Filtered_Tau_star.csv"))
     agree = (got == whole).all(axis=1).mean()
-    print(f"# --mesh 2x1 --pt {MESH_R} --checkpoint preempted at it={at}, resumed on 1x2: "
+    print(f"# --mesh 2x1 --pt {MESH_R} --checkpoint preempted at it={at_pt}, resumed on 1x2: "
           f"tau_star agreement {agree:.6f} with the uninterrupted 2x1 run")
     gate(agree == 1.0, "the PT run resumed on another mesh shape: tau_star agreement "
          "1.000000 with the uninterrupted run")
-    # (j) auto length on the mesh
-    m = read_metrics(os.path.join(tmp, "mesh_auto_burn"))
-    burn = m["sweeps"] - m["sampling_sweeps"]
-    MESH_LAUNCHES.update(m["launches"])
-    print(f"# --mesh 1x2 --auto_burn: burn {burn}, sampling {m['sampling_sweeps']}, "
-          f"launches {m['launches']}, collectives a sweep {m['collectives_per_sweep']}")
-    gate(100 <= burn <= 2000 and m["sampling_sweeps"] == MESH_SWEEPS // 2,
-         "--mesh 1x2 --auto_burn: 100 <= burn <= 2000, -i/2 sampling sweeps")
-    gate(m["launches"]["tau_sweep"] == m["launches"]["swap"] == 2 * m["sweeps"],
-         "--mesh 1x2 --auto_burn: tau and swap launched 2 x the sweeps run")
-    mesh_agreement(os.path.join(tmp, "mesh_auto_burn"), ref.tau_star[0], t.tau_idx,
-              "--mesh 1x2 --auto_burn")
-    whole = read_metrics(os.path.join(tmp, "mesh_auto_samples"))
-    MESH_LAUNCHES.update(whole["launches"])
-    at = mesh_manifest_it(os.path.join(tmp, "mesh_auto_ck"))
-    auto_out = os.path.join(tmp, "mesh_auto_termed")
-    launches, _ = drive_cli([csv, "-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0",
-                             "--auto_samples", str(MESH_ESS), "--mesh", "1x1",
-                             "--checkpoint", os.path.join(tmp, "mesh_auto_ck")], auto_out)
-    MESH_LAUNCHES.update(launches)
-    m = read_metrics(auto_out)
-    print(f"# --mesh 1x2 --auto_samples {MESH_ESS}: burn "
-          f"{whole['sweeps'] - whole['sampling_sweeps']}, sampling "
-          f"{whole['sampling_sweeps']}, loglik_ess_bulk {whole.get('loglik_ess_bulk')}; "
-          f"preempted at it={at} and resumed on 1x1: burn "
-          f"{m['sweeps'] - m['sampling_sweeps']}, sampling {m['sampling_sweeps']}")
-    gate((m["sweeps"], m["sampling_sweeps"]) == (whole["sweeps"], whole["sampling_sweeps"]),
-         "--mesh 1x2 --auto_samples preempted and resumed on 1x1: the burn and sampling "
-         "length of the uninterrupted run")
-    gate(100 <= whole["sweeps"] - whole["sampling_sweeps"] <= 2000,
-         "--auto_samples on the mesh: 100 <= burn <= 2000")
-    gate(launches["tau_sweep"] == launches["swap"] == m["sweeps"] - at,
-         f"the 1x1 auto resume from it={at} launched tau and swap for the sweeps left")
-    mesh_agreement(auto_out, ref.tau_star[0], t.tau_idx,
-              f"--mesh 1x2 --auto_samples {MESH_ESS} preempted, resumed on 1x1")
-
-    # (l) peak device bytes a rank at V=1e5 S=96 G=16, --pt 4, 20 sweeps
+    # (l) peak device bytes a rank at V=1e5 S=96 G=16, --pt 4, 20 sweeps:
+    # the three worlds side by side (a process's peak allocated bytes are
+    # its own), each from fresh processes
+    worlds = {"one" if shape is None else f"{shape[0]}x{shape[1]}": (shape, nprocs)
+              for shape, nprocs in ((None, 1), ((1, 2), 2), ((2, 1), 2))}
+    files = {name: os.path.join(tmp, f"mesh_peak_{name}.json") for name in worlds}
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(len(worlds)) as pool:
+        rcs = {name: pool.submit(launch, mesh_pt_peak, nprocs, (files[name], shape))
+               for name, (shape, nprocs) in worlds.items()}
+        rcs = {name: f.result() for name, f in rcs.items()}
+    print(f"# the V=1e5 --pt {MESH_R} peak worlds side by side: {time.time() - t0:.2f} s")
     peaks = {}
-    for shape, nprocs in ((None, 1), ((1, 2), 2), ((2, 1), 2)):
-        name = "one" if shape is None else f"{shape[0]}x{shape[1]}"
-        pfile = os.path.join(tmp, f"mesh_peak_{name}.json")
-        t0 = time.time()
-        gate(launch(mesh_pt_peak, nprocs, (pfile, shape)) == 0,
-             f"the V=1e5 --pt {MESH_R} peak run at {name} ran")
-        with open(pfile) as f:
+    for name in worlds:
+        gate(rcs[name] == 0, f"the V=1e5 --pt {MESH_R} peak run at {name} ran")
+        with open(files[name]) as f:
             peaks[name] = json.load(f)
         gate(peaks[name]["finite"], f"the V=1e5 --pt run at {name}: finite cold logliks")
         print(f"# V=1e5 S=96 G=16 --pt {MESH_R}, 20 sweeps, {name}: peak allocated device "
               f"bytes by rank {peaks[name]['peaks']} (one device: "
-              f"{peaks.get('one', {}).get('peaks')}), collectives "
-              f"a sweep {peaks[name]['collectives_per_sweep']}, {time.time() - t0:.2f} s")
+              f"{peaks['one']['peaks']}), collectives "
+              f"a sweep {peaks[name]['collectives_per_sweep']}")
 
     # (g) with two cards or more: the mesh over NCCL, one card a rank
     mesh_nccl(tmp, csv, t, ref, ref_pt)
@@ -2552,8 +2791,10 @@ def phase_mesh(tmp):
         print(f"# 1x1 mesh run_chain_pt_sharded over NCCL: launches {launches}, fields "
               f"not bitwise run_chain_pt's: {same}")
         gate(not same, "1x1 mesh: run_chain_pt_sharded bitwise run_chain_pt in every field")
-        gate(launches["tau_sweep"] == launches["swap"] == MESH_R * MESH_SWEEPS,
-             f"1x1 mesh PT: tau and swap launched {MESH_R} x {MESH_SWEEPS} times")
+        gate(launches["tau_sweep"] == launches["swap"] == MESH_SWEEPS
+             and LAST_CHAIN_LAUNCHES["tau_sweep"] == MESH_R * MESH_SWEEPS,
+             f"1x1 mesh PT: tau and swap launched once an ensemble sweep ({MESH_SWEEPS}), "
+             f"{MESH_R} x {MESH_SWEEPS} chain launches")
 
         # the host µs of the layer's all_reduce over NCCL (a 1-rank axis
         # makes none in a sweep: timed on the world group directly)
@@ -2588,7 +2829,6 @@ def phase_mesh(tmp):
         print(f"# ms a sweep at V={V} S={S} G={G}, {MESH_SWEEPS} sweeps, in turns: plain "
               f"{times['plain']}, 1x1 mesh {times['mesh']}; median ratio "
               f"{np.median(times['mesh']) / np.median(times['plain']):.4f}")
-    print(f"# phase 13 wall {time.time() - t_phase:.2f} s")
 
 
 # phase 14: each driver subprocess's launches of each kernel
@@ -2650,7 +2890,6 @@ def phase_drivers(tmp):
     user runs them, from the checkout."""
     from desman_tpu_torch import bench
 
-    t_phase = time.time()
     total = 4 * bench.SWEEPS      # one warm run and three timed ones
     for kernel, path in BENCH_PATHS.items():
         rc, out, err = driver(f"bench --kernel {kernel}", "bench", "--kernel", kernel)
@@ -2715,67 +2954,89 @@ def phase_drivers(tmp):
     gate(all(DRIVER_LAUNCHES["bench_suite --quick"].get(k, 0) > 0
              for k in ("tau_sweep", "swap", "fused_sweep", "gamma_apply_eta")),
          "bench_suite --quick launched tau_sweep, swap, fused_sweep and gamma_apply_eta")
-    print(f"# phase 14 wall {time.time() - t_phase:.2f} s")
+
+
+# phase 15: the kernels each kernel choice's sweep launches once
+CHAIN_PATH_KERNELS = {"cuda": ("tau_sweep", "swap"),
+                      "cuda_topk": ("tau_sweep_topk", "swap"),
+                      "cuda_resident": ("fused_sweep", "gamma_apply_eta")}
 
 
 def phase_chains(tmp):
     """Phase 15: run_chains of CHAIN_SEEDS at the metric configuration with
-    cuda (synth counts) and cuda_topk (biallelic counts), each a main path
-    with its launch counts set to 0 just before it; each chain bitwise
-    run_chain of its seed; the batched call's wall against the chains' in
-    turn."""
+    cuda and cuda_resident (synth counts) and cuda_topk (biallelic counts),
+    each a main path with its launch counts set to 0 just before it; each
+    chain bitwise run_chain of its seed; the batched call's wall against
+    the chains' in turn."""
     dev = torch.device("cuda")
     cfg = sampler.SamplerConfig(G=G, burn=CHAIN_SWEEPS // 2, samples=CHAIN_SWEEPS // 2,
                                 nmf_iters=50)
     C = len(CHAIN_SEEDS)
-    for kernel, biallelic in (("cuda", False), ("cuda_topk", True)):
+    for kernel, biallelic in (("cuda", False), ("cuda_resident", False),
+                              ("cuda_topk", True)):
         t = synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0,
                            **(dict(error_rate=0.0, max_alleles=2) if biallelic else {}))
         n = torch.as_tensor(t.data.counts, dtype=torch.float32, device=dev)
         ks = ops.resolve(kernel, n)
-        tau_name = "tau_sweep_topk" if kernel == "cuda_topk" else "tau_sweep"
+        path = CHAIN_PATH_KERNELS[kernel]
+
+        def batched():
+            res = sampler.run_chains(n, cfg, CHAIN_SEEDS, kernel=ks)
+            torch.cuda.synchronize()
+            return res
+
+        def loop():
+            ones = [sampler.run_chain(n, cfg, sampler.chain_generator(seed, dev), kernel=ks)
+                    for seed in CHAIN_SEEDS]
+            torch.cuda.synchronize()
+            return ones
+
+        # in turns batched, loop, loop, batched: the first two are the runs
+        # the gates below read
+        walls = {"batched": [], "loop": []}
+
+        def wall(which):
+            t0 = time.perf_counter()
+            out = (batched if which == "batched" else loop)()
+            walls[which].append(time.perf_counter() - t0)
+            return out
+
         ops.reset_launches()
-        res = sampler.run_chains(n, cfg, CHAIN_SEEDS, kernel=ks)
-        torch.cuda.synchronize()
+        res = wall("batched")
         launches = read_launches()
         chains = dict(LAST_CHAIN_LAUNCHES)
         print(f"# run_chains of {C} seeds V={V} S={S} G={G} {CHAIN_SWEEPS} sweeps "
               f"--kernel {kernel}: launches {launches}, chain launches {chains}")
-        gate(launches[tau_name] == CHAIN_SWEEPS and launches["swap"] == CHAIN_SWEEPS
-             and chains[tau_name] == C * CHAIN_SWEEPS and chains["swap"] == C * CHAIN_SWEEPS
-             and all(v == 0 for k, v in launches.items() if k not in (tau_name, "swap")),
-             f"run_chains --kernel {kernel}: {tau_name} and swap launched {CHAIN_SWEEPS} "
+        gate(all(launches[k] == CHAIN_SWEEPS and chains[k] == C * CHAIN_SWEEPS
+                 for k in path)
+             and all(v == 0 for k, v in launches.items() if k not in path),
+             f"run_chains --kernel {kernel}: {' and '.join(path)} launched {CHAIN_SWEEPS} "
              f"times for {C} chains x {CHAIN_SWEEPS} sweeps, nothing else")
         gate(res.loglik_trace.shape == (C, CHAIN_SWEEPS)
              and bool(torch.isfinite(res.loglik_trace).all()),
              f"run_chains --kernel {kernel}: {C} x {CHAIN_SWEEPS} finite logliks")
-        for i, seed in enumerate(CHAIN_SEEDS):
-            one = sampler.run_chain(n, cfg, sampler.chain_generator(seed, dev), kernel=ks)
+        for i, (seed, one) in enumerate(zip(CHAIN_SEEDS, wall("loop"))):
             same = [f for f, a, b in zip(one._fields, res, one)
                     if not (a is None and b is None or torch.equal(a[i], b))]
             gate(not same, f"--kernel {kernel}: chain {i} of run_chains is bitwise "
                  f"run_chain of seed {seed} (differs: {same})")
-
-        def batched():
-            sampler.run_chains(n, cfg, CHAIN_SEEDS, kernel=ks)
-            torch.cuda.synchronize()
-
-        def loop():
-            for seed in CHAIN_SEEDS:
-                sampler.run_chain(n, cfg, sampler.chain_generator(seed, dev), kernel=ks)
-            torch.cuda.synchronize()
-
-        walls = {"batched": [], "loop": []}
-        for which in ("batched", "loop", "loop", "batched"):
-            t0 = time.perf_counter()
-            (batched if which == "batched" else loop)()
-            walls[which].append(time.perf_counter() - t0)
+        del res
+        wall("loop")
+        wall("batched")
         rate = {k: [C * CHAIN_SWEEPS / w for w in v] for k, v in walls.items()}
         CHAIN_PATH[kernel] = dict(chains=C, sweeps=CHAIN_SWEEPS, walls_s=walls,
                                   chain_sweeps_per_s=rate)
         print(f"# run_chains --kernel {kernel}: walls {walls} s (batched, loop of "
               f"run_chain; NMF starts included): chain-sweeps/s batched "
               f"{rate['batched']}, loop {rate['loop']}")
+
+
+def timed(phase, *args):
+    """phase(*args), its wall printed after it."""
+    t0 = time.time()
+    out = phase(*args)
+    print(f"# {phase.__name__} wall {time.time() - t0:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -2789,38 +3050,38 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     print(f"# device: {kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
+    t_start = time.time()
     try:
         t0 = time.time()
         lib = _build.build()
         _build.load_library()
         print(f"# build: {time.time() - t0:.2f} s -> "
               f"{os.path.relpath(lib, HERE)}")
-        records = phase_kernels()
-        chain_kernels(records)
-        scale = phase_scale()
+        records = timed(phase_kernels)
+        timed(chain_kernels, records)
+        scale = timed(phase_scale)
         for r in records:
             if r["name"] in scale:
                 r["scale"] = scale[r["name"]]
-        phase_wide()
+        timed(phase_wide)
         with tempfile.TemporaryDirectory() as tmp:
-            phase_cli(tmp)
-            phase_north_star(tmp)
-            phase_grid(tmp)
-            phase_assign_tau()
-            phase_run_modes(tmp)
-            phase_run_length(tmp)
-            phase_pt(tmp)
-            phase_multibin(tmp)
-            phase_mesh(tmp)
-            phase_drivers(tmp)
-            phase_chains(tmp)
+            for phase in (phase_cli, phase_north_star, phase_grid):
+                timed(phase, tmp)
+            timed(phase_assign_tau)
+            for phase in (phase_run_modes, phase_run_length, phase_pt, phase_multibin,
+                          phase_mesh, phase_drivers, phase_chains):
+                timed(phase, tmp)
         for r in records:
-            r["launches"] = PATH_LAUNCHES[r.get("launched_in", r["name"])]
-            if r["name"] in PATH_CHAIN_LAUNCHES:
-                r["chain_launches"] = PATH_CHAIN_LAUNCHES[r["name"]]
-                r["driver_chain_launches"] = {name: launches.get(r["name"], 0) for name,
-                                              launches in DRIVER_CHAIN_LAUNCHES.items()}
-                r["chain_path"] = CHAIN_PATH
+            launched_in = r.get("launched_in", r["name"])
+            r["launches"] = PATH_LAUNCHES[launched_in]
+            r["chain_launches"] = PATH_CHAIN_LAUNCHES[launched_in]
+            r["driver_chain_launches"] = {name: launches.get(launched_in, 0) for name,
+                                          launches in DRIVER_CHAIN_LAUNCHES.items()}
+            r["chain_path"] = {k: v for k, v in CHAIN_PATH.items()
+                               if launched_in in CHAIN_PATH_KERNELS[k]}
+            if r["name"] in ("tau_sweep", "swap"):
+                r["pt_ensemble_sweep"] = PT_PATH
+                r["multibin_peak"] = MULTIBIN_PEAK
             r["launches_per_sweep"] = SWEEP_LAUNCHES.get(r["name"])
             if r["name"] in MESH_CHECK:
                 r["mesh_launches"] = MESH_LAUNCHES[r["name"]]
@@ -2837,6 +3098,7 @@ def main() -> int:
     except GateFailed as e:
         print(f"chip_smoke: gate failed: {e}", file=sys.stderr)
         return 1
+    print(f"# chip_smoke wall {time.time() - t_start:.2f} s")
     print(json.dumps({"kernels": records}))
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {

@@ -314,29 +314,29 @@ def _run_checkpointed(n, cfg: SamplerConfig, generators, checkpoint_path: str,
 # parallel-tempering checkpoints (replica states + rung assignment)
 # --------------------------------------------------------------------------
 
-def save_pt(path: str, states, accums, rung, it: int, trace: np.ndarray,
+def save_pt(path: str, state, accum, rung, it: int, trace: np.ndarray,
             n_acc: float, n_heads: float, generators: Sequence[torch.Generator],
             extras: Optional[dict] = None) -> None:
     """Serialize a PT snapshot atomically (write + rename): the replicas'
-    states and accumulators (lists, stacked here on a leading [R] axis),
-    rung, it, the cold trace so far, the accepted exchanges and proposals,
-    every generator's state (the R replicas', then the exchange's) and the
-    caller's ``extras`` (stored cold draws)."""
-    save(path, stack(states), stack(accums), it, trace, generators, extras,
+    state and accumulators (on their leading [R] axis, as the step holds
+    them), rung, it, the cold trace so far, the accepted exchanges and
+    proposals, every generator's state (the R replicas', then the
+    exchange's) and the caller's ``extras`` (stored cold draws)."""
+    save(path, state, accum, it, trace, generators, extras,
          payload={"rung": _numpy(rung).astype(np.int32),
                   "n_acc": np.asarray(n_acc, np.float64),
                   "n_heads": np.asarray(n_heads, np.float64)})
 
 
 def load_pt(path: str, device="cpu"):
-    """(states, accums, rung, it, trace, n_acc, n_heads, generator_state) of
-    a PT snapshot: per-replica lists, rung as int64 on `device`."""
+    """(state, accum, rung, it, trace, n_acc, n_heads, generator_state) of
+    a PT snapshot: the replicas on a leading [R] axis, rung as int64 on
+    `device`."""
     state, accum, it, trace, gen_state = load(path, device)
     with np.load(path) as z:
         rung = torch.as_tensor(z["rung"].astype(np.int64), device=device)
         n_acc, n_heads = float(z["n_acc"]), float(z["n_heads"])
-    return (unstack(state), unstack(accum), rung, it, trace, n_acc, n_heads,
-            gen_state)
+    return state, accum, rung, it, trace, n_acc, n_heads, gen_state
 
 
 def run_chain_pt_checkpointed(
@@ -367,36 +367,36 @@ def run_chain_pt_checkpointed(
     make_pt_step(n, cfg, R, max_temp, ks)   # the refusals, before the start
     generators = pt_generators(seed, R, n.device)
     if os.path.exists(checkpoint_path):
-        (states, accums, rung, it, trace_done, acc_sum, head_sum,
+        (state, accum, rung, it, trace_done, acc_sum, head_sum,
          gen_state) = load_pt(checkpoint_path, n.device)
         restore_generators(generators, gen_state)
         trace_parts = [trace_done[:it]]
         draws = _DrawBuf(load_extras(checkpoint_path))
     else:
-        states, accums, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init)
+        state, accum, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init)
         it, acc_sum, head_sum = 0, 0.0, 0.0
         trace_parts = []
         draws = _DrawBuf()
-    noises, exchange = pt_noises(generators)
+    noise, exchange = pt_noises(generators)
     n_acc = torch.tensor(acc_sum, dtype=torch.float32, device=n.device)
 
     while it < cfg.total_sweeps:
         check_preempted()
         seg = min(checkpoint_every, cfg.total_sweeps - it)
-        out = run_pt_segment(n, cfg, states, accums, rung, it, seg, noises,
+        out = run_pt_segment(n, cfg, state, accum, rung, it, seg, noise,
                              exchange, max_temp, ks, store=cfg.store_samples)
-        states, accums, rung, trace, seg_acc, seg_heads = out[:6]
+        state, accum, rung, trace, seg_acc, seg_heads = out[:6]
         if cfg.store_samples:
             draws.append(*(_numpy(d) for d in out[6]))
         it += seg
         n_acc = n_acc + seg_acc
         head_sum += seg_heads
         trace_parts.append(_numpy(trace))
-        save_pt(checkpoint_path, states, accums, rung, it,
+        save_pt(checkpoint_path, state, accum, rung, it,
                 np.concatenate(trace_parts), float(n_acc), head_sum, generators,
                 extras=draws.extras())
 
     trace = torch.as_tensor(np.concatenate(trace_parts), device=n.device)
-    return _result_from_accum(pt_merge_accums(accums), cfg, trace,
+    return _result_from_accum(pt_merge_accums(accum), cfg, trace,
                               pt_swap_accept=pt_swap_rate(n_acc, head_sum),
                               **draws.result_fields(n.device))

@@ -120,7 +120,7 @@ def _desman_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chains", type=int, default=1,
                     help="independent chains (seeds seed..seed+chains-1), "
                     "advanced together, one sweep of all of them at a time "
-                    "(with --kernel cuda_resident or --pt one after another); "
+                    "(with --pt, every run's replicas in that sweep); "
                     "the best by star likelihood is written, with chains.json")
     ap.add_argument("--checkpoint", default=None,
                     help="npz path: checkpoint every --checkpoint_every "

@@ -483,16 +483,16 @@ def run_chain_pt_auto(
     V, S, _ = n.shape
     max_burn = max(max_burn, cfg.burn) if auto_burn else cfg.burn
     generators = pt_generators(seed, R, n.device)
-    states, accums, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init)
-    noises, exchange = pt_noises(generators)
+    state, accum, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init)
+    noise, exchange = pt_noises(generators)
     n_acc = torch.zeros((), dtype=torch.float32, device=n.device)
     head_sum = 0
 
     def segment(start, seg, burn, store=False):
-        nonlocal states, accums, rung, n_acc, head_sum
-        out = run_pt_segment(n, cfg, states, accums, rung, start, seg, noises,
+        nonlocal state, accum, rung, n_acc, head_sum
+        out = run_pt_segment(n, cfg, state, accum, rung, start, seg, noise,
                              exchange, max_temp, ks, burn=burn, store=store)
-        states, accums, rung, trace, seg_acc, seg_heads = out[:6]
+        state, accum, rung, trace, seg_acc, seg_heads = out[:6]
         n_acc = n_acc + seg_acc
         head_sum += seg_heads
         return trace.cpu().numpy(), (out[6] if store else None)
@@ -516,7 +516,7 @@ def run_chain_pt_auto(
     burn_used = it
 
     # phase 2: fresh accumulators, >= cfg.samples cold-rung sweeps
-    accums = [init_accum(V, S, cfg.G, n.device) for _ in range(R)]
+    accum = init_accum(V, S, cfg.G, n.device, chains=R)
     draws = _DrawBuf()
     done_s = 0
     target = cfg.samples
@@ -538,7 +538,7 @@ def run_chain_pt_auto(
                 target = min(done_s + check_every, cap)
 
     res = _result_from_accum(
-        pt_merge_accums(accums), replace(cfg, burn=0, samples=done_s),
+        pt_merge_accums(accum), replace(cfg, burn=0, samples=done_s),
         torch.as_tensor(np.concatenate(trace_parts), device=n.device),
         pt_swap_accept=pt_swap_rate(n_acc, head_sum),
         **draws.result_fields(n.device))

@@ -97,21 +97,19 @@ def snapshot_from_jax_npz(path: str, device="cpu"):
 
 
 def pt_snapshot_from_jax_npz(path: str, device="cpu"):
-    """(states, accums, rung, it, trace, n_acc, n_heads) of a snapshot the
-    JAX package's ``checkpoint.save_pt`` wrote: per-replica lists of
-    SamplerState / SamplerAccum (its [R] axis unstacked), rung int64 [R].
-    The replicas' keys (``state_key``) have no counterpart and are dropped;
-    their noise can be replayed from those keys by the caller."""
+    """(state, accum, rung, it, trace, n_acc, n_heads) of a snapshot the
+    JAX package's ``checkpoint.save_pt`` wrote: SamplerState / SamplerAccum
+    with the replicas on their leading [R] axis, as ``sampler.make_pt_step``
+    holds them, rung int64 [R]. The replicas' keys (``state_key``) have no
+    counterpart and are dropped; their noise can be replayed from those
+    keys by the caller."""
     with np.load(path) as z:
-        R = z["rung"].shape[0]
-        states = [state_from_numpy(
-            {f: z[f"state_{f}"][r] for f in SamplerState._fields}, device)
-            for r in range(R)]
-        accums = [accum_from_numpy(
-            {f: z[f"accum_{f}"][r] for f in SamplerAccum._fields}, device)
-            for r in range(R)]
+        state = state_from_numpy({f: z[f"state_{f}"] for f in SamplerState._fields},
+                                 device)
+        accum = accum_from_numpy({f: z[f"accum_{f}"] for f in SamplerAccum._fields},
+                                 device)
         rung = torch.as_tensor(z["rung"].astype(np.int64), device=device)
-        return (states, accums, rung, int(z["it"]), np.asarray(z["trace"]),
+        return (state, accum, rung, int(z["it"]), np.asarray(z["trace"]),
                 float(z["n_acc"]), float(z["n_heads"]))
 
 

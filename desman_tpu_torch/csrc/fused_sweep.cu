@@ -34,6 +34,21 @@
 // tile's do not, and past S = 3632, where even the [2,8,S] slots do not fit
 // in shared memory, the slots in the block's rows of a device-memory scratch
 // (warp.cuh). IEEE logf, no atomics.
+//
+// Chains: one launch sweeps C chains, chain c in grid row blockIdx.y, each
+// row an even share of the persistent grid (ops/tau_kernel.py's
+// resident_grid), as in the tau kernel: tau, mix, gz, logu, gamma_prop and
+// the outputs at chain c's offset, gamma [C,S,G] (staged once a block from
+// its chain's slice) and eta [C,4,4], the pair g[c], h[c], the counts
+// n_stride cells a chain (0 where the chains share them). A tile's partial
+// row goes into chain c's columns of one [tiles, C, 2, S] scratch, and one
+// reduction launch over C*2*S columns adds each column over the same tiles
+// in the same fixed tree as a launch of chain c alone (warp.cuh); past S =
+// 3632 the device-memory slots are [C * grid] blocks' rows. A [V,G] tau
+// slice that does not start on 16 bytes is loaded by the warps (tile.cuh's
+// tau_bulk_bytes). So chain c of a launch is bitwise the launch on chain c's
+// inputs alone; one chain takes the instantiation without the offsets
+// (kChains false), the parent's code.
 #include <cuda_runtime.h>
 
 #include "position.cuh"
@@ -45,8 +60,9 @@ namespace {
 // As in tau_kernel.cu, the staged path takes its layout from the launch's
 // `staged` argument: folded into constants it was slower on an H100.
 // kDeviceSlots (only with rows in device memory): the slots in the block's
-// rows of the device-memory scratch.
-template <bool kStaged, bool kDeviceSlots = false>
+// rows of the device-memory scratch. kChains: a launch of more than one
+// chain (grid rows), with the chains' offsets.
+template <bool kStaged, bool kDeviceSlots = false, bool kChains = false>
 __global__ void __launch_bounds__(kThreads, kResidentBlocks)
 fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
                    const float4* __restrict__ mix_in, const float* __restrict__ gamma,
@@ -54,11 +70,27 @@ fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
                    const int* __restrict__ g_ptr, const int* __restrict__ h_ptr,
                    const float* __restrict__ logu, const float* __restrict__ gamma_prop,
                    int* tau_out, float4* mix_out, float* __restrict__ partial,
-                   float* slot_scratch, int V, int S, int G, int staged) {
+                   float* slot_scratch, int V, int S, int G, int staged, long n_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TileLayout L(S, G, kStaged && staged != 0, TileKind::kFused);
-  float* slots = block_slots<kDeviceSlots>(slot_scratch,
-                                          reinterpret_cast<float*>(smem + L.slots), S);
+  if (kChains) {  // this block's chain
+    const long c = blockIdx.y;
+    n += c * n_stride;
+    tau_in += c * V * G;
+    tau_out += c * V * G;
+    gz += c * V * G;
+    mix_in += c * V * S;
+    mix_out += c * V * S;
+    gamma += c * S * G;
+    gamma_prop += c * S * G;
+    eta += 16 * c;
+    g_ptr += c;
+    h_ptr += c;
+    logu += c * V;
+    partial += c * 2 * S;
+  }
+  float* slots = block_slots<kDeviceSlots>(
+      slot_scratch, reinterpret_cast<float*>(smem + L.slots), S, chain_block<kChains>());
   float* slot_old = warp_slot(slots, 0, S);
   float* slot_new = warp_slot(slots, 1, S);
   const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -87,7 +119,7 @@ fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
         zero_slot(slot_old, S);
         zero_slot(slot_new, S);
       }
-      write_block_partial(slots, 2, S, partial, t);
+      write_block_partial(slots, 2, S, partial, t, partial_stride<kChains>(2, S));
       __syncthreads();  // the slots are free for the next tile
     }
     return;
@@ -128,7 +160,7 @@ fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
       zero_slot(slot_old, S);
       zero_slot(slot_new, S);
     }
-    write_block_partial(slots, 2, S, partial, t);
+    write_block_partial(slots, 2, S, partial, t, partial_stride<kChains>(2, S));
     fence_proxy_async();  // this thread's writes to the buffer, before the next copy
     __syncthreads();      // the buffer, tau_new and the slots are free
     const int next = t + gridDim.x;
@@ -140,52 +172,68 @@ fused_sweep_kernel(const float4* __restrict__ n, const int* __restrict__ tau_in,
 }  // namespace
 }  // namespace desman
 
-// n, mix_in, mix_out: [V,S,4] f32; tau_in, tau_out: [V,G] i32; gamma,
-// gamma_prop: [S,G] f32; eta: [4,4] f32; gz: [V,G,4] f32 (already *
-// temperature); g, h: device int32 scalars; logu: [V] f32; ll: [2,S] f32;
-// partial: the [desman_partial_rows(V), 2, S] f32 scratch of its reduction;
-// slots: null, or where the plan puts them in device memory (S > 3632) the
-// [grid, 2, 8, S] f32 scratch of the blocks' slots.
-// staged and smem_bytes: ops/tau_kernel.py's tile_plan(S, G, fused=True);
-// grid: its resident_grid (after desman_fused_sweep_info has opted the
-// kernel in to its shared memory on this device). Launches on `stream`,
-// does not synchronise, allocates nothing; returns the first failing
-// call's cudaError_t.
+// `chains` chains, C >= 1: n: [V,S,4] f32 shared by the chains (n_stride
+// 0), or [C,V,S,4] (n_stride V*S cells); mix_in, mix_out: [C,V,S,4] f32;
+// tau_in, tau_out: [C,V,G] i32; gamma, gamma_prop: [C,S,G] f32; eta:
+// [C,4,4] f32; gz: [C,V,G,4] f32 (already * temperature); g, h: [C] device
+// int32; logu: [C,V] f32; ll: [C,2,S] f32; partial: the
+// [desman_partial_rows(V), C, 2, S] f32 scratch of its reduction; slots:
+// null, or where the plan puts them in device memory (S > 3632) the
+// [C * grid, 2, 8, S] f32 scratch of the blocks' slots (one chain: the same
+// without the chain axis). staged and smem_bytes: ops/tau_kernel.py's
+// tile_plan(S, G, fused=True); grid: its resident_grid, blocks a chain
+// (after desman_fused_sweep_info has opted the kernel in to its shared
+// memory on this device). Launches on `stream`, does not synchronise,
+// allocates nothing; returns the first failing call's cudaError_t.
 extern "C" int desman_fused_sweep(const void* n, const void* tau_in, const void* mix_in,
                                   const void* gamma, const void* eta, const void* gz,
                                   const void* g, const void* h, const void* logu,
                                   const void* gamma_prop, void* tau_out, void* mix_out,
                                   void* partial, void* slots, void* ll, int V, int S, int G,
-                                  int staged, int smem_bytes, int grid, void* stream) {
+                                  int staged, int smem_bytes, int grid, int chains,
+                                  long long n_stride, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (V <= 0) return static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * 2 * S, st));
+  if (!desman::chains_ok(chains) || n_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (V <= 0)
+    return static_cast<int>(cudaMemsetAsync(ll, 0, sizeof(float) * 2 * S * chains, st));
   const desman::TileLayout L(S, G, staged != 0, desman::TileKind::kFused);
   const int tiles = desman::launch_blocks(V);
   if (!desman::plan_ok(L, staged, smem_bytes, grid) || grid > tiles ||
       !desman::slot_scratch_ok(S, slots))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = staged  ? desman::fused_sweep_kernel<true>
-                : slots ? desman::fused_sweep_kernel<false, true>
-                        : desman::fused_sweep_kernel<false>;
-  kernel<<<grid, desman::kThreads, L.bytes, st>>>(
+  auto kernel = chains > 1 ? (staged  ? desman::fused_sweep_kernel<true, false, true>
+                              : slots ? desman::fused_sweep_kernel<false, true, true>
+                                      : desman::fused_sweep_kernel<false, false, true>)
+                           : (staged  ? desman::fused_sweep_kernel<true>
+                              : slots ? desman::fused_sweep_kernel<false, true>
+                                      : desman::fused_sweep_kernel<false>);
+  kernel<<<dim3(grid, chains), desman::kThreads, L.bytes, st>>>(
       static_cast<const float4*>(n), static_cast<const int*>(tau_in),
       static_cast<const float4*>(mix_in), static_cast<const float*>(gamma),
       static_cast<const float*>(eta), static_cast<const float4*>(gz),
       static_cast<const int*>(g), static_cast<const int*>(h),
       static_cast<const float*>(logu), static_cast<const float*>(gamma_prop),
       static_cast<int*>(tau_out), static_cast<float4*>(mix_out),
-      static_cast<float*>(partial), static_cast<float*>(slots), V, S, G, staged);
+      static_cast<float*>(partial), static_cast<float*>(slots), V, S, G, staged,
+      static_cast<long>(n_stride));
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
     err = desman::launch_reduce(static_cast<const float*>(partial), static_cast<float*>(ll),
-                                tiles, 2 * S, st);
+                                tiles, 2 * S * chains, st);
   return static_cast<int>(err);
 }
 
 // out[0..3]: registers, local (spill) bytes, resident blocks a SM and SMs
-// of the fused kernel, staged or not, at smem_bytes on the current device;
-// opts the kernel in to the shared memory every plan may ask for.
+// of the fused kernel, staged or not, at smem_bytes on the current device
+// (the one-chain instantiation's); opts both the one-chain and the
+// chain-axis instantiations in to the shared memory every plan may ask for.
 extern "C" int desman_fused_sweep_info(int staged, int smem_bytes, int* out) {
+  auto chained = staged ? desman::fused_sweep_kernel<true, false, true>
+                        : desman::fused_sweep_kernel<false, false, true>;
+  int theirs[4];
+  cudaError_t err = desman::kernel_info(chained, smem_bytes, theirs);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = staged ? desman::fused_sweep_kernel<true> : desman::fused_sweep_kernel<false>;
   return static_cast<int>(desman::kernel_info(kernel, smem_bytes, out));
 }

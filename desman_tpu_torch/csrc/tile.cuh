@@ -252,10 +252,6 @@ inline cudaError_t kernel_info(Kernel kernel, size_t smem, int* out) {
   return cudaSuccess;
 }
 
-// Chains of a chain-axis launch: one grid row (blockIdx.y) a chain, within
-// the grid's y limit.
-inline bool chains_ok(int chains) { return chains >= 1 && chains <= 65535; }
-
 // The launch's checks: the plan is TileLayout's, within the card's shared
 // memory, and the grid (ops/tau_kernel.py's resident_grid: SMs x resident
 // blocks from kernel_info, no more than the tiles) is at least one block.

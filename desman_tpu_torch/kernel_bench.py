@@ -27,10 +27,21 @@ against, this, this, against. For each tree and kernel:
 - registers and spill bytes of each kernel function (``nvcc -Xptxas -v``
   over the tree's ``csrc/``).
 
-The chain-axis kernels (the tau sweep, the swap and the top-2 sweep) are
-also timed at V=1e4 S=64 G=8 with C = 5 and 40 chains in one launch
-(``chain_inputs``), beside C solo launches; their bound counts the shared
-counts once and every chain's other bytes and logs C times.
+The chain-axis kernels (all six wrappers) are also timed at V=1e4 S=64
+G=8 with C = 5 and 40 chains in one launch (``chain_inputs``), beside C
+solo launches; their bound counts the shared counts once and every
+chain's other bytes and logs C times.
+
+Then the paths the chain axis carries, through each tree's own modules in
+the same order (``measure_paths``): one PT ensemble sweep of four
+replicas (that tree's ``profile_sweep.profile_pt(4)``: host ms, device-busy
+ms, device ops and idle share); ``sampler.run_chains`` of seeds 0-4 with
+``cuda_resident`` at V=1e4 S=64 G=8, 400 sweeps, NMF starts included
+(wall, chain-sweeps/s); and ``multibin.run_bins`` of 12 bins of S=64 (synth
+seeds 200-211, true G=5, V from 1000 to 1e4 in equal steps, padded to
+1e4), 250 sweeps with ``cuda`` (wall, and the peak device bytes above the
+start from ``torch.cuda.max_memory_allocated``). Host times are taken
+around work that ends in ``torch.cuda.synchronize``.
 
 And the SASS instructions of one IEEE ``logf`` and of one ``log_normal``
 (probe kernels with and without them), the check of ``log_normal`` against
@@ -75,9 +86,13 @@ KERNELS = {METRIC: RESIDENT + ("gamma_ll", "swap", "swap_emit_ll", "gamma_apply_
            ONE_STRAIN: ("gamma_ll",),
            SCALE: RESIDENT + ("gamma_ll",)}
 # the kernels with a chain axis, and the chains measure() launches them with
-CHAIN_AXIS = ("tau_sweep", "swap", "tau_sweep_topk")
+CHAIN_AXIS = ("tau_sweep", "swap", "tau_sweep_topk", "gamma_ll", "gamma_apply_eta",
+              "fused_sweep")
 CHAIN_COUNTS = (5, 40)
 EVENT_LAUNCHES, PROFILED_LAUNCHES = 200, 50
+# measure_paths: resident run_chains' seeds and sweeps; multibin's bins
+PATH_SEEDS, PATH_SWEEPS = (0, 1, 2, 3, 4), 400
+BINS, BIN_G, BIN_SWEEPS = 12, 5, 250
 
 
 # ---------------------------------------------------------------- inputs
@@ -136,15 +151,18 @@ def chain_inputs(V: int, S: int, G: int, C: int, topk: bool = False) -> dict:
     chain c > 0 has its own random tau, gz and swap start (the truth with a
     pair of its own exchanged at half the positions, g = c mod G and h its
     neighbour), gamma from a flat Dirichlet and eta with its entries scaled
-    by 1 + U(0, 0.1) and its rows renormalised, from numpy's
-    default_rng(1000 + c).
+    by 1 + U(0, 0.1) and its rows renormalised, then the resident kernels'
+    gamma proposal, accepts and fused start tau0, from numpy's
+    default_rng(1000 + c); every chain's eta_prop is its eta with the rows
+    reversed (CALLS' apply).
     Keys: the counts (n, and with topk n_val/b_idx) and tau, mix, gamma,
-    eta, gz, tau_s, mix_s, g, h, logu (topk: the first six)."""
+    eta, gz, tau_s, mix_s, g, h, logu, gp, accept, tau0, mix0, eta_prop
+    (topk: the first six)."""
     first = topk_inputs(V, S, G) if topk else phase3_inputs(V, S, G)
     truth = None if topk else synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0)
     keys = ("tau", "mix", "gamma", "eta", "gz")
     if not topk:
-        keys += ("tau_s", "mix_s", "g", "h", "logu")
+        keys += ("tau_s", "mix_s", "g", "h", "logu", "gp", "accept", "tau0", "mix0")
     chains = [{k: first[k] for k in keys}]
     for c in range(1, C):
         rng = np.random.default_rng(1000 + c)
@@ -163,8 +181,14 @@ def chain_inputs(V: int, S: int, G: int, C: int, topk: bool = False) -> dict:
                      g=torch.tensor(g, dtype=torch.int32),
                      h=torch.tensor(h, dtype=torch.int32),
                      logu=_f32(np.log(rng.uniform(size=V))))
+            tau0 = rng.integers(0, 4, size=(V, G))
+            d.update(gp=_f32(rng.dirichlet(np.ones(G), size=S)),
+                     accept=torch.as_tensor(rng.random(S) < 0.5),
+                     tau0=_i32(tau0), mix0=_f32(host_mixture(tau0, gamma)))
         chains.append(d)
     out = {k: torch.stack([d[k] for d in chains]) for k in keys}
+    if not topk:
+        out["eta_prop"] = out["eta"].flip(1).contiguous()
     out.update({k: first[k] for k in (("n", "n_val", "b_idx") if topk else ("n",))})
     return out
 
@@ -470,6 +494,16 @@ def card_inputs(V: int, S: int, G: int, dev) -> dict:
     return {k: v.to(dev) for k, v in d.items()}
 
 
+# the chain-axis inputs of each kernel but the top-2 kernel, after the counts
+CHAIN_KEYS = {
+    "tau_sweep": ("tau", "mix", "gamma", "eta", "gz"),
+    "swap": ("tau_s", "mix_s", "gamma", "eta", "g", "h", "logu"),
+    "gamma_ll": ("mix", "tau", "gp", "eta"),
+    "gamma_apply_eta": ("mix", "tau", "gp", "accept", "eta_prop"),
+    "fused_sweep": ("tau0", "mix0", "gamma", "eta", "gz", "g", "h", "logu", "gp"),
+}
+
+
 def chain_calls(o, name: str, d: dict):
     """(the chain-axis call, one(c): the call on chain c's inputs alone) of
     kernel `name` of ops module `o` (or any namespace of its functions, such
@@ -479,9 +513,7 @@ def chain_calls(o, name: str, d: dict):
         args = topk_chain_args(d)
         shared, chained = args[:2], args[2:]
     else:
-        keys = (("tau", "mix", "gamma", "eta", "gz") if name == "tau_sweep" else
-                ("tau_s", "mix_s", "gamma", "eta", "g", "h", "logu"))
-        shared, chained = (d["n"],), tuple(d[k] for k in keys)
+        shared, chained = (d["n"],), tuple(d[k] for k in CHAIN_KEYS[name])
     fn = getattr(o, name)
     # chain c's inputs copied out of the stack: a slice need not start on
     # the 16 bytes the kernels take (a [V,G] i32 slice where V*G % 4 != 0)
@@ -491,9 +523,10 @@ def chain_calls(o, name: str, d: dict):
 
 
 def measure_chains(trees: dict, rows: list) -> None:
-    """Each chain-axis kernel of each tree at METRIC with CHAIN_COUNTS
-    chains: CUDA-event ms of one launch of C chains and of C solo launches
-    in turn, in the order of `trees` and back, against the bound at C."""
+    """Each chain-axis kernel of each tree whose wrapper takes the axis at
+    METRIC with CHAIN_COUNTS chains: CUDA-event ms of one launch of C chains
+    and of C solo launches in turn, in the order of `trees` and back,
+    against the bound at C."""
     V, S, G = METRIC
     dev = torch.device("cuda")
     for C in CHAIN_COUNTS:
@@ -501,9 +534,11 @@ def measure_chains(trees: dict, rows: list) -> None:
                   for topk in (False, True)}
         for kernel in CHAIN_AXIS:
             d = inputs[kernel == "tau_sweep_topk"]
-            calls = {name: chain_calls(o, kernel, d) for name, o in trees.items()}
-            ev = {name: {"batched": [], "solo": []} for name in trees}
-            for name in list(trees) + list(reversed(trees)):
+            axis = {name: o for name, o in trees.items()
+                    if hasattr(getattr(o, kernel), "chain_launches")}
+            calls = {name: chain_calls(o, kernel, d) for name, o in axis.items()}
+            ev = {name: {"batched": [], "solo": []} for name in axis}
+            for name in list(axis) + list(reversed(axis)):
                 batched, one = calls[name]
                 ev[name]["batched"].append(event_ms(batched))
                 ev[name]["solo"].append(event_ms(lambda: [one(c) for c in range(C)]))
@@ -547,6 +582,62 @@ def measure(trees: dict, shape, rows: list) -> None:
         print(json.dumps(row), flush=True)
 
 
+# ---------------------------------------------------------------- paths
+
+def tree_module(o, name: str):
+    """Module `name` of the package whose ``ops`` module is `o` (this
+    package's, or one ``load_ops`` loaded)."""
+    return importlib.import_module(f"{o.__name__.rsplit('.', 1)[0]}.{name}")
+
+
+def _wall(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _paths(o) -> dict:
+    """The chain axis's paths through the modules of ops module o's
+    package (the module docstring's three)."""
+    sampler, multibin = tree_module(o, "sampler"), tree_module(o, "multibin")
+    V, S, G = METRIC
+    dev = torch.device("cuda")
+    pt = tree_module(o, "profile_sweep").profile_pt(4)
+    out = {"pt": {k: pt[k] for k in ("ms_per_ensemble_sweep",
+                                      "device_busy_ms_per_ensemble_sweep",
+                                      "device_ops_per_ensemble_sweep", "idle_share")}}
+    n = torch.as_tensor(synth.generate(V=V, S=S, G=G, coverage=50.0, seed=0).data.counts,
+                        dtype=torch.float32, device=dev)
+    cfg = sampler.SamplerConfig(G=G, burn=PATH_SWEEPS // 2, samples=PATH_SWEEPS // 2,
+                                nmf_iters=50)
+    wall = _wall(lambda: sampler.run_chains(n, cfg, PATH_SEEDS, kernel="cuda_resident"))
+    out["resident_chains"] = {"wall_s": wall,
+                              "chain_sweeps_per_s": len(PATH_SEEDS) * PATH_SWEEPS / wall}
+    bins = [synth.generate(V=int(vb), S=S, G=BIN_G, coverage=50.0, seed=200 + b).data.counts
+            for b, vb in enumerate(np.linspace(V // 10, V, BINS).round().astype(int))]
+    cfg = sampler.SamplerConfig(G=BIN_G, burn=BIN_SWEEPS // 2,
+                                samples=BIN_SWEEPS - BIN_SWEEPS // 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    wall = _wall(lambda: multibin.run_bins(bins, cfg, seed=0, kernel="cuda", device="cuda"))
+    out["multibin"] = {"wall_s": wall, "s_per_bin": wall / BINS,
+                       "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    return out
+
+
+def measure_paths(trees: dict, rows: list) -> None:
+    """``_paths`` of each tree, in the order of `trees` and back: one row a
+    path and a tree."""
+    for name in list(trees) + list(reversed(trees)):
+        for path, m in _paths(trees[name]).items():
+            row = {"path": path, "tree": name, **m}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m desman_tpu_torch.kernel_bench")
     ap.add_argument("--against", help="root of another checkout whose desman_tpu_torch "
@@ -586,6 +677,7 @@ def main(argv=None) -> int:
     for row in rows:
         row["log_issue_ms"] = log_issue_ms(row["kernel"], row["V"], row["S"], row["G"],
                                            report["log_instructions"])
+    measure_paths(trees, report.setdefault("paths", []))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

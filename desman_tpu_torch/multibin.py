@@ -4,10 +4,10 @@ A metagenome yields tens of bins that share one sample set. Each bin's
 variant positions are padded with zero rows to a common V (a zero row is
 likelihood-neutral: n=0 kills every log term and the multinomial
 coefficient) and one chain runs per bin. The JAX package vmaps the chain
-over bins; here the bins still run one after another on their padded
-counts (the kernels' chain stride for per-bin counts is not used yet), one
-padded bin on the device at a time, and each bin's results are cut back to
-its own V.
+over bins; here the bins are the chain axis (``sampler.run_chains`` on the
+[B, V_max, S, 4] padded counts, each bin's chain on its own counts through
+the kernels' counts stride), one sweep of every bin at a time, and each
+bin's results are cut back to its own V.
 """
 from __future__ import annotations
 
@@ -18,9 +18,7 @@ import torch
 
 from . import io
 from .ops import resolve
-from .sampler import (
-    SamplerConfig, SamplerResult, chain_generator, run_chain, spawn_seeds,
-)
+from .sampler import SamplerConfig, SamplerResult, run_chains, spawn_seeds
 
 
 def _bin_shape(counts_list: Sequence[np.ndarray]):
@@ -57,28 +55,32 @@ def run_bins(
     their tensors on `device`, with tau_mean and tau_star cut back to the
     bin's V.
 
-    Each bin is padded to V_max on the device just before its chain runs
-    (one [V_max, S, 4] tensor there at a time), equal to ``pad_bins``' row
-    b. Bin b runs on its own generator, seeded with child b of
-    ``spawn_seeds(seed, B)`` (PT's convention), so its result is bitwise
+    The bins are padded to V_max into one [B, V_max, S, 4] tensor on the
+    device (``pad_bins``' rows; device memory holds every bin's counts and
+    state at once, as the JAX package's vmap does) and advance as one
+    chain axis, one sweep of all of them at a time (``run_chains`` on the
+    bins' own counts). Bin b runs on its own generator, seeded with child b
+    of ``spawn_seeds(seed, B)`` (PT's convention), so its result is bitwise
     ``run_chain`` of ``pad_bins(counts_list)[b]`` with that generator. The
-    kernel choice ("cuda" or "torch") is resolved once for all bins;
-    "cuda_topk" binds to one counts tensor, so it raises ValueError.
+    kernel choice ("cuda", "cuda_resident" or "torch") is resolved once for
+    all bins; "cuda_topk" binds to one counts tensor, so it raises
+    ValueError.
     """
     ks = resolve(kernel)
     S, v_max = _bin_shape(counts_list)
     device = torch.device(device)
     eta = (None if eta_init is None else
            torch.as_tensor(eta_init, dtype=torch.float32, device=device))
-    out = []
-    for counts, s in zip(counts_list, spawn_seeds(seed, len(counts_list))):
-        V = counts.shape[0]
-        n = torch.zeros((v_max, S, 4), dtype=torch.float32, device=device)
-        n[:V] = torch.as_tensor(counts, dtype=torch.float32, device=device)
-        res = run_chain(n, cfg, chain_generator(s, device), eta_init=eta, kernel=ks)
-        out.append(res._replace(tau_mean=res.tau_mean[:V], tau_star=res.tau_star[:V]))
-        del n
-    return out
+    n = torch.zeros((len(counts_list), v_max, S, 4), dtype=torch.float32, device=device)
+    for b, counts in enumerate(counts_list):
+        n[b, :counts.shape[0]] = torch.as_tensor(counts, dtype=torch.float32,
+                                                 device=device)
+    res = run_chains(n, cfg, spawn_seeds(seed, len(counts_list)), eta_init=eta,
+                     kernel=ks)
+    del n
+    return [SamplerResult(*(None if x is None else x[b] for x in res))._replace(
+        tau_mean=res.tau_mean[b, :c.shape[0]], tau_star=res.tau_star[b, :c.shape[0]])
+        for b, c in enumerate(counts_list)]
 
 
 def run_bins_files(

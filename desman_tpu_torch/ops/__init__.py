@@ -3,8 +3,9 @@ PyTorch versions.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors; it keeps a ``launches`` count of kernel launches.
-The tau, swap and top-2 wrappers take a leading chain axis (C chains in one
-launch) and also count ``chain_launches``, the chains their launches swept.
+Every wrapper takes a leading chain axis (C chains in one launch; the
+swap's emit_ll mode takes one chain) and also counts ``chain_launches``,
+the chains its launches swept.
 """
 from typing import Callable, NamedTuple, Optional
 
@@ -66,16 +67,14 @@ def resolve(kernel: str, n: Optional[torch.Tensor] = None) -> Kernels:
     raise ValueError(f"unknown kernel {kernel!r}; one of {', '.join(KERNELS)}")
 
 
-# the wrappers with a chain axis
-CHAIN_AXIS = (tau_sweep, swap, tau_sweep_topk)
+# the wrappers with a chain axis: every one
+CHAIN_AXIS = _WRAPPERS + (tau_sweep_topk,)
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count, and the chain-axis wrappers' chain
-    count, to 0."""
-    for wrapper in _WRAPPERS + (tau_sweep_topk,):
-        wrapper.launches = 0
+    """Set every wrapper's launch count and chain count to 0."""
     for wrapper in CHAIN_AXIS:
+        wrapper.launches = 0
         wrapper.chain_launches = 0
 
 

@@ -9,7 +9,7 @@ and renames it into place, so concurrent processes never load a
 half-written library. A missing nvcc or a failed compile raises with the
 compiler's output.
 Beside the build: the checks every wrapper makes before it hands pointers
-to the library (with the chain axis of the tau, swap and top-2 wrappers),
+to the library (with the chain axis every wrapper takes),
 the error check after each launch, and the scratch of the kernels' ``[S]``
 reductions.
 """
@@ -119,11 +119,11 @@ def load_library() -> ctypes.CDLL:
         lib.desman_tau_sweep_topk.restype = i32
         lib.desman_swap.argtypes = [ptr] * 13 + [i32] * 4 + [i64, ptr]
         lib.desman_swap.restype = i32
-        lib.desman_gamma_ll.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.desman_gamma_ll.argtypes = [ptr] * 8 + [i32] * 5 + [i64, ptr]
         lib.desman_gamma_ll.restype = i32
-        lib.desman_gamma_apply_eta.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        lib.desman_gamma_apply_eta.argtypes = [ptr] * 10 + [i32] * 5 + [i64, ptr]
         lib.desman_gamma_apply_eta.restype = i32
-        lib.desman_fused_sweep.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
+        lib.desman_fused_sweep.argtypes = [ptr] * 15 + [i32] * 7 + [i64, ptr]
         lib.desman_fused_sweep.restype = i32
         for info in ("tau_sweep_topk", "fused_sweep"):
             fn = getattr(lib, f"desman_{info}_info")
@@ -153,10 +153,11 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def partial_scratch(lib: ctypes.CDLL, V: int, rows: int, S: int,
-                    device) -> torch.Tensor:
-    """Scratch for the per-block partial rows of an [rows, S] output
-    (warp.cuh's deterministic reduction)."""
-    return torch.empty((max(lib.desman_partial_rows(V), 1), rows, S),
+                    device, chains: int = 1) -> torch.Tensor:
+    """Scratch for the per-block partial rows of an [rows, S] output of
+    each of `chains` chains, [blocks, chains * rows, S] (warp.cuh's
+    deterministic reduction: chain c's columns of every block's row)."""
+    return torch.empty((max(lib.desman_partial_rows(V), 1), chains * rows, S),
                        dtype=torch.float32, device=device)
 
 

@@ -27,7 +27,8 @@ the per-chain fields on every rank; callers write files on the
 coordinator only.
 
 Parallel tempering (``run_chain_pt_sharded``) puts the R replicas in the
-place of chains: row c holds replicas [c R/C, (c+1) R/C) and their
+place of chains: row c holds replicas [c R/C, (c+1) R/C), which sweep as
+one chain axis (one launch of each kernel a sweep), and their
 generators, every rank holds the exchange generator. After the row's
 replica sweeps one exchange on the chain axis (``Axis.gather`` of the
 [3, R/C] loglik and kappas; none on a chain axis of one rank) gives every
@@ -48,11 +49,11 @@ import torch
 
 from ..checkpoint import (
     PREEMPTED_MESSAGE, Preempted, _numpy, restore_generators, stack,
-    take_preempted,
+    take_preempted, unstack,
 )
 from ..ops import compress_counts, resolve
 from ..sampler import (
-    DRAW_FIELDS, RESIDENT_SINGLE_DEVICE, ExchangeNoise, ReplicaShard,
+    DRAW_FIELDS, RESIDENT_SINGLE_DEVICE, ChainNoise, ExchangeNoise, ReplicaShard,
     SamplerAccum, SamplerConfig, SamplerResult, TorchNoise, _result_from_accum,
     chain_generator, chain_result, check_store_thin, init_accum, init_state,
     make_sweep_fn, pt_generators, pt_merge_accums, pt_merge_stacked,
@@ -185,14 +186,16 @@ class Shard:
                 return self.chain.gather(stats).permute(1, 0, 2).reshape(3, R)
         return ReplicaShard(replicas, self.data.sum, gather, self.world.sum)
 
-    def pt_segment(self, cfg: SamplerConfig, states, accums, rung, start_it: int,
-                   n_sweeps: int, noises, exchange_noise, max_temp: float,
+    def pt_segment(self, cfg: SamplerConfig, state, accum, rung, start_it: int,
+                   n_sweeps: int, noise, exchange_noise, max_temp: float,
                    replicas: ReplicaShard, burn: Optional[int] = None,
                    store: bool = False):
-        """``sampler.run_pt_segment`` of this rank's replicas on its block."""
+        """``sampler.run_pt_segment`` of this rank's replicas on its block
+        (state and accum with the replicas on a leading axis, swept as one
+        chain axis: one launch of each kernel a sweep)."""
         before = exchange.calls
-        out = run_pt_segment(self.n, cfg, states, accums, rung, start_it, n_sweeps,
-                             noises, exchange_noise, max_temp, self.ks, burn=burn,
+        out = run_pt_segment(self.n, cfg, state, accum, rung, start_it, n_sweeps,
+                             noise, exchange_noise, max_temp, self.ks, burn=burn,
                              store=store, shard=replicas)
         SWEEP_STATS["sweeps"] += n_sweeps
         SWEEP_STATS["collectives"] += exchange.calls - before
@@ -407,15 +410,15 @@ def _pt_start(sh: Shard, cfg: SamplerConfig, seed: int, R: int):
     return part, gens, [gens[i] for i in part.replicas]
 
 
-def _pt_merge(sh: Shard, accums, replicas: range, R: int) -> SamplerAccum:
+def _pt_merge(sh: Shard, local: SamplerAccum, replicas: range, R: int) -> SamplerAccum:
     """``sampler.pt_merge_accums`` of the whole ensemble, the same on every
-    rank: the [S]- and [4,4]-sized fields of every replica through the
-    chain axis's gather (added in replica order, as on one device), tau's
-    counts added over the rows (integers: exact in any order), the star
-    replica's tau from its row alone (``Axis.pick``)."""
+    rank, from this row's replicas' accumulators (on a leading axis): the
+    [S]- and [4,4]-sized fields of every replica through the chain axis's
+    gather (added in replica order, as on one device), tau's counts added
+    over the rows (integers: exact in any order), the star replica's tau
+    from its row alone (``Axis.pick``)."""
     if len(replicas) == R:
-        return pt_merge_accums(accums)
-    local = stack(accums)
+        return pt_merge_accums(local)
     rows = ("sum_tau", "star_tau")
     whole = SamplerAccum(*(None if f in rows else sh.chain.gather(x).flatten(0, 1)
                            for f, x in zip(SamplerAccum._fields, local)))
@@ -461,12 +464,12 @@ def run_chain_pt_sharded(
         return chain_result(res, 0)
     sh = Shard(counts, mesh, device, kernel)
     part, gens, own = _pt_start(sh, cfg, seed, R)
-    states = sh.init(cfg, own, eta_init, tau_init)
-    accums = [sh.accum(cfg) for _ in own]
+    state = stack(sh.init(cfg, own, eta_init, tau_init))
+    accum = stack([sh.accum(cfg) for _ in own])
     rung = torch.arange(R, device=sh.device)
-    out = sh.pt_segment(cfg, states, accums, rung, 0, cfg.total_sweeps,
-                        [sh.noise(g) for g in own], ExchangeNoise(gens[-1]), max_temp,
-                        part, store=cfg.store_samples)
+    out = sh.pt_segment(cfg, state, accum, rung, 0, cfg.total_sweeps,
+                        ChainNoise(sh.noise(g) for g in own), [ExchangeNoise(gens[-1])],
+                        max_temp, part, store=cfg.store_samples)
     draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
     res = _result_from_accum(_pt_merge(sh, out[1], part.replicas, R), cfg, out[3],
                              pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
@@ -513,6 +516,7 @@ def run_chain_pt_sharded_checkpointed(
     if latest_step(checkpoint_path) is not None:
         states, accums, it, _, gen_state = load_sharded(
             checkpoint_path, sh, part.replicas, R, sh.device)
+        state, accum = stack(states), stack(accums)
         ex = load_extras_sharded(checkpoint_path)
         restore_generators(own + [gens[-1]],
                            np.concatenate([gen_state, ex["exchange_generator"][None]]))
@@ -520,14 +524,15 @@ def run_chain_pt_sharded_checkpointed(
         acc_sum, head_sum = float(ex["n_acc"]), float(ex["n_heads"])
         trace_parts = [ex["trace"][:it]]
     else:
-        states = sh.init(cfg, own, eta_init, tau_init)
-        accums = [sh.accum(cfg) for _ in own]
+        state = stack(sh.init(cfg, own, eta_init, tau_init))
+        accum = stack([sh.accum(cfg) for _ in own])
         rung = torch.arange(R, device=sh.device)
         it, acc_sum, head_sum, trace_parts = 0, 0.0, 0.0, []
     if is_coordinator():
         clear_draws_from(checkpoint_path, it)
     sh.world.barrier()
-    noises, exchange_noise = [sh.noise(g) for g in own], ExchangeNoise(gens[-1])
+    noise = ChainNoise(sh.noise(g) for g in own)
+    exchange_noise = [ExchangeNoise(gens[-1])]
     n_acc = torch.tensor(acc_sum, dtype=torch.float32, device=sh.device)
 
     while it < cfg.total_sweeps:
@@ -536,9 +541,9 @@ def run_chain_pt_sharded_checkpointed(
         if stop_after is not None and it >= stop_after:
             return None
         seg = min(checkpoint_every, cfg.total_sweeps - it)
-        out = sh.pt_segment(cfg, states, accums, rung, it, seg, noises, exchange_noise,
+        out = sh.pt_segment(cfg, state, accum, rung, it, seg, noise, exchange_noise,
                             max_temp, part, store=cfg.store_samples)
-        states, accums, rung, trace, seg_acc, seg_heads = out[:6]
+        state, accum, rung, trace, seg_acc, seg_heads = out[:6]
         slots = stored_slots(it, seg, cfg.burn, cfg.store_thin) if cfg.store_samples else []
         if slots:
             draws = tuple(_numpy(sh.rows_add(d))[None] for d in out[6])
@@ -548,14 +553,15 @@ def run_chain_pt_sharded_checkpointed(
         n_acc = n_acc + seg_acc
         head_sum += seg_heads
         trace_parts.append(_numpy(trace))
-        save_sharded(checkpoint_path, sh, part.replicas, R, states, accums, own, it,
+        save_sharded(checkpoint_path, sh, part.replicas, R, unstack(state),
+                     unstack(accum), own, it,
                      None, extras={
                          "rung": _numpy(rung), "n_acc": float(n_acc),
                          "n_heads": head_sum, "trace": np.concatenate(trace_parts),
                          "exchange_generator": _numpy(gens[-1].get_state())})
 
     trace = torch.as_tensor(np.concatenate(trace_parts), device=sh.device)
-    res = _result_from_accum(_pt_merge(sh, accums, part.replicas, R), cfg, trace,
+    res = _result_from_accum(_pt_merge(sh, accum, part.replicas, R), cfg, trace,
                              pt_swap_accept=pt_swap_rate(n_acc, head_sum))
     res = chain_result(sh.gather(stack([res]), replicated=True), 0)
     if cfg.store_samples:

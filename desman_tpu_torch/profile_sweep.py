@@ -16,18 +16,21 @@ the same counts beside it. Needs a CUDA device; it does not fall back.
 
     python -m desman_tpu_torch.profile_sweep --pt 4
 
-profiles one parallel-tempering ensemble sweep instead (R replicas in turn
-and the exchange, ``sampler.make_pt_step``) on cuda with the synth counts,
-ladder to 8: the same items a sweep become a PT ensemble sweep's, over a
-quarter as many ensemble sweeps at R = 4 (WARM, WALL and TRACED / R).
+profiles one parallel-tempering ensemble sweep instead (the R replicas
+as one sweep on the chain axis, then the exchange: ``sampler.make_pt_step``)
+on cuda with the synth counts, ladder to 8: the same items a sweep become a
+PT ensemble sweep's, over a quarter as many ensemble sweeps at R = 4
+(WARM, WALL and TRACED / R).
 
-    python -m desman_tpu_torch.profile_sweep --chains C
+    python -m desman_tpu_torch.profile_sweep --chains C [--kernel K]
 
 profiles one sweep of C chains on the chain axis (``sampler.run_chains``'
 sweep: one state with a leading [C] axis, seeds 0 .. C-1) with cuda on the
 synth counts and with cuda and cuda_topk on the biallelic counts, each
 beside the one-chain sweep of the same choice and counts, so the chain
-sweep's ms, busy ms and ops stand beside C times the one chain's.
+sweep's ms, busy ms and ops stand beside C times the one chain's. --kernel
+K profiles that choice alone (cuda_topk on the biallelic counts, the rest
+on the synth counts), with or without --chains.
 """
 from __future__ import annotations
 
@@ -123,16 +126,15 @@ def profile_pt(R: int, max_temp: float = 8.0) -> dict:
     n = _counts(False)
     cfg = SamplerConfig(G=G, burn=0, samples=WARM + WALL + TRACED, nmf_iters=50)
     gens = pt_generators(0, R, n.device)
-    states, accums, rung = pt_init(n, cfg, gens[:R])
-    noises, exchange = pt_noises(gens)
+    state, accum, rung = pt_init(n, cfg, gens[:R])
+    noise, exchange = pt_noises(gens)
     step = make_pt_step(n, cfg, R, max_temp, ops.resolve("cuda", n))
     it = 0
 
     def run(k):
-        nonlocal states, accums, rung, it
+        nonlocal state, accum, rung, it
         for _ in range(k):
-            states, accums, rung, _, _, _ = step(states, accums, rung, it,
-                                                  noises, exchange)
+            state, accum, rung, _, _, _ = step(state, accum, rung, it, noise, exchange)
             it += 1
 
     m = _measure(run, R)
@@ -153,6 +155,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chains", type=int, default=0, metavar="C",
                     help="profile a sweep of C >= 1 chains on the chain axis, each "
                          "beside the one-chain sweep")
+    ap.add_argument("--kernel", choices=ops.KERNELS,
+                    help="profile this kernel choice alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sweep: needs a CUDA device", file=sys.stderr)
@@ -162,12 +166,17 @@ def main(argv=None) -> int:
             ap.error("--pt needs R >= 2")
         print(json.dumps(profile_pt(args.pt)))
         return 0
+    alone = None if args.kernel is None else ((args.kernel, args.kernel == "cuda_topk"),)
     if args.chains:
         if args.chains < 1:
             ap.error("--chains needs C >= 1")
-        for kernel, biallelic in (("cuda", False), ("cuda", True), ("cuda_topk", True)):
+        for kernel, biallelic in alone or (("cuda", False), ("cuda", True),
+                                           ("cuda_topk", True)):
             for chains in (None, args.chains):
                 print(json.dumps(profile_kernel(kernel, biallelic, chains)))
+        return 0
+    if alone:
+        print(json.dumps(profile_kernel(*alone[0])))
         return 0
     for kernel in ops.KERNELS:
         if kernel != "cuda_topk":

@@ -20,14 +20,20 @@ one seed take the same draws and differ only at float near-ties.
 
 Unlike the JAX package the port keeps [V,S,4] and masks the ragged edge in
 the kernels: no base-major layout and no pad rows.
+
+A state with a leading [C] axis (``sampler.run_chains``, the JAX package's
+``run_chains_resident``) sweeps C chains in the same launches: the kernels
+take the chain axis, the draws come from a ``ChainNoise`` in the order
+above, and the acceptance mean and the eta loglik's total run per chain
+(``sampler._each``), so chain c is bitwise its own resident sweep.
 """
 from __future__ import annotations
 
 import torch
 
 from .sampler import (
-    SamplerConfig, SamplerState, _eta_accept, _eta_proposal, _gamma_accept,
-    _gamma_proposal,
+    SamplerConfig, SamplerState, _chains, _each, _eta_accept, _eta_proposal,
+    _gamma_accept, _gamma_proposal,
 )
 
 
@@ -55,10 +61,13 @@ def front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int, noise,
     """One sweep's tau, gamma and eta updates on the resident kernels.
 
     ks: the ``ops.Kernels`` of the kernel choice. Returns (tau, mix, gamma,
-    eta, loglik, acc_gamma, acc_eta), as the staged front does.
+    eta, loglik, acc_gamma, acc_eta), as the staged front does. A state with
+    a chain axis sweeps every chain in each launch; n is then the counts
+    the chains share ([V,S,4]) or their own ([C,V,S,4]).
     """
-    V, S, _ = n.shape
+    V, S, _ = n.shape[-3:]
     G = cfg.G
+    C = _chains(state.gamma, 2)
     gz = noise.gumbel(it, V, G)
     if temp != 1.0:
         gz = gz * temp
@@ -77,20 +86,20 @@ def front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int, noise,
         tau, mix = ks.tau_sweep(n, state.tau, state.mix, gamma, eta, gz)
         ll = ks.gamma_ll(n, mix, tau, gamma_prop, eta, with_old=True)
 
-    accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd,
-                                          alpha_rev, ll[0], ll[1], noise, it)
-    acc_g = accept.to(torch.float32).mean()
+    accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev,
+                                          ll[..., 0, :], ll[..., 1, :], noise, it)
+    acc_g = _each(C, torch.mean, accept.to(torch.float32))
 
     if cfg.fix_eta:
         mix, _ = ks.gamma_apply_eta(n, mix, tau, gamma_prop, accept, eta,
                                     with_eta=False)
         return tau, mix, gamma, eta, loglik, acc_g, torch.zeros(
-            (), device=n.device)
+            loglik.shape, device=n.device)
     eta_prop, alpha_fwd_e, alpha_rev_e = _eta_proposal(
         cfg, eta, state.kappa_eta, noise, it)
     mix, ll_eta = ks.gamma_apply_eta(n, mix, tau, gamma_prop, accept,
                                      eta_prop)
     eta, loglik, acc_e = _eta_accept(cfg, eta, eta_prop, alpha_fwd_e,
-                                     alpha_rev_e, torch.sum(ll_eta), loglik,
+                                     alpha_rev_e, _each(C, torch.sum, ll_eta), loglik,
                                      noise, it)
     return tau, mix, gamma, eta, loglik, acc_g, acc_e

@@ -385,28 +385,34 @@ _MESH_KERNELS = ("tau_sweep", "swap", "tau_sweep_topk")
 
 
 def _mesh_counts() -> dict:
-    """This process's kernel launches and shard sweep statistics so far."""
+    """This process's kernel launches, chain launches and shard sweep
+    statistics so far."""
     from . import ops
     from .parallel.sharded import SWEEP_STATS
 
-    return dict({k: getattr(ops, k).launches for k in _MESH_KERNELS}, **SWEEP_STATS)
+    return dict({k: getattr(ops, k).launches for k in _MESH_KERNELS},
+                **{f"{k}_chains": getattr(ops, k).chain_launches for k in _MESH_KERNELS},
+                **SWEEP_STATS)
 
 
 def _mesh_metrics(device, kernel: str, mesh, before: dict) -> dict:
     """The run record of a mesh run (every rank calls it: one collective):
-    device, kernel, mesh, backend, ranks, each kernel's launches since
-    `before` summed over the ranks, and the collectives a sweep made on
-    this rank."""
+    device, kernel, mesh, backend, ranks, each kernel's launches and chain
+    launches since `before` summed over the ranks, and the collectives a
+    sweep made on this rank."""
     from .parallel import distributed
 
     after = _mesh_counts()
-    launched = torch.tensor([after[k] - before[k] for k in _MESH_KERNELS],
+    names = _MESH_KERNELS + tuple(f"{k}_chains" for k in _MESH_KERNELS)
+    launched = torch.tensor([after[k] - before[k] for k in names],
                             dtype=torch.int64, device=device)
-    launched = distributed.mesh_axes(mesh, device).world.sum(launched)
+    launched = distributed.mesh_axes(mesh, device).world.sum(launched).tolist()
     sweeps = after["sweeps"] - before["sweeps"]
+    k = len(_MESH_KERNELS)
     return {"device": _device_name(device), "kernel": kernel, "mesh": str(mesh),
             "backend": distributed.backend(), "ranks": distributed.world_ranks(),
-            "launches": dict(zip(_MESH_KERNELS, launched.tolist())),
+            "launches": dict(zip(_MESH_KERNELS, launched[:k])),
+            "chain_launches": dict(zip(_MESH_KERNELS, launched[k:])),
             "collectives_per_sweep": (after["collectives"] - before["collectives"])
             / max(sweeps, 1)}
 

@@ -23,11 +23,13 @@ sweep: ``TorchNoise`` draws from the chain's ``torch.Generator``.
 Chains: the JAX package vmaps independent chains into one device program;
 here ``run_chains`` sweeps them as one state with a leading [C] axis (tau
 [C,V,G], mix [C,V,S,4], gamma [C,S,G], eta [C,4,4], loglik and kappas [C];
-the counts [V,S,4] are shared). One sweep launches the tau (or top-2) and
-swap kernels once for all C chains, and runs the elementwise ops once on
-the stacked state. Its draws come from ``ChainNoise``, chain c's from chain
-c's own generator, and every reduction and matrix product runs per chain on
-chain c's contiguous slice (``_each``), since torch may sum a stacked
+the counts [V,S,4] are shared, or each chain's own [C,V,S,4], as
+``multibin``'s bins). One sweep launches the tau (or top-2) and swap
+kernels, or the resident kernels, once for all C chains, and runs the
+elementwise ops once on the stacked state. Its draws come from
+``ChainNoise``, chain c's from chain c's own generator, and every
+reduction and matrix product runs per chain on chain c's contiguous
+slice (``_each``, ``_each_n``), since torch may sum a stacked
 tensor in another order: so chain c of a batched run is bitwise
 ``run_chain`` of its seed. The host branches on the sweep index (anneal,
 adaptation, accumulation) are shared by the chains; the decisions on data
@@ -40,8 +42,10 @@ the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops.
 Parallel tempering (``run_chain_pt``): R replicas on a temperature ladder,
 each a sweep with a fixed ``temp`` and a likelihood power ``beta``, then an
 exchange of adjacent rungs. The JAX package vmaps the replicas; here they
-still run one after another (the chain axis does not carry them yet), each
-on its own generator, and the exchange draws from one more (``pt_seeds``).
+are the chain axis: one sweep of all R (temps and betas [R], one per
+chain), each replica drawing from its own generator, and the exchange
+from one more (``pt_seeds``). ``run_chains_pt`` puts C runs of R replicas
+on one [C*R] axis, each run with its own exchange.
 """
 from __future__ import annotations
 
@@ -283,10 +287,22 @@ def _each(C, fn, *xs):
     return _stacked([fn(*(x[c] for x in xs)) for c in range(C)])
 
 
-def _per(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def _each_n(C, fn, n, *xs):
+    """``_each`` of fn(n, *xs), with chain c's counts: the shared n
+    ([V,S,4]) or slice c of a chain axis of its own ([C,V,S,4])."""
+    if C is None:
+        return fn(n, *xs)
+    if n.dim() == 4:
+        return _each(C, fn, n, *xs)
+    return _each(C, lambda *ys: fn(n, *ys), *xs)
+
+
+def _per(x, like: torch.Tensor):
     """A per-chain value x ([C]) shaped to broadcast against like ([C,...]);
-    a 0-d x (one chain) as it is."""
-    return x if x.dim() == 0 else x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+    a 0-d x (one chain) or a host number as it is."""
+    if not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return x
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
 def _tempered(x) -> bool:
@@ -357,11 +373,11 @@ def check_finite(it: int, states, agree=None) -> None:
 
 
 def _loglik(n, mix, eta, psum=_own):
-    """sum n * log(mix @ eta) (per chain over a chain axis: [C]); psum adds
-    the position shards' sums (``parallel.distributed``), the identity on
-    one device."""
-    return psum(_each(_chains(eta, 2), lambda m, e: torch.sum(
-        n * safe_log(torch.einsum("vsa,ab->vsb", m, e))), mix, eta))
+    """sum n * log(mix @ eta) (per chain over a chain axis: [C], on the
+    shared counts or each chain's own); psum adds the position shards'
+    sums (``parallel.distributed``), the identity on one device."""
+    return psum(_each_n(_chains(eta, 2), lambda k, m, e: torch.sum(
+        k * safe_log(torch.einsum("vsa,ab->vsb", m, e))), n, mix, eta))
 
 
 def _eta_prior(cfg: SamplerConfig, device) -> torch.Tensor:
@@ -389,7 +405,7 @@ def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
     C = _chains(gamma, 2)
     dll = ll_new - ll_old
     if _tempered(beta):
-        dll = beta * dll
+        dll = _per(beta, dll) * dll
     # symmetric Dirichlet(1) prior on gamma rows -> prior ratio = 0
     log_ratio = (
         dll
@@ -417,13 +433,13 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
                                                        noise, it)
     mix_prop = _each(C, mixture, one_hot_tau(tau), gamma_prop)        # [V,S,4]
 
-    def ll_pair(mix, mix_prop, eta):
+    def ll_pair(n, mix, mix_prop, eta):
         both = torch.stack([mix, mix_prop])                           # [2,V,S,4]
         return torch.sum(
             n[None] * safe_log(torch.einsum("kvsa,ab->kvsb", both, eta)),
             dim=(1, 3))                                               # [2,S]
 
-    ll = psum(_each(C, ll_pair, mix, mix_prop, eta))
+    ll = psum(_each_n(C, ll_pair, n, mix, mix_prop, eta))
     accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev,
                                           ll[..., 0, :], ll[..., 1, :], noise, it, beta)
     mix = torch.where(accept[..., None, :, None], mix_prop, mix)
@@ -512,28 +528,29 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     sweep and swap kernels (or their plain versions), then gamma_step and
     eta_step_joint (or eta_step) as plain PyTorch ops.
 
-    temp scales the Gumbel noise (a host float, or PT's 0-d device
-    tensor); beta tempers every MH ratio, the swap's as a threshold
-    logu / beta (the JAX package's Pallas swap; its XLA swap compares
-    logu < beta * dll, the same decision but at float near-ties). psum
-    adds the position shards' likelihood sums (the identity on one device).
-    Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta). A state
-    with a chain axis sweeps every chain in one tau and one swap launch.
+    temp scales the Gumbel noise (a host float, or PT's device tensor: 0-d,
+    or [C], one a chain); beta tempers every MH ratio, the swap's as a
+    threshold logu / beta (the JAX package's Pallas swap; its XLA swap
+    compares logu < beta * dll, the same decision but at float near-ties).
+    psum adds the position shards' likelihood sums (the identity on one
+    device). Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta). A
+    state with a chain axis sweeps every chain in one tau and one swap
+    launch.
     """
-    V, S, _ = n.shape
+    V, S, _ = n.shape[-3:]
     G = cfg.G
     if cfg.fix_tau:
         tau, mix = state.tau, state.mix
     else:
         gz = noise.gumbel(it, V, G)
         if _tempered(temp):
-            gz = gz * temp
+            gz = gz * _per(temp, gz)
         tau, mix = ks.tau_sweep(n, state.tau, state.mix, state.gamma,
                                 state.eta, gz)
         if cfg.swap_moves and G > 1:
             g, h, logu = noise.swap(it, V, G)
             if _tempered(beta):
-                logu = logu / beta
+                logu = logu / _per(beta, logu)
             tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu)
     if cfg.fix_gamma:
         gamma = state.gamma
@@ -589,8 +606,10 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
     The resident kernels take no shards.
 
     A state and accumulators with a leading [C] axis (``init_states``,
-    ``init_accum(chains=C)``) with a ``ChainNoise`` sweep C chains at once:
-    chain c bitwise its own sweep. The resident kernels take one chain.
+    ``init_accum(chains=C)``) with a ``ChainNoise`` sweep C chains at once,
+    on every kernel choice: chain c bitwise its own sweep. temp and beta
+    may then be [C] device tensors, one a chain (PT's replicas), and n the
+    chains' own counts [C,V,S,4].
     """
     ks = kernel if isinstance(kernel, Kernels) else resolve(kernel)
     if ks.resident and psum is not _own:
@@ -619,8 +638,6 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
         burn = cfg.burn if burn is None else burn
         if ks.resident and (temp is not None or _tempered(beta)):
             raise ValueError(RESIDENT_PLAIN_ONLY)
-        if ks.resident and state.tau.dim() == 3:
-            raise ValueError("the resident kernels sweep one chain at a time")
         temp = temperature(it) if temp is None else temp
         args = (cfg, ks, n, state, it, noise, temp)
         tau, mix, gamma, eta, loglik, acc_g, acc_e = (
@@ -724,11 +741,14 @@ def init_state(
 
 def init_states(n: torch.Tensor, cfg: SamplerConfig, generators,
                 eta_init: Optional[torch.Tensor] = None,
-                tau_init: Optional[torch.Tensor] = None) -> SamplerState:
+                tau_init: Optional[torch.Tensor] = None,
+                gamma_init: Optional[torch.Tensor] = None) -> SamplerState:
     """The starts of len(generators) chains, stacked on a leading [C] axis:
     chain c's ``init_state`` from generator c (its NMF start drawn from it,
-    as ``run_chain`` draws it)."""
-    states = [init_state(n, cfg, g, eta_init, tau_init) for g in generators]
+    as ``run_chain`` draws it) on the shared counts n [V,S,4], or on chain
+    c's own n[c] of [C,V,S,4]."""
+    states = [init_state(n if n.dim() == 3 else n[c], cfg, g, eta_init, tau_init,
+                         gamma_init) for c, g in enumerate(generators)]
     return SamplerState(*(torch.stack(f) for f in zip(*states)))
 
 
@@ -808,12 +828,13 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     ``check_finite``'s (the NaN trap, when on). Segments run in order from
     one noise source give the draws and the trajectory of one long segment.
     A state with a leading [C] axis and a ``ChainNoise`` advance C chains in
-    one sweep: the trace is [C, n_sweeps] and the draws [C, k, ...].
+    one sweep: the trace is [C, n_sweeps] and the draws [C, k, ...]; n may
+    then hold each chain's own counts [C,V,S,4].
     """
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
     sweep = make_sweep_fn(cfg, kernel, psum)
-    V, S, _ = n.shape
+    V, S, _ = n.shape[-3:]
     dev = n.device
     lead = state.loglik.shape   # () or the chains' (C,)
     trace = torch.empty((*lead, n_sweeps), dtype=torch.float32, device=dev)
@@ -898,22 +919,19 @@ def run_chains(
     Chain i draws from its own ``torch.Generator`` on n's device, seeded
     with seeds[i]; the chains start from their own NMF starts and then
     advance together, one sweep of all of them at a time (``ChainNoise``,
-    the chain-axis kernels), so chain i is bitwise ``run_chain`` of that
-    seed. The kernel choice is resolved once for all chains; the resident
-    kernels take one chain, so with ``cuda_resident`` the chains run one
-    after another. Fields that are None (no stored draws) stay None.
+    the chain-axis kernels, the resident ones included), so chain i is
+    bitwise ``run_chain`` of that seed. The kernel choice is resolved once
+    for all chains. n: the counts [V,S,4] the chains share, or each chain's
+    own [C,V,S,4] (``multibin``'s padded bins: chain i is then
+    ``run_chain`` of n[i]). Fields that are None (no stored draws) stay
+    None.
     """
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    if kernel.resident:
-        results = [run_chain(n, cfg, chain_generator(seed, n.device),
-                             eta_init=eta_init, tau_init=tau_init, kernel=kernel)
-                   for seed in seeds]
-        return SamplerResult(*(None if field[0] is None else torch.stack(field)
-                               for field in zip(*results)))
+    make_sweep_fn(cfg, kernel)   # the resident path's refusals, before the start
     check_store_thin(cfg)
-    V, S, _ = n.shape
+    V, S, _ = n.shape[-3:]
     generators = [chain_generator(seed, n.device) for seed in seeds]
     state = init_states(n, cfg, generators, eta_init, tau_init)
     accum = init_accum(V, S, cfg.G, n.device, chains=len(generators))
@@ -977,23 +995,23 @@ def pt_ladder(R: int, max_temp: float, device) -> torch.Tensor:
 
 def pt_init(n, cfg: SamplerConfig, generators, eta_init=None, tau_init=None,
             gamma_init=None):
-    """(states, accums, rung) of a replica-exchange run: one state per
-    generator given (the R replicas', not the exchange's), each drawing its
-    NMF start from it, fresh accumulators, and rung [R] = arange(R) (int64
-    on n's device: replica i holds ladder rung rung[i])."""
+    """(state, accum, rung) of a replica-exchange run: the replicas' starts
+    on a leading [R] axis, one a generator given (the R replicas', not the
+    exchange's), each drawing its NMF start from it (``init_states``),
+    fresh accumulators (``init_accum(chains=R)``), and rung [R] = arange(R)
+    (int64 on n's device: replica i holds ladder rung rung[i])."""
     V, S, _ = n.shape
     R = len(generators)
-    states = [init_state(n, cfg, g, eta_init, tau_init, gamma_init)
-              for g in generators]
-    accums = [init_accum(V, S, cfg.G, n.device) for _ in range(R)]
-    return states, accums, torch.arange(R, device=n.device)
+    return (init_states(n, cfg, generators, eta_init, tau_init, gamma_init),
+            init_accum(V, S, cfg.G, n.device, chains=R),
+            torch.arange(R, device=n.device))
 
 
 def _keep_cold(is_cold, new: SamplerAccum, old: SamplerAccum) -> SamplerAccum:
-    """The sweep's accumulators where the replica held the cold rung, the
-    pre-sweep ones elsewhere (the fields the sweep left alone pass as they
-    are)."""
-    return SamplerAccum(*(o if x is o else torch.where(is_cold, x, o)
+    """The sweep's accumulators where the replica held the cold rung
+    (is_cold [R], one a replica), the pre-sweep ones elsewhere (the fields
+    the sweep left alone pass as they are)."""
+    return SamplerAccum(*(o if x is o else torch.where(_per(is_cold, x), x, o)
                           for x, o in zip(new, old)))
 
 
@@ -1014,21 +1032,27 @@ class ReplicaShard(NamedTuple):
 def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
                  kernel="cuda", burn: Optional[int] = None,
                  shard: Optional[ReplicaShard] = None):
-    """One PT ensemble sweep + exchange: the JAX package's ``make_pt_step``
-    with the replicas in turn.
+    """One PT ensemble sweep + exchange: the JAX package's ``make_pt_step``,
+    whose vmap over the replicas is the chain axis here.
 
-    Returns step(states, accums, rung, it, noises, exchange) -> (states,
-    accums, rung, cold_ll, n_acc, n_heads): replica i sweeps from
-    noises[i] at the temperature of its rung; the exchange proposes
-    swapping the temperatures of the replicas holding rungs (r, r+1),
-    alternating parity by sweep, with ``exchange.exchange_u(it, R)``.
-    cold_ll is the loglik of the replica that was cold during the sweep,
-    n_acc the accepted exchanges (0-d f32 on the device), n_heads the
-    proposals (a host int: it depends on it and R only). ``rung`` stays on
-    the device and nothing waits for it. ``burn`` has the sweep's meaning.
+    Returns step(state, accum, rung, it, noise, exchange) -> (state, accum,
+    rung, cold_ll, n_acc, n_heads). rung [..., R] holds a row a run: [R]
+    for one run, [C,R] for C runs (``run_chains_pt``); exchange is a list
+    of one source a row. state and accum hold the runs' replicas on one
+    leading axis (run c's at c*R ...) and sweep once for all of them
+    (``make_sweep_fn`` with a ``ChainNoise`` of the replicas' sources,
+    temps and betas one a replica at the temperature of its rung: replica
+    i bitwise its own sweep). Each run's exchange proposes swapping the
+    temperatures of the replicas holding rungs (r, r+1), alternating
+    parity by sweep, with its source's ``exchange_u(it, R)``. cold_ll is
+    the loglik of the replica that was cold during the sweep, n_acc the
+    accepted exchanges (f32 on the device; both rung.shape[:-1]), n_heads
+    the proposals (a host int: it depends on it and R only). ``rung``
+    stays on the device and nothing waits for it. ``burn`` has the sweep's
+    meaning. Run c is bitwise the step of run c alone.
 
     ``shard``: the step of one rank of a mesh, n its block of positions.
-    states, accums and noises are those of ``shard.replicas``; the exchange
+    state, accum and noise are those of ``shard.replicas``; the exchange
     takes every replica's loglik and kappas through ``shard.gather``, so
     every rank holds the same [R] vectors, draws the same uniforms from its
     copy of the exchange generator and computes the same rung. None: all R
@@ -1037,7 +1061,7 @@ def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
     ks = kernel if isinstance(kernel, Kernels) else resolve(kernel, n)
     if ks.resident:
         raise ValueError(RESIDENT_PLAIN_ONLY)
-    local = range(R) if shard is None else shard.replicas
+    local = None if shard is None else shard.replicas
     gather = None if shard is None else shard.gather
     sweep = make_sweep_fn(cfg, ks, _own if shard is None else shard.psum)
     dev = n.device
@@ -1051,70 +1075,75 @@ def make_pt_step(n, cfg: SamplerConfig, R: int, max_temp: float,
                for p in (0, 1)]
     first = torch.zeros(1, dtype=torch.bool, device=dev)
 
-    # index_select, not x[idx]: advanced indexing costs the host several
-    # times more a call, and the step makes six
-    def step(states, accums, rung, it: int, noises, exchange):
-        temps = ladder.index_select(0, rung)
+    def mine(x):
+        """This rank's replicas of an ensemble-wide [R] vector (all of them
+        without a shard)."""
+        return x if local is None else x[local.start:local.stop]
+
+    # index_select and gather, not x[idx]: advanced indexing costs the host
+    # several times more a call
+    def step(state, accum, rung, it: int, noise, exchange):
+        shape = rung.shape                       # [R], or the runs' [C,R]
+        temps = ladder.index_select(0, rung.reshape(-1))
         betas = 1.0 / temps
         is_cold = rung == 0
-        new_states, new_accums, lls = [], [], []
-        for j, i in enumerate(local):
-            st, ac, ll = sweep(n, states[j], accums[j], it, noises[j],
-                               burn=burn, temp=temps[i], beta=betas[i])
-            new_states.append(st)
-            # hot replicas draw from tempered targets: keep their
-            # pre-sweep accumulators, star included
-            new_accums.append(_keep_cold(is_cold[i], ac, accums[j]))
-            lls.append(ll)
-        lls = torch.stack(lls)
-        kg = torch.stack([s.kappa_gamma for s in new_states])
-        ke = torch.stack([s.kappa_eta for s in new_states])
+        st, ac, lls = sweep(n, state, accum, it, noise, burn=burn,
+                            temp=mine(temps), beta=mine(betas))
+        # hot replicas draw from tempered targets: keep their pre-sweep
+        # accumulators, star included
+        ac = _keep_cold(mine(is_cold.reshape(-1)), ac, accum)
+        kg, ke = st.kappa_gamma, st.kappa_eta
         if gather is not None:   # the other rows' replicas: one exchange
             lls, kg, ke = gather(torch.stack([lls, kg, ke]))
+        lls, kg, ke = lls.reshape(shape), kg.reshape(shape), ke.reshape(shape)
 
-        order = torch.argsort(rung)                  # rung -> replica
-        ll_by_rung = lls.index_select(0, order)
-        delta = dbeta * (torch.roll(ll_by_rung, -1) - ll_by_rung)
+        order = torch.argsort(rung, dim=-1)           # rung -> replica
+        ll_by_rung = lls.gather(-1, order)
+        delta = dbeta * (torch.roll(ll_by_rung, -1, -1) - ll_by_rung)
         is_head = heads[it % 2]
-        u = exchange.exchange_u(it, R)
+        u = torch.stack([e.exchange_u(it, R) for e in exchange]).reshape(shape)
         acc = is_head & (safe_log(u) < delta)
-        acc_prev = torch.cat([first, acc[:-1]])
+        acc_prev = torch.cat([first.expand(*shape[:-1], 1), acc[..., :-1]], dim=-1)
         # old rung -> new rung (disjoint adjacent transpositions)
         rung_perm = torch.where(acc, up, torch.where(acc_prev, down, idx))
-        new_rung = rung_perm.index_select(0, rung)
+        new_rung = rung_perm.gather(-1, rung)
         # adapted proposal scales belong to the rung, not the replica: the
         # new holder of rung new_rung[i] takes its old holder's kappas
-        src = order.index_select(0, new_rung)
-        kg, ke = kg.index_select(0, src), ke.index_select(0, src)
-        new_states = [s._replace(kappa_gamma=kg[i], kappa_eta=ke[i])
-                      for i, s in zip(local, new_states)]
-        cold_ll = torch.sum(torch.where(is_cold, lls, 0.0))
-        n_acc = torch.sum(acc.to(torch.float32))
-        return new_states, new_accums, new_rung, cold_ll, n_acc, n_heads[it % 2]
+        src = order.gather(-1, new_rung)
+        st = st._replace(kappa_gamma=mine(kg.gather(-1, src).reshape(-1)),
+                         kappa_eta=mine(ke.gather(-1, src).reshape(-1)))
+        cold_ll = torch.sum(torch.where(is_cold, lls, 0.0), dim=-1)
+        n_acc = torch.sum(acc.to(torch.float32), dim=-1)
+        return st, ac, new_rung, cold_ll, n_acc, n_heads[it % 2]
 
     return step
 
 
 def pt_noises(generators):
-    """The replicas' noise sources and the exchange's, from the R + 1
+    """The replicas' noise (a ``ChainNoise`` of one ``TorchNoise`` a
+    replica) and the exchange's (a list of the one run's
+    ``ExchangeNoise``, as ``make_pt_step`` takes it), from the R + 1
     generators of ``pt_generators``."""
-    return [TorchNoise(g) for g in generators[:-1]], ExchangeNoise(generators[-1])
+    return (ChainNoise(TorchNoise(g) for g in generators[:-1]),
+            [ExchangeNoise(generators[-1])])
 
 
-def run_pt_segment(n, cfg: SamplerConfig, states, accums, rung, start_it: int,
-                   n_sweeps: int, noises, exchange, max_temp: float,
+def run_pt_segment(n, cfg: SamplerConfig, state, accum, rung, start_it: int,
+                   n_sweeps: int, noise, exchange, max_temp: float,
                    kernel="cuda", burn: Optional[int] = None, store: bool = False,
                    shard: Optional[ReplicaShard] = None):
-    """Advance a PT ensemble n_sweeps from absolute sweep index start_it.
+    """Advance a PT ensemble n_sweeps from absolute sweep index start_it
+    (state and accum with the replicas on a leading axis, ``make_pt_step``).
 
-    Returns (states, accums, rung, trace, n_acc, n_heads): trace [n_sweeps]
+    Returns (state, accum, rung, trace, n_acc, n_heads): trace [n_sweeps]
     holds each sweep's cold_ll on n's device, n_acc the segment's accepted
     exchanges (0-d f32 on the device), n_heads its proposals (host int).
     With ``store`` a seventh item holds the (tau int8, gamma, eta) draws of
     the sweeps ``stored_slots`` selects, taken from the replica holding rung
     0 after the sweep's exchange. ``burn`` has the sweep's meaning.
     Segments run in order from the same noise sources give the draws and
-    the trajectory of one long segment.
+    the trajectory of one long segment. C runs (rung [C,R]): trace [C,
+    n_sweeps], n_acc [C] and the draws [C, k, ...], run c's each.
 
     ``shard``: one rank's part of the ensemble on a mesh (``make_pt_step``);
     the rung, trace and n_acc are the whole ensemble's on every rank, and a
@@ -1123,49 +1152,66 @@ def run_pt_segment(n, cfg: SamplerConfig, states, accums, rung, start_it: int,
     """
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    local = range(len(states)) if shard is None else shard.replicas
-    R = len(rung)
+    R = rung.shape[-1]
+    runs = rung.shape[:-1]
+    local = range(R) if shard is None else shard.replicas
     step = make_pt_step(n, cfg, R, max_temp, kernel, burn=burn, shard=shard)
     V, S, _ = n.shape
     dev = n.device
-    trace = torch.empty(n_sweeps, dtype=torch.float32, device=dev)
-    n_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    trace = torch.empty((*runs, n_sweeps), dtype=torch.float32, device=dev)
+    n_acc = torch.zeros(runs, dtype=torch.float32, device=dev)
     n_heads = 0
     slots = (stored_slots(start_it, n_sweeps, cfg.burn if burn is None else burn,
                           cfg.store_thin) if store else [])
     k = len(slots)
-    draws = (torch.empty((k, V, cfg.G), dtype=torch.int8, device=dev),
-             torch.empty((k, S, cfg.G), dtype=torch.float32, device=dev),
-             torch.empty((k, NBASES, NBASES), dtype=torch.float32, device=dev))
+    draws = (torch.empty((*runs, k, V, cfg.G), dtype=torch.int8, device=dev),
+             torch.empty((*runs, k, S, cfg.G), dtype=torch.float32, device=dev),
+             torch.empty((*runs, k, NBASES, NBASES), dtype=torch.float32, device=dev))
+    # each run's first replica on the flat axis
+    run_base = torch.arange(0, rung.numel(), R, device=dev)
     agree = None if shard is None else shard.agree
     j = 0
     for i in range(n_sweeps):
-        states, accums, rung, cold_ll, acc, heads = step(
-            states, accums, rung, start_it + i, noises, exchange)
+        state, accum, rung, cold_ll, acc, heads = step(
+            state, accum, rung, start_it + i, noise, exchange)
         if _NAN_TRAP:
-            check_finite(start_it + i, states, agree)
-        trace[i] = cold_ll
+            check_finite(start_it + i, [state], agree)
+        trace[..., i] = cold_ll
         n_acc = n_acc + acc
         n_heads += heads
         if j < k and slots[j] == i:
-            cold = torch.argmin(rung).reshape(1)   # the holder of rung 0
+            cold = torch.argmin(rung, dim=-1).reshape(-1)   # each run's rung 0
             if len(local) < R:   # on this row, or zeros
                 mine = (cold >= local.start) & (cold < local.stop)
                 cold = torch.clamp(cold - local.start, 0, len(local) - 1)
+            else:
+                cold = cold + run_base
             for buf, field in zip(draws, ("tau", "gamma", "eta")):
-                stacked = torch.stack([getattr(s, field) for s in states])
-                x = stacked.index_select(0, cold)[0]
-                buf[j] = x if len(local) == R else torch.where(mine, x, 0)
+                x = getattr(state, field).index_select(0, cold)
+                if len(local) < R:
+                    x = torch.where(mine, x[0], 0)
+                buf[..., j, :, :] = x.reshape(*runs, *x.shape[-2:])
             j += 1
-    out = (states, accums, rung, trace, n_acc, n_heads)
+    out = (state, accum, rung, trace, n_acc, n_heads)
     return out + (draws,) if store else out
 
 
-def pt_merge_accums(accums) -> SamplerAccum:
-    """Merge the replicas' cold-rung records: sums add, the star is the
-    replica's with the highest star loglik (the first on a tie)."""
-    stacked = SamplerAccum(*(torch.stack(f) for f in zip(*accums)))
-    return pt_merge_stacked(stacked, torch.argmax(stacked.star_loglik).reshape(1))
+def pt_merge_accums(accum: SamplerAccum) -> SamplerAccum:
+    """Merge the replicas' cold-rung records (their accumulators on a
+    leading [R] axis): sums add, the star is the replica's with the highest
+    star loglik (the first on a tie)."""
+    return pt_merge_stacked(accum, torch.argmax(accum.star_loglik).reshape(1))
+
+
+def pt_merge_runs(accum: SamplerAccum, C: int) -> SamplerAccum:
+    """``pt_merge_accums`` of each of C runs on a [C*R] axis, stacked on a
+    leading [C] axis: run c's on a copy of its replicas' slice, so its sums
+    run as run c's alone (a slice may not start where torch's vectorized
+    reductions would start a tensor of its own)."""
+    R = accum.star_loglik.shape[0] // C
+    return SamplerAccum(*(torch.stack(f) for f in zip(*(
+        pt_merge_accums(SamplerAccum(*(x[c * R:(c + 1) * R].clone() for x in accum)))
+        for c in range(C)))))
 
 
 def pt_merge_stacked(stacked: SamplerAccum, star: torch.Tensor) -> SamplerAccum:
@@ -1215,13 +1261,14 @@ def run_chain_pt(
     R replicas on the ladder T_r = max_temp^(r/(R-1)) (rung 0 cold) each
     target prior * L^(1/T_r): the Gumbel noise of the tau sweep is scaled
     by T_r and every MH ratio's likelihood term by 1/T_r. After every
-    ensemble sweep adjacent rungs (alternating parity) exchange their
-    temperatures with probability min(1, exp((b_r - b_{r+1}) (ll_{r+1} -
-    ll_r))). Accumulators and the star record only while a replica holds
-    the cold rung; with cfg.store_samples the stored draws are the cold
-    replica's after each kept sweep's exchange. The loglik trace is the
-    cold rung's. The generators come from ``pt_seeds(seed, R)``; R < 2 is
-    ``run_chain`` with a generator seeded `seed`, bit for bit.
+    ensemble sweep (one sweep of all R replicas on the chain axis) adjacent
+    rungs (alternating parity) exchange their temperatures with probability
+    min(1, exp((b_r - b_{r+1}) (ll_{r+1} - ll_r))). Accumulators and the
+    star record only while a replica holds the cold rung; with
+    cfg.store_samples the stored draws are the cold replica's after each
+    kept sweep's exchange. The loglik trace is the cold rung's. The
+    generators come from ``pt_seeds(seed, R)``; R < 2 is ``run_chain`` with
+    a generator seeded `seed`, bit for bit.
     """
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
@@ -1233,11 +1280,11 @@ def run_chain_pt(
     make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
     check_store_thin(cfg)
     generators = pt_generators(seed, R, n.device)
-    states, accums, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init,
-                                   gamma_init)
-    noises, exchange = pt_noises(generators)
-    out = run_pt_segment(n, cfg, states, accums, rung, 0, cfg.total_sweeps,
-                         noises, exchange, max_temp, kernel,
+    state, accum, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init,
+                                 gamma_init)
+    noise, exchange = pt_noises(generators)
+    out = run_pt_segment(n, cfg, state, accum, rung, 0, cfg.total_sweeps,
+                         noise, exchange, max_temp, kernel,
                          store=cfg.store_samples)
     draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
     return _result_from_accum(pt_merge_accums(out[1]), cfg, out[3],
@@ -1255,13 +1302,28 @@ def run_chains_pt(
     kernel="cuda",
 ) -> SamplerResult:
     """Independent PT runs over seeds, stacked on a leading axis (the JAX
-    package's ``run_chains_pt``, whose vmap is still a loop here: the chain
-    axis does not carry replicas yet): run i is bitwise ``run_chain_pt`` of
-    seeds[i]."""
+    package's ``run_chains_pt``, a vmap over runs of the vmap over
+    replicas): the C runs' R replicas sweep as one [C*R] chain axis, each
+    run exchanging on its own rung row with its own exchange generator, so
+    run i is bitwise ``run_chain_pt`` of seeds[i]. R < 2 is ``run_chains``
+    of the seeds."""
     n = n.to(torch.float32)
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
-    results = [run_chain_pt(n, cfg, seed, n_replicas, max_temp, eta_init=eta_init,
-                            tau_init=tau_init, kernel=kernel) for seed in seeds]
-    return SamplerResult(*(None if field[0] is None else torch.stack(field)
-                           for field in zip(*results)))
+    R = int(n_replicas)
+    if R < 2:
+        return run_chains(n, cfg, seeds, eta_init=eta_init, kernel=kernel,
+                          tau_init=tau_init)
+    make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
+    check_store_thin(cfg)
+    runs = [pt_generators(seed, R, n.device) for seed in seeds]
+    replicas = [g for gens in runs for g in gens[:R]]
+    state, accum, _ = pt_init(n, cfg, replicas, eta_init, tau_init)
+    rung = torch.arange(R, device=n.device).repeat(len(runs), 1)
+    out = run_pt_segment(n, cfg, state, accum, rung, 0, cfg.total_sweeps,
+                         ChainNoise(TorchNoise(g) for g in replicas),
+                         [ExchangeNoise(gens[R]) for gens in runs], max_temp, kernel,
+                         store=cfg.store_samples)
+    draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
+    return _result_from_accum(pt_merge_runs(out[1], len(runs)), cfg, out[3],
+                              pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)

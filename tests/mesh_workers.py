@@ -370,24 +370,28 @@ def pt_replay(out, counts, cfg_kw, shape, R, key, jstates, jaccums, jrungs):
     def whole(x):
         return torch.cat(list(sh.data.gather(x)), dim=0).numpy()
 
-    noises = [sh.noise(ReplayNoise(jnp.asarray(jstates[0]["key"][i])))
-              for i in part.replicas]
-    exchange = ReplayExchange(jnp.asarray(key))
-    states = [convert.state_from_numpy(block(jstates[0], i)) for i in part.replicas]
-    accums = [sh.accum(cfg) for _ in part.replicas]
+    noise = sampler.ChainNoise(sh.noise(ReplayNoise(jnp.asarray(jstates[0]["key"][i])))
+                               for i in part.replicas)
+    exchange = [ReplayExchange(jnp.asarray(key))]
+    state = checkpoint.stack([convert.state_from_numpy(block(jstates[0], i))
+                              for i in part.replicas])
+    accum = checkpoint.stack([sh.accum(cfg) for _ in part.replicas])
     sweeps = len(jstates) - 1
     rung = torch.as_tensor(np.asarray(jrungs[0]), dtype=torch.int64)
-    own = sh.pt_segment(cfg, states, accums, rung, 0, sweeps, noises, exchange, 8.0, part)
+    own = sh.pt_segment(cfg, state, accum, rung, 0, sweeps, noise, exchange, 8.0, part)
     merged = sharded._pt_merge(sh, own[1], part.replicas, R)
     arrays = {"own_tau_star": whole(merged.star_tau), "own_trace": own[3].numpy()}
     step = sampler.make_pt_step(sh.n, cfg, R, 8.0, sh.ks, shard=part)
     steps = []
     for it in range(sweeps):
-        st = [convert.state_from_numpy(block(jstates[it], i)) for i in part.replicas]
-        ac = [convert.accum_from_numpy(block(jaccums[it], i)) for i in part.replicas]
+        st = checkpoint.stack([convert.state_from_numpy(block(jstates[it], i))
+                               for i in part.replicas])
+        ac = checkpoint.stack([convert.accum_from_numpy(block(jaccums[it], i))
+                               for i in part.replicas])
         new, acc_new, rung, cold, n_acc, heads = step(
             st, ac, torch.as_tensor(np.asarray(jrungs[it]), dtype=torch.int64), it,
-            noises, exchange)
+            noise, exchange)
+        new, acc_new = checkpoint.unstack(new), checkpoint.unstack(acc_new)
         rec = {"rung": rung.numpy(), "cold": cold.numpy(), "n_acc": n_acc.numpy(),
                "heads": np.int64(heads)}
         for j, i in enumerate(part.replicas):

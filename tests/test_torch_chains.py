@@ -228,18 +228,50 @@ def test_check_finite_names_a_bad_chain_field():
         sampler.check_finite(5, [state._replace(gamma=gamma)])
 
 
-def test_resident_kernels_take_one_chain():
-    """The resident kernels sweep one chain: a batched state is refused, and
-    run_chains with cuda_resident runs its chains one after another."""
-    t = _counts(biallelic=False)
+def _resident_batched_sweep(G):
+    """A batched resident sweep of C chains calls each of its kernels'
+    wrappers once (fused_sweep and gamma_apply_eta; with one strain
+    tau_sweep, gamma_ll and the apply), and on the plain path's counters
+    (CPU tensors) no kernel launches."""
+    t = _counts(biallelic=False, G=max(G, 2))
     n = torch.as_tensor(t.data.counts, dtype=torch.float32)
-    cfg = sampler.SamplerConfig(G=2, burn=2, samples=2, nmf_iters=20)
-    gens = [sampler.chain_generator(s, "cpu") for s in range(2)]
+    cfg = sampler.SamplerConfig(G=G, burn=2, samples=2, nmf_iters=20)
+    gens = [sampler.chain_generator(s, "cpu") for s in range(C)]
     state = sampler.init_states(n, cfg, gens)
-    sweep = sampler.make_sweep_fn(cfg, "cuda_resident")
-    with pytest.raises(ValueError, match="one chain at a time"):
-        sweep(n, state, sampler.init_accum(40, 5, 2, "cpu", chains=2), 0,
-              sampler.ChainNoise(sampler.TorchNoise(g) for g in gens))
+    calls = Counter()
+    ks = ops.resolve("cuda_resident")
+
+    def wrap(name):
+        fn = getattr(ks, name)
+
+        def counted(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    ks = ks._replace(**{f: wrap(f) for f in ("tau_sweep", "swap", "gamma_ll",
+                                             "gamma_apply_eta", "fused_sweep")})
+    ops.reset_launches()
+    sweep = sampler.make_sweep_fn(cfg, ks)
+    new, acc, ll = sweep(n, state, sampler.init_accum(40, 5, G, "cpu", chains=C), 0,
+                         sampler.ChainNoise(sampler.TorchNoise(g) for g in gens))
+    want = ({"fused_sweep": 1, "gamma_apply_eta": 1} if G > 1 else
+            {"tau_sweep": 1, "gamma_ll": 1, "gamma_apply_eta": 1})
+    assert calls == want and ll.shape == (C,) and new.tau.shape == (C, 40, G)
+    assert all(w.launches == 0 and w.chain_launches == 0 for w in ops.CHAIN_AXIS)
+
+
+def test_resident_kernels_take_one_chain():
+    """The resident kernels take a chain axis (a batched state is no longer
+    refused): one call of fused_sweep and of gamma_apply_eta a sweep of C
+    chains."""
+    _resident_batched_sweep(2)
+
+
+def test_resident_one_strain_sweep_takes_the_chain_axis():
+    """With one strain (no swap to fuse): one call each of tau_sweep,
+    gamma_ll and gamma_apply_eta a sweep of C chains."""
+    _resident_batched_sweep(1)
 
 
 def test_init_states_and_accum_stack_the_chains():

@@ -9,6 +9,8 @@ float near-ties of the Gumbel-argmax (agreement >= 0.99 a chain); where
 tau agrees the mixture agrees to rtol 1e-6 (atol 1e-6 for the entries the
 strain updates cancel to about zero).
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ import torch
 from desman_tpu.ops import tau_topk as jt
 from desman_tpu.ops.swap_pallas import swap_bmajor
 from desman_tpu.ops.tau_pallas import from_bmajor, tau_sweep_pallas_from_gz, to_bmajor
-from desman_tpu_torch import convert, ops, synth
+from desman_tpu_torch import convert, ops, sampler, synth
 from desman_tpu_torch.likelihood import mixture
 from desman_tpu_torch.ops import _build, tau_kernel
 from desman_tpu_torch.utils import one_hot_tau
@@ -222,7 +224,8 @@ def test_cpu_chain_wrappers_launch_nothing():
     ops.tau_sweep(n, tau, mix, gamma, eta, gz)
     ops.swap(n, tau, mix, gamma, eta, g, h, logu)
     assert all(w.launches == 0 and w.chain_launches == 0 for w in ops.CHAIN_AXIS)
-    assert set(ops.CHAIN_AXIS) == {ops.tau_sweep, ops.swap, ops.tau_sweep_topk}
+    assert set(ops.CHAIN_AXIS) == {ops.tau_sweep, ops.swap, ops.tau_sweep_topk,
+                                   ops.gamma_ll, ops.gamma_apply_eta, ops.fused_sweep}
 
 
 def test_resident_grid_splits_the_blocks_over_the_chains(monkeypatch):
@@ -294,8 +297,29 @@ def test_kernel_bench_chain_inputs(topk):
         np.testing.assert_allclose(
             d["mix"][c].numpy(), mixture(one_hot_tau(d["tau"][c]), d["gamma"][c]).numpy(),
             rtol=1e-6, atol=1e-7)
-    for name in (("tau_sweep_topk",) if topk else ("tau_sweep", "swap")):
+    for name in (("tau_sweep_topk",) if topk else
+                 ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta", "fused_sweep")):
         batched, one = kb.chain_calls(ops, name, d)
         got = batched()
+        got = got if isinstance(got, tuple) else (got,)   # gamma_ll: one output
         for c in range(3):
-            assert all(torch.equal(a[c], b) for a, b in zip(got, one(c))), (name, c)
+            solo = one(c)
+            solo = solo if isinstance(solo, tuple) else (solo,)
+            assert all(torch.equal(a[c], b) for a, b in zip(got, solo)), (name, c)
+
+
+def test_kernel_bench_paths_take_each_trees_modules():
+    """measure_paths drives each tree's own sampler, multibin and
+    profile_sweep: tree_module resolves a module in the package of the ops
+    module it is given (here this checkout loaded again under another
+    name)."""
+    from desman_tpu_torch import kernel_bench as kb
+    from desman_tpu_torch import multibin, profile_sweep
+
+    root = Path(__file__).resolve().parents[1]
+    other = kb.load_ops(root, "desman_tpu_torch_paths_under_test")
+    assert kb.tree_module(ops, "multibin") is multibin
+    assert kb.tree_module(ops, "profile_sweep") is profile_sweep
+    theirs = kb.tree_module(other, "sampler")
+    assert theirs.__name__ == "desman_tpu_torch_paths_under_test.sampler"
+    assert theirs.run_chains is not sampler.run_chains

@@ -499,7 +499,9 @@ def test_run_chains_on_the_card(cuda):
     ops.reset_launches()
     res = run_chains(n, cfg, [0, 1], kernel="cuda_resident")
     torch.cuda.synchronize()
-    assert ops.fused_sweep.launches == 40
+    # the chain axis: one launch of each resident kernel a sweep of both
+    assert ops.fused_sweep.launches == 20 and ops.fused_sweep.chain_launches == 40
+    assert ops.gamma_apply_eta.launches == 20 and ops.gamma_apply_eta.chain_launches == 40
     assert res.loglik_trace.shape == (2, 20) and res.loglik_trace.is_cuda
     for i, seed in enumerate((0, 1)):
         gen = torch.Generator(device=cuda)
@@ -507,6 +509,92 @@ def test_run_chains_on_the_card(cuda):
         one = run_chain(n, cfg, gen, kernel="cuda_resident")
         for name, a, b in zip(one._fields, res, one):
             assert (a is None and b is None) or torch.equal(a[i], b), (seed, name)
+
+
+def _resident_chain_inputs(V, S, G, C, seed, device, own_counts=False):
+    """C chains' inputs of the resident kernels on the card, chain c's from
+    numpy's default_rng(seed + c): its own tau, mixture, gamma, eta, noise,
+    swap pair, gamma proposal, accepts and eta proposal; the counts shared
+    ([V,S,4]) or each chain's own ([C,V,S,4])."""
+    chains = []
+    for c in range(C):
+        n, tau, mix, gamma, eta, gz, g, h, logu, gp = _resident_inputs(
+            V, S, G, seed + (c if own_counts else 0), device)
+        rng = np.random.default_rng(seed + c)
+        tau = torch.as_tensor(rng.integers(0, 4, size=(V, G)), dtype=torch.int32,
+                              device=device)
+        gp = torch.as_tensor(rng.dirichlet(np.ones(G), size=S), dtype=torch.float32,
+                             device=device)
+        chains.append(dict(
+            n=n, tau=tau, mix=mixture(one_hot_tau(tau), gamma), gamma=gamma, eta=eta,
+            gz=gz, g=torch.tensor(c % G, dtype=torch.int32, device=device),
+            h=torch.tensor((c + 1) % G, dtype=torch.int32, device=device),
+            logu=logu, gp=gp,
+            accept=torch.as_tensor(rng.random(S) < 0.5, device=device),
+            eta_prop=eta.flip(0).contiguous()))
+    d = {k: torch.stack([x[k] for x in chains]) for k in chains[0]}
+    if not own_counts:
+        d["n"] = chains[0]["n"]
+    return d
+
+
+RESIDENT_ARGS = {
+    "gamma_ll": ("n", "mix", "tau", "gp", "eta"),
+    "gamma_apply_eta": ("n", "mix", "tau", "gp", "accept", "eta_prop"),
+    "fused_sweep": ("n", "tau", "mix", "gamma", "eta", "gz", "g", "h", "logu", "gp"),
+}
+# (V, S, G): the metric shape, ragged V with odd V * G (chain slices of tau
+# off 16 bytes), G = 1, and S past the 3632 samples of shared-memory slots
+RESIDENT_CHAIN_SHAPES = [(1000, 64, 8), (77, 12, 3), (96, 40, 1), (64, 4000, 4)]
+
+
+@pytest.mark.parametrize("own_counts", [False, True], ids=["shared", "own_counts"])
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("V,S,G", RESIDENT_CHAIN_SHAPES)
+def test_resident_kernels_take_a_chain_axis(cuda, V, S, G, C, own_counts):
+    """gamma_ll, gamma_apply_eta and fused_sweep with C chains in one
+    launch: chain c bitwise the solo launch on chain c's inputs (copied out
+    of the stack), one launch and C chain launches a call; against the
+    plain version over [C]: sums to rtol 1e-5, tau agreement >= 0.99."""
+    d = _resident_chain_inputs(V, S, G, C, 20 + V, cuda, own_counts)
+    for name, keys in RESIDENT_ARGS.items():
+        if name == "fused_sweep" and G == 1:
+            continue
+        fn = getattr(ops, name)
+        ops.reset_launches()
+        got = fn(*(d[k] for k in keys))
+        assert (fn.launches, fn.chain_launches) == (1, C), name
+        got = got if isinstance(got, tuple) else (got,)
+        for c in range(C):
+            one = fn(*(d[k] if k == "n" and d[k].dim() == 3 else d[k][c].clone()
+                       for k in keys))
+            one = one if isinstance(one, tuple) else (one,)
+            assert all(torch.equal(a[c], b) for a, b in zip(got, one)), (name, c)
+        plain = getattr(ops, f"{name}_reference")(*(d[k] for k in keys))
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        torch.cuda.synchronize()
+        if name == "fused_sweep":
+            same = (got[0] == plain[0]).all(dim=-1)
+            assert same.float().mean().item() >= 0.99
+            if bool(same.all()):
+                _assert_ll_close(got[2], plain[2])
+        elif name == "gamma_ll":
+            _assert_ll_close(got[0], plain[0])
+        else:
+            torch.testing.assert_close(got[0], plain[0], rtol=1e-5, atol=1e-6)
+            _assert_ll_close(got[1], plain[1])
+
+
+def test_resident_chains_of_one_launch_keep_the_parent_grid(cuda):
+    """A launch of one chain through the chain-axis wrappers ([1, ...]) is
+    bitwise the launch without the axis."""
+    d = _resident_chain_inputs(1000, 64, 8, 1, 3, cuda)
+    for name, keys in RESIDENT_ARGS.items():
+        fn = getattr(ops, name)
+        a = fn(*(d[k] for k in keys))
+        b = fn(*(d[k] if k == "n" else d[k][0] for k in keys))
+        a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+        assert all(torch.equal(x[0], y) for x, y in zip(a, b)), name
 
 
 def test_topk_refuses_dense_counts_on_the_card(cuda):
@@ -635,11 +723,12 @@ def test_chains_auto_is_each_chains_auto_on_the_card(cuda):
 @pytest.mark.parametrize("kernel", ["cuda", "cuda_topk"])
 def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
     """A 4-replica PT run at V=1e4 S=64 G=8 (cuda_topk: on biallelic
-    counts) launches its tau kernel and the swap R x sweeps times; stopped
+    counts) launches its tau kernel and the swap once an ensemble sweep
+    (the replicas on the chain axis: R x sweeps chain launches); stopped
     after two of three checkpoint segments and resumed from its snapshot
     (every replica's and the exchange's Philox state included), it is
-    bitwise the uninterrupted run, and the resumed part launches R x its
-    sweeps."""
+    bitwise the uninterrupted run, and the resumed part launches once a
+    sweep of its sweeps."""
     from desman_tpu_torch import checkpoint
     from desman_tpu_torch.sampler import SamplerConfig, run_chain_pt
 
@@ -651,7 +740,8 @@ def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
     ops.reset_launches()
     ref = run_chain_pt(n, cfg, 0, n_replicas=4, kernel=kernel)
     torch.cuda.synchronize()
-    assert tau.launches == 4 * 60 and ops.swap.launches == 4 * 60
+    assert tau.launches == 60 and ops.swap.launches == 60
+    assert tau.chain_launches == 4 * 60 and ops.swap.chain_launches == 4 * 60
     assert 0.0 < float(ref.pt_swap_accept) <= 1.0
     ck = str(tmp_path / "pt.npz")
     real = checkpoint.run_pt_segment
@@ -673,7 +763,8 @@ def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
     got = checkpoint.run_chain_pt_checkpointed(n, cfg, 0, ck, checkpoint_every=20,
                                                n_replicas=4, kernel=kernel)
     torch.cuda.synchronize()
-    assert tau.launches == 4 * 20 and ops.swap.launches == 4 * 20
+    assert tau.launches == 20 and ops.swap.launches == 20
+    assert tau.chain_launches == 4 * 20 and ops.swap.chain_launches == 4 * 20
     for name, a, b in zip(ref._fields, ref, got):
         assert (a is None and b is None) or torch.equal(a, b), name
 
@@ -683,9 +774,10 @@ def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
 
 def test_multibin_is_bitwise_run_chain_per_bin(cuda):
     """Three bins of S=64 padded to V=1999 (a tail tile short of 8 rows)
-    run through the tau and swap kernels, each bitwise run_chain of its
-    padded counts with its generator; the kernels agree with their plain
-    versions on the padded counts, zero rows included."""
+    run through the tau and swap kernels on the chain axis (one launch a
+    sweep of all three, each bin on its own counts), each bitwise run_chain
+    of its padded counts with its generator; the kernels agree with their
+    plain versions on the padded counts, zero rows included."""
     from desman_tpu_torch import multibin
     from desman_tpu_torch.sampler import (
         SamplerConfig, chain_generator, init_state, run_chain, spawn_seeds,
@@ -697,7 +789,8 @@ def test_multibin_is_bitwise_run_chain_per_bin(cuda):
     ops.reset_launches()
     results = multibin.run_bins(bins, cfg, seed=3, device=cuda)
     torch.cuda.synchronize()
-    assert ops.tau_sweep.launches == 3 * 30 and ops.swap.launches == 3 * 30
+    assert ops.tau_sweep.launches == 30 and ops.swap.launches == 30
+    assert ops.tau_sweep.chain_launches == 3 * 30 and ops.swap.chain_launches == 3 * 30
     padded = torch.as_tensor(multibin.pad_bins(bins), device=cuda)
     assert padded.shape == (3, 1999, 64, 4)
     for b, (counts, res, seed) in enumerate(zip(bins, results, spawn_seeds(3, 3))):

@@ -33,6 +33,7 @@ MODULES = [
     "desman_tpu_torch.parallel.shard_ckpt", "desman_tpu_torch.baseline_numpy",
     "desman_tpu_torch.bench", "desman_tpu_torch.complete_example",
     "desman_tpu_torch.bench_suite", "desman_tpu_torch.make_testdata",
+    "desman_tpu_torch.profile_sweep",
 ]
 
 

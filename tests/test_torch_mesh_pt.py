@@ -37,9 +37,11 @@ R = 4
 SEED = 5
 # stored draws every other sampling sweep: the cold rung's draws cross rows
 CFG = dict(G=3, burn=6, samples=6, nmf_iters=30, store_samples=True, store_thin=2)
-# collectives an ensemble sweep: two row sums a replica sweep on a data axis
-# of 2, one chain-axis exchange on a chain axis of 2
-COLLECTIVES = {(1, 2): 8.0, (2, 1): 1.0, (2, 2): 5.0}
+# collectives an ensemble sweep: a row's replicas sweep as one chain axis,
+# so two row sums an ensemble sweep on a data axis of 2 (the gamma pair and
+# the eta loglik of all the row's replicas at once), one chain-axis
+# exchange on a chain axis of 2
+COLLECTIVES = {(1, 2): 2.0, (2, 1): 1.0, (2, 2): 3.0}
 
 
 @pytest.fixture(scope="module")

@@ -13,12 +13,13 @@ import pytest
 import torch
 
 from desman_tpu import sampler as js
-from desman_tpu_torch import convert, ops, sampler, synth
+from desman_tpu_torch import checkpoint, convert, ops, sampler, synth
 from desman_tpu_torch.geneassign import assign_gene_tau
 from desman_tpu_torch.utils import snp_distance_perm
 
 from torch_helpers import (
-    ReplayExchange, ReplayNoise, check_replayed_sweep, to_jax, to_torch,
+    ReplayExchange, ReplayNoise, check_replayed_sweep, jax_state_numpy, to_jax,
+    to_torch,
 )
 
 R = 4
@@ -56,18 +57,19 @@ def test_pt_step_replays_the_jax_step():
     carry = jax.jit(js.pt_init, static_argnums=(1, 3))(n_j, jcfg, key, R)
     jstep = jax.jit(js.make_pt_step(n_j, jcfg, key, R, 8.0))
     pstep = sampler.make_pt_step(n_p, pcfg, R, 8.0, "cuda")
-    exchange = ReplayExchange(key)
+    exchange = [ReplayExchange(key)]
     agreed = 0
     for it in range(10):
         jst, jac, jrung = carry
         carry, (jcold, jnacc, jnheads) = jstep(carry, jnp.int32(it))
         jst2, jac2, jrung2 = carry
-        states = [convert.state_from_numpy(_replica(jst, i)) for i in range(R)]
-        accums = [convert.accum_from_numpy(_replica(jac, i)) for i in range(R)]
-        noises = [ReplayNoise(jst.key[i]) for i in range(R)]
+        state = convert.state_from_numpy(jax_state_numpy(jst))
+        accum = convert.accum_from_numpy(jax_state_numpy(jac))
+        noise = sampler.ChainNoise(ReplayNoise(jst.key[i]) for i in range(R))
         pst, pac, prung, pcold, pnacc, pnheads = pstep(
-            states, accums, torch.as_tensor(np.array(jrung), dtype=torch.int64),
-            it, noises, exchange)
+            state, accum, torch.as_tensor(np.array(jrung), dtype=torch.int64),
+            it, noise, exchange)
+        pst, pac = checkpoint.unstack(pst), checkpoint.unstack(pac)
         np.testing.assert_array_equal(prung.numpy(), np.asarray(jrung2))
         assert float(pnacc) == float(jnacc) and pnheads == float(jnheads)
         np.testing.assert_allclose(float(pcold), float(jcold), rtol=1e-5)
@@ -240,6 +242,12 @@ def frozen():
     return n, cfg, states, accums, noises
 
 
+def _ensemble(states, accums, noises):
+    """The replicas' lists as the PT step takes them: on a leading axis."""
+    return (checkpoint.stack(states), checkpoint.stack(accums),
+            sampler.ChainNoise(noises))
+
+
 class Accept:
     """An exchange source whose every uniform accepts a delta >= -27."""
 
@@ -252,8 +260,9 @@ def test_hot_replicas_keep_their_accumulators(frozen):
     pre-sweep accumulators, star included."""
     n, cfg, states, accums, noises = frozen
     step = sampler.make_pt_step(n, cfg, 4, 8.0, "cuda")
-    _, new, _, _, _, _ = step(states, accums, torch.tensor([2, 0, 3, 1]), 0,
-                              noises, Accept())
+    st, ac, noise = _ensemble(states, accums, noises)
+    _, new, _, _, _, _ = step(st, ac, torch.tensor([2, 0, 3, 1]), 0, noise, [Accept()])
+    new = checkpoint.unstack(new)
     assert float(new[1].n_samples) == 1.0
     assert float(new[1].star_loglik) == float(states[1].loglik)
     assert torch.equal(new[1].star_tau, states[1].tau)
@@ -269,16 +278,17 @@ def test_exchange_moves_rungs_kappas_and_records_the_pre_exchange_cold(frozen):
     step = sampler.make_pt_step(n, cfg, 4, 8.0, "cuda")
     rung = torch.arange(4)
     kg = [float(s.kappa_gamma) for s in states]
-    st, _, rung1, cold, n_acc, heads = step(states, accums, rung, 0, noises, Accept())
+    st0, ac, noise = _ensemble(states, accums, noises)
+    st, _, rung1, cold, n_acc, heads = step(st0, ac, rung, 0, noise, [Accept()])
     assert rung1.tolist() == [1, 0, 3, 2] and (float(n_acc), heads) == (2.0, 2)
     assert float(cold) == float(states[0].loglik)
     # rung r keeps the kappa it had: replica 0, now on rung 1, has rung 1's
-    assert [float(s.kappa_gamma) for s in st] == [kg[1], kg[0], kg[3], kg[2]]
-    assert [float(s.kappa_eta) for s in st] == [2000.0, 1000.0, 4000.0, 3000.0]
-    st, _, rung2, cold, n_acc, heads = step(st, accums, rung1, 1, noises, Accept())
+    assert st.kappa_gamma.tolist() == [kg[1], kg[0], kg[3], kg[2]]
+    assert st.kappa_eta.tolist() == [2000.0, 1000.0, 4000.0, 3000.0]
+    st, _, rung2, cold, n_acc, heads = step(st, ac, rung1, 1, noise, [Accept()])
     assert rung2.tolist() == [2, 0, 3, 1] and (float(n_acc), heads) == (1.0, 1)
     assert float(cold) == float(states[1].loglik)
-    by_rung = [float(st[int(i)].kappa_gamma) for i in torch.argsort(rung2)]
+    by_rung = [float(st.kappa_gamma[int(i)]) for i in torch.argsort(rung2)]
     assert by_rung == kg
 
 
@@ -287,8 +297,9 @@ def test_stored_draw_is_the_post_exchange_cold_replica(frozen):
     sweep's exchange."""
     n, cfg, states, accums, noises = frozen
     cfg = dataclasses.replace(cfg, store_samples=True, store_thin=1)
-    out = sampler.run_pt_segment(n, cfg, states, accums, torch.arange(4), 0, 1,
-                                 noises, Accept(), 8.0, "cuda", store=True)
+    st, ac, noise = _ensemble(states, accums, noises)
+    out = sampler.run_pt_segment(n, cfg, st, ac, torch.arange(4), 0, 1,
+                                 noise, [Accept()], 8.0, "cuda", store=True)
     assert out[2].tolist() == [1, 0, 3, 2]
     tau_s, gamma_s, eta_s = out[6]
     assert torch.equal(tau_s[0], states[1].tau.to(torch.int8))
@@ -306,9 +317,10 @@ def test_swap_rate_is_per_proposal():
                                 fix_gamma=True, fix_eta=True)
     st = sampler.init_state(n, cfg, sampler.chain_generator(0, "cpu"))
     out = sampler.run_pt_segment(
-        n, cfg, [st, st], [sampler.init_accum(30, 4, 2, "cpu")] * 2, torch.arange(2),
-        0, 10, [sampler.TorchNoise(sampler.chain_generator(i, "cpu")) for i in (1, 2)],
-        Accept(), 8.0, "cuda")
+        n, cfg, checkpoint.stack([st, st]), sampler.init_accum(30, 4, 2, "cpu", chains=2),
+        torch.arange(2), 0, 10, sampler.ChainNoise(
+            sampler.TorchNoise(sampler.chain_generator(i, "cpu")) for i in (1, 2)),
+        [Accept()], 8.0, "cuda")
     assert (float(out[4]), out[5]) == (5.0, 5)
     assert float(sampler.pt_swap_rate(out[4], out[5])) == 1.0
 

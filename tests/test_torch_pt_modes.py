@@ -76,8 +76,8 @@ def test_interrupted_pt_run_resumes_bitwise(counts, cfg, tmp_path, monkeypatch):
         checkpoint.run_chain_pt_checkpointed(counts, cfg, 5, ck, checkpoint_every=7,
                                              n_replicas=3, max_temp=4.0)
     assert calls == [0, 7]
-    states, accums, rung, it, trace, n_acc, n_heads, gen = checkpoint.load_pt(ck)
-    assert (it, len(states), trace.shape, gen.shape[0]) == (14, 3, (14,), 4)
+    state, accum, rung, it, trace, n_acc, n_heads, gen = checkpoint.load_pt(ck)
+    assert (it, state.tau.shape[0], trace.shape, gen.shape[0]) == (14, 3, (14,), 4)
     assert rung.dtype == torch.int64 and sorted(rung.tolist()) == [0, 1, 2]
     assert n_heads == 14.0 and 0 <= n_acc <= n_heads
     monkeypatch.undo()
@@ -139,11 +139,9 @@ def test_jax_pt_snapshot_replays_one_segment(tmp_path):
     pst0, pac0, _ = sampler.pt_init(torch.as_tensor(t.data.counts, dtype=torch.float32),
                                     pcfg, sampler.pt_generators(8, 3, "cpu")[:3])
     states = js.SamplerState(key=jax.random.split(key, 3), **{
-        k: jnp.stack([jnp.asarray(convert.state_to_numpy(st)[k]) for st in pst0])
-        for k in sampler.SamplerState._fields})
+        k: jnp.asarray(v) for k, v in convert.state_to_numpy(pst0).items()})
     accums = js.SamplerAccum(**{
-        k: jnp.stack([jnp.asarray(convert.accum_to_numpy(ac)[k]) for ac in pac0])
-        for k in sampler.SamplerAccum._fields})
+        k: jnp.asarray(v) for k, v in convert.accum_to_numpy(pac0).items()})
     rung = jnp.arange(3)
     acc = heads = 0.0
     for it in range(3):
@@ -158,10 +156,11 @@ def test_jax_pt_snapshot_replays_one_segment(tmp_path):
     np.testing.assert_array_equal(prung.numpy(), np.asarray(rung))
     jnew = jck.run_pt_segment(n, jcfg, key, states, accums, rung, 3, 1, 4.0)
     with np.load(path) as z:
-        noises = [ReplayNoise(k) for k in z["state_key"]]
+        noise = sampler.ChainNoise(ReplayNoise(k) for k in z["state_key"])
     out = sampler.run_pt_segment(torch.as_tensor(t.data.counts, dtype=torch.float32),
-                                 pcfg, pst, pac, prung, 3, 1, noises,
-                                 ReplayExchange(key), 4.0, "cuda")
+                                 pcfg, pst, pac, prung, 3, 1, noise,
+                                 [ReplayExchange(key)], 4.0, "cuda")
+    new_states, new_accums = checkpoint.unstack(out[0]), checkpoint.unstack(out[1])
     np.testing.assert_array_equal(out[2].numpy(), np.asarray(jnew[2]))
     assert (float(out[4]), out[5]) == (float(jnew[4]), float(jnew[5]))
     np.testing.assert_allclose(out[3].numpy(), np.asarray(jnew[3]), rtol=1e-5)
@@ -169,10 +168,11 @@ def test_jax_pt_snapshot_replays_one_segment(tmp_path):
         def rep(tree):
             return {k: np.asarray(v)[i] for k, v in tree._asdict().items()}
         want = rep(jnew[0])
-        assert check_replayed_sweep(3, rep(states), want, convert.state_to_numpy(out[0][i]),
-                                    want["loglik"], out[0][i].loglik,
+        assert check_replayed_sweep(3, rep(states), want,
+                                    convert.state_to_numpy(new_states[i]),
+                                    want["loglik"], new_states[i].loglik,
                                     jax.tree_util.tree_map(lambda x: x[i], jnew[1]),
-                                    out[1][i])
+                                    new_accums[i])
 
 
 # ---- auto-length PT ----
