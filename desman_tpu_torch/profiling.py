@@ -2,9 +2,16 @@
 
 ``device_trace`` captures a ``torch.profiler`` trace of a run (``desman
 --profile DIR``, ``RunConfig.profile_dir``) as a Chrome trace,
-``DIR/trace.json``, viewable in Perfetto or chrome://tracing;
-``SweepTimer`` keeps structured sweep-throughput segments. ``activities``
-is the profiler's activity set, shared with ``profile_sweep``.
+``DIR/trace.json``, viewable in Perfetto or chrome://tracing, with the
+program's spans on a track of their own. ``activities`` is the profiler's
+activity set, shared with ``profile_sweep``.
+
+``span`` marks a stage of the program (the pipeline's, the grid's, a
+chain's). It always times its block; while a torch profiler is active it
+also records it: its name, start and end on the profiler's clock (Unix-epoch
+nanoseconds, as kineto's ``start_ns()``) and its attributes. ``take_spans``
+hands the recorded spans over and forgets them. A span never waits for the
+device, and what the program computes and writes does not depend on it.
 """
 from __future__ import annotations
 
@@ -12,13 +19,60 @@ import contextlib
 import json
 import os
 import time
-from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
 TRACE_FILE = "trace.json"
+SPAN_TRACK = "desman spans"   # the spans' track: thread 0 of this process
+
+
+class Span(NamedTuple):
+    """One recorded span."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+_recorded: list = []     # finished spans, in the order they ended
+
+
+class span:
+    """``with span(name, **attrs) as s:`` times the block (``s.seconds``
+    afterwards) and records it while a torch profiler is active (the check
+    ``record_function`` makes). Not a ``record_function``: that would put
+    ranges on the device timeline. Attributes known only inside the block
+    go into ``s.attrs``."""
+
+    __slots__ = ("name", "attrs", "start_ns", "end_ns", "_recording")
+
+    def __init__(self, name: str, **attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self) -> "span":
+        self._recording = _autograd_profiler._is_profiler_enabled
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.time_ns()
+        if self._recording:
+            _recorded.append(Span(self.name, self.start_ns, self.end_ns, self.attrs))
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+def take_spans() -> list:
+    """The spans recorded since the last call, in the order they ended."""
+    spans = list(_recorded)
+    _recorded.clear()
+    return spans
 
 
 def activities(device) -> list:
@@ -31,8 +85,9 @@ def activities(device) -> list:
 @contextlib.contextmanager
 def device_trace(trace_dir: Optional[str], device="cpu"):
     """Trace the block with torch.profiler into trace_dir/trace.json
-    (a no-op when trace_dir is None). On a CUDA device the trace ends after
-    the device has finished the block's work."""
+    (a no-op when trace_dir is None), the spans it recorded included. On a
+    CUDA device the trace ends after the device has finished the block's
+    work."""
     if not trace_dir:
         yield
         return
@@ -42,36 +97,28 @@ def device_trace(trace_dir: Optional[str], device="cpu"):
         yield
         if cuda:
             torch.cuda.synchronize(device)
-    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
+    path = os.path.join(trace_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    _add_spans(path, take_spans())
 
 
-@dataclass
-class SweepTimer:
-    """Wall-clock segments -> sweeps/sec summary (JSONL-appendable)."""
-
-    segments: List[dict] = field(default_factory=list)
-    _t0: float = 0.0
-
-    def start(self):
-        self._t0 = time.time()
-
-    def stop(self, n_sweeps: int, label: str = "segment"):
-        dt = time.time() - self._t0
-        self.segments.append({
-            "label": label, "sweeps": n_sweeps, "seconds": dt,
-            "sweeps_per_s": n_sweeps / dt if dt > 0 else None,
-        })
-
-    def summary(self) -> dict:
-        total_sweeps = sum(s["sweeps"] for s in self.segments)
-        total_time = sum(s["seconds"] for s in self.segments)
-        return {
-            "total_sweeps": total_sweeps,
-            "total_seconds": total_time,
-            "sweeps_per_s": total_sweeps / total_time if total_time else None,
-            "segments": self.segments,
-        }
-
-    def write(self, path: str):
-        with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=2)
+def _add_spans(path: str, spans: list) -> None:
+    """Append `spans` to the Chrome trace at `path` as complete events on a
+    track of their own, on the trace's time base (``baseTimeNanoseconds``,
+    0 in a trace without one: absolute microseconds)."""
+    if not spans:
+        return
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), 0
+    events = trace.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                   "args": {"name": SPAN_TRACK}})
+    for s in spans:
+        events.append({
+            "ph": "X", "cat": "span", "name": s.name, "pid": pid, "tid": tid,
+            "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": s.attrs})
+    with open(path, "w") as f:
+        json.dump(trace, f)

@@ -35,7 +35,7 @@ from .likelihood import (
     deviance_from_loglik, log_likelihood_host_f64, total_coeff_host_f64,
 )
 from .ops import resolve
-from .profiling import device_trace
+from .profiling import device_trace, span
 from .sampler import (
     RESIDENT_PLAIN_ONLY, SamplerConfig, SamplerResult, chain_generator,
     chain_result, run_chain, run_chain_pt, run_chains, run_chains_pt,
@@ -548,67 +548,69 @@ def write_outputs(
     """
     from .diagnostics import draws_diagnostics, ess_bulk
 
-    io.ensure_dir(out_dir)
-    trace = _np(res.loglik_trace).astype(np.float64)
-    coeff = total_coeff_host_f64(data.counts)
-    post = trace[cfg.burn:]
-    if post.size:
-        mean_ll = math.fsum(post.tolist()) / post.size
-    else:  # degenerate all-burn config: fall back to the device accumulator
-        mean_ll = float(res.mean_loglik)
-    mean_dev = deviance_from_loglik(mean_ll, coeff)
-    tau_star, gamma_star, eta_star = (_np(res.tau_star), _np(res.gamma_star),
-                                      _np(res.eta_star))
-    star_ll_f64 = log_likelihood_host_f64(
-        data.counts, tau_star, gamma_star, eta_star, include_coeff=False)
-    star_dev = deviance_from_loglik(star_ll_f64, coeff)
+    with span("write_outputs", G=cfg.G, seed=seed):
+        io.ensure_dir(out_dir)
+        trace = _np(res.loglik_trace).astype(np.float64)
+        coeff = total_coeff_host_f64(data.counts)
+        post = trace[cfg.burn:]
+        if post.size:
+            mean_ll = math.fsum(post.tolist()) / post.size
+        else:  # degenerate all-burn config: fall back to the device accumulator
+            mean_ll = float(res.mean_loglik)
+        mean_dev = deviance_from_loglik(mean_ll, coeff)
+        tau_star, gamma_star, eta_star = (_np(res.tau_star), _np(res.gamma_star),
+                                          _np(res.eta_star))
+        with span("write_outputs.star_ll"):
+            star_ll_f64 = log_likelihood_host_f64(
+                data.counts, tau_star, gamma_star, eta_star, include_coeff=False)
+        star_dev = deviance_from_loglik(star_ll_f64, coeff)
 
-    io.write_fit_txt(
-        os.path.join(out_dir, "fit.txt"),
-        G=cfg.G, V=data.V, S=data.S,
-        mean_deviance=mean_dev, star_deviance=star_dev,
-        star_loglik=float(res.star_loglik) + coeff,
-    )
-    io.write_gamma_csv(os.path.join(out_dir, "Gamma_mean.csv"),
-                       _np(res.gamma_mean), data.samples)
-    io.write_gamma_csv(os.path.join(out_dir, "Gamma_star.csv"), gamma_star,
-                       data.samples)
-    io.write_eta_csv(os.path.join(out_dir, "Eta_mean.csv"), _np(res.eta_mean))
-    io.write_eta_csv(os.path.join(out_dir, "Eta_star.csv"), eta_star)
-    io.write_tau_star_csv(os.path.join(out_dir, "Filtered_Tau_star.csv"),
-                          tau_star, data.contigs, data.positions)
-    io.write_tau_mean_csv(os.path.join(out_dir, "Tau_mean.csv"),
-                          _np(res.tau_mean), data.contigs, data.positions)
+        io.write_fit_txt(
+            os.path.join(out_dir, "fit.txt"),
+            G=cfg.G, V=data.V, S=data.S,
+            mean_deviance=mean_dev, star_deviance=star_dev,
+            star_loglik=float(res.star_loglik) + coeff,
+        )
+        io.write_gamma_csv(os.path.join(out_dir, "Gamma_mean.csv"),
+                           _np(res.gamma_mean), data.samples)
+        io.write_gamma_csv(os.path.join(out_dir, "Gamma_star.csv"), gamma_star,
+                           data.samples)
+        io.write_eta_csv(os.path.join(out_dir, "Eta_mean.csv"), _np(res.eta_mean))
+        io.write_eta_csv(os.path.join(out_dir, "Eta_star.csv"), eta_star)
+        io.write_tau_star_csv(os.path.join(out_dir, "Filtered_Tau_star.csv"),
+                              tau_star, data.contigs, data.positions)
+        io.write_tau_mean_csv(os.path.join(out_dir, "Tau_mean.csv"),
+                              _np(res.tau_mean), data.contigs, data.positions)
 
-    ess_fields = {}
-    if post.size >= 4:
-        ess_fields["loglik_ess_bulk"] = float(ess_bulk(post[None, :]))
-    # per-parameter gamma/eta ESS whenever draws were stored
-    if res.gamma_samples is not None and res.gamma_samples.shape[0] >= 4:
-        d = draws_diagnostics({"gamma": _np(res.gamma_samples),
-                               "eta": _np(res.eta_samples)})
-        ess_fields.update({k: d[k] for k in
-                           ("gamma_ess_min", "gamma_ess_median", "eta_ess_min")})
-    metrics = {
-        "G": cfg.G, "V": data.V, "S": data.S,
-        **({"seed": int(seed)} if seed is not None else {}),
-        "sweeps": cfg.total_sweeps,
-        "sampling_sweeps": cfg.samples,
-        "mean_deviance": mean_dev,
-        "star_deviance": star_dev,
-        "accept_gamma": float(res.accept_gamma),
-        "accept_eta": float(res.accept_eta),
-        "accept_gamma_post": float(res.accept_gamma_post),
-        "accept_eta_post": float(res.accept_eta_post),
-        **ess_fields,
-        **({"pt_swap_accept": float(res.pt_swap_accept)}
-           if res.pt_swap_accept is not None else {}),
-        "final_loglik": float(trace[-1]),
-        "elapsed_s": elapsed,
-        "sweeps_per_s": (cfg.total_sweeps / elapsed) if elapsed else None,
-        **(extra_metrics or {}),
-    }
-    with open(os.path.join(out_dir, "metrics.json"), "w") as f:
-        json.dump(metrics, f, indent=2)
-    np.savetxt(os.path.join(out_dir, "loglik_trace.csv"),
-               _np(res.loglik_trace), delimiter=",")
+        ess_fields = {}
+        if post.size >= 4:
+            ess_fields["loglik_ess_bulk"] = float(ess_bulk(post[None, :]))
+        # per-parameter gamma/eta ESS whenever draws were stored
+        if res.gamma_samples is not None and res.gamma_samples.shape[0] >= 4:
+            d = draws_diagnostics({"gamma": _np(res.gamma_samples),
+                                   "eta": _np(res.eta_samples)})
+            ess_fields.update({k: d[k] for k in
+                               ("gamma_ess_min", "gamma_ess_median", "eta_ess_min")})
+        metrics = {
+            "G": cfg.G, "V": data.V, "S": data.S,
+            **({"seed": int(seed)} if seed is not None else {}),
+            "sweeps": cfg.total_sweeps,
+            "sampling_sweeps": cfg.samples,
+            "mean_deviance": mean_dev,
+            "star_deviance": star_dev,
+            "accept_gamma": float(res.accept_gamma),
+            "accept_eta": float(res.accept_eta),
+            "accept_gamma_post": float(res.accept_gamma_post),
+            "accept_eta_post": float(res.accept_eta_post),
+            **ess_fields,
+            **({"pt_swap_accept": float(res.pt_swap_accept)}
+               if res.pt_swap_accept is not None else {}),
+            "final_loglik": float(trace[-1]),
+            "elapsed_s": elapsed,
+            "sweeps_per_s": (cfg.total_sweeps / elapsed) if elapsed else None,
+            **(extra_metrics or {}),
+        }
+        with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=2)
+        np.savetxt(os.path.join(out_dir, "loglik_trace.csv"),
+                   _np(res.loglik_trace), delimiter=",")

@@ -59,6 +59,7 @@ from .likelihood import mixture
 from .nmf import em_gamma, nmf_init
 from .ops import Kernels, draw_gumbel, draw_swap_proposal, resolve
 from .ops.tau_kernel import gumbel_of
+from .profiling import span
 from .utils import NBASES, one_hot_tau, safe_log
 
 _GAMMA_FLOOR = 1e-10
@@ -708,15 +709,16 @@ def init_state(
     else:
         eta = torch.as_tensor(eta_init, dtype=torch.float32,
                               device=dev).contiguous()
-    if tau_init is not None and gamma_init is None:
-        tau = torch.as_tensor(tau_init, device=dev).to(torch.int32)
-        gamma = em_gamma(n, tau, eta)
-    elif tau_init is None or gamma_init is None:
-        tau, gamma = nmf_init(n, cfg.G, generator, iters=cfg.nmf_iters)
-        if gamma_init is not None:
-            gamma = gamma_init
-    else:
-        tau, gamma = tau_init, gamma_init
+    with span("chains.init"):   # the NMF or EM start
+        if tau_init is not None and gamma_init is None:
+            tau = torch.as_tensor(tau_init, device=dev).to(torch.int32)
+            gamma = em_gamma(n, tau, eta)
+        elif tau_init is None or gamma_init is None:
+            tau, gamma = nmf_init(n, cfg.G, generator, iters=cfg.nmf_iters)
+            if gamma_init is not None:
+                gamma = gamma_init
+        else:
+            tau, gamma = tau_init, gamma_init
     tau = torch.as_tensor(tau, device=dev).to(torch.int32).contiguous()
     gamma = torch.as_tensor(gamma, device=dev).to(torch.float32).contiguous()
     if block is not None:
@@ -784,23 +786,24 @@ def _result_from_accum(accum: SamplerAccum, cfg: SamplerConfig,
     """Posterior means + star snapshot from a finished accumulator (one
     chain's, or chains' with a leading axis) and the stored draws, when
     there are any."""
-    n_s = torch.clamp_min(accum.n_samples, 1.0)
-    return SamplerResult(
-        tau_mean=accum.sum_tau / _per(n_s, accum.sum_tau),
-        tau_star=accum.star_tau,
-        gamma_mean=accum.sum_gamma / _per(n_s, accum.sum_gamma),
-        gamma_star=accum.star_gamma,
-        eta_mean=accum.sum_eta / _per(n_s, accum.sum_eta),
-        eta_star=accum.star_eta,
-        mean_loglik=accum.sum_loglik / n_s,
-        star_loglik=accum.star_loglik,
-        loglik_trace=trace,
-        accept_gamma=accum.acc_gamma / cfg.total_sweeps,
-        accept_eta=accum.acc_eta / cfg.total_sweeps,
-        accept_gamma_post=accum.acc_gamma_post / n_s,
-        accept_eta_post=accum.acc_eta_post / n_s,
-        **draws,
-    )
+    with span("chains.summaries"):
+        n_s = torch.clamp_min(accum.n_samples, 1.0)
+        return SamplerResult(
+            tau_mean=accum.sum_tau / _per(n_s, accum.sum_tau),
+            tau_star=accum.star_tau,
+            gamma_mean=accum.sum_gamma / _per(n_s, accum.sum_gamma),
+            gamma_star=accum.star_gamma,
+            eta_mean=accum.sum_eta / _per(n_s, accum.sum_eta),
+            eta_star=accum.star_eta,
+            mean_loglik=accum.sum_loglik / n_s,
+            star_loglik=accum.star_loglik,
+            loglik_trace=trace,
+            accept_gamma=accum.acc_gamma / cfg.total_sweeps,
+            accept_eta=accum.acc_eta / cfg.total_sweeps,
+            accept_gamma_post=accum.acc_gamma_post / n_s,
+            accept_eta_post=accum.acc_eta_post / n_s,
+            **draws,
+        )
 
 
 def stored_slots(start_it: int, n_sweeps: int, burn: int, thin: int) -> list:
@@ -844,16 +847,17 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     draws = (torch.empty((*lead, k, V, cfg.G), dtype=torch.int8, device=dev),
              torch.empty((*lead, k, S, cfg.G), dtype=torch.float32, device=dev),
              torch.empty((*lead, k, NBASES, NBASES), dtype=torch.float32, device=dev))
-    j = 0
-    for i in range(n_sweeps):
-        state, accum, ll = sweep(n, state, accum, start_it + i, noise, burn=burn)
-        if _NAN_TRAP:
-            check_finite(start_it + i, [state], agree)
-        trace[..., i] = ll
-        if j < k and slots[j] == i:
-            for buf, x in zip(draws, (state.tau, state.gamma, state.eta)):
-                buf[..., j, :, :] = x
-            j += 1
+    with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()):
+        j = 0
+        for i in range(n_sweeps):
+            state, accum, ll = sweep(n, state, accum, start_it + i, noise, burn=burn)
+            if _NAN_TRAP:
+                check_finite(start_it + i, [state], agree)
+            trace[..., i] = ll
+            if j < k and slots[j] == i:
+                for buf, x in zip(draws, (state.tau, state.gamma, state.eta)):
+                    buf[..., j, :, :] = x
+                j += 1
     return (state, accum, trace, draws) if store else (state, accum, trace)
 
 
@@ -883,19 +887,20 @@ def run_chain(
     (draw j after sweep burn + (j+1)*thin - 1) is kept on the device, and
     the trajectory is bitwise the one without storage.
     """
-    n = n.to(torch.float32)
-    if not isinstance(kernel, Kernels):
-        kernel = resolve(kernel, n)
-    make_sweep_fn(cfg, kernel)   # the resident path's refusals, before the start
-    check_store_thin(cfg)
-    V, S, _ = n.shape
-    state = init_state(n, cfg, generator, eta_init, tau_init, gamma_init)
-    accum = init_accum(V, S, cfg.G, n.device)
-    noise = TorchNoise(generator) if noise is None else noise
-    out = run_segment(n, cfg, state, accum, 0, cfg.total_sweeps, noise, kernel,
-                      store=cfg.store_samples)
-    draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
-    return _result_from_accum(out[1], cfg, out[2], **draws)
+    with span("chains", chains=1):
+        n = n.to(torch.float32)
+        if not isinstance(kernel, Kernels):
+            kernel = resolve(kernel, n)
+        make_sweep_fn(cfg, kernel)   # the resident path's refusals, before the start
+        check_store_thin(cfg)
+        V, S, _ = n.shape
+        state = init_state(n, cfg, generator, eta_init, tau_init, gamma_init)
+        accum = init_accum(V, S, cfg.G, n.device)
+        noise = TorchNoise(generator) if noise is None else noise
+        out = run_segment(n, cfg, state, accum, 0, cfg.total_sweeps, noise, kernel,
+                          store=cfg.store_samples)
+        draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
+        return _result_from_accum(out[1], cfg, out[2], **draws)
 
 
 def chain_generator(seed: int, device) -> torch.Generator:
@@ -926,20 +931,21 @@ def run_chains(
     ``run_chain`` of n[i]). Fields that are None (no stored draws) stay
     None.
     """
-    n = n.to(torch.float32)
-    if not isinstance(kernel, Kernels):
-        kernel = resolve(kernel, n)
-    make_sweep_fn(cfg, kernel)   # the resident path's refusals, before the start
-    check_store_thin(cfg)
-    V, S, _ = n.shape[-3:]
-    generators = [chain_generator(seed, n.device) for seed in seeds]
-    state = init_states(n, cfg, generators, eta_init, tau_init)
-    accum = init_accum(V, S, cfg.G, n.device, chains=len(generators))
-    noise = ChainNoise(TorchNoise(g) for g in generators)
-    out = run_segment(n, cfg, state, accum, 0, cfg.total_sweeps, noise, kernel,
-                      store=cfg.store_samples)
-    draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
-    return _result_from_accum(out[1], cfg, out[2], **draws)
+    with span("chains", chains=len(seeds)):
+        n = n.to(torch.float32)
+        if not isinstance(kernel, Kernels):
+            kernel = resolve(kernel, n)
+        make_sweep_fn(cfg, kernel)   # the resident path's refusals, before the start
+        check_store_thin(cfg)
+        V, S, _ = n.shape[-3:]
+        generators = [chain_generator(seed, n.device) for seed in seeds]
+        state = init_states(n, cfg, generators, eta_init, tau_init)
+        accum = init_accum(V, S, cfg.G, n.device, chains=len(generators))
+        noise = ChainNoise(TorchNoise(g) for g in generators)
+        out = run_segment(n, cfg, state, accum, 0, cfg.total_sweeps, noise, kernel,
+                          store=cfg.store_samples)
+        draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
+        return _result_from_accum(out[1], cfg, out[2], **draws)
 
 
 def chain_result(res: SamplerResult, i: int) -> SamplerResult:
@@ -1170,28 +1176,29 @@ def run_pt_segment(n, cfg: SamplerConfig, state, accum, rung, start_it: int,
     # each run's first replica on the flat axis
     run_base = torch.arange(0, rung.numel(), R, device=dev)
     agree = None if shard is None else shard.agree
-    j = 0
-    for i in range(n_sweeps):
-        state, accum, rung, cold_ll, acc, heads = step(
-            state, accum, rung, start_it + i, noise, exchange)
-        if _NAN_TRAP:
-            check_finite(start_it + i, [state], agree)
-        trace[..., i] = cold_ll
-        n_acc = n_acc + acc
-        n_heads += heads
-        if j < k and slots[j] == i:
-            cold = torch.argmin(rung, dim=-1).reshape(-1)   # each run's rung 0
-            if len(local) < R:   # on this row, or zeros
-                mine = (cold >= local.start) & (cold < local.stop)
-                cold = torch.clamp(cold - local.start, 0, len(local) - 1)
-            else:
-                cold = cold + run_base
-            for buf, field in zip(draws, ("tau", "gamma", "eta")):
-                x = getattr(state, field).index_select(0, cold)
-                if len(local) < R:
-                    x = torch.where(mine, x[0], 0)
-                buf[..., j, :, :] = x.reshape(*runs, *x.shape[-2:])
-            j += 1
+    with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()):
+        j = 0
+        for i in range(n_sweeps):
+            state, accum, rung, cold_ll, acc, heads = step(
+                state, accum, rung, start_it + i, noise, exchange)
+            if _NAN_TRAP:
+                check_finite(start_it + i, [state], agree)
+            trace[..., i] = cold_ll
+            n_acc = n_acc + acc
+            n_heads += heads
+            if j < k and slots[j] == i:
+                cold = torch.argmin(rung, dim=-1).reshape(-1)   # each run's rung 0
+                if len(local) < R:   # on this row, or zeros
+                    mine = (cold >= local.start) & (cold < local.stop)
+                    cold = torch.clamp(cold - local.start, 0, len(local) - 1)
+                else:
+                    cold = cold + run_base
+                for buf, field in zip(draws, ("tau", "gamma", "eta")):
+                    x = getattr(state, field).index_select(0, cold)
+                    if len(local) < R:
+                        x = torch.where(mine, x[0], 0)
+                    buf[..., j, :, :] = x.reshape(*runs, *x.shape[-2:])
+                j += 1
     out = (state, accum, rung, trace, n_acc, n_heads)
     return out + (draws,) if store else out
 
@@ -1277,18 +1284,19 @@ def run_chain_pt(
     if R < 2:
         return run_chain(n, cfg, chain_generator(seed, n.device), eta_init=eta_init,
                          tau_init=tau_init, gamma_init=gamma_init, kernel=kernel)
-    make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
-    check_store_thin(cfg)
-    generators = pt_generators(seed, R, n.device)
-    state, accum, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init,
-                                 gamma_init)
-    noise, exchange = pt_noises(generators)
-    out = run_pt_segment(n, cfg, state, accum, rung, 0, cfg.total_sweeps,
-                         noise, exchange, max_temp, kernel,
-                         store=cfg.store_samples)
-    draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
-    return _result_from_accum(pt_merge_accums(out[1]), cfg, out[3],
-                              pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
+    with span("chains", chains=R):
+        make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
+        check_store_thin(cfg)
+        generators = pt_generators(seed, R, n.device)
+        state, accum, rung = pt_init(n, cfg, generators[:R], eta_init, tau_init,
+                                     gamma_init)
+        noise, exchange = pt_noises(generators)
+        out = run_pt_segment(n, cfg, state, accum, rung, 0, cfg.total_sweeps,
+                             noise, exchange, max_temp, kernel,
+                             store=cfg.store_samples)
+        draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
+        return _result_from_accum(pt_merge_accums(out[1]), cfg, out[3],
+                                  pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
 
 
 def run_chains_pt(
@@ -1314,16 +1322,17 @@ def run_chains_pt(
     if R < 2:
         return run_chains(n, cfg, seeds, eta_init=eta_init, kernel=kernel,
                           tau_init=tau_init)
-    make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
-    check_store_thin(cfg)
-    runs = [pt_generators(seed, R, n.device) for seed in seeds]
-    replicas = [g for gens in runs for g in gens[:R]]
-    state, accum, _ = pt_init(n, cfg, replicas, eta_init, tau_init)
-    rung = torch.arange(R, device=n.device).repeat(len(runs), 1)
-    out = run_pt_segment(n, cfg, state, accum, rung, 0, cfg.total_sweeps,
-                         ChainNoise(TorchNoise(g) for g in replicas),
-                         [ExchangeNoise(gens[R]) for gens in runs], max_temp, kernel,
-                         store=cfg.store_samples)
-    draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
-    return _result_from_accum(pt_merge_runs(out[1], len(runs)), cfg, out[3],
-                              pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
+    with span("chains", chains=R * len(seeds)):
+        make_pt_step(n, cfg, R, max_temp, kernel)   # the refusals, before the start
+        check_store_thin(cfg)
+        runs = [pt_generators(seed, R, n.device) for seed in seeds]
+        replicas = [g for gens in runs for g in gens[:R]]
+        state, accum, _ = pt_init(n, cfg, replicas, eta_init, tau_init)
+        rung = torch.arange(R, device=n.device).repeat(len(runs), 1)
+        out = run_pt_segment(n, cfg, state, accum, rung, 0, cfg.total_sweeps,
+                             ChainNoise(TorchNoise(g) for g in replicas),
+                             [ExchangeNoise(gens[R]) for gens in runs], max_temp,
+                             kernel, store=cfg.store_samples)
+        draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
+        return _result_from_accum(pt_merge_runs(out[1], len(runs)), cfg, out[3],
+                                  pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)

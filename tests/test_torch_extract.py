@@ -10,6 +10,7 @@ byte for byte where a file is compared.
 import gzip
 import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -30,6 +31,29 @@ def _same(a, b):
     assert np.array_equal(a.positions, b.positions) and a.positions.dtype == np.int64
     assert list(a.contigs) == list(b.contigs) and a.contigs.dtype == object
     assert list(a.samples) == list(b.samples)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_of_this_module(tmp_path_factory):
+    """The JAX package's native readers built into this module's own
+    directory and loaded from there. Its loaders build them in place under
+    ``desman_tpu/``, where another test file running at the same time may be
+    writing them still. Without a compiler nothing is patched: the loaders
+    then fail as they would."""
+    lib_dir = tmp_path_factory.mktemp("jax_native")
+    with pytest.MonkeyPatch.context() as mp:
+        for lib, src, cached in (("_LIB_PATH", "_SRC", ("_lib",)),
+                                 ("_PILEUP_LIB_PATH", "_PILEUP_SRC",
+                                  ("_pileup_lib", "_pileup_load_error"))):
+            out = str(lib_dir / os.path.basename(getattr(jnative, lib)))
+            try:
+                jnative._compile(getattr(jnative, src), out)
+            except (OSError, subprocess.CalledProcessError):
+                continue
+            mp.setattr(jnative, lib, out)
+            for name in cached:
+                mp.setattr(jnative, name, None)
+        yield
 
 
 @pytest.fixture(scope="module")

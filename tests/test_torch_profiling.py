@@ -8,7 +8,6 @@ import os
 
 import pytest
 
-from desman_tpu import profiling as jprofiling
 from desman_tpu_torch import cli, io, profiling, run, synth
 
 SAMPLED = ("Filtered_Tau_star.csv", "Tau_mean.csv", "Gamma_mean.csv",
@@ -47,22 +46,6 @@ def test_device_trace_writes_a_cpu_trace(tmp_path):
     assert any("aten::mm" in e.get("name", "") for e in _events(d))
     assert profiling.activities("cpu") == [torch.profiler.ProfilerActivity.CPU]
     assert torch.profiler.ProfilerActivity.CUDA in profiling.activities("cuda")
-
-
-def test_sweep_timer_matches_jax(tmp_path):
-    ours, theirs = profiling.SweepTimer(), jprofiling.SweepTimer()
-    for t in (ours, theirs):
-        t.start()
-        t.stop(10, label="a")
-        t.start()
-        t.stop(30, label="b")
-    s = ours.summary()
-    assert set(s) == set(theirs.summary())
-    assert s["total_sweeps"] == 40 and s["sweeps_per_s"] > 0
-    p = str(tmp_path / "timer.json")
-    ours.write(p)
-    with open(p) as f:
-        assert json.load(f)["segments"][1]["label"] == "b"
 
 
 def _same_sampled_files(a, b):
