@@ -105,26 +105,33 @@ def gamma_ll_reference(n, mix, tau, gamma_prop, eta, with_old=True):
     return torch.stack([old, new])
 
 
-def gamma_apply_eta(n, mix, tau, gamma_prop, accept, eta_prop, with_eta=True):
+def gamma_apply_eta(n, mix, tau, gamma_prop, accept, eta_prop, with_eta=True,
+                    mix_out=None):
     """(mix [V,S,4], ll_eta [S]): the accepted samples' proposal mixture
     applied, and the joint eta proposal's per-sample loglik against it
     (zeros unless with_eta).
 
     accept: [S] bool; eta_prop: [4,4]. Chains: as ``gamma_ll``'s, with
     accept [C,S] and eta_prop [C,4,4]; mix [C,V,S,4] and ll_eta [C,S] out.
-    Inputs are not modified.
+    Inputs are not modified. mix_out: a buffer of mix's shape, not mix's
+    own, that the new mix is written into and returned as (a CUDA graph's
+    static carry); None allocates one.
     """
     V, S, G, C, _ = _check(n, mix, tau, gamma_prop, eta_prop)
     lead = () if C is None else (C,)
     require("accept", accept, torch.bool, (*lead, S), n.device)
+    if mix_out is not None:
+        require("mix_out", mix_out, torch.float32, mix.shape, n.device)
+        if mix_out.data_ptr() == mix.data_ptr():
+            raise ValueError("gamma_apply_eta: mix_out must not be mix")
     if n.device.type == "cpu":
         return gamma_apply_eta_reference(n, mix, tau, gamma_prop, accept,
-                                         eta_prop, with_eta)
+                                         eta_prop, with_eta, mix_out)
     if n.device.type != "cuda":
         raise ValueError(f"gamma_apply_eta: no kernel for device {n.device}")
     lib = load_library()
     chains = C or 1
-    mix_out = torch.empty_like(mix)
+    mix_out = torch.empty_like(mix) if mix_out is None else mix_out
     if with_eta:
         ll = torch.empty((*lead, S), dtype=torch.float32, device=n.device)
         partial = partial_scratch(lib, V, 1, S, n.device, chains)
@@ -149,9 +156,13 @@ gamma_apply_eta.chain_launches = 0
 
 
 def gamma_apply_eta_reference(n, mix, tau, gamma_prop, accept, eta_prop,
-                              with_eta=True):
+                              with_eta=True, mix_out=None):
     """Plain PyTorch gamma_apply_eta. Over a chain axis, each chain in
-    turn."""
+    turn. mix_out as the kernel's."""
+    if mix_out is not None:
+        mix, ll = gamma_apply_eta_reference(n, mix, tau, gamma_prop, accept,
+                                            eta_prop, with_eta)
+        return mix_out.copy_(mix), ll
     if tau.dim() == 3:
         return per_chain(lambda *a: gamma_apply_eta_reference(*a, with_eta), (n,),
                          mix, tau, gamma_prop, accept, eta_prop)

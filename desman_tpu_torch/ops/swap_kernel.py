@@ -39,13 +39,15 @@ def _check(n, tau, mix, gamma, eta, g, h, logu):
     return V, S, G, C, stride
 
 
-def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
+def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False, tau_out=None):
     """Per-position swap MH of strains g and h: (tau [V,G] i32, mix [V,S,4]),
     and with emit_ll also ll [S], the post-swap per-sample loglik.
 
     g, h: 0-d int32 tensors in [0, G); logu: [V] log-uniform thresholds
     (already divided by any tempering beta). A position accepts where
-    logu < dll; g == h never accepts. Inputs are not modified.
+    logu < dll; g == h never accepts. Inputs are not modified. tau_out: a
+    buffer of tau's shape, not tau's own, that the new tau is written into
+    and returned as (a CUDA graph's static carry); None allocates one.
 
     Chains (without emit_ll): tau [C,V,G], mix [C,V,S,4], gamma [C,S,G],
     eta [C,4,4], g and h [C] and logu [C,V] move C chains in one launch, on
@@ -56,12 +58,16 @@ def swap(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
     V, S, G, C, stride = _check(n, tau, mix, gamma, eta, g, h, logu)
     if C is not None and emit_ll:
         raise ValueError("swap: emit_ll takes one chain")
+    if tau_out is not None:
+        require("tau_out", tau_out, torch.int32, tau.shape, n.device)
+        if tau_out.data_ptr() == tau.data_ptr():
+            raise ValueError("swap: tau_out must not be tau")
     if n.device.type == "cpu":
-        return swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll)
+        return swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll, tau_out)
     if n.device.type != "cuda":
         raise ValueError(f"swap: no kernel for device {n.device}")
     lib = load_library()
-    tau_out = torch.empty_like(tau)
+    tau_out = torch.empty_like(tau) if tau_out is None else tau_out
     mix_out = torch.empty_like(mix)
     ll = torch.empty(S, dtype=torch.float32, device=n.device) if emit_ll else None
     partial = partial_scratch(lib, V, 1, S, n.device) if emit_ll else None
@@ -82,13 +88,18 @@ swap.launches = 0
 swap.chain_launches = 0
 
 
-def swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False):
+def swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll=False,
+                   tau_out=None):
     """Plain PyTorch swap move (the JAX package's ``tau_swap_move`` with the
     proposal pre-drawn). The proposal is rank-1 in the mixture, so the MH
     log-ratio is one pass of sum n * (log p' - log p). emit_ll: also the
     post-swap per-sample loglik from those logs, sum over (v, b) of
     n*log p + accept * n*(log p' - log p) (swap_pallas's emit_ll). Over a
-    chain axis (without emit_ll), each chain in turn."""
+    chain axis (without emit_ll), each chain in turn. tau_out as the
+    kernel's."""
+    if tau_out is not None:
+        out = swap_reference(n, tau, mix, gamma, eta, g, h, logu, emit_ll)
+        return (tau_out.copy_(out[0]), *out[1:])
     if tau.dim() == 3:
         if emit_ll:
             raise ValueError("swap: emit_ll takes one chain")

@@ -33,7 +33,7 @@ import torch
 
 from .sampler import (
     SamplerConfig, SamplerState, _chains, _each, _eta_accept, _eta_proposal,
-    _gamma_accept, _gamma_proposal,
+    _field, _gamma_accept, _gamma_proposal, _tempered,
 )
 
 
@@ -57,19 +57,21 @@ def check_supported(cfg: SamplerConfig) -> None:
 
 
 def front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int, noise,
-          temp: float):
+          temp, into=None):
     """One sweep's tau, gamma and eta updates on the resident kernels.
 
-    ks: the ``ops.Kernels`` of the kernel choice. Returns (tau, mix, gamma,
-    eta, loglik, acc_gamma, acc_eta), as the staged front does. A state with
-    a chain axis sweeps every chain in each launch; n is then the counts
-    the chains share ([V,S,4]) or their own ([C,V,S,4]).
+    ks: the ``ops.Kernels`` of the kernel choice; temp: the anneal's tau
+    temperature, a host float or a 0-d device tensor. Returns (tau, mix,
+    gamma, eta, loglik, acc_gamma, acc_eta), as the staged front does. A
+    state with a chain axis sweeps every chain in each launch; n is then
+    the counts the chains share ([V,S,4]) or their own ([C,V,S,4]). into: a
+    state whose mix buffer the apply/eta kernel writes into, or None.
     """
     V, S, _ = n.shape[-3:]
     G = cfg.G
     C = _chains(state.gamma, 2)
     gz = noise.gumbel(it, V, G)
-    if temp != 1.0:
+    if _tempered(temp):
         gz = gz * temp
     swaps = cfg.swap_moves and G > 1
     if swaps:
@@ -92,13 +94,13 @@ def front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int, noise,
 
     if cfg.fix_eta:
         mix, _ = ks.gamma_apply_eta(n, mix, tau, gamma_prop, accept, eta,
-                                    with_eta=False)
+                                    with_eta=False, mix_out=_field(into, "mix"))
         return tau, mix, gamma, eta, loglik, acc_g, torch.zeros(
             loglik.shape, device=n.device)
     eta_prop, alpha_fwd_e, alpha_rev_e = _eta_proposal(
         cfg, eta, state.kappa_eta, noise, it)
     mix, ll_eta = ks.gamma_apply_eta(n, mix, tau, gamma_prop, accept,
-                                     eta_prop)
+                                     eta_prop, mix_out=_field(into, "mix"))
     eta, loglik, acc_e = _eta_accept(cfg, eta, eta_prop, alpha_fwd_e,
                                      alpha_rev_e, _each(C, torch.sum, ll_eta), loglik,
                                      noise, it)

@@ -420,10 +420,12 @@ def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
 
 
 def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
-               it: int, beta=1.0, psum=_own):
+               it: int, beta=1.0, psum=_own, mix_out=None):
     """Parallel per-sample Dirichlet-random-walk MH on gamma; beta < 1
     tempers the likelihood term only (replica exchange's target
-    prior * L^beta); psum adds the position shards' [2,S] sums.
+    prior * L^beta); psum adds the position shards' [2,S] sums. mix_out: a
+    buffer the new mix is written into (a CUDA graph's static carry), or
+    None.
 
     Returns (gamma, mix, accept_rate, loglik): the per-sample old/new
     likelihood terms of the MH ratio already give the post-update total
@@ -443,7 +445,7 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
     ll = psum(_each_n(C, ll_pair, n, mix, mix_prop, eta))
     accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev,
                                           ll[..., 0, :], ll[..., 1, :], noise, it, beta)
-    mix = torch.where(accept[..., None, :, None], mix_prop, mix)
+    mix = torch.where(accept[..., None, :, None], mix_prop, mix, out=mix_out)
     return gamma, mix, _each(C, torch.mean, accept.to(torch.float32)), loglik
 
 
@@ -524,7 +526,7 @@ def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
 
 
 def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
-                  noise, temp, beta=1.0, psum=_own):
+                  noise, temp, beta=1.0, psum=_own, into=None):
     """The sweep's tau, gamma and eta updates as separate steps: the tau
     sweep and swap kernels (or their plain versions), then gamma_step and
     eta_step_joint (or eta_step) as plain PyTorch ops.
@@ -536,7 +538,8 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     psum adds the position shards' likelihood sums (the identity on one
     device). Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta). A
     state with a chain axis sweeps every chain in one tau and one swap
-    launch.
+    launch. into: a state whose tau and mix buffers the swap and the gamma
+    step write their outputs into (``make_sweep_fn``'s step), or None.
     """
     V, S, _ = n.shape[-3:]
     G = cfg.G
@@ -552,7 +555,8 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
             g, h, logu = noise.swap(it, V, G)
             if _tempered(beta):
                 logu = logu / _per(beta, logu)
-            tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu)
+            tau, mix = ks.swap(n, tau, mix, state.gamma, state.eta, g, h, logu,
+                               tau_out=_field(into, "tau"))
     if cfg.fix_gamma:
         gamma = state.gamma
         acc_g = torch.zeros(state.loglik.shape, device=n.device)
@@ -560,7 +564,7 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     else:
         gamma, mix, acc_g, loglik = gamma_step(
             cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
-            noise, it, beta, psum)
+            noise, it, beta, psum, _field(into, "mix"))
     if cfg.fix_eta:
         eta, acc_e = state.eta, torch.zeros(state.loglik.shape, device=n.device)
     else:
@@ -569,6 +573,11 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
             cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it, beta,
             psum)
     return tau, mix, gamma, eta, loglik, acc_g, acc_e
+
+
+def _field(into, name: str):
+    """Field `name` of a destination state or accumulators, None for none."""
+    return None if into is None else getattr(into, name)
 
 
 # the resident path's refusal of run modes it cannot honor (the JAX
@@ -611,6 +620,11 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
     on every kernel choice: chain c bitwise its own sweep. temp and beta
     may then be [C] device tensors, one a chain (PT's replicas), and n the
     chains' own counts [C,V,S,4].
+
+    The sweep carries the function that does its work as ``sweep.step``,
+    with the host's three decisions of sweep `it` made by the caller, and
+    the anneal schedule as ``sweep.temperature(it)`` (a host float): the
+    CUDA graphs of ``sweep_graph`` capture ``step`` once a phase.
     """
     ks = kernel if isinstance(kernel, Kernels) else resolve(kernel)
     if ks.resident and psum is not _own:
@@ -634,21 +648,26 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
             np.float32(1.0) - np.float32(it) / np.float32(anneal_sweeps))
         return max(1.0, float(t))
 
-    def sweep(n, state: SamplerState, accum: SamplerAccum, it: int, noise,
-              burn: Optional[int] = None, temp=None, beta=1.0):
-        burn = cfg.burn if burn is None else burn
-        if ks.resident and (temp is not None or _tempered(beta)):
-            raise ValueError(RESIDENT_PLAIN_ONLY)
-        temp = temperature(it) if temp is None else temp
+    def step(n, state: SamplerState, accum: SamplerAccum, it: int, noise, temp,
+             adapt: bool, accumulate: bool, beta=1.0, into=None):
+        """Sweep `it` with the host's decisions made: temp (the tau
+        temperature, a host float or a device tensor), whether kappa
+        adapts, whether the sweep accumulates. into: the (state, accum)
+        whose buffers the last writers of tau, mix, sum_tau and star_tau
+        write into (a CUDA graph's static carry, which may be state and
+        accum themselves: each of those is read before it is written), or
+        None."""
+        dst, dacc = (None, None) if into is None else into
+        # positional: the benchmark's faults stand in for the front halves
         args = (cfg, ks, n, state, it, noise, temp)
         tau, mix, gamma, eta, loglik, acc_g, acc_e = (
-            front(*args) if ks.resident else front(*args, beta, psum))
+            front(*args, dst) if ks.resident else front(*args, beta, psum, dst))
 
         # diminishing adaptation, burn-in only: larger kappa -> smaller
         # Dirichlet steps -> higher acceptance (frozen post-burn)
         kg, ke = state.kappa_gamma, state.kappa_eta
         if cfg.adapt_kappa:
-            if it < burn:
+            if adapt:
                 kg = kg * torch.exp(cfg.adapt_rate * (cfg.target_accept - acc_g))
                 ke = ke * torch.exp(cfg.adapt_rate * (cfg.target_accept - acc_e))
             kg = torch.clamp(kg, 10.0, 1e9)
@@ -660,15 +679,17 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
         is_star = loglik > accum.star_loglik
         upd = dict(
             star_loglik=torch.where(is_star, loglik, accum.star_loglik),
-            star_tau=torch.where(_per(is_star, tau), tau, accum.star_tau),
+            star_tau=torch.where(_per(is_star, tau), tau, accum.star_tau,
+                                 out=_field(dacc, "star_tau")),
             star_gamma=torch.where(_per(is_star, gamma), gamma, accum.star_gamma),
             star_eta=torch.where(_per(is_star, eta), eta, accum.star_eta),
             acc_gamma=accum.acc_gamma + acc_g,
             acc_eta=accum.acc_eta + acc_e,
         )
-        if it >= burn:
+        if accumulate:
             upd.update(
-                sum_tau=accum.sum_tau + one_hot_tau(tau),
+                sum_tau=torch.add(accum.sum_tau, one_hot_tau(tau),
+                                  out=_field(dacc, "sum_tau")),
                 sum_gamma=accum.sum_gamma + gamma,
                 sum_eta=accum.sum_eta + eta,
                 sum_loglik=accum.sum_loglik + loglik,
@@ -678,6 +699,16 @@ def make_sweep_fn(cfg: SamplerConfig, kernel="cuda", psum=_own):
             )
         return new_state, accum._replace(**upd), loglik
 
+    def sweep(n, state: SamplerState, accum: SamplerAccum, it: int, noise,
+              burn: Optional[int] = None, temp=None, beta=1.0):
+        burn = cfg.burn if burn is None else burn
+        if ks.resident and (temp is not None or _tempered(beta)):
+            raise ValueError(RESIDENT_PLAIN_ONLY)
+        temp = temperature(it) if temp is None else temp
+        return step(n, state, accum, it, noise, temp, it < burn, it >= burn, beta)
+
+    sweep.step = step
+    sweep.temperature = temperature
     return sweep
 
 
@@ -833,7 +864,15 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     A state with a leading [C] axis and a ``ChainNoise`` advance C chains in
     one sweep: the trace is [C, n_sweeps] and the draws [C, k, ...]; n may
     then hold each chain's own counts [C,V,S,4].
+
+    On a CUDA device, with no position shards, draws from torch.Generators
+    alone and the NaN trap off, each sweep is one replay of a CUDA graph of
+    its phase (``sweep_graph``), bit for bit the eager sweep; elsewhere the
+    sweeps run eagerly. The ``chains.sweeps`` span says which: ``graphed``
+    sweeps were replayed, ``captures`` graphs captured in the segment.
     """
+    from . import sweep_graph   # it imports this module
+
     if not isinstance(kernel, Kernels):
         kernel = resolve(kernel, n)
     sweep = make_sweep_fn(cfg, kernel, psum)
@@ -847,10 +886,13 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     draws = (torch.empty((*lead, k, V, cfg.G), dtype=torch.int8, device=dev),
              torch.empty((*lead, k, S, cfg.G), dtype=torch.float32, device=dev),
              torch.empty((*lead, k, NBASES, NBASES), dtype=torch.float32, device=dev))
-    with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()):
+    graphs = (sweep_graph.lookup(cfg, kernel, n, state, accum, noise, psum)
+              if n_sweeps else None)
+    advance = sweep if graphs is None else graphs.segment(cfg, sweep, noise)
+    with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()) as s:
         j = 0
         for i in range(n_sweeps):
-            state, accum, ll = sweep(n, state, accum, start_it + i, noise, burn=burn)
+            state, accum, ll = advance(n, state, accum, start_it + i, noise, burn=burn)
             if _NAN_TRAP:
                 check_finite(start_it + i, [state], agree)
             trace[..., i] = ll
@@ -858,6 +900,11 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
                 for buf, x in zip(draws, (state.tau, state.gamma, state.eta)):
                     buf[..., j, :, :] = x
                 j += 1
+        if graphs is None:
+            s.attrs.update(graphed=0, captures=0)
+        else:
+            state, accum = advance.release(state, accum)
+            s.attrs.update(graphed=advance.replayed, captures=advance.captured)
     return (state, accum, trace, draws) if store else (state, accum, trace)
 
 
