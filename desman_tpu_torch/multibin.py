@@ -8,6 +8,10 @@ over bins; here the bins are the chain axis (``sampler.run_chains`` on the
 [B, V_max, S, 4] padded counts, each bin's chain on its own counts through
 the kernels' counts stride), one sweep of every bin at a time, and each
 bin's results are cut back to its own V.
+
+A run is the ``multibin`` span (bins, rows: the bins' own positions,
+padded_rows: B x V_max), with ``multibin.read_counts`` (``run_bins_files``)
+and ``multibin.pad`` (the padded counts assembled on the device) inside it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from . import io
 from .ops import resolve
+from .profiling import span
 from .sampler import SamplerConfig, SamplerResult, run_chains, spawn_seeds
 
 
@@ -66,17 +71,32 @@ def run_bins(
     all bins; "cuda_topk" binds to one counts tensor, so it raises
     ValueError.
     """
-    ks = resolve(kernel)
+    with span("multibin", **_sizes(counts_list)):
+        return _run_bins(counts_list, cfg, seed, eta_init, kernel, device)
+
+
+def _sizes(counts_list: Sequence[np.ndarray]) -> dict:
+    """The ``multibin`` span's attributes: the bins, their own rows and the
+    rows the padded bins sweep."""
+    _, v_max = _bin_shape(counts_list)
+    return {"bins": len(counts_list), "rows": sum(c.shape[0] for c in counts_list),
+            "padded_rows": len(counts_list) * v_max}
+
+
+def _run_bins(counts_list, cfg, seed, eta_init, kernel, device) -> List[SamplerResult]:
+    resolve(kernel)   # an unknown choice or cuda_topk raises before the bins reach the device
     S, v_max = _bin_shape(counts_list)
     device = torch.device(device)
     eta = (None if eta_init is None else
            torch.as_tensor(eta_init, dtype=torch.float32, device=device))
-    n = torch.zeros((len(counts_list), v_max, S, 4), dtype=torch.float32, device=device)
-    for b, counts in enumerate(counts_list):
-        n[b, :counts.shape[0]] = torch.as_tensor(counts, dtype=torch.float32,
-                                                 device=device)
+    with span("multibin.pad"):
+        n = torch.zeros((len(counts_list), v_max, S, 4), dtype=torch.float32,
+                        device=device)
+        for b, counts in enumerate(counts_list):
+            n[b, :counts.shape[0]] = torch.as_tensor(counts, dtype=torch.float32,
+                                                     device=device)
     res = run_chains(n, cfg, spawn_seeds(seed, len(counts_list)), eta_init=eta,
-                     kernel=ks)
+                     kernel=kernel)
     del n
     return [SamplerResult(*(None if x is None else x[b] for x in res))._replace(
         tau_mean=res.tau_mean[b, :c.shape[0]], tau_star=res.tau_star[b, :c.shape[0]])
@@ -98,16 +118,19 @@ def run_bins_files(
 
     if len(set(out_dirs)) != len(out_dirs):
         raise ValueError(f"duplicate output dirs: {sorted(out_dirs)}")
-    datas = [io.read_counts_csv(f) for f in counts_files]
-    samples0 = datas[0].samples
-    for f, d in zip(counts_files, datas):
-        if d.samples != samples0:
-            raise ValueError(
-                f"{f}: sample columns differ from {counts_files[0]} — "
-                "multi-bin batching requires a shared sample set")
-    results = run_bins([d.counts for d in datas], cfg, seed=seed,
-                       eta_init=eta_init, kernel=kernel, device=device)
-    metrics = {"device": _device_name(torch.device(device)), "kernel": kernel}
-    for d, r, out_dir in zip(datas, results, out_dirs):
-        write_outputs(out_dir, d, r, cfg, extra_metrics=metrics)
+    with span("multibin") as run_span:
+        with span("multibin.read_counts", bins=len(counts_files)):
+            datas = [io.read_counts_csv(f) for f in counts_files]
+            samples0 = datas[0].samples
+            for f, d in zip(counts_files, datas):
+                if d.samples != samples0:
+                    raise ValueError(
+                        f"{f}: sample columns differ from {counts_files[0]} — "
+                        "multi-bin batching requires a shared sample set")
+        counts_list = [d.counts for d in datas]
+        run_span.attrs.update(_sizes(counts_list))
+        results = _run_bins(counts_list, cfg, seed, eta_init, kernel, device)
+        metrics = {"device": _device_name(torch.device(device)), "kernel": kernel}
+        for d, r, out_dir in zip(datas, results, out_dirs):
+            write_outputs(out_dir, d, r, cfg, extra_metrics=metrics)
     return results

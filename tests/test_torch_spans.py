@@ -229,6 +229,62 @@ def test_cli_profile_writes_the_spans_around_the_ops(tmp_path):
                for e in events)
 
 
+# ---- a multibin run, traced and not ----
+
+MULTIBIN_V = (40, 90, 65)
+
+
+def _multibin(tmp, name):
+    from desman_tpu_torch.multibin import run_bins_files
+    from desman_tpu_torch.sampler import SamplerConfig
+
+    files = []
+    for b, v in enumerate(MULTIBIN_V):
+        files.append(str(tmp / f"bin{b}.csv"))
+        if not os.path.exists(files[-1]):
+            io.write_counts_csv(files[-1], synth.generate(V=v, S=6, G=2, coverage=40.0,
+                                                          seed=40 + b).data)
+    outs = [str(tmp / name / f"bin{b}") for b in range(len(files))]
+    run_bins_files(files, SamplerConfig(G=2, burn=5, samples=5, nmf_iters=20), outs,
+                   seed=3, device="cpu")
+    return outs
+
+
+def test_multibin_spans_hold_the_run_and_change_no_file(tmp_path):
+    """Under a profiler run_bins_files records one ``multibin`` span with
+    the bins, their own rows and the padded rows, and inside it
+    ``multibin.read_counts``, ``multibin.pad`` and one ``chains`` span of
+    B chains; without one it records nothing, and every file it writes is
+    the same either way."""
+    profiling.take_spans()
+    plain = _multibin(tmp_path, "plain")
+    assert profiling.take_spans() == []
+    with _cpu_profile():
+        traced = _multibin(tmp_path, "traced")
+    spans = profiling.take_spans()
+    (run,) = _named(spans, "multibin")
+    B = len(MULTIBIN_V)
+    assert run.attrs == {"bins": B, "rows": sum(MULTIBIN_V),
+                         "padded_rows": B * max(MULTIBIN_V)}
+    (read,) = _named(spans, "multibin.read_counts")
+    (pad,) = _named(spans, "multibin.pad")
+    (chains,) = _named(spans, "chains")
+    assert chains.attrs["chains"] == B
+    for inner in (read, pad, chains):
+        assert _within(inner, run), inner.name
+    assert read.end_ns <= pad.start_ns and pad.end_ns <= chains.start_ns
+    writes = _named(spans, "write_outputs")
+    assert len(writes) == B and all(_within(w, run) for w in writes)
+    assert all(chains.end_ns <= w.start_ns for w in writes)
+    for a, b in zip(plain, traced):
+        names = sorted(os.listdir(a))
+        assert names == sorted(os.listdir(b)) and "fit.txt" in names
+        for name in names:
+            with open(os.path.join(a, name), "rb") as fa, \
+                    open(os.path.join(b, name), "rb") as fb:
+                assert fa.read() == fb.read(), (a, name)
+
+
 # ---- the benchmark's side ----
 
 
