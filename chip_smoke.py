@@ -18,8 +18,10 @@ Phases, each printing its own '# ...' lines:
    kernel bitwise equal to the staged kernels and to itself from run to
    run, the top-2 tau kernel (on biallelic, error-free counts,
    kernel_bench.topk_inputs) bitwise equal to the tau kernel and to itself
-   from run to run, its log (warp.cuh's log_normal) bitwise logf on every
-   float of [1e-12, FLT_MAX], gamma_ll's digest also at G=1; median times
+   from run to run, the kernels' log (warp.cuh's log_normal) bitwise logf
+   on every float of [1e-12, FLT_MAX], no IEEE logf left in any sampler
+   kernel's SASS (kernel_bench.LOGF_SITE: 0 in each, 1 in a logf probe),
+   gamma_ll's digest also at G=1; median times
    (CUDA events around each wrapper call, host included) and each kernel's
    device time (torch.profiler, 50 calls), its bound (kernel_bench.bound)
    and share of it; the row-resident kernels' tile plan, registers and
@@ -250,6 +252,7 @@ import tempfile
 import time
 import types
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -365,8 +368,26 @@ def resident_info(name):
                              "grid": grid})
 
 
+def logf_sites() -> dict:
+    """IEEE logf expansions in the built library's SASS
+    (kernel_bench.LOGF_SITE), by kernel function: the signature must find
+    the one logf of a probe kernel and none in a log_normal probe, and none
+    in any sampler kernel (kernel_bench.KERNEL_FUNCTIONS)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        probes = kernel_bench.log_instructions(Path(tmp))
+    print(f"# SASS instructions a log: {probes}")
+    gate(probes["logf_sites"] == {"logf_probe": 1, "log_normal_probe": 0},
+         "the logf signature finds the logf probe's one expansion and none in log_normal's")
+    sites = kernel_bench.logf_sites(kernel_bench.sass(_build.library_path()))
+    print(f"# IEEE logf expansions by kernel function: {sites}")
+    for fn in sorted(set(kernel_bench.KERNEL_FUNCTIONS.values())):
+        gate(sites[fn] == 0, f"{fn} takes no IEEE logf (its logs are log_normal)")
+    return sites
+
+
 def phase_kernels():
     """Each kernel against its plain version on the same inputs."""
+    sites = logf_sites()
     dev = torch.device("cuda")
     host = kernel_bench.phase3_inputs(V, S, G)
     c = {k: v.to(dev) for k, v in host.items()}
@@ -432,7 +453,10 @@ def phase_kernels():
         "desman_tpu/ops/swap_pallas.py:54", err, ms, plain_ms,
         lambda: ops.swap(*args), agreement=agree))
     more = resident_kernels(n, gamma, eta, tau_s, mix_s, gt, ht, logu, gz, c)
-    return records + more + [topk_kernel()]
+    records += more + [topk_kernel()]
+    for r in records:
+        r["logf_sites"] = sites[kernel_bench.KERNEL_FUNCTIONS[r["name"]]]
+    return records
 
 
 def topk_kernel():
@@ -453,8 +477,8 @@ def topk_kernel():
     print(f"# log_normal against logf on the {check['floats']} floats of [1e-12, FLT_MAX]: "
           f"{check['mismatches']} differ")
     gate(check["mismatches"] == 0,
-         "log_normal (the top-2 kernel's log) is bitwise logf on every float of [1e-12, "
-         "FLT_MAX]")
+         "log_normal (every sampler kernel's log) is bitwise logf on every float of "
+         "[1e-12, FLT_MAX]")
     sha = kernel_bench.digest(tau_k, mix_k)
     print(f"# tau_sweep_topk sha256 {sha}")
     gate(sha == TOPK_SHA256[kernel_bench.METRIC],

@@ -15,9 +15,10 @@
 // tau_sweep -> swap(emit_ll) -> gamma_ll(with_old=False).
 //
 // What bounds it on an H100: the logs, (16G + 8 + 4) * V * S of them a
-// sweep (about 90 M at V=1e4, S=64, G=8), each an IEEE logf of 27 SASS
-// instructions on the FMA and ALU pipes: the SM's instruction issue, not
-// the bytes (about 33 MB a sweep).
+// sweep (about 90 M at V=1e4, S=64, G=8), each warp.cuh's log_normal,
+// bitwise the IEEE logf in 17 SASS instructions where logf takes 27, on the
+// FMA and ALU pipes: the SM's instruction issue, not the bytes (about 33 MB
+// a sweep).
 //
 // Design: the tau kernel's (tau_kernel.cu, tile.cuh). A block owns
 // 8-position tiles, one warp a position; the tile's n, mix, gz and tau rows
@@ -33,7 +34,7 @@
 // time where it fits (tile_plan), the rows in device memory where even one
 // tile's do not, and past S = 3632, where even the [2,8,S] slots do not fit
 // in shared memory, the slots in the block's rows of a device-memory scratch
-// (warp.cuh). IEEE logf, no atomics.
+// (warp.cuh). logf's bits, no atomics.
 //
 // Chains: one launch sweeps C chains, chain c in grid row blockIdx.y, each
 // row an even share of the persistent grid (ops/tau_kernel.py's

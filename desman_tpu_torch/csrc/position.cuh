@@ -105,9 +105,7 @@ struct AllBases {
 // slot's base, eta[:, b], comes from a [4] float4 table the kernel stages
 // once per block (eta_col[b] = eta[:, b], the same floats as e[:][b]), by
 // one shared-memory load indexed by the base: no selects over e, whose
-// registers the kernel then does not hold (it passes e = nullptr). Its logs
-// are warp.cuh's safe_log_normal: bitwise safe_log, without logf's special
-// cases.
+// registers the kernel then does not hold (it passes e = nullptr).
 struct TwoBases {
   const float2* n_val;    // [S] slot counts of position v
   const int2* b_idx;      // [S] slot bases of position v
@@ -125,8 +123,8 @@ struct TwoBases {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float acc = 0.f;
-      acc += nv.x * safe_log_normal(q0 + gs * e0[c]);
-      acc += nv.y * safe_log_normal(q1 + gs * e1[c]);
+      acc += nv.x * safe_log(q0 + gs * e0[c]);
+      acc += nv.y * safe_log(q1 + gs * e1[c]);
       t[c] = acc;
     }
   }

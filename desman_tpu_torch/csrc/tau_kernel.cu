@@ -7,9 +7,10 @@
 // runs too.
 //
 // What bounds it on an H100: the logs, 16*G*V*S a sweep (82 M at V=1e4,
-// S=64, G=8). The IEEE logf is 27 SASS instructions on the FMA and ALU
-// pipes and no SFU op (kernel_bench's probe), so the floor is the SM's
-// instruction issue, not the bytes (about 32 MB a sweep).
+// S=64, G=8). Each is warp.cuh's log_normal, bitwise the IEEE logf on the
+// logs' range in 17 SASS instructions where logf takes 27, on the FMA and
+// ALU pipes and no SFU op (kernel_bench's probes), so the floor is the
+// SM's instruction issue, not the bytes (about 32 MB a sweep).
 //
 // Design: one warp owns one position, and its lanes take samples s = lane,
 // lane + 32, ...; the strain loop, its shuffle butterfly and the strict '>'
@@ -46,7 +47,7 @@
 // PERF.md). Where one tile's rows do not fit, the strain loop reads its row
 // from device memory as the one-warp-per-position kernel did (the same
 // kernel template, kStaged = false).
-// IEEE logf (no --use_fast_math), no atomics: a sweep is bitwise the same
+// logf's bits (no --use_fast_math), no atomics: a sweep is bitwise the same
 // from run to run, for every grid and every tile plan.
 #include <cuda_runtime.h>
 

@@ -12,12 +12,13 @@
 //
 // What bounds it on an H100: the logs, as in the tau kernel, but half of
 // them: 8 per (v, s, g) instead of 16 (41 M a sweep at V=1e4, S=64, G=8),
-// each an IEEE logf of 27 SASS instructions on the FMA and ALU pipes, so the
-// floor is the SM's instruction issue (about 0.033 ms for the logs alone at
-// V=1e4), not the bytes (about 33 MB a sweep). The counts come as n_val
-// [V,S,2] f32 and b_idx [V,S,2] i32, 16 bytes a cell as the tau kernel's
-// float4 of n; the mixture is still read and written as [V,S,4], since the
-// rest mixture at the two selected bases needs all four of its entries.
+// each warp.cuh's log_normal of 17 SASS instructions on the FMA and ALU
+// pipes, so the floor is the SM's instruction issue (about 0.021 ms for the
+// logs alone at V=1e4), not the bytes (about 33 MB a sweep). The counts
+// come as n_val [V,S,2] f32 and b_idx [V,S,2] i32, 16 bytes a cell as the
+// tau kernel's float4 of n; the mixture is still read and written as
+// [V,S,4], since the rest mixture at the two selected bases needs all four
+// of its entries.
 //
 // Design: the tau kernel's (tau_kernel.cu, tile.cuh). A block owns
 // 8-position tiles, one warp a position; the tile's n_val, b_idx, mix, gz
@@ -49,7 +50,7 @@
 // rounding: in base order the nonzero terms meet in the same fma chain as in
 // the tau kernel, whose zero-count terms each add an exact zero. Slot order
 // by count, as the JAX package keeps it, would round differently. No
-// --use_fast_math: logf stays the IEEE logf. No atomics: a sweep is bitwise
+// --use_fast_math: the logs keep logf's bits. No atomics: a sweep is bitwise
 // the same from run to run, for every grid and every tile plan.
 #include <cuda_runtime.h>
 

@@ -46,7 +46,10 @@ around work that ends in ``torch.cuda.synchronize``.
 And the SASS instructions of one IEEE ``logf`` and of one ``log_normal``
 (probe kernels with and without them), the check of ``log_normal`` against
 ``logf`` on every float of [1e-12, FLT_MAX], and this tree's tile plan, registers and resident blocks of
-each row-resident kernel (``ops.tau_kernel.kernel_info``). One JSON line per
+each row-resident kernel (``ops.tau_kernel.kernel_info``). Each kernel row
+also gives, for each tree, ``logf_sites``: the IEEE ``logf`` expansions left
+in its kernel function's SASS (``LOGF_SITE``, in cuobjdump's output of the
+tree's library), 0 where every log is ``log_normal``. One JSON line per
 measurement, all of them also in FILE with --out. Needs a CUDA device and
 nvcc; it does not fall back.
 """
@@ -300,10 +303,9 @@ def kernel_work(name: str, V: int, S: int, G: int, C: int = 1) -> tuple[int, int
 def log_issue_ms(name: str, V: int, S: int, G: int, instructions: dict) -> float:
     """The least time the card's schedulers take to issue kernel `name`'s
     logs alone: its logs times the SASS instructions of one log
-    (log_instructions: the top-2 kernel's log_normal, the others' logf),
-    over 32 lanes a warp instruction and INSTR_RATE."""
-    per_log = instructions["log_normal" if name == "tau_sweep_topk" else "logf"]
-    return kernel_work(name, V, S, G)[0] * per_log / 32 / INSTR_RATE * 1e3
+    (log_instructions' log_normal: every kernel's log, csrc/warp.cuh's
+    safe_log), over 32 lanes a warp instruction and INSTR_RATE."""
+    return kernel_work(name, V, S, G)[0] * instructions["log_normal"] / 32 / INSTR_RATE * 1e3
 
 
 def bound(name: str, V: int, S: int, G: int, C: int = 1) -> dict:
@@ -423,11 +425,71 @@ def ptxas_registers(csrc: Path, workdir: Path) -> dict:
             if "registers" in v and any(name in k for name in REGISTER_KERNELS.values())}
 
 
+# the kernel function of each wrapper measure() times
+KERNEL_FUNCTIONS = {"tau_sweep": "tau_sweep_kernel", "fused_sweep": "fused_sweep_kernel",
+                    "tau_sweep_topk": "tau_topk_kernel", "gamma_ll": "gamma_ll_kernel",
+                    "swap": "swap_kernel", "swap_emit_ll": "swap_kernel",
+                    "gamma_apply_eta": "apply_eta_kernel"}
+# An IEEE logf expansion's subnormal scaling, x * 2^23 where x < FLT_MIN:
+# one FMUL by 8388608 a logf, inlined or not; csrc/warp.cuh's log_normal
+# has none (the log_instructions probes: logf_probe 1, log_normal_probe 0).
+LOGF_SITE = re.compile(r"\bFMUL\S*\s+R\d+,\s*R\d+(?:\.\w+)*,\s*8388608(?![\w.])")
+SASS_INSTRUCTION = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP)\S")
+
+
+def function_name(symbol: str) -> str:
+    """The unqualified name of a SASS function: the last component of an
+    Itanium-mangled nested name (_ZN6desman...16tau_sweep_kernelILb1E...),
+    an extern "C" symbol as it stands."""
+    if not symbol.startswith("_ZN"):
+        return symbol
+    i, name = 3, symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while j < len(symbol) and symbol[j].isdigit():
+            j += 1
+        name = symbol[j:j + int(symbol[i:j])]
+        i = j + int(symbol[i:j])
+    return name
+
+
+def sass_instructions(text: str) -> dict:
+    """cuobjdump -sass output as {function symbol: its instruction lines}
+    (NOPs left out)."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+        elif fn and SASS_INSTRUCTION.match(line):
+            out[fn].append(line)
+    return out
+
+
+def logf_sites(text: str) -> dict:
+    """IEEE logf expansions (LOGF_SITE) in cuobjdump -sass output, by
+    function name, summed over a template's instances."""
+    out = {}
+    for fn, lines in sass_instructions(text).items():
+        name = function_name(fn)
+        out[name] = out.get(name, 0) + sum(bool(LOGF_SITE.search(x)) for x in lines)
+    return out
+
+
+def sass(binary: Path) -> str:
+    """cuobjdump -sass of a cubin or of a library that embeds its kernels."""
+    return subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+                           "-sass", str(binary)], check=True, capture_output=True,
+                          text=True).stdout
+
+
 def log_instructions(workdir: Path) -> dict:
     """SASS instructions of one IEEE logf and of one csrc/warp.cuh
     log_normal: probe kernels y = logf(x) and y = log_normal(x) against the
     same kernel with y = x, built with the package's flags (NOPs not
-    counted)."""
+    counted); and the probes' logf_sites (the signature holds where
+    logf_probe reads 1 and log_normal_probe 0)."""
     src = workdir / "log_probe.cu"
     src.write_text(
         "#include \"warp.cuh\"\n"
@@ -441,23 +503,17 @@ def log_instructions(workdir: Path) -> dict:
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     subprocess.run([_build._nvcc(), *flags, "-I", str(_build.CSRC), "-cubin", "-o", str(cubin),
                     str(src)], check=True, capture_output=True, text=True)
-    sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
-                           "-sass", str(cubin)], check=True, capture_output=True,
-                          text=True).stdout
-    count, fn = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP)\S", line):
-            count[fn] = count.get(fn, 0) + 1
+    text = sass(cubin)
+    count = {fn: len(lines) for fn, lines in sass_instructions(text).items()}
+    sites = logf_sites(text)
     return {"logf": count["logf_probe"] - count["copy_probe"],
-            "log_normal": count["log_normal_probe"] - count["copy_probe"]}
+            "log_normal": count["log_normal_probe"] - count["copy_probe"],
+            "logf_sites": {k: sites[k] for k in ("logf_probe", "log_normal_probe")}}
 
 
 def log_mismatches() -> dict:
     """csrc/warp.cuh's log_normal against the IEEE logf on the card, on
-    every float of [1e-12, FLT_MAX] (the range safe_log hands to logf;
+    every float of [1e-12, FLT_MAX] (the range safe_log hands it;
     csrc/log_check.cu): the floats checked, how many differ in any bit, and
     the least that does (None if none)."""
     lo = int(np.array(1e-12, dtype=np.float32).view(np.uint32))
@@ -674,9 +730,15 @@ def main(argv=None) -> int:
     chained = {k: o for k, o in trees.items() if hasattr(o.tau_sweep, "chain_launches")}
     if chained:
         measure_chains(chained, rows)
+    sites = report["logf_sites"] = {
+        name: logf_sites(sass(tree_module(o, "ops._build").build()))
+        for name, o in trees.items()}
+    print(json.dumps({"logf_sites": sites}), flush=True)
     for row in rows:
         row["log_issue_ms"] = log_issue_ms(row["kernel"], row["V"], row["S"], row["G"],
                                            report["log_instructions"])
+        row["logf_sites"] = {name: sites[name][KERNEL_FUNCTIONS[row["kernel"]]]
+                             for name in trees if name in row["event_ms"]}
     measure_paths(trees, report.setdefault("paths", []))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -27,8 +27,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "desman_tpu_torch"
-# No --use_fast_math: logf must stay the IEEE logf, or tau stops matching the
-# plain version beyond float near-ties.
+# No --use_fast_math: it flushes subnormals to zero and makes log_check.cu's
+# reference logf the approximate __logf, and the kernels' logs (warp.cuh's
+# log_normal) must keep the IEEE logf's bits, or tau stops matching the plain
+# version beyond float near-ties.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 232448    # dynamic shared memory one block may use on Hopper (227 KB)
