@@ -155,11 +155,13 @@ Phases, each printing its own '# ...' lines:
    against their plain versions on a shard's block as a 1x4 mesh gives it
    (V=1e4-2 padded to 1e4, the last rank's 2500 rows: a tail tile of 4 and
    2 pad rows with +inf swap thresholds; pad rows' tau bitwise, >= 99%
-   agreement elsewhere); (c)-(e) `desman --mesh 1x2`, `--mesh 2x1 --chains
-   2`, `--mesh 1x2 --kernel cuda_topk` (biallelic counts) and `--mesh 1x2
-   --checkpoint` subprocesses side by side, each a world of two ranks
-   sharing the card over gloo: the run records' launches exactly chains x
-   data ranks x 200 over the ranks, <= 3 collectives a sweep, tau_star
+   agreement elsewhere); (c)-(e) `desman --mesh 1x2 --chains 2` (two
+   chains a rank), `--mesh 2x1 --chains 2`, `--mesh 1x2 --kernel cuda_topk`
+   (biallelic counts) and `--mesh 1x2 --checkpoint` subprocesses side by
+   side, each a world of two ranks sharing the card over gloo: a rank's
+   chains on the chain axis, the run records' launches exactly ranks x
+   200 over the ranks for chains x data ranks x 200 chain launches, <= 3
+   collectives a sweep, tau_star
    agreement >= 0.99 with the single-device chain and no more SNP errors
    than it; the checkpointed run SIGTERMed mid-run exits 75 and resumes on
    a 1x1 mesh in process; the host µs of a collective over gloo; (a) a
@@ -1652,14 +1654,18 @@ def pt_in_turn_step(n, cfg, R, max_temp, ks):
     return step
 
 
+def unstack(stacked) -> list:
+    """A state or accum with a leading [R] axis as the oracle's list of
+    one a replica."""
+    return [type(stacked)(*(f[r] for f in stacked)) for r in range(stacked[0].shape[0])]
+
+
 def pt_against_in_turn(data):
     """PT_ORACLE_SWEEPS ensemble sweeps of PT_R replicas at V=1e4 S=64 G=8
     (burn half of them) on the card: after each, every replica's state and
     accumulators, the rung, cold_ll and n_acc of the batched step equal the
     in-turn oracle's from the same start and generators, bit for bit. The
     batched step's launches are counted (a main path)."""
-    from desman_tpu_torch import checkpoint
-
     dev = torch.device("cuda")
     n = torch.as_tensor(data.counts, dtype=torch.float32, device=dev)
     cfg = sampler.SamplerConfig(G=G, burn=PT_ORACLE_SWEEPS // 2,
@@ -1667,7 +1673,7 @@ def pt_against_in_turn(data):
     ks = ops.resolve("cuda", n)
     gens = sampler.pt_generators(0, PT_R, dev)
     state, accum, rung = sampler.pt_init(n, cfg, gens[:PT_R])
-    states, accums = checkpoint.unstack(state), checkpoint.unstack(accum)
+    states, accums = unstack(state), unstack(accum)
     copies = [sampler.chain_generator(0, dev) for _ in gens]
     for a, b in zip(gens, copies):
         b.set_state(a.get_state())
@@ -1688,8 +1694,7 @@ def pt_against_in_turn(data):
                                                          noises_b, exchange_b)
         ok = (torch.equal(rung, rung_b) and torch.equal(cold, cold_b)
               and torch.equal(n_acc, n_acc_b))
-        for r, (st, ac) in enumerate(zip(checkpoint.unstack(state),
-                                         checkpoint.unstack(accum))):
+        for r, (st, ac) in enumerate(zip(unstack(state), unstack(accum))):
             ok &= all(torch.equal(a, b) for a, b in zip(st, states[r]))
             ok &= all(torch.equal(a, b) for a, b in zip(ac, accums[r]))
         if not ok:
@@ -2395,7 +2400,8 @@ def mesh_cli_runs(tmp, csv, bi_csv):
     manifest shows 0 < it < MESH_SWEEPS. Returns {name: (rc, stderr)}."""
     base = ["-g", str(G), "-i", str(MESH_SWEEPS), "-s", "0"]
     runs = {
-        "1x2": [csv, *base, "--mesh", "1x2", "-o", os.path.join(tmp, "mesh_1x2")],
+        "1x2": [csv, *base, "--mesh", "1x2", "--chains", "2",
+                "-o", os.path.join(tmp, "mesh_1x2")],
         "2x1": [csv, *base, "--mesh", "2x1", "--chains", "2",
                 "-o", os.path.join(tmp, "mesh_2x1")],
         "topk": [bi_csv, *base, "--mesh", "1x2", "--kernel", "cuda_topk",
@@ -2445,16 +2451,16 @@ def mesh_backend(ranks):
     return "nccl" if ranks <= torch.cuda.device_count() else "gloo"
 
 
-def mesh_record(out, what, kernel, chains, d, ranks=2, collectives=None, pt=False):
+def mesh_record(out, what, kernel, chains, d, ranks=2, collectives=None):
     """Gate a mesh run's record: its ranks and backend, `kernel` and swap
     swept chains (or PT replicas) x d x MESH_SWEEPS chains over the ranks,
-    launched as often (a rank's plain chains run in turn) or, with `pt`,
-    once a rank a sweep (a rank's replicas on the chain axis), and exactly
-    `collectives` an (ensemble) sweep (None: at most 3). Adds the launches
-    to MESH_LAUNCHES."""
+    launched once a rank a sweep (a rank's chains or replicas on the chain
+    axis): ranks x MESH_SWEEPS launches, and exactly `collectives` an
+    (ensemble) sweep (None: at most 3). Adds the launches to
+    MESH_LAUNCHES."""
     m = read_metrics(out)
     runs = chains * d * MESH_SWEEPS
-    launched = ranks * MESH_SWEEPS if pt else runs
+    launched = ranks * MESH_SWEEPS
     print(f"# {what}: backend {m['backend']}, {m['ranks']} ranks, launches "
           f"{m['launches']}, chain launches {m['chain_launches']}, collectives a sweep "
           f"{m['collectives_per_sweep']}, {m['sweeps_per_s']:.3f} sweeps/s")
@@ -2489,7 +2495,7 @@ def mesh_nccl(tmp, csv, t, ref, ref_pt):
             rc, err = finish(desman_process([*base, "--pt", str(MESH_R), "-o", out]))
             what = f"--mesh 2x2 --pt {MESH_R} over NCCL"
             gate(rc == 0, f"desman {what} exits 0 ({err.strip()[-300:]})")
-            mesh_record(out, what, "tau_sweep", MESH_R, d, ranks=4, collectives=3.0, pt=True)
+            mesh_record(out, what, "tau_sweep", MESH_R, d, ranks=4, collectives=3.0)
             mesh_agreement(out, ref_pt.tau_star, t.tau_idx, f"{what} against run_chain_pt")
             continue
         out = os.path.join(tmp, f"mesh_nccl_{shape}")
@@ -2632,15 +2638,15 @@ def phase_mesh(tmp):
     rc_t, err_t = results["termed"]
     gate(rc_t == 75 and "preempted" in err_t and seen is not None,
          "desman --mesh 1x2 --checkpoint: SIGTERM mid-run exits 75 naming the preemption")
-    mesh_record(os.path.join(tmp, "mesh_1x2"), "--mesh 1x2", "tau_sweep", 1, 2)
+    mesh_record(os.path.join(tmp, "mesh_1x2"), "--mesh 1x2 --chains 2", "tau_sweep", 2, 2)
     mesh_record(os.path.join(tmp, "mesh_2x1"), "--mesh 2x1 --chains 2", "tau_sweep", 2, 1)
     mesh_record(os.path.join(tmp, "mesh_topk"), "--mesh 1x2 --kernel cuda_topk",
               "tau_sweep_topk", 1, 2)
-    mesh_agreement(os.path.join(tmp, "mesh_1x2"), ref.tau_star[0], t.tau_idx, "--mesh 1x2")
-    with open(os.path.join(tmp, "mesh_2x1", "chains.json")) as f:
-        best = json.load(f)["best_seed"]
-    mesh_agreement(os.path.join(tmp, "mesh_2x1"), ref.tau_star[best], t.tau_idx,
-              f"--mesh 2x1 --chains 2 (best seed {best})")
+    for k in ("1x2", "2x1"):
+        with open(os.path.join(tmp, f"mesh_{k}", "chains.json")) as f:
+            best = json.load(f)["best_seed"]
+        mesh_agreement(os.path.join(tmp, f"mesh_{k}"), ref.tau_star[best], t.tau_idx,
+                       f"--mesh {k} --chains 2 (best seed {best})")
     mesh_agreement(os.path.join(tmp, "mesh_topk"), ref_topk.tau_star[0], bi.tau_idx,
               "--mesh 1x2 --kernel cuda_topk")
     # the preempted run resumed on a 1x1 mesh, in process
@@ -2674,8 +2680,7 @@ def phase_mesh(tmp):
     for k, kernel, d, coll in (("pt_1x2", "tau_sweep", 2, 2.0), ("pt_2x1", "tau_sweep", 1, 1.0),
                                ("pt_topk", "tau_sweep_topk", 2, 2.0)):
         out = os.path.join(tmp, f"mesh_{k}")
-        mesh_record(out, f"--mesh {k} --pt {MESH_R}", kernel, MESH_R, d, collectives=coll,
-                    pt=True)
+        mesh_record(out, f"--mesh {k} --pt {MESH_R}", kernel, MESH_R, d, collectives=coll)
         m = read_metrics(out)
         gate(0.0 < m["pt_swap_accept"] <= 1.0, f"--mesh {k}: 0 < pt_swap_accept <= 1")
         print(f"# --mesh {k} --pt {MESH_R}: pt_swap_accept {m['pt_swap_accept']:.6f}, "
@@ -2844,9 +2849,9 @@ def phase_mesh(tmp):
                 sampler.run_segment(n, cfg, st, sampler.init_accum(V, S, G, dev), 0,
                                     MESH_SWEEPS, sampler.TorchNoise(gen), sh.ks)
             else:
-                st = sh.init(cfg, [gen])[0]
+                st = sh.init(cfg, [gen])
                 t0 = time.perf_counter()
-                sh.segment(cfg, st, sh.accum(cfg), 0, MESH_SWEEPS, sh.noise(gen))
+                sh.segment(cfg, st, sh.accum(cfg, 1), 0, MESH_SWEEPS, sh.noise([gen]))
             torch.cuda.synchronize()
             times[mode].append((time.perf_counter() - t0) * 1e3 / MESH_SWEEPS)
         ops.reset_launches()

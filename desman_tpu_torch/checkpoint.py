@@ -16,7 +16,9 @@ run the same sweeps in the same order from the same draws, so a resumed run
 continues the exact trajectory of an uninterrupted one. Chains advance
 together, one sweep of all of them at a time (``sampler.run_segment`` on a
 state with a leading chain axis), and their snapshot holds that state as it
-is.
+is. ``_Chains`` is that chain set (start or resume, advance, snapshot,
+result): the fixed-length runs here are a fixed schedule over it, and
+``converge``'s auto runs drive it by their verdicts.
 
 A PT snapshot (``save_pt``) holds the replicas' states and accumulators
 with a leading [R] axis, ``rung``, ``it``, the cold trace, ``n_acc`` and
@@ -172,19 +174,6 @@ class _DrawBuf:
                 for f, k in zip(DRAW_FIELDS, self.KEYS) if k in ex}
 
 
-def stack(items):
-    """Per-chain states, accums or results -> one of each with a leading
-    chain axis (fields that are None stay None)."""
-    return type(items[0])(*(None if f[0] is None else torch.stack(f)
-                            for f in zip(*items)))
-
-
-def unstack(stacked) -> list:
-    """The inverse of ``stack`` for states and accums."""
-    return [type(stacked)(*(f[c] for f in stacked))
-            for c in range(stacked[0].shape[0])]
-
-
 def prepare(n, cfg: SamplerConfig, kernel):
     """The f32 counts and the kernel choice bound to them, after the
     refusals a run makes before its start."""
@@ -220,17 +209,6 @@ def advance_chains(n, cfg: SamplerConfig, state: SamplerState, accum: SamplerAcc
                       burn=burn, store=store)
     draws = tuple(_numpy(d) for d in out[3]) if store else None
     return out[0], out[1], _numpy(out[2]), draws
-
-
-def stacked_result(accum, cfg: SamplerConfig, trace: np.ndarray, draws: _DrawBuf,
-                   device) -> SamplerResult:
-    """The chains' results stacked on a leading axis, from their
-    accumulators (with a leading chain axis, or a list of each chain's),
-    the host trace [C, sweeps] and the stored draws."""
-    if isinstance(accum, list):
-        accum = stack(accum)
-    res = _result_from_accum(accum, cfg, torch.as_tensor(trace, device=device))
-    return res._replace(**draws.result_fields(device, axis=1))
 
 
 def run_chains_checkpointed(
@@ -281,33 +259,84 @@ def run_chain_checkpointed(
 
 def _run_checkpointed(n, cfg: SamplerConfig, generators, checkpoint_path: str,
                       checkpoint_every: int, eta_init, tau_init, kernel):
-    n, ks = prepare(n, cfg, kernel)
-    if os.path.exists(checkpoint_path):
-        state, accum, it, trace_done, gen_state = load(checkpoint_path, n.device)
-        restore_generators(generators, gen_state)
-        trace_parts = [trace_done[:, :it]]
-        draws = _DrawBuf(load_extras(checkpoint_path))
-    else:
-        state, accum = init_chains(n, cfg, generators, eta_init, tau_init)
-        it = 0
-        trace_parts = []
-        draws = _DrawBuf()
-    noise = chain_noise(generators)
-
+    """A fixed schedule over ``_Chains``: segments of checkpoint_every
+    sweeps to cfg.total_sweeps, each snapshotted."""
+    chains = _Chains(n, cfg, generators, eta_init, tau_init, kernel, checkpoint_path)
+    resumed = chains.start()
+    it, trace_parts = (0, []) if resumed is None else (resumed[0], [resumed[1]])
     while it < cfg.total_sweeps:
         check_preempted()
         seg = min(checkpoint_every, cfg.total_sweeps - it)
-        state, accum, trace, seg_draws = advance_chains(
-            n, cfg, state, accum, noise, it, seg, ks, store=cfg.store_samples)
-        if seg_draws is not None:
-            draws.append(*seg_draws, axis=1)
+        trace_parts.append(chains.advance(it, seg, cfg.burn, cfg.store_samples))
         it += seg
-        trace_parts.append(trace)
-        save(checkpoint_path, state, accum, it, np.concatenate(trace_parts, axis=1),
-             generators, extras=draws.extras(axis=1))
+        chains.snapshot(it, np.concatenate(trace_parts, axis=1))
+    return chains.result(cfg, np.concatenate(trace_parts, axis=1))
 
-    return stacked_result(accum, cfg, np.concatenate(trace_parts, axis=1), draws,
-                          n.device)
+
+class _Chains:
+    """The chain set of one device: the chains' state and accumulators with
+    a leading chain axis (every chain advances in one sweep), their
+    generators and stored draws, and the snapshot file (None: none). Every
+    segmented run drives one: ``_run_checkpointed`` a fixed schedule,
+    ``converge.run_chains_auto`` the plateau and ESS verdicts.
+    ``parallel.sharded._ShardChains`` is a mesh rank's."""
+
+    def __init__(self, n, cfg: SamplerConfig, generators, eta_init, tau_init,
+                 kernel, checkpoint_path: Optional[str]):
+        self.n, self.ks = prepare(n, cfg, kernel)
+        self.cfg, self.generators, self.path = cfg, generators, checkpoint_path
+        self.n_chains, self.device = len(generators), self.n.device
+        self.draws = _DrawBuf()
+        self.eta_init, self.tau_init = eta_init, tau_init
+
+    def start(self):
+        """Restore the committed snapshot: (it, trace [C, it], extras); or
+        start the chains afresh: None."""
+        if self.path and os.path.exists(self.path):
+            self.state, self.accum, it, trace_done, gen_state = load(self.path,
+                                                                     self.device)
+            restore_generators(self.generators, gen_state)
+            ex = load_extras(self.path)
+            self.draws = _DrawBuf(ex)  # the draws stored so far (if any)
+            out = it, np.asarray(trace_done)[:, :it], ex
+        else:
+            self.state, self.accum = init_chains(
+                self.n, self.cfg, self.generators, self.eta_init, self.tau_init)
+            out = None
+        self.noise = chain_noise(self.generators)
+        return out
+
+    def preempted(self) -> bool:
+        return take_preempted()
+
+    def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
+        """Every chain one segment; the host trace [C, seg]."""
+        self.state, self.accum, trace, seg_draws = advance_chains(
+            self.n, self.cfg, self.state, self.accum, self.noise, it, seg, self.ks,
+            burn=burn, store=store)
+        if seg_draws is not None:
+            self.draws.append(*seg_draws, axis=1)
+        return trace
+
+    def fresh_accums(self) -> None:
+        V, S, _ = self.n.shape
+        self.accum = init_accum(V, S, self.cfg.G, self.device, chains=self.n_chains)
+
+    def gamma_draws(self):
+        """Every chain's stored gamma draws [C, k, S, G], or None."""
+        return self.draws.extras(axis=1).get("draw_gamma")
+
+    def snapshot(self, it: int, trace: np.ndarray, extras: Optional[dict] = None) -> None:
+        """Commit step `it`: the chains, the trace [C, it], the caller's
+        extras and the stored draws."""
+        save(self.path, self.state, self.accum, it, trace, self.generators,
+             extras={**(extras or {}), **self.draws.extras(axis=1)})
+
+    def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
+        """The chains' results stacked on a leading axis, from the
+        accumulators, the host trace [C, sweeps] and the stored draws."""
+        res = _result_from_accum(self.accum, cfg, torch.as_tensor(trace, device=self.device))
+        return res._replace(**self.draws.result_fields(self.device, axis=1))
 
 
 # --------------------------------------------------------------------------

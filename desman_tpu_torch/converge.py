@@ -7,28 +7,24 @@ Burn-in advances in segments (``sampler.run_segment``) that accumulate
 nothing until the segment-mean log-likelihood stops improving; then at
 least cfg.samples sweeps are accumulated, extended in segments while the
 sampling-phase ESS is below a target. Both verdicts are pure host functions
-of the traces (``plateau_step``, ``_need_extension``).
+of the traces (``plateau_step``, ``_need_extension``). ``_run_auto`` drives
+whichever chain set it is given: one device's (``checkpoint._Chains``) or
+a mesh rank's (``parallel.sharded._ShardChains``).
 """
 from __future__ import annotations
 
-import os
 from dataclasses import replace
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from .checkpoint import (
-    PREEMPTED_MESSAGE, Preempted, _DrawBuf, _numpy, advance_chains, chain_noise,
-    init_chains, load, load_extras, prepare, restore_generators, save, stacked_result,
-    take_preempted,
-)
+from .checkpoint import PREEMPTED_MESSAGE, Preempted, _Chains, _DrawBuf, prepare
 from .diagnostics import ess_bulk
 from .sampler import (
-    DRAW_FIELDS, SamplerConfig, SamplerResult, _result_from_accum,
-    chain_generator, chain_result, check_store_thin, init_accum, make_pt_step,
-    pt_generators, pt_init, pt_merge_accums, pt_noises, pt_swap_rate,
-    run_pt_segment, stored_slots,
+    SamplerConfig, _result_from_accum, chain_generator, chain_result, init_accum,
+    make_pt_step, pt_generators, pt_init, pt_merge_accums, pt_noises, pt_swap_rate,
+    run_pt_segment,
 )
 
 # phase 1's burn override: no sweep accumulates, kappa keeps adapting
@@ -171,7 +167,7 @@ def run_chains_auto(
 
     Chain i runs from its own generator, seeded seeds[i]. Burn-in advances
     every chain one ``check_every`` segment (one sweep of all the chains at
-    a time; on a mesh, a rank's chains in turn) until EVERY chain has
+    a time; on a mesh, of a rank's chains at a time) until EVERY chain has
     plateaued (per-chain verdicts, the bar of run_chain_auto) or
     ``max_burn`` is reached; then at least ``cfg.samples`` sweeps are
     accumulated for all chains from that common point, extended in segments
@@ -202,162 +198,12 @@ def run_chains_auto(
         chains = _Chains(n, cfg, [chain_generator(s, n.device) for s in seeds],
                          eta_init, tau_init, kernel, checkpoint_path)
     else:
+        from .parallel.sharded import _ShardChains
+
         chains = _ShardChains(n, cfg, seeds, mesh, device, kernel, eta_init,
                               tau_init, checkpoint_path)
     return _run_auto(chains, cfg, check_every, rel_tol, max_burn, ess_target,
                      max_samples)
-
-
-class _Chains:
-    """The chains of an auto run on one device: their state and
-    accumulators with a leading chain axis (every chain advances in one
-    sweep), generators and stored draws, and the snapshot file."""
-
-    def __init__(self, n, cfg: SamplerConfig, generators, eta_init, tau_init,
-                 kernel, checkpoint_path: Optional[str]):
-        self.n, self.ks = prepare(n, cfg, kernel)
-        self.cfg, self.generators, self.path = cfg, generators, checkpoint_path
-        self.n_chains, self.device = len(generators), self.n.device
-        self.draws = _DrawBuf()
-        self.eta_init, self.tau_init = eta_init, tau_init
-
-    def start(self):
-        """Restore the committed snapshot: (it, trace [C, it], extras); or
-        start the chains afresh: None."""
-        if self.path and os.path.exists(self.path):
-            self.state, self.accum, it, trace_done, gen_state = load(self.path,
-                                                                     self.device)
-            restore_generators(self.generators, gen_state)
-            ex = load_extras(self.path)
-            self.draws = _DrawBuf(ex)  # phase-2 draws stored so far (if any)
-            out = it, np.asarray(trace_done)[:, :it], ex
-        else:
-            self.state, self.accum = init_chains(
-                self.n, self.cfg, self.generators, self.eta_init, self.tau_init)
-            out = None
-        self.noise = chain_noise(self.generators)
-        return out
-
-    def preempted(self) -> bool:
-        return take_preempted()
-
-    def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
-        """Every chain one segment; the host trace [C, seg]."""
-        self.state, self.accum, trace, seg_draws = advance_chains(
-            self.n, self.cfg, self.state, self.accum, self.noise, it, seg, self.ks,
-            burn=burn, store=store)
-        if seg_draws is not None:
-            self.draws.append(*seg_draws, axis=1)
-        return trace
-
-    def fresh_accums(self) -> None:
-        V, S, _ = self.n.shape
-        self.accum = init_accum(V, S, self.cfg.G, self.device, chains=self.n_chains)
-
-    def gamma_draws(self):
-        """Every chain's stored gamma draws [C, k, S, G], or None."""
-        return self.draws.extras(axis=1).get("draw_gamma")
-
-    def snapshot(self, it: int, trace: np.ndarray, extras: dict) -> None:
-        save(self.path, self.state, self.accum, it, trace, self.generators,
-             extras={**extras, **self.draws.extras(axis=1)})
-
-    def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
-        return stacked_result(self.accum, cfg, trace, self.draws, self.device)
-
-
-class _ShardChains(_Chains):
-    """The chains of an auto run on a mesh: this rank's share of them on its
-    block of positions (``parallel.sharded.Shard``), each chain's state and
-    accumulators on their own, advanced in turn (the mesh path has no chain
-    axis yet)."""
-
-    def __init__(self, counts, cfg: SamplerConfig, seeds, mesh, device, kernel,
-                 eta_init, tau_init, checkpoint_path: Optional[str]):
-        from .parallel.sharded import Shard
-
-        check_store_thin(cfg)
-        self.sh = sh = Shard(counts, mesh, device, kernel)
-        self.mine = sh.chains(len(seeds))
-        self.generators = [chain_generator(seeds[i], sh.device) for i in self.mine]
-        self.cfg, self.path, self.n_chains = cfg, checkpoint_path, len(seeds)
-        self.device, self.draws, self.gamma = sh.device, _DrawBuf(), []
-        self.eta_init, self.tau_init = eta_init, tau_init
-
-    def start(self):
-        from .parallel import shard_ckpt
-
-        sh, out = self.sh, None
-        if self.path and shard_ckpt.latest_step(self.path) is not None:
-            self.states, self.accums, it, _, gen_state = shard_ckpt.load_sharded(
-                self.path, sh, self.mine, self.n_chains, sh.device)
-            restore_generators(self.generators, gen_state)
-            ex = shard_ckpt.load_extras_sharded(self.path)
-            out = it, ex["trace"][:, :it], ex
-        else:
-            self.states = sh.init(self.cfg, self.generators, self.eta_init, self.tau_init)
-            self.fresh_accums()
-        if self.path:
-            if sh.world.index == 0:
-                shard_ckpt.clear_draws_from(self.path, 0 if out is None else out[0])
-            sh.world.barrier()
-        self.noises = [sh.noise(g) for g in self.generators]
-        return out
-
-    def preempted(self) -> bool:
-        return self.sh.world.any(take_preempted())
-
-    def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
-        from .parallel import shard_ckpt
-
-        sh, traces, seg_draws = self.sh, [], []
-        for i, noise in enumerate(self.noises):
-            out = sh.segment(self.cfg, self.states[i], self.accums[i], it, seg, noise,
-                             burn=burn, store=store)
-            self.states[i], self.accums[i] = out[:2]
-            traces.append(out[2])
-            if store:
-                seg_draws.append(out[3])
-        slots = stored_slots(it, seg, burn, self.cfg.store_thin) if store else []
-        if slots:
-            draws = tuple(torch.stack(d) for d in zip(*seg_draws))
-            if self.path:   # each rank its blocks, in the shard files
-                shard_ckpt.save_draw_shards(self.path, sh, self.mine, it,
-                                            [it + j for j in slots],
-                                            tuple(_numpy(d) for d in draws))
-            else:   # kept here; every chain's gamma draws for the verdict
-                self.draws.append(*(_numpy(d) for d in draws), axis=1)
-                self.gamma.append(_numpy(sh.chain.gather(draws[1]).flatten(0, 1)))
-        return _numpy(sh.chain.gather(torch.stack(traces)).flatten(0, 1))
-
-    def fresh_accums(self) -> None:
-        self.accums = [self.sh.accum(self.cfg) for _ in self.mine]
-
-    def gamma_draws(self):
-        return np.concatenate(self.gamma, axis=1) if self.gamma else None
-
-    def snapshot(self, it: int, trace: np.ndarray, extras: dict) -> None:
-        from .parallel import shard_ckpt
-
-        shard_ckpt.save_sharded(self.path, self.sh, self.mine, self.n_chains,
-                                self.states, self.accums, self.generators, it, None,
-                                extras={**extras, "trace": trace})
-
-    def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
-        from .parallel import shard_ckpt
-
-        sh = self.sh
-        mine = stacked_result(self.accums, cfg, trace[self.mine.start:self.mine.stop],
-                              self.draws, sh.device)
-        res = sh.gather(mine)
-        if self.cfg.store_samples and self.path:
-            sh.world.barrier()   # every rank's draw files are on disk
-            if sh.world.index == 0:
-                draws = shard_ckpt.assemble_draws(self.path, self.n_chains, sh.V, sh.S,
-                                                  cfg.G)
-                res = res._replace(**{f: torch.from_numpy(draws[k]) for f, k in zip(
-                    DRAW_FIELDS, ("tau", "gamma", "eta")) if k in draws})
-        return res
 
 
 def _run_auto(chains: _Chains, cfg: SamplerConfig, check_every: int, rel_tol: float,

@@ -42,10 +42,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..checkpoint import stack, unstack
 from ..convert import accum_from_numpy, state_from_numpy
 from ..likelihood import mixture
-from ..sampler import SamplerAccum, SamplerState
+from ..sampler import SamplerAccum, SamplerState, _each
 from ..utils import one_hot_tau
 from .distributed import is_coordinator, rank
 
@@ -81,20 +80,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return int(json.load(f)["it"])
 
 
-def save_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, states,
-                 accums, generators, it: int, trace: Optional[np.ndarray],
+def save_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, state,
+                 accum, generators, it: int, trace: Optional[np.ndarray],
                  replicated: bool = False, extras: Optional[dict] = None) -> None:
     """Write one step: every rank its blocks, then (after a barrier) the
     coordinator's extras and manifest, the commit point; then the
-    coordinator drops the files of earlier steps. trace: the rank's chains'
-    [k, it] host loglik traces (None: none per chain). extras: host arrays
-    every rank holds alike, read back by ``load_extras_sharded``."""
+    coordinator drops the files of earlier steps. state, accum: the rank's
+    k chains' with a leading chain axis; trace: their [k, it] host loglik
+    traces (None: none per chain). extras: host arrays every rank holds
+    alike, read back by ``load_extras_sharded``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     write_rows, write_chain = _writes(shard, replicated)
     c0 = chains.start
-    st, ac = stack(states), stack(accums)
-    leaves = [(f"state_{k}", v) for k, v in zip(_STATE_FIELDS, st)]
-    leaves += [(f"accum_{k}", v) for k, v in zip(_ACCUM_FIELDS, ac)]
+    leaves = [(f"state_{k}", v) for k, v in zip(_STATE_FIELDS, state)]
+    leaves += [(f"accum_{k}", v) for k, v in zip(_ACCUM_FIELDS, accum)]
     leaves.append(("generator_state", torch.stack([g.get_state() for g in generators])))
     if trace is not None:
         leaves.append(("trace", torch.as_tensor(np.asarray(trace, np.float32))))
@@ -186,11 +185,11 @@ def _blocks(paths) -> dict:
 
 
 def load_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, device):
-    """The committed step rebuilt for this rank's place: (states, accums,
-    it, trace [k, it] host (None when the step has none per chain),
-    generator states [k, ...] uint8) of its chains and its rows. Rows past
-    the writer's padded V (a layout that pads further) start as pad rows:
-    base A, the mixture of gamma."""
+    """The committed step rebuilt for this rank's place: (state, accum with
+    a leading axis of its k chains, it, trace [k, it] host (None when the
+    step has none per chain), generator states [k, ...] uint8) of its
+    chains and its rows. Rows past the writer's padded V (a layout that
+    pads further) start as pad rows: base A, the mixture of gamma."""
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
         manifest = json.load(f)
     it = int(manifest["it"])
@@ -219,15 +218,14 @@ def load_sharded(ckpt_dir: str, shard, chains: range, n_chains: int, device):
 
     state = state_from_numpy({k: build(f"state_{k}") for k in _STATE_FIELDS}, device)
     accum = accum_from_numpy({k: build(f"accum_{k}") for k in _ACCUM_FIELDS}, device)
-    states, accums = unstack(state), unstack(accum)
     if top < shard.hi:
         start = top - shard.lo
-        for i, s in enumerate(states):
-            mix = s.mix.clone()
-            mix[start:] = mixture(one_hot_tau(s.tau[start:]), s.gamma)
-            states[i] = s._replace(mix=mix)
+        mix = state.mix.clone()
+        mix[:, start:] = _each(len(chains), lambda t, g: mixture(one_hot_tau(t), g),
+                               state.tau[:, start:], state.gamma)
+        state = state._replace(mix=mix)
     trace = build("trace") if "trace" in manifest["fields"] else None
-    return states, accums, it, trace, build("generator_state")
+    return state, accum, it, trace, build("generator_state")
 
 
 def save_draw_shards(ckpt_dir: str, shard, chains: range, start_it: int, sweeps,

@@ -18,13 +18,16 @@ globally too). So a chain on a 1xD mesh is the chain of ``run_chain`` on
 the padded counts up to the order of the likelihood sums, and on a 1x1
 mesh bit for bit. Pad rows get +inf swap thresholds and never accept.
 
-Chains are split over the chain axis: row c runs its contiguous share of
-the seeds one after another (on one device ``run_chains`` advances its
-chains together; a rank's chains do not yet). The whole result is
-gathered with the padding stripped (``Shard.gather``): the per-position
-fields and the stored draws on the coordinator alone, on the host, and
-the per-chain fields on every rank; callers write files on the
-coordinator only.
+Chains are split over the chain axis: row c holds its contiguous share of
+the seeds as one state with a leading chain axis, swept together as
+``run_chains`` sweeps its chains on one device (one launch of each kernel
+and one set of collectives a sweep, whatever the share; ``Axis.sum`` adds
+a [k] sum element by element, so chain c keeps its own bits). The whole
+result is gathered with the padding stripped (``Shard.gather``): the
+per-position fields and the stored draws on the coordinator alone, on the
+host, and the per-chain fields on every rank; callers write files on the
+coordinator only. ``_ShardChains`` is a rank's chain set for the auto runs
+(``converge.run_chains_auto(mesh=)``).
 
 Parallel tempering (``run_chain_pt_sharded``) puts the R replicas in the
 place of chains: row c holds replicas [c R/C, (c+1) R/C), which sweep as
@@ -48,14 +51,14 @@ import numpy as np
 import torch
 
 from ..checkpoint import (
-    PREEMPTED_MESSAGE, Preempted, _numpy, restore_generators, stack,
-    take_preempted, unstack,
+    PREEMPTED_MESSAGE, Preempted, _Chains, _DrawBuf, _numpy, restore_generators,
+    take_preempted,
 )
 from ..ops import compress_counts, resolve
 from ..sampler import (
     DRAW_FIELDS, RESIDENT_SINGLE_DEVICE, ChainNoise, ExchangeNoise, ReplicaShard,
     SamplerAccum, SamplerConfig, SamplerResult, TorchNoise, _result_from_accum,
-    chain_generator, chain_result, check_store_thin, init_accum, init_state,
+    chain_generator, chain_result, check_store_thin, init_accum, init_states,
     make_sweep_fn, pt_generators, pt_merge_accums, pt_merge_stacked,
     pt_swap_rate, run_pt_segment, run_segment, stored_slots,
 )
@@ -70,30 +73,34 @@ from .shard_ckpt import (
 _ROW_AXIS = {"tau_mean": 1, "tau_star": 1, "tau_samples": 2}
 # the fields gathered to the coordinator alone, on the host
 _HOST_FIELDS = frozenset(_ROW_AXIS) | frozenset(DRAW_FIELDS)
-# this process's sweeps on a shard and the collectives they made (the run
-# record's collectives a sweep)
+# this process's sweeps of its state on a shard (one a sweep of all its
+# chains or replicas) and the collectives they made (the run record's
+# collectives a sweep)
 SWEEP_STATS = {"sweeps": 0, "collectives": 0}
 
 
 class ShardNoise:
-    """A chain's noise source cut to one position block: the full padded
-    draws of the wrapped source, rows [lo, hi) kept; swap thresholds of
-    rows at or past the true V are +inf. The [S]- and [4,4]-sized draws
-    pass through."""
+    """A noise source cut to one position block: the full padded draws of
+    the wrapped source (one chain's, or a ``ChainNoise``'s with a leading
+    chain axis), rows [lo, hi) of the position axis counted from the end
+    kept, so [Vp,G,4] and [C,Vp,G,4] Gumbels, [Vp] and [C,Vp] swap
+    thresholds are cut alike (contiguous, as the kernels take them);
+    thresholds of rows at or past the true V are +inf. The [S]- and
+    [4,4]-sized draws pass through."""
 
     def __init__(self, noise, lo: int, hi: int, Vp: int, true_V: int):
         self.noise, self.lo, self.hi, self.Vp, self.true_V = noise, lo, hi, Vp, true_V
 
     def gumbel(self, it: int, V: int, G: int) -> torch.Tensor:
-        return self.noise.gumbel(it, self.Vp, G)[self.lo:self.hi]
+        return self.noise.gumbel(it, self.Vp, G)[..., self.lo:self.hi, :, :].contiguous()
 
     def swap(self, it: int, V: int, G: int):
         g, h, logu = self.noise.swap(it, self.Vp, G)
-        logu = logu[self.lo:self.hi]
+        logu = logu[..., self.lo:self.hi]
         if self.true_V < self.hi:
-            logu = logu.clone()
-            logu[max(self.true_V - self.lo, 0):] = float("inf")
-        return g, h, logu
+            logu = logu.clone(memory_format=torch.contiguous_format)
+            logu[..., max(self.true_V - self.lo, 0):] = float("inf")
+        return g, h, logu.contiguous()
 
     def __getattr__(self, name):   # gamma_prop, gamma_u, eta_prop, ...
         return getattr(self.noise, name)
@@ -143,30 +150,34 @@ class Shard:
         return range(self.c * k, (self.c + 1) * k)
 
     def init(self, cfg: SamplerConfig, generators, eta_init=None, tau_init=None):
-        """Each generator's chain start, its NMF (or EM) start on the full
+        """The generators' chain starts as one state with a leading chain
+        axis (``init_states``): each its NMF (or EM) start on the full
         padded counts, rows [lo, hi) kept."""
         n_full = torch.as_tensor(self.padded, device=self.device)
         eta = (None if eta_init is None else
                torch.as_tensor(eta_init, dtype=torch.float32, device=self.device))
         tau0 = (None if tau_init is None else torch.as_tensor(
             pad_tau(_host(tau_init), self.mesh.n_data), device=self.device))
-        return [init_state(n_full, cfg, g, eta, tau0, block=(self.lo, self.hi),
-                           psum=self.data.sum) for g in generators]
+        return init_states(n_full, cfg, generators, eta, tau0, block=(self.lo, self.hi),
+                           psum=self.data.sum)
 
-    def accum(self, cfg: SamplerConfig):
-        return init_accum(self.hi - self.lo, self.S, cfg.G, self.device)
+    def accum(self, cfg: SamplerConfig, chains: int):
+        """Fresh accumulators of `chains` chains on this block."""
+        return init_accum(self.hi - self.lo, self.S, cfg.G, self.device, chains=chains)
 
-    def noise(self, base) -> ShardNoise:
-        """A chain's noise source (a generator, or any full-size source)
-        cut to this block."""
-        if isinstance(base, torch.Generator):
-            base = TorchNoise(base)
-        return ShardNoise(base, self.lo, self.hi, self.Vp, self.V)
+    def noise(self, sources) -> ShardNoise:
+        """The chains' draws (each source a generator, or any full-size
+        source) on one chain axis, cut to this block."""
+        return ShardNoise(ChainNoise(TorchNoise(s) if isinstance(s, torch.Generator)
+                                     else s for s in sources),
+                          self.lo, self.hi, self.Vp, self.V)
 
     def segment(self, cfg: SamplerConfig, state, accum, start_it: int,
                 n_sweeps: int, noise, burn: Optional[int] = None,
                 store: bool = False):
-        """``sampler.run_segment`` on this block."""
+        """``sampler.run_segment`` of this rank's chains (state and accum
+        with a leading chain axis, swept as one: one launch of each kernel a
+        sweep) on this block."""
         before = exchange.calls
         out = run_segment(self.n, cfg, state, accum, start_it, n_sweeps, noise,
                           self.ks, burn=burn, store=store, psum=self.data.sum,
@@ -246,6 +257,95 @@ class Shard:
         return SamplerResult(*out)
 
 
+class _ShardChains(_Chains):
+    """A mesh rank's chain set (``converge.run_chains_auto(mesh=)``): its
+    share of the chains on its block of positions (``Shard``), one state
+    and accumulators with a leading chain axis, snapshots in shard files
+    (``shard_ckpt``, the trace and the caller's extras in the extras
+    channel). Every rank gets the whole [C, seg] trace of a segment,
+    gathered over the chain axis; without a snapshot, the chains' gamma
+    draws too."""
+
+    def __init__(self, counts, cfg: SamplerConfig, seeds, mesh, device, kernel,
+                 eta_init, tau_init, checkpoint_path: Optional[str]):
+        check_store_thin(cfg)
+        self.sh = sh = Shard(counts, mesh, device, kernel)
+        self.mine = sh.chains(len(seeds))
+        self.generators = [chain_generator(seeds[i], sh.device) for i in self.mine]
+        self.cfg, self.path, self.n_chains = cfg, checkpoint_path, len(seeds)
+        self.device, self.draws, self.gamma = sh.device, _DrawBuf(), []
+        self.eta_init, self.tau_init = eta_init, tau_init
+
+    def start(self):
+        sh, out = self.sh, None
+        if self.path and latest_step(self.path) is not None:
+            self.state, self.accum, it, _, gen_state = load_sharded(
+                self.path, sh, self.mine, self.n_chains, sh.device)
+            restore_generators(self.generators, gen_state)
+            ex = load_extras_sharded(self.path)
+            out = it, ex["trace"][:, :it], ex
+        else:
+            self.state = sh.init(self.cfg, self.generators, self.eta_init, self.tau_init)
+            self.fresh_accums()
+        if self.path:
+            if is_coordinator():
+                clear_draws_from(self.path, 0 if out is None else out[0])
+            sh.world.barrier()
+        self.noise = sh.noise(self.generators)
+        return out
+
+    def preempted(self) -> bool:
+        return self.sh.world.any(take_preempted())
+
+    def advance(self, it: int, seg: int, burn: int, store: bool = False) -> np.ndarray:
+        sh = self.sh
+        out = sh.segment(self.cfg, self.state, self.accum, it, seg, self.noise,
+                         burn=burn, store=store)
+        self.state, self.accum = out[:2]
+        slots = stored_slots(it, seg, burn, self.cfg.store_thin) if store else []
+        if slots:
+            draws = tuple(_numpy(d) for d in out[3])
+            if self.path:   # each rank its blocks, in the shard files
+                save_draw_shards(self.path, sh, self.mine, it, [it + j for j in slots],
+                                 draws)
+            else:   # kept here; every chain's gamma draws for the verdict
+                self.draws.append(*draws, axis=1)
+                self.gamma.append(_numpy(sh.chain.gather(out[3][1]).flatten(0, 1)))
+        return _numpy(sh.chain.gather(out[2]).flatten(0, 1))
+
+    def fresh_accums(self) -> None:
+        self.accum = self.sh.accum(self.cfg, len(self.mine))
+
+    def gamma_draws(self):
+        return np.concatenate(self.gamma, axis=1) if self.gamma else None
+
+    def snapshot(self, it: int, trace: np.ndarray, extras: Optional[dict] = None) -> None:
+        save_sharded(self.path, self.sh, self.mine, self.n_chains, self.state,
+                     self.accum, self.generators, it, None,
+                     extras={**(extras or {}), "trace": trace})
+
+    def result(self, cfg: SamplerConfig, trace: np.ndarray) -> SamplerResult:
+        sh = self.sh
+        res = sh.gather(super().result(cfg, trace[self.mine.start:self.mine.stop]))
+        if self.cfg.store_samples and self.path:
+            sh.world.barrier()   # every rank's draw files are on disk
+            if is_coordinator():
+                res = res._replace(**_assembled(self.path, self.n_chains, sh, cfg))
+        return res
+
+
+def _assembled(ckpt_dir: str, n_chains: int, sh: Shard, cfg: SamplerConfig) -> dict:
+    """The draw fields of ``shard_ckpt.assemble_draws`` (coordinator only)."""
+    draws = assemble_draws(ckpt_dir, n_chains, sh.V, sh.S, cfg.G)
+    return {f: torch.from_numpy(draws[k])
+            for f, k in zip(DRAW_FIELDS, ("tau", "gamma", "eta")) if k in draws}
+
+
+def _one(res: SamplerResult) -> SamplerResult:
+    """One run's result on a chain axis of one (``Shard.gather``'s input)."""
+    return SamplerResult(*(None if x is None else x.unsqueeze(0) for x in res))
+
+
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -279,14 +379,10 @@ def run_chains_sharded(
     sh = Shard(counts, mesh, device, kernel)
     chains = sh.chains(len(seeds), replicated)
     gens = [chain_generator(seeds[i], sh.device) for i in chains]
-    states = sh.init(cfg, gens, eta_init, tau_init)
-    results = []
-    for gen, state in zip(gens, states):
-        out = sh.segment(cfg, state, sh.accum(cfg), 0, cfg.total_sweeps,
-                         sh.noise(gen), store=cfg.store_samples)
-        draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
-        results.append(_result_from_accum(out[1], cfg, out[2], **draws))
-    return sh.gather(stack(results), replicated)
+    out = sh.segment(cfg, sh.init(cfg, gens, eta_init, tau_init), sh.accum(cfg, len(gens)),
+                     0, cfg.total_sweeps, sh.noise(gens), store=cfg.store_samples)
+    draws = dict(zip(DRAW_FIELDS, out[3])) if cfg.store_samples else {}
+    return sh.gather(_result_from_accum(out[1], cfg, out[2], **draws), replicated)
 
 
 def run_chains_sharded_checkpointed(
@@ -324,18 +420,17 @@ def run_chains_sharded_checkpointed(
     chains = sh.chains(C, replicated)
     gens = [chain_generator(seeds[i], sh.device) for i in chains]
     if latest_step(checkpoint_path) is not None:
-        states, accums, it, trace_done, gen_state = load_sharded(
+        state, accum, it, trace_done, gen_state = load_sharded(
             checkpoint_path, sh, chains, C, sh.device)
         restore_generators(gens, gen_state)
         trace_parts = [trace_done[:, :it]]
     else:
-        states = sh.init(cfg, gens, eta_init, tau_init)
-        accums = [sh.accum(cfg) for _ in gens]
+        state, accum = sh.init(cfg, gens, eta_init, tau_init), sh.accum(cfg, len(gens))
         it, trace_parts = 0, []
     if is_coordinator():
         clear_draws_from(checkpoint_path, it)
     sh.world.barrier()
-    noises = [sh.noise(g) for g in gens]
+    noise = sh.noise(gens)
 
     while it < cfg.total_sweeps:
         if sh.world.any(take_preempted()):
@@ -343,34 +438,23 @@ def run_chains_sharded_checkpointed(
         if stop_after is not None and it >= stop_after:
             return None
         seg = min(checkpoint_every, cfg.total_sweeps - it)
-        traces, seg_draws = [], []
-        for i, noise in enumerate(noises):
-            out = sh.segment(cfg, states[i], accums[i], it, seg, noise,
-                             store=cfg.store_samples)
-            states[i], accums[i] = out[:2]
-            traces.append(out[2])
-            if cfg.store_samples:
-                seg_draws.append(out[3])
-        slots = stored_slots(it, seg, cfg.burn, cfg.store_thin) if seg_draws else []
+        out = sh.segment(cfg, state, accum, it, seg, noise, store=cfg.store_samples)
+        state, accum = out[:2]
+        slots = stored_slots(it, seg, cfg.burn, cfg.store_thin) if cfg.store_samples else []
         if slots:
-            draws = tuple(_numpy(torch.stack(d)) for d in zip(*seg_draws))
             save_draw_shards(checkpoint_path, sh, chains, it, [it + j for j in slots],
-                             draws, replicated)
+                             tuple(_numpy(d) for d in out[3]), replicated)
         it += seg
-        trace_parts.append(_numpy(torch.stack(traces)))
-        save_sharded(checkpoint_path, sh, chains, C, states, accums, gens, it,
+        trace_parts.append(_numpy(out[2]))
+        save_sharded(checkpoint_path, sh, chains, C, state, accum, gens, it,
                      np.concatenate(trace_parts, axis=1), replicated)
 
     trace = torch.as_tensor(np.concatenate(trace_parts, axis=1), device=sh.device)
-    local = stack([_result_from_accum(ac, cfg, trace[i]) for i, ac in enumerate(accums)])
-    res = sh.gather(local, replicated)
+    res = sh.gather(_result_from_accum(accum, cfg, trace), replicated)
     if cfg.store_samples:
         sh.world.barrier()   # every rank's draw files are on disk
         if is_coordinator():
-            draws = assemble_draws(checkpoint_path, C, sh.V, sh.S, cfg.G)
-            res = res._replace(**{f: torch.from_numpy(draws[k])
-                                  for f, k in zip(DRAW_FIELDS, ("tau", "gamma", "eta"))
-                                  if k in draws})
+            res = res._replace(**_assembled(checkpoint_path, C, sh, cfg))
     return res
 
 
@@ -464,16 +548,14 @@ def run_chain_pt_sharded(
         return chain_result(res, 0)
     sh = Shard(counts, mesh, device, kernel)
     part, gens, own = _pt_start(sh, cfg, seed, R)
-    state = stack(sh.init(cfg, own, eta_init, tau_init))
-    accum = stack([sh.accum(cfg) for _ in own])
     rung = torch.arange(R, device=sh.device)
-    out = sh.pt_segment(cfg, state, accum, rung, 0, cfg.total_sweeps,
-                        ChainNoise(sh.noise(g) for g in own), [ExchangeNoise(gens[-1])],
+    out = sh.pt_segment(cfg, sh.init(cfg, own, eta_init, tau_init), sh.accum(cfg, len(own)),
+                        rung, 0, cfg.total_sweeps, sh.noise(own), [ExchangeNoise(gens[-1])],
                         max_temp, part, store=cfg.store_samples)
     draws = dict(zip(DRAW_FIELDS, out[6])) if cfg.store_samples else {}
     res = _result_from_accum(_pt_merge(sh, out[1], part.replicas, R), cfg, out[3],
                              pt_swap_accept=pt_swap_rate(out[4], out[5]), **draws)
-    return chain_result(sh.gather(stack([res]), replicated=True, add_rows=True), 0)
+    return chain_result(sh.gather(_one(res), replicated=True, add_rows=True), 0)
 
 
 def run_chain_pt_sharded_checkpointed(
@@ -514,9 +596,8 @@ def run_chain_pt_sharded_checkpointed(
     sh = Shard(counts, mesh, device, kernel)
     part, gens, own = _pt_start(sh, cfg, seed, R)
     if latest_step(checkpoint_path) is not None:
-        states, accums, it, _, gen_state = load_sharded(
+        state, accum, it, _, gen_state = load_sharded(
             checkpoint_path, sh, part.replicas, R, sh.device)
-        state, accum = stack(states), stack(accums)
         ex = load_extras_sharded(checkpoint_path)
         restore_generators(own + [gens[-1]],
                            np.concatenate([gen_state, ex["exchange_generator"][None]]))
@@ -524,14 +605,13 @@ def run_chain_pt_sharded_checkpointed(
         acc_sum, head_sum = float(ex["n_acc"]), float(ex["n_heads"])
         trace_parts = [ex["trace"][:it]]
     else:
-        state = stack(sh.init(cfg, own, eta_init, tau_init))
-        accum = stack([sh.accum(cfg) for _ in own])
+        state, accum = sh.init(cfg, own, eta_init, tau_init), sh.accum(cfg, len(own))
         rung = torch.arange(R, device=sh.device)
         it, acc_sum, head_sum, trace_parts = 0, 0.0, 0.0, []
     if is_coordinator():
         clear_draws_from(checkpoint_path, it)
     sh.world.barrier()
-    noise = ChainNoise(sh.noise(g) for g in own)
+    noise = sh.noise(own)
     exchange_noise = [ExchangeNoise(gens[-1])]
     n_acc = torch.tensor(acc_sum, dtype=torch.float32, device=sh.device)
 
@@ -553,8 +633,7 @@ def run_chain_pt_sharded_checkpointed(
         n_acc = n_acc + seg_acc
         head_sum += seg_heads
         trace_parts.append(_numpy(trace))
-        save_sharded(checkpoint_path, sh, part.replicas, R, unstack(state),
-                     unstack(accum), own, it,
+        save_sharded(checkpoint_path, sh, part.replicas, R, state, accum, own, it,
                      None, extras={
                          "rung": _numpy(rung), "n_acc": float(n_acc),
                          "n_heads": head_sum, "trace": np.concatenate(trace_parts),
@@ -563,12 +642,10 @@ def run_chain_pt_sharded_checkpointed(
     trace = torch.as_tensor(np.concatenate(trace_parts), device=sh.device)
     res = _result_from_accum(_pt_merge(sh, accum, part.replicas, R), cfg, trace,
                              pt_swap_accept=pt_swap_rate(n_acc, head_sum))
-    res = chain_result(sh.gather(stack([res]), replicated=True), 0)
+    res = chain_result(sh.gather(_one(res), replicated=True), 0)
     if cfg.store_samples:
         sh.world.barrier()   # row 0's draw files are on disk
         if is_coordinator():
-            draws = assemble_draws(checkpoint_path, 1, sh.V, sh.S, cfg.G)
-            res = res._replace(**{f: torch.from_numpy(draws[k][0])
-                                  for f, k in zip(DRAW_FIELDS, ("tau", "gamma", "eta"))
-                                  if k in draws})
+            res = res._replace(**{f: x[0] for f, x in
+                                  _assembled(checkpoint_path, 1, sh, cfg).items()})
     return res

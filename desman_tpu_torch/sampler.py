@@ -775,13 +775,15 @@ def init_state(
 def init_states(n: torch.Tensor, cfg: SamplerConfig, generators,
                 eta_init: Optional[torch.Tensor] = None,
                 tau_init: Optional[torch.Tensor] = None,
-                gamma_init: Optional[torch.Tensor] = None) -> SamplerState:
+                gamma_init: Optional[torch.Tensor] = None,
+                block: Optional[tuple] = None, psum=_own) -> SamplerState:
     """The starts of len(generators) chains, stacked on a leading [C] axis:
     chain c's ``init_state`` from generator c (its NMF start drawn from it,
     as ``run_chain`` draws it) on the shared counts n [V,S,4], or on chain
-    c's own n[c] of [C,V,S,4]."""
+    c's own n[c] of [C,V,S,4]; block and psum as ``init_state`` takes them
+    (a mesh rank's chains)."""
     states = [init_state(n if n.dim() == 3 else n[c], cfg, g, eta_init, tau_init,
-                         gamma_init) for c, g in enumerate(generators)]
+                         gamma_init, block, psum) for c, g in enumerate(generators)]
     return SamplerState(*(torch.stack(f) for f in zip(*states)))
 
 

@@ -49,6 +49,58 @@ def chains(out, counts, cfg_kw, seeds, shape, device="cpu", kernel="cuda", runs=
     return 0
 
 
+def alone(out, counts, cfg_kw, seeds, shape):
+    """run_chains_sharded of `seeds` ("all_{field}"), then of each seed
+    alone ("{seed}_{field}"), in one world."""
+    _join("cpu")
+    cfg = sampler.SamplerConfig(**cfg_kw)
+    arrays = {}
+    for name, run in [("all", seeds)] + [(str(s), [s]) for s in seeds]:
+        res = sharded.run_chains_sharded(counts, cfg, run, make_mesh(*shape), device="cpu")
+        arrays.update(_arrays(res, f"{name}_"))
+    _save(out, **arrays)
+    return 0
+
+
+def run_costs(out, counts, shape, runs):
+    """run_chains_sharded of each (name, seeds, cfg keywords) in `runs`;
+    saves this rank's "{name}_calls" (``exchange.calls`` over the whole
+    run), "{name}_sweeps" and "{name}_collectives" (``SWEEP_STATS``) and
+    "{name}_tau"/"{name}_swap", the calls of the tau sweep and swap of its
+    kernel choice."""
+    from collections import Counter
+
+    _join("cpu")
+    calls = Counter()
+    bind = sharded.shard_kernels
+
+    def counted(*args):
+        ks = bind(*args)
+
+        def wrap(name):
+            def fn(*a, **kw):
+                calls[name] += 1
+                return getattr(ks, name)(*a, **kw)
+            return fn
+        return ks._replace(tau_sweep=wrap("tau_sweep"), swap=wrap("swap"))
+
+    sharded.shard_kernels = counted
+    arrays = {}
+    for name, seeds, kw in runs:
+        calls.clear()
+        before = dict(sharded.SWEEP_STATS)
+        distributed.reset_collectives()
+        sharded.run_chains_sharded(counts, sampler.SamplerConfig(**kw), seeds,
+                                   make_mesh(*shape), device="cpu")
+        arrays[f"{name}_calls"] = np.int64(distributed.exchange.calls)
+        for k in ("sweeps", "collectives"):
+            arrays[f"{name}_{k}"] = np.int64(sharded.SWEEP_STATS[k] - before[k])
+        arrays[f"{name}_tau"], arrays[f"{name}_swap"] = (np.int64(calls["tau_sweep"]),
+                                                         np.int64(calls["swap"]))
+    _save(out, **arrays)
+    return 0
+
+
 def _sigterm_after_first_segment(method="segment"):
     """This rank gets SIGTERM once its first segment (``Shard.<method>``)
     has run."""
@@ -155,28 +207,29 @@ def auto(out, counts, cfg_kw, jobs, shape, device="cpu", term_rank=None):
 
 class TraceFeed:
     """A stand-in for the sharded chains' ``run_segment`` that hands back a
-    JAX run's loglik trace [C, sweeps] (and its stored gamma draws) for the
-    sweeps asked; a rank of chain row c runs chains c k .. c k + k - 1 in
-    turn (k = C / n_chain). The chain state does not move."""
+    JAX run's loglik trace (and its stored gamma draws) for the sweeps
+    asked: a rank of chain row c holds chains c k .. c k + k - 1 (k = C /
+    n_chain) on one chain axis, and gets their [k, sweeps] trace and [k,
+    slots, ...] draws in one call. The chain state does not move."""
 
     def __init__(self, trace, burn_used, gamma, first, k):
         self.trace, self.burn_used, self.gamma = trace, burn_used, gamma
-        self.first, self.k, self.calls = first, k, 0
+        self.rows = slice(first, first + k)
 
     def __call__(self, n, cfg, state, accum, start_it, n_sweeps, noise, kernel="cuda",
                  burn=None, store=False, psum=None, agree=None):
-        c = self.first + self.calls % self.k
-        self.calls += 1
-        trace = torch.tensor(self.trace[c, start_it:start_it + n_sweeps])
-        assert trace.shape[0] == n_sweeps, "the port ran past JAX's run"
+        k = state.loglik.shape[0]
+        assert k == self.rows.stop - self.rows.start, "a rank's chains on one axis"
+        trace = torch.tensor(self.trace[self.rows, start_it:start_it + n_sweeps])
+        assert trace.shape[1] == n_sweeps, "the port ran past JAX's run"
         if not store:
             return state, accum, trace
         assert burn == self.burn_used
         slots = checkpoint.stored_slots(start_it, n_sweeps, burn, cfg.store_thin)
-        gamma = torch.tensor(self.gamma[c][[start_it + j - burn for j in slots]])
+        gamma = torch.tensor(self.gamma[self.rows][:, [start_it + j - burn for j in slots]])
         return state, accum, trace, (
-            torch.zeros((len(slots), n.shape[0], cfg.G), dtype=torch.int8), gamma,
-            torch.zeros((len(slots), 4, 4)))
+            torch.zeros((k, len(slots), n.shape[0], cfg.G), dtype=torch.int8), gamma,
+            torch.zeros((k, len(slots), 4, 4)))
 
 
 def auto_feed(out, counts, cfg_kw, seeds, shape, trace, burn, gamma, ck, kw):
@@ -203,7 +256,7 @@ def replicated(out, counts, cfg_kw, shape, sweeps):
     cfg = sampler.SamplerConfig(**cfg_kw)
     sh = sharded.Shard(counts, make_mesh(*shape), "cpu")
     gen = sampler.chain_generator(0, sh.device)
-    state, accum, noise = sh.init(cfg, [gen])[0], sh.accum(cfg), sh.noise(gen)
+    state, accum, noise = sh.init(cfg, [gen]), sh.accum(cfg, 1), sh.noise([gen])
     sweep = sh.sweep_fn(cfg)
     same = []
     for it in range(sweeps):
@@ -226,10 +279,10 @@ def collectives(out, counts, shape):
         cfg = sampler.SamplerConfig(G=3, burn=4, samples=4, nmf_iters=10, **kw)
         sh = sharded.Shard(counts, make_mesh(*shape), "cpu")
         gen = sampler.chain_generator(0, sh.device)
-        state = sh.init(cfg, [gen])[0]
+        state = sh.init(cfg, [gen])
         sweep = sh.sweep_fn(cfg)
         distributed.reset_collectives()
-        sweep(sh.n, state, sh.accum(cfg), 0, sh.noise(gen))
+        sweep(sh.n, state, sh.accum(cfg, 1), 0, sh.noise([gen]))
         found[name] = np.int64(distributed.exchange.calls)
     _save(out, **found)
     return 0
@@ -297,11 +350,13 @@ def desman(argv):
     return cli.main(["desman", *argv])
 
 
-def replay(out, counts, cfg_kw, shape, key, jstates, jaccums):
-    """The sharded chain fed the JAX package's streams (``ReplayNoise`` of
-    the chain key `key`, cut to each rank's block): its own chain from
-    JAX's start (jstates[0]), and one sweep from each of JAX's states.
-    Saves the whole tau, mix and the replicated fields of both."""
+def replay(out, counts, cfg_kw, shape, keys, jstates, jaccums):
+    """The sharded chains of the chain keys `keys` fed the JAX package's
+    streams: a ``ReplayNoise`` of each key on one chain axis (``ChainNoise``'s
+    per-source path), cut to each rank's block. Their own run from JAX's
+    start (jstates[0]), and one sweep from each of JAX's states (jstates,
+    jaccums: each sweep's trees with a leading chain axis). Saves the whole
+    tau, mix and the replicated fields of both, chain axis first."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -312,26 +367,25 @@ def replay(out, counts, cfg_kw, shape, key, jstates, jaccums):
     _join("cpu")
     cfg = sampler.SamplerConfig(**cfg_kw)
     sh = sharded.Shard(counts, make_mesh(*shape), "cpu")
-    noise = sh.noise(ReplayNoise(jnp.asarray(key)))
+    noise = sh.noise([ReplayNoise(jnp.asarray(k)) for k in keys])
+    rows = ("tau", "mix", "sum_tau", "star_tau")
 
-    def block(state):
-        return state._replace(tau=state.tau[sh.lo:sh.hi].contiguous(),
-                              mix=state.mix[sh.lo:sh.hi].contiguous())
+    def block(tree):
+        return {k: (v[:, sh.lo:sh.hi] if k in rows else v) for k, v in tree.items()}
 
     def whole(x):
-        return torch.cat(list(sh.data.gather(x)), dim=0).numpy()
+        return torch.cat(list(sh.data.gather(x)), dim=1).numpy()
 
-    start = block(convert.state_from_numpy(jstates[0]))
-    _, accum, trace = sh.segment(cfg, start, sh.accum(cfg), 0, len(jstates) - 1, noise)
+    start = convert.state_from_numpy(block(jstates[0]))
+    _, accum, trace = sh.segment(cfg, start, sh.accum(cfg, len(keys)), 0,
+                                 len(jstates) - 1, noise)
     res = sampler._result_from_accum(accum, cfg, trace)
     arrays = {"own_tau_star": whole(res.tau_star), "own_trace": trace.numpy()}
     sweep = sh.sweep_fn(cfg)
     steps = []
     for it in range(len(jstates) - 1):
-        acc = convert.accum_from_numpy(jaccums[it])
-        acc = acc._replace(sum_tau=acc.sum_tau[sh.lo:sh.hi], star_tau=acc.star_tau[sh.lo:sh.hi])
-        new, acc_new, ll = sweep(sh.n, block(convert.state_from_numpy(jstates[it])),
-                                 acc, it, noise)
+        new, acc_new, ll = sweep(sh.n, convert.state_from_numpy(block(jstates[it])),
+                                 convert.accum_from_numpy(block(jaccums[it])), it, noise)
         steps.append({"tau": whole(new.tau), "mix": whole(new.mix),
                       "gamma": new.gamma.numpy(), "eta": new.eta.numpy(),
                       "loglik": new.loglik.numpy(), "kappa_gamma": new.kappa_gamma.numpy(),
@@ -363,19 +417,18 @@ def pt_replay(out, counts, cfg_kw, shape, R, key, jstates, jaccums, jrungs):
     sh = sharded.Shard(counts, make_mesh(*shape), "cpu")
     part = sh.replica_shard(R)
     rows = ("tau", "mix", "sum_tau", "star_tau")
+    mine = slice(part.replicas.start, part.replicas.stop)
 
-    def block(tree, i):
-        return {k: (v[i][sh.lo:sh.hi] if k in rows else v[i]) for k, v in tree.items()}
+    def block(tree):
+        return {k: (v[mine, sh.lo:sh.hi] if k in rows else v[mine]) for k, v in tree.items()}
 
     def whole(x):
         return torch.cat(list(sh.data.gather(x)), dim=0).numpy()
 
-    noise = sampler.ChainNoise(sh.noise(ReplayNoise(jnp.asarray(jstates[0]["key"][i])))
-                               for i in part.replicas)
+    noise = sh.noise([ReplayNoise(jnp.asarray(jstates[0]["key"][i])) for i in part.replicas])
     exchange = [ReplayExchange(jnp.asarray(key))]
-    state = checkpoint.stack([convert.state_from_numpy(block(jstates[0], i))
-                              for i in part.replicas])
-    accum = checkpoint.stack([sh.accum(cfg) for _ in part.replicas])
+    state = convert.state_from_numpy(block(jstates[0]))
+    accum = sh.accum(cfg, len(part.replicas))
     sweeps = len(jstates) - 1
     rung = torch.as_tensor(np.asarray(jrungs[0]), dtype=torch.int64)
     own = sh.pt_segment(cfg, state, accum, rung, 0, sweeps, noise, exchange, 8.0, part)
@@ -384,24 +437,19 @@ def pt_replay(out, counts, cfg_kw, shape, R, key, jstates, jaccums, jrungs):
     step = sampler.make_pt_step(sh.n, cfg, R, 8.0, sh.ks, shard=part)
     steps = []
     for it in range(sweeps):
-        st = checkpoint.stack([convert.state_from_numpy(block(jstates[it], i))
-                               for i in part.replicas])
-        ac = checkpoint.stack([convert.accum_from_numpy(block(jaccums[it], i))
-                               for i in part.replicas])
         new, acc_new, rung, cold, n_acc, heads = step(
-            st, ac, torch.as_tensor(np.asarray(jrungs[it]), dtype=torch.int64), it,
-            noise, exchange)
-        new, acc_new = checkpoint.unstack(new), checkpoint.unstack(acc_new)
+            convert.state_from_numpy(block(jstates[it])),
+            convert.accum_from_numpy(block(jaccums[it])),
+            torch.as_tensor(np.asarray(jrungs[it]), dtype=torch.int64), it, noise, exchange)
         rec = {"rung": rung.numpy(), "cold": cold.numpy(), "n_acc": n_acc.numpy(),
                "heads": np.int64(heads)}
         for j, i in enumerate(part.replicas):
-            s_ = new[j]
-            rec.update({f"{i}_tau": whole(s_.tau), f"{i}_mix": whole(s_.mix),
-                        f"{i}_gamma": s_.gamma.numpy(), f"{i}_eta": s_.eta.numpy(),
-                        f"{i}_loglik": s_.loglik.numpy(),
-                        f"{i}_kappa_gamma": s_.kappa_gamma.numpy(),
-                        f"{i}_kappa_eta": s_.kappa_eta.numpy(),
-                        f"{i}_star_loglik": acc_new[j].star_loglik.numpy()})
+            rec.update({f"{i}_tau": whole(new.tau[j]), f"{i}_mix": whole(new.mix[j]),
+                        f"{i}_gamma": new.gamma[j].numpy(), f"{i}_eta": new.eta[j].numpy(),
+                        f"{i}_loglik": new.loglik[j].numpy(),
+                        f"{i}_kappa_gamma": new.kappa_gamma[j].numpy(),
+                        f"{i}_kappa_eta": new.kappa_eta[j].numpy(),
+                        f"{i}_star_loglik": acc_new.star_loglik[j].numpy()})
         steps.append(rec)
     for k in steps[0]:
         arrays[f"step_{k}"] = np.stack([s[k] for s in steps])

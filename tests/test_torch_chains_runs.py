@@ -19,6 +19,8 @@ from desman_tpu_torch import (
     checkpoint, converge, io, model_selection, ops, run, sampler, synth,
 )
 
+from torch_helpers import stack, unstack
+
 SEEDS = [3, 7, 0]
 
 
@@ -26,7 +28,7 @@ def _loop_advance(n, cfg, state, accum, noise, it, n_sweeps, kernel, burn=None,
                   store=False):
     """The loop checkpoint.advance_chains was: every chain one segment in
     turn on its own state, from its own source."""
-    states, accums = checkpoint.unstack(state), checkpoint.unstack(accum)
+    states, accums = unstack(state), unstack(accum)
     traces, draws = [], []
     for c, source in enumerate(noise.sources):
         out = sampler.run_segment(n, cfg, states[c], accums[c], it, n_sweeps, source,
@@ -37,7 +39,7 @@ def _loop_advance(n, cfg, state, accum, noise, it, n_sweeps, kernel, burn=None,
             draws.append(out[3])
     stacked = (tuple(checkpoint._numpy(torch.stack(d)) for d in zip(*draws))
                if store else None)
-    return (checkpoint.stack(states), checkpoint.stack(accums),
+    return (stack(states), stack(accums),
             checkpoint._numpy(torch.stack(traces)), stacked)
 
 
@@ -51,8 +53,9 @@ def _loop_run_chains(n, cfg, seeds, eta_init=None, kernel="cuda", tau_init=None)
 
 
 def _loop(monkeypatch):
+    """Every chain set of one device (``checkpoint._Chains``: the
+    checkpointed and the auto runs) advances through the loop."""
     monkeypatch.setattr(checkpoint, "advance_chains", _loop_advance)
-    monkeypatch.setattr(converge, "advance_chains", _loop_advance)
 
 
 def _same_results(a, b):

@@ -864,7 +864,8 @@ def _mesh_world(tmp_path, fn, nprocs, *args):
 def test_mesh_1x1_over_nccl_is_run_chains(cuda, monkeypatch):
     """A world of one rank on its own card, joined from torchrun's
     environment, runs over NCCL; its 1x1 mesh chains (V=2001, a tail tile)
-    are run_chains', field for field (the per-position fields on the
+    sweep on one chain axis (the tau and swap kernels once a sweep for both)
+    and are run_chains', field for field (the per-position fields on the
     host)."""
     from desman_tpu_torch.parallel import distributed, make_mesh, run_chains_sharded
     from desman_tpu_torch.sampler import SamplerConfig, run_chains
@@ -880,7 +881,8 @@ def test_mesh_1x1_over_nccl_is_run_chains(cuda, monkeypatch):
         assert distributed.backend() == "nccl"
         ops.reset_launches()
         got = run_chains_sharded(t.data.counts, cfg, [0, 1], make_mesh(1, 1), device="cuda")
-        assert ops.tau_sweep.launches == ops.swap.launches == 2 * 40
+        assert ops.tau_sweep.launches == ops.swap.launches == 40
+        assert ops.tau_sweep.chain_launches == ops.swap.chain_launches == 2 * 40
     finally:
         distributed.leave()
     ref = run_chains(torch.as_tensor(t.data.counts, device=cuda), cfg, [0, 1])
@@ -985,7 +987,9 @@ def test_mesh_pt_two_ranks_are_bitwise_repeatable(cuda, tmp_path):
     for k in a:
         if k.startswith("a_"):
             assert np.array_equal(a[k], a["b" + k[1:]]) and np.array_equal(a[k], b[k]), k
-    assert a["a_collectives"] == 8.0
+    # a row's replicas sweep as one chain axis: 2 row sums an ensemble sweep
+    # at 1x2 (COLLECTIVES in tests/test_torch_mesh_pt.py)
+    assert a["a_collectives"] == 2.0
     ref = run_chain_pt(torch.as_tensor(t.data.counts, device=cuda), SamplerConfig(**cfg), 0)
     want = ref.loglik_trace.cpu().numpy()
     print(f"1x2 PT against run_chain_pt: pt_swap_accept {float(a['a_pt_swap_accept'])} / "

@@ -9,8 +9,10 @@ loglik trace to rtol 1e-5 and gamma_mean to rtol 1e-4 (the position shards'
 sums add in another order); across mesh shapes tau_star equal and the
 trace to rtol 1e-5; one layout run twice bitwise; gamma, eta and the
 loglik bitwise equal on every rank of a chain row after every sweep; at
-most 3 collectives a joint-eta sweep and 5 a per-row one. The replay
-against JAX's sharded run is in tests/test_torch_mesh_replay.py.
+most 3 collectives a joint-eta sweep and 5 a per-row one. A rank's chains
+sweep as one chain axis: each is bitwise its seed run alone on the same
+mesh, and a sweep's launches and collectives do not grow with them. The
+replay against JAX's sharded run is in tests/test_torch_mesh_replay.py.
 """
 import jax
 import numpy as np
@@ -104,17 +106,20 @@ def test_a_mesh_of_several_ranks_needs_a_world(counts):
         distributed.mesh_axes(make_mesh(1, 2, world_size=2), torch.device("cpu"))
 
 
-@pytest.mark.parametrize("shape,V", [((1, 2), 119), ((2, 2), 119), ((1, 4), 120),
-                                     ((2, 1), 120)], ids=str)
-def test_sharded_matches_the_single_device_chain(tmp_path, counts, shape, V):
+@pytest.mark.parametrize("shape,V,seeds", [
+    *(pytest.param(shape, V, [0, 1], id=f"{shape}-{V}")
+      for shape, V in (((1, 2), 119), ((2, 2), 119), ((1, 4), 120), ((2, 1), 120))),
+    pytest.param((2, 1), 120, [0, 1, 2, 3], id="(2, 1)-120-2-chains-a-rank")])
+def test_sharded_matches_the_single_device_chain(tmp_path, counts, shape, V, seeds):
     """tests/test_sharding.py's standard against run_chains on the counts
     padded as the mesh pads them (V=119: one zero row on a data axis of
-    2); a data axis of 1 is bitwise."""
+    2); a data axis of 1 is bitwise, a rank's chains on its chain axis
+    (2x1, 2 chains a rank) too."""
     got = world(tmp_path, mesh_workers.chains, shape[0] * shape[1], counts[:V], CFG,
-                [0, 1], shape)
-    ref = single_device(counts[:V], [0, 1], shape[1])
+                seeds, shape)
+    ref = single_device(counts[:V], seeds, shape[1])
     assert str(got["backend"]) == "gloo"
-    assert got["0_tau_star"].shape == (2, V, 2)
+    assert got["0_tau_star"].shape == (len(seeds), V, 2)
     assert np.array_equal(got["0_tau_star"], ref.tau_star.numpy())
     np.testing.assert_allclose(got["0_loglik_trace"], ref.loglik_trace.numpy(), rtol=1e-5)
     np.testing.assert_allclose(got["0_gamma_mean"], ref.gamma_mean.numpy(),
@@ -138,6 +143,39 @@ def test_mesh_shapes_agree_and_a_layout_repeats_bitwise(tmp_path, counts):
         b = world(tmp_path, mesh_workers.chains, 4, counts, CFG, seeds, shape)
         assert np.array_equal(b["0_tau_star"], a["0_tau_star"]), shape
         np.testing.assert_allclose(b["0_loglik_trace"], a["0_loglik_trace"], rtol=1e-5)
+
+
+def test_a_rank_s_chains_are_each_their_seed_alone(tmp_path, counts):
+    """Seeds 3 and 4 on 1x2, two chains a rank on one chain axis, with
+    stored draws: every field of chain c (trace, stars, means, acceptance,
+    draws) is bitwise the run of its seed alone on 1x2 (Axis.sum adds a
+    [k] sum element by element)."""
+    cfg = dict(CFG, store_samples=True, store_thin=2)
+    got = world(tmp_path, mesh_workers.alone, 2, counts[:119], cfg, [3, 4], (1, 2))
+    fields = [k[len("all_"):] for k in got if k.startswith("all_")]
+    assert "tau_samples" in fields and got["all_loglik_trace"].shape == (2, 8)
+    for c, seed in enumerate((3, 4)):
+        for k in fields:
+            assert np.array_equal(got[f"all_{k}"][c], got[f"{seed}_{k}"][0]), (seed, k)
+
+
+def test_a_run_s_collectives_and_launches_do_not_grow_with_its_chains(tmp_path, counts):
+    """On 1x2, one chain a rank and two: the tau sweep and the swap once a
+    sweep, and 2 (joint eta) or 5 (rows) collectives a sweep of the rank's
+    state, whatever its chains; the whole run's exchange.calls (the NMF
+    starts' sums and the gather included) over its sweeps <= 3 with joint
+    eta for two chains a rank."""
+    cfg = dict(G=3, burn=10, samples=10, nmf_iters=10)
+    runs = [(f"{eta}{k}", [3, 4][:k], dict(cfg, eta_update=eta))
+            for eta in ("joint", "rows") for k in (1, 2)]
+    got = world(tmp_path, mesh_workers.run_costs, 2, counts, (1, 2), runs)
+    for name, _, _ in runs:
+        sweeps = int(got[f"{name}_sweeps"])
+        assert sweeps == 20, name
+        assert got[f"{name}_tau"] == got[f"{name}_swap"] == sweeps, name
+        per = 2 if name.startswith("joint") else 5
+        assert got[f"{name}_collectives"] == per * sweeps, name
+    assert got["joint2_calls"] / 20 <= 3, got["joint2_calls"]
 
 
 def test_position_fields_reach_the_coordinator_alone(tmp_path, counts):

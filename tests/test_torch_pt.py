@@ -13,13 +13,13 @@ import pytest
 import torch
 
 from desman_tpu import sampler as js
-from desman_tpu_torch import checkpoint, convert, ops, sampler, synth
+from desman_tpu_torch import convert, ops, sampler, synth
 from desman_tpu_torch.geneassign import assign_gene_tau
 from desman_tpu_torch.utils import snp_distance_perm
 
 from torch_helpers import (
-    ReplayExchange, ReplayNoise, check_replayed_sweep, jax_state_numpy, to_jax,
-    to_torch,
+    ReplayExchange, ReplayNoise, check_replayed_sweep, jax_state_numpy, stack, to_jax,
+    to_torch, unstack,
 )
 
 R = 4
@@ -69,7 +69,7 @@ def test_pt_step_replays_the_jax_step():
         pst, pac, prung, pcold, pnacc, pnheads = pstep(
             state, accum, torch.as_tensor(np.array(jrung), dtype=torch.int64),
             it, noise, exchange)
-        pst, pac = checkpoint.unstack(pst), checkpoint.unstack(pac)
+        pst, pac = unstack(pst), unstack(pac)
         np.testing.assert_array_equal(prung.numpy(), np.asarray(jrung2))
         assert float(pnacc) == float(jnacc) and pnheads == float(jnheads)
         np.testing.assert_allclose(float(pcold), float(jcold), rtol=1e-5)
@@ -244,7 +244,7 @@ def frozen():
 
 def _ensemble(states, accums, noises):
     """The replicas' lists as the PT step takes them: on a leading axis."""
-    return (checkpoint.stack(states), checkpoint.stack(accums),
+    return (stack(states), stack(accums),
             sampler.ChainNoise(noises))
 
 
@@ -262,7 +262,7 @@ def test_hot_replicas_keep_their_accumulators(frozen):
     step = sampler.make_pt_step(n, cfg, 4, 8.0, "cuda")
     st, ac, noise = _ensemble(states, accums, noises)
     _, new, _, _, _, _ = step(st, ac, torch.tensor([2, 0, 3, 1]), 0, noise, [Accept()])
-    new = checkpoint.unstack(new)
+    new = unstack(new)
     assert float(new[1].n_samples) == 1.0
     assert float(new[1].star_loglik) == float(states[1].loglik)
     assert torch.equal(new[1].star_tau, states[1].tau)
@@ -317,7 +317,7 @@ def test_swap_rate_is_per_proposal():
                                 fix_gamma=True, fix_eta=True)
     st = sampler.init_state(n, cfg, sampler.chain_generator(0, "cpu"))
     out = sampler.run_pt_segment(
-        n, cfg, checkpoint.stack([st, st]), sampler.init_accum(30, 4, 2, "cpu", chains=2),
+        n, cfg, stack([st, st]), sampler.init_accum(30, 4, 2, "cpu", chains=2),
         torch.arange(2), 0, 10, sampler.ChainNoise(
             sampler.TorchNoise(sampler.chain_generator(i, "cpu")) for i in (1, 2)),
         [Accept()], 8.0, "cuda")

@@ -39,7 +39,7 @@ from desman_tpu_torch import checkpoint, convert, ops, sampler, synth
 from desman_tpu_torch.utils import safe_log
 
 from torch_helpers import (
-    ReplayExchange, ReplayNoise, check_replayed_sweep, jax_state_numpy,
+    ReplayExchange, ReplayNoise, check_replayed_sweep, jax_state_numpy, stack, unstack,
 )
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -157,7 +157,7 @@ def test_batched_pt_step_replays_the_vmapped_jax_step():
                       and float(pnacc) == float(jnacc) and pnheads == float(jnheads))
         np.testing.assert_allclose(float(pcold), float(jcold), rtol=1e-5)
         old, want = jax_state_numpy(jst), jax_state_numpy(jst2)
-        got, pacs = convert.state_to_numpy(pst), checkpoint.unstack(pac)
+        got, pacs = convert.state_to_numpy(pst), unstack(pac)
         for r in range(R):
             o, w, g = ({k: v[r] for k, v in d.items()} for d in (old, want, got))
             ok = check_replayed_sweep(it, o, w, g, want["loglik"][r], pst.loglik[r],
@@ -197,7 +197,7 @@ def test_pt_replica_is_the_in_turn_replica(mode):
     ks = ops.resolve("cuda" if mode in ("rows", "fix_eta") else mode, n)
     gens_a = sampler.pt_generators(9, R, "cpu")
     state, accum, rung = sampler.pt_init(n, cfg, gens_a[:R])
-    states, accums = checkpoint.unstack(state), checkpoint.unstack(accum)
+    states, accums = unstack(state), unstack(accum)
     # the oracle's generators: copies of the batched run's past its start
     gens_b = [sampler.chain_generator(0, "cpu") for _ in range(R + 1)]
     for a, b in zip(gens_a, gens_b):
@@ -215,8 +215,8 @@ def test_pt_replica_is_the_in_turn_replica(mode):
                                                          noises_b, exchange_b)
         assert torch.equal(rung, rung_b) and torch.equal(cold, cold_b), it
         assert torch.equal(n_acc, n_acc_b), it
-        for r, (s, a) in enumerate(zip(checkpoint.unstack(state),
-                                       checkpoint.unstack(accum))):
+        for r, (s, a) in enumerate(zip(unstack(state),
+                                       unstack(accum))):
             _same(s, states[r], (it, r))
             _same(a, accums[r], (it, r))
 
@@ -287,7 +287,7 @@ def test_pt_merge_runs_is_each_runs_merge():
         state, accum, _ = step(n, state, accum, it, noise)
     merged = sampler.pt_merge_runs(accum, 2)
     for c in range(2):
-        one = sampler.pt_merge_accums(checkpoint.stack(checkpoint.unstack(accum)[3 * c:3 * c + 3]))
+        one = sampler.pt_merge_accums(stack(unstack(accum)[3 * c:3 * c + 3]))
         _same(sampler.SamplerAccum(*(x[c] for x in merged)), one, c)
 
 
@@ -355,7 +355,7 @@ def test_a_jax_snapshot_resumes_as_the_in_turn_step(tmp_path):
                                  [ReplayExchange(key)], 4.0, "cuda")
     np.testing.assert_array_equal(out[2].numpy(), np.asarray(jnew[2]))
     oracle = in_turn_step(n_p, pcfg, 3, 4.0, ops.resolve("cuda", n_p))
-    states_b, accums_b = checkpoint.unstack(pst), checkpoint.unstack(pac)
+    states_b, accums_b = unstack(pst), unstack(pac)
     rung_b, noises_b = prung, [ReplayNoise(k) for k in keys]
     trace = []
     for i in range(3):
@@ -363,8 +363,8 @@ def test_a_jax_snapshot_resumes_as_the_in_turn_step(tmp_path):
                                                      noises_b, ReplayExchange(key))
         trace.append(cold)
     assert torch.equal(out[2], rung_b) and torch.equal(out[3], torch.stack(trace))
-    for r, (s, ac) in enumerate(zip(checkpoint.unstack(out[0]),
-                                    checkpoint.unstack(out[1]))):
+    for r, (s, ac) in enumerate(zip(unstack(out[0]),
+                                    unstack(out[1]))):
         _same(s, states_b[r], r)
         _same(ac, accums_b[r], r)
 

@@ -20,7 +20,9 @@ from desman_tpu import converge as jconv
 from desman_tpu import sampler as js
 from desman_tpu_torch import checkpoint, cli, convert, converge, io, run, sampler, synth
 
-from torch_helpers import ReplayExchange, ReplayNoise, check_replayed_sweep
+from torch_helpers import (
+    ReplayExchange, ReplayNoise, check_replayed_sweep, unstack,
+)
 
 CFG = sampler.SamplerConfig(G=2, burn=10, samples=10, nmf_iters=20)
 STORED = dataclasses.replace(CFG, store_samples=True, store_thin=2)
@@ -160,7 +162,7 @@ def test_jax_pt_snapshot_replays_one_segment(tmp_path):
     out = sampler.run_pt_segment(torch.as_tensor(t.data.counts, dtype=torch.float32),
                                  pcfg, pst, pac, prung, 3, 1, noise,
                                  [ReplayExchange(key)], 4.0, "cuda")
-    new_states, new_accums = checkpoint.unstack(out[0]), checkpoint.unstack(out[1])
+    new_states, new_accums = unstack(out[0]), unstack(out[1])
     np.testing.assert_array_equal(out[2].numpy(), np.asarray(jnew[2]))
     assert (float(out[4]), out[5]) == (float(jnew[4]), float(jnew[5]))
     np.testing.assert_allclose(out[3].numpy(), np.asarray(jnew[3]), rtol=1e-5)

@@ -42,6 +42,20 @@ def to_jax(t):
     return jnp.asarray(t.detach().cpu().numpy())
 
 
+def stack(items):
+    """Per-chain states, accums or results -> one of each with a leading
+    chain axis (fields that are None stay None): the oracles' in-turn
+    lists against the chain axis."""
+    return type(items[0])(*(None if f[0] is None else torch.stack(f)
+                            for f in zip(*items)))
+
+
+def unstack(stacked) -> list:
+    """The inverse of ``stack`` for states and accums."""
+    return [type(stacked)(*(f[c] for f in stacked))
+            for c in range(stacked[0].shape[0])]
+
+
 def jax_state_numpy(state) -> dict:
     """A JAX SamplerState/SamplerAccum as a dict of numpy arrays."""
     return {k: np.asarray(v) for k, v in state._asdict().items()}
