@@ -197,8 +197,9 @@ Phases, each printing its own '# ...' lines:
    runs it (``runpy``), printing its launch counts at exit: (a) `python -m
    desman_tpu_torch.bench --kernel cuda_resident` and `--kernel cuda`: the
    last line bench.py's four keys, value and vs_baseline > 0, the path's
-   kernels (fused_sweep and gamma_apply_eta; tau_sweep and swap) launched
-   exactly 4 x 400 times each (a warm run and three timed ones); then in
+   kernels (fused_sweep and gamma_apply_eta; tau_sweep, swap, gamma_ll and
+   gamma_apply_eta) launched exactly 4 x 400 times each (a warm run and
+   three timed ones); then in
    process one `bench.measure` call a kernel choice, the counts set to 0
    just before it: the same 4 x 400 launches and no other kernel's; (b)
    `complete_example --paper --prune`: exit 0 with PASS, G=5, SNP error
@@ -212,8 +213,9 @@ Phases, each printing its own '# ...' lines:
 15. independent chains on the chain axis: `run_chains` of seeds 0-4 at
    V=1e4, S=64, G=8, 400 sweeps (nmf_iters 50), with `cuda` and
    `cuda_resident` on the synth counts and with `cuda_topk` on biallelic
-   ones (a main path: counts set to 0 just before it): the tau (top-2) and
-   swap kernels, or fused_sweep and gamma_apply_eta, launched 400 times
+   ones (a main path: counts set to 0 just before it): the tau (top-2),
+   swap, gamma_ll and apply/eta kernels, or fused_sweep and
+   gamma_apply_eta, launched 400 times
    each, 2000 chain launches, every chain bitwise `run_chain` of its
    seed on the card (every result field), and the wall of the batched
    call against five `run_chain` calls in turn (NMF starts included), in
@@ -2863,7 +2865,7 @@ def phase_mesh(tmp):
 # phase 14: each driver subprocess's launches of each kernel
 DRIVER_LAUNCHES = {}
 BENCH_PATHS = {"cuda_resident": ("fused_sweep", "gamma_apply_eta"),
-               "cuda": ("tau_sweep", "swap")}
+               "cuda": ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta")}
 # the JAX suite's entries under the port's names, in its order (--quick)
 SUITE_QUICK = ("full_sweep_torch", "full_sweep_cuda", "full_sweep_resident",
                "full_sweep_chains4", "time_to_converged_deviance", "filter",
@@ -2986,8 +2988,9 @@ def phase_drivers(tmp):
 
 
 # phase 15: the kernels each kernel choice's sweep launches once
-CHAIN_PATH_KERNELS = {"cuda": ("tau_sweep", "swap"),
-                      "cuda_topk": ("tau_sweep_topk", "swap"),
+CHAIN_PATH_KERNELS = {"cuda": ("tau_sweep", "swap", "gamma_ll", "gamma_apply_eta"),
+                      "cuda_topk": ("tau_sweep_topk", "swap", "gamma_ll",
+                                    "gamma_apply_eta"),
                       "cuda_resident": ("fused_sweep", "gamma_apply_eta")}
 
 

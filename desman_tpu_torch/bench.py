@@ -20,8 +20,9 @@ also builds the kernels), then three timed ``sampler.run_chain`` calls on
 generator seeds 1-3, each from the NMF start to its loglik trace on the
 host, and the median of the three. ``--kernel cuda_resident`` (the
 default, the counterpart of JAX's resident sweep) runs the fused front-half
-and apply/eta kernels, two launches a sweep; ``--kernel cuda`` the tau and
-swap kernels with gamma and eta MH as PyTorch ops.
+and apply/eta kernels, two launches a sweep; ``--kernel cuda`` the tau,
+swap, gamma_ll and apply/eta kernels, four launches a sweep, with the gamma
+and eta MH decisions as PyTorch ops.
 
 vs_baseline: the ratio against ``baseline_numpy``, the same O(V*G*4*S)
 sweep in vectorized numpy standing in for the reference's single-core

@@ -9,7 +9,8 @@ stdout and a markdown table of them on stderr:
 
   full_sweep_torch      V=1e4 x S=64 x G=8 Gibbs sweep, plain PyTorch
                         versions on the device (JAX's ``full_sweep_xla``)
-  full_sweep_cuda       the same on the tau and swap kernels (``_pallas``)
+  full_sweep_cuda       the same on the tau, swap, gamma_ll and apply/eta
+                        kernels (``_pallas``)
   full_sweep_resident   the same on the resident kernels (``cuda_resident``)
   full_sweep_chains4    4 chains through ``sampler.run_chains``, aggregate
                         sweeps/s on one device

@@ -24,20 +24,24 @@ Chains: the JAX package vmaps independent chains into one device program;
 here ``run_chains`` sweeps them as one state with a leading [C] axis (tau
 [C,V,G], mix [C,V,S,4], gamma [C,S,G], eta [C,4,4], loglik and kappas [C];
 the counts [V,S,4] are shared, or each chain's own [C,V,S,4], as
-``multibin``'s bins). One sweep launches the tau (or top-2) and swap
-kernels, or the resident kernels, once for all C chains, and runs the
-elementwise ops once on the stacked state. Its draws come from
-``ChainNoise``, chain c's from chain c's own generator, and every
-reduction and matrix product runs per chain on chain c's contiguous
-slice (``_each``, ``_each_n``), since torch may sum a stacked
+``multibin``'s bins). One sweep launches the tau (or top-2), swap,
+gamma_ll and apply/eta kernels, or the resident kernels, once for all C
+chains, and runs the elementwise ops once on the stacked state. Its
+draws come from ``ChainNoise``, chain c's from chain c's own generator,
+and every other reduction and matrix product runs per chain on chain c's
+contiguous slice (``_each``, ``_each_n``), since torch may sum a stacked
 tensor in another order: so chain c of a batched run is bitwise
 ``run_chain`` of its seed. The host branches on the sweep index (anneal,
 adaptation, accumulation) are shared by the chains; the decisions on data
 (MH accepts, the star, the swap pair) are per-chain masks.
 
-With ``kernel="cuda_resident"`` steps 1-3 run as two kernel launches a
-sweep (``resident.front``), with the same draws in the same order; only
-the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops.
+On ``kernel="cuda"`` (and ``cuda_topk``) the [V]-sized passes of steps
+2-3 run on two kernels, ``gamma_ll`` (the gamma MH's loglik pair) and
+``gamma_apply_eta`` (the accepts applied, the eta proposal's loglik), and
+only the [S]- and [4,4]-sized MH arithmetic stays as PyTorch ops; fixed
+gamma and per-row eta keep their PyTorch likelihood passes. With
+``kernel="cuda_resident"`` steps 1-3 run as two kernel launches a sweep
+(``resident.front``), with the same draws in the same order.
 
 Parallel tempering (``run_chain_pt``): R replicas on a temperature ladder,
 each a sweep with a fixed ``temp`` and a likelihood power ``beta``, then an
@@ -57,7 +61,7 @@ import torch
 
 from .likelihood import mixture
 from .nmf import em_gamma, nmf_init
-from .ops import Kernels, draw_gumbel, draw_swap_proposal, resolve
+from .ops import Kernels, draw_gumbel, draw_swap_proposal, gamma_ll, resolve
 from .ops.tau_kernel import gumbel_of
 from .profiling import span
 from .utils import NBASES, one_hot_tau, safe_log
@@ -420,12 +424,12 @@ def _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev, ll_old, ll_new,
 
 
 def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
-               it: int, beta=1.0, psum=_own, mix_out=None):
-    """Parallel per-sample Dirichlet-random-walk MH on gamma; beta < 1
-    tempers the likelihood term only (replica exchange's target
-    prior * L^beta); psum adds the position shards' [2,S] sums. mix_out: a
-    buffer the new mix is written into (a CUDA graph's static carry), or
-    None.
+               it: int, beta=1.0, psum=_own):
+    """Parallel per-sample Dirichlet-random-walk MH on gamma as PyTorch ops
+    (the sweep's own front takes the gamma_ll and apply/eta kernels' passes
+    in their place); beta < 1 tempers the likelihood term only (replica
+    exchange's target prior * L^beta); psum adds the position shards' [2,S]
+    sums.
 
     Returns (gamma, mix, accept_rate, loglik): the per-sample old/new
     likelihood terms of the MH ratio already give the post-update total
@@ -445,7 +449,7 @@ def gamma_step(cfg: SamplerConfig, n, tau, mix, gamma, eta, kappa, noise,
     ll = psum(_each_n(C, ll_pair, n, mix, mix_prop, eta))
     accept, gamma, loglik = _gamma_accept(gamma, gamma_prop, alpha_fwd, alpha_rev,
                                           ll[..., 0, :], ll[..., 1, :], noise, it, beta)
-    mix = torch.where(accept[..., None, :, None], mix_prop, mix, out=mix_out)
+    mix = torch.where(accept[..., None, :, None], mix_prop, mix)
     return gamma, mix, _each(C, torch.mean, accept.to(torch.float32)), loglik
 
 
@@ -528,8 +532,13 @@ def eta_step(cfg: SamplerConfig, n, mix, eta, loglik, kappa, noise, it: int,
 def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
                   noise, temp, beta=1.0, psum=_own, into=None):
     """The sweep's tau, gamma and eta updates as separate steps: the tau
-    sweep and swap kernels (or their plain versions), then gamma_step and
-    eta_step_joint (or eta_step) as plain PyTorch ops.
+    sweep and swap kernels (or their plain versions), then the gamma MH's
+    loglik pair on ``ks.gamma_ll``, its decisions as [S]-sized PyTorch ops,
+    the accepts applied and the joint eta proposal's loglik taken in one
+    ``ks.gamma_apply_eta`` pass, and the eta MH decision (``resident.front``'s
+    second half). fix_gamma keeps one ``_loglik`` pass and
+    ``eta_step_joint``; eta_update="rows" applies the accepts without the
+    eta loglik and runs ``eta_step``'s four passes.
 
     temp scales the Gumbel noise (a host float, or PT's device tensor: 0-d,
     or [C], one a chain); beta tempers every MH ratio, the swap's as a
@@ -537,9 +546,9 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
     compares logu < beta * dll, the same decision but at float near-ties).
     psum adds the position shards' likelihood sums (the identity on one
     device). Returns (tau, mix, gamma, eta, loglik, acc_gamma, acc_eta). A
-    state with a chain axis sweeps every chain in one tau and one swap
-    launch. into: a state whose tau and mix buffers the swap and the gamma
-    step write their outputs into (``make_sweep_fn``'s step), or None.
+    state with a chain axis sweeps every chain in each launch. into: a
+    state whose tau and mix buffers the swap and the apply write their
+    outputs into (``make_sweep_fn``'s step), or None.
     """
     V, S, _ = n.shape[-3:]
     G = cfg.G
@@ -562,16 +571,33 @@ def _staged_front(cfg: SamplerConfig, ks, n, state: SamplerState, it: int,
         acc_g = torch.zeros(state.loglik.shape, device=n.device)
         loglik = _loglik(n, mix, state.eta, psum)
     else:
-        gamma, mix, acc_g, loglik = gamma_step(
-            cfg, n, tau, mix, state.gamma, state.eta, state.kappa_gamma,
-            noise, it, beta, psum, _field(into, "mix"))
+        gamma_prop, alpha_fwd, alpha_rev = _gamma_proposal(
+            cfg, state.gamma, state.kappa_gamma, noise, it)
+        ll = psum(ks.gamma_ll(n, mix, tau, gamma_prop, state.eta, with_old=True))
+        accept, gamma, loglik = _gamma_accept(
+            state.gamma, gamma_prop, alpha_fwd, alpha_rev, ll[..., 0, :],
+            ll[..., 1, :], noise, it, beta)
+        C = _chains(state.gamma, 2)
+        acc_g = _each(C, torch.mean, accept.to(torch.float32))
+        # fix_tau's mix is the carry's own buffer, which the apply may not write
+        mix_out = None if cfg.fix_tau else _field(into, "mix")
+        if not cfg.fix_eta and cfg.eta_update == "joint":
+            eta_prop, alpha_fwd, alpha_rev = _eta_proposal(
+                cfg, state.eta, state.kappa_eta, noise, it)
+            mix, ll_eta = ks.gamma_apply_eta(n, mix, tau, gamma_prop, accept,
+                                             eta_prop, mix_out=mix_out)
+            eta, loglik, acc_e = _eta_accept(
+                cfg, state.eta, eta_prop, alpha_fwd, alpha_rev,
+                _each(C, torch.sum, psum(ll_eta)), loglik, noise, it, beta)
+            return tau, mix, gamma, eta, loglik, acc_g, acc_e
+        mix, _ = ks.gamma_apply_eta(n, mix, tau, gamma_prop, accept, state.eta,
+                                    with_eta=False, mix_out=mix_out)
     if cfg.fix_eta:
-        eta, acc_e = state.eta, torch.zeros(state.loglik.shape, device=n.device)
-    else:
-        eta_fn = eta_step_joint if cfg.eta_update == "joint" else eta_step
-        eta, loglik, acc_e = eta_fn(
-            cfg, n, mix, state.eta, loglik, state.kappa_eta, noise, it, beta,
-            psum)
+        return tau, mix, gamma, state.eta, loglik, acc_g, torch.zeros(
+            state.loglik.shape, device=n.device)
+    eta_fn = eta_step_joint if cfg.eta_update == "joint" else eta_step
+    eta, loglik, acc_e = eta_fn(cfg, n, mix, state.eta, loglik, state.kappa_eta,
+                                noise, it, beta, psum)
     return tau, mix, gamma, eta, loglik, acc_g, acc_e
 
 
@@ -871,7 +897,10 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     alone and the NaN trap off, each sweep is one replay of a CUDA graph of
     its phase (``sweep_graph``), bit for bit the eager sweep; elsewhere the
     sweeps run eagerly. The ``chains.sweeps`` span says which: ``graphed``
-    sweeps were replayed, ``captures`` graphs captured in the segment.
+    sweeps were replayed, ``captures`` graphs captured in the segment; its
+    ``ll_kernel`` counts the segment's launches of the ``gamma_ll`` kernel
+    (replays included; none on CPU tensors, under fix_gamma or on the
+    resident path's fused sweep).
     """
     from . import sweep_graph   # it imports this module
 
@@ -891,6 +920,7 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
     graphs = (sweep_graph.lookup(cfg, kernel, n, state, accum, noise, psum)
               if n_sweeps else None)
     advance = sweep if graphs is None else graphs.segment(cfg, sweep, noise)
+    ll_launches = gamma_ll.launches
     with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()) as s:
         j = 0
         for i in range(n_sweeps):
@@ -907,6 +937,7 @@ def run_segment(n: torch.Tensor, cfg: SamplerConfig, state: SamplerState,
         else:
             state, accum = advance.release(state, accum)
             s.attrs.update(graphed=advance.replayed, captures=advance.captured)
+        s.attrs.update(ll_kernel=gamma_ll.launches - ll_launches)
     return (state, accum, trace, draws) if store else (state, accum, trace)
 
 
@@ -1225,7 +1256,8 @@ def run_pt_segment(n, cfg: SamplerConfig, state, accum, rung, start_it: int,
     # each run's first replica on the flat axis
     run_base = torch.arange(0, rung.numel(), R, device=dev)
     agree = None if shard is None else shard.agree
-    with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()):
+    ll_launches = gamma_ll.launches
+    with span("chains.sweeps", sweeps=n_sweeps, chains=state.loglik.numel()) as s:
         j = 0
         for i in range(n_sweeps):
             state, accum, rung, cold_ll, acc, heads = step(
@@ -1248,6 +1280,7 @@ def run_pt_segment(n, cfg: SamplerConfig, state, accum, rung, start_it: int,
                         x = torch.where(mine, x[0], 0)
                     buf[..., j, :, :] = x.reshape(*runs, *x.shape[-2:])
                 j += 1
+        s.attrs.update(ll_kernel=gamma_ll.launches - ll_launches)
     out = (state, accum, rung, trace, n_acc, n_heads)
     return out + (draws,) if store else out
 

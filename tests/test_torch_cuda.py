@@ -511,6 +511,64 @@ def test_run_chains_on_the_card(cuda):
             assert (a is None and b is None) or torch.equal(a[i], b), (seed, name)
 
 
+def _traced_sweeps(fn):
+    """fn() under a CPU-only torch profiler, then the card synchronized: its
+    result and its chains.sweeps spans' (sweeps, ll_kernel)."""
+    from desman_tpu_torch import profiling
+
+    profiling.take_spans()
+    with torch.profiler.profile(activities=profiling.activities("cpu")):
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [(s.attrs["sweeps"], s.attrs["ll_kernel"])
+                 for s in profiling.take_spans() if s.name == "chains.sweeps"]
+
+
+def test_cuda_chains_take_the_gamma_kernels_once_a_sweep(cuda):
+    """run_chains of 5 chains on `cuda` launches gamma_ll and gamma_apply_eta
+    once a sweep for all five, as it does the tau and swap kernels (5 chain
+    launches a sweep); the chains.sweeps span's ll_kernel is its sweeps; and
+    chain c is bitwise run_chain of its seed."""
+    from desman_tpu_torch.sampler import (
+        SamplerConfig, chain_generator, run_chain, run_chains,
+    )
+
+    t = synth.generate(V=500, S=16, G=4, coverage=50.0, seed=7)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=4, burn=15, samples=15, nmf_iters=50)
+    seeds = [0, 1, 2, 3, 4]
+    ops.reset_launches()
+    res, spans = _traced_sweeps(lambda: run_chains(n, cfg, seeds))
+    assert spans == [(30, 30)]
+    for w in (ops.gamma_ll, ops.gamma_apply_eta, ops.tau_sweep, ops.swap):
+        assert (w.launches, w.chain_launches) == (30, 5 * 30), w.__name__
+    assert ops.fused_sweep.launches == 0
+    for c, seed in enumerate(seeds):
+        one = run_chain(n, cfg, chain_generator(seed, cuda))
+        for name, a, b in zip(one._fields, res, one):
+            assert (a is None and b is None) or torch.equal(a[c], b), (seed, name)
+
+
+@pytest.mark.parametrize("mode", ["rows", "fix_gamma"])
+def test_rows_and_fixed_gamma_keep_their_pytorch_passes_on_the_card(cuda, mode):
+    """Per-row eta takes gamma_ll and the apply (without the eta loglik)
+    once a sweep, then its four PyTorch likelihood passes; a frozen gamma
+    takes neither kernel (ll_kernel 0). Both run to finite logliks."""
+    from desman_tpu_torch.sampler import SamplerConfig, run_chains
+
+    t = synth.generate(V=300, S=12, G=3, coverage=50.0, seed=4)
+    n = torch.as_tensor(t.data.counts, device=cuda)
+    cfg = SamplerConfig(G=3, burn=10, samples=10, nmf_iters=50,
+                        eta_update="rows", fix_gamma=mode == "fix_gamma")
+    ops.reset_launches()
+    res, spans = _traced_sweeps(lambda: run_chains(n, cfg, [0, 1]))
+    want = 0 if mode == "fix_gamma" else 20
+    assert spans == [(20, want)]
+    assert (ops.gamma_ll.launches, ops.gamma_apply_eta.launches) == (want, want)
+    assert ops.tau_sweep.launches == 20
+    assert torch.isfinite(res.loglik_trace).all()
+
+
 def _resident_chain_inputs(V, S, G, C, seed, device, own_counts=False):
     """C chains' inputs of the resident kernels on the card, chain c's from
     numpy's default_rng(seed + c): its own tau, mixture, gamma, eta, noise,
@@ -774,9 +832,10 @@ def test_pt_checkpoint_resumes_bitwise(cuda, kernel, tmp_path, monkeypatch):
 
 def test_multibin_is_bitwise_run_chain_per_bin(cuda):
     """Three bins of S=64 padded to V=1999 (a tail tile short of 8 rows)
-    run through the tau and swap kernels on the chain axis (one launch a
-    sweep of all three, each bin on its own counts), each bitwise run_chain
-    of its padded counts with its generator; the kernels agree with their
+    run through the tau, swap, gamma_ll and apply/eta kernels on the chain
+    axis (one launch a sweep of all three, each bin on its own counts),
+    each bitwise run_chain of its padded counts with its generator; the
+    kernels agree with their
     plain versions on the padded counts, zero rows included."""
     from desman_tpu_torch import multibin
     from desman_tpu_torch.sampler import (
@@ -789,8 +848,8 @@ def test_multibin_is_bitwise_run_chain_per_bin(cuda):
     ops.reset_launches()
     results = multibin.run_bins(bins, cfg, seed=3, device=cuda)
     torch.cuda.synchronize()
-    assert ops.tau_sweep.launches == 30 and ops.swap.launches == 30
-    assert ops.tau_sweep.chain_launches == 3 * 30 and ops.swap.chain_launches == 3 * 30
+    for w in (ops.tau_sweep, ops.swap, ops.gamma_ll, ops.gamma_apply_eta):
+        assert (w.launches, w.chain_launches) == (30, 3 * 30), w.__name__
     padded = torch.as_tensor(multibin.pad_bins(bins), device=cuda)
     assert padded.shape == (3, 1999, 64, 4)
     for b, (counts, res, seed) in enumerate(zip(bins, results, spawn_seeds(3, 3))):

@@ -265,6 +265,9 @@ CARD_CASES = [
     ("cuda", None, False, dict(store_samples=True, store_thin=2), 3),
     ("cuda", 5, False, dict(fix_eta=True), 4),
     ("cuda", None, False, dict(G=1), 1),
+    ("cuda", None, False, dict(fix_tau=True), 1),
+    ("cuda", 5, False, dict(eta_update="rows"), 1),
+    ("cuda", None, False, dict(fix_gamma=True), 1),
     ("cuda_topk", None, False, {}, 1),
     ("cuda_topk", 5, False, {}, 2),
     ("cuda_resident", None, False, {}, 1),
@@ -282,7 +285,8 @@ def test_graphed_segments_are_the_eager_sweep(cuda, kernel, chains, own, changes
     eager sweep looped by hand from the same seeds: state, accumulators,
     trace, stored draws and each generator's next draw, bit for bit; the
     spans say every sweep was replayed; the ops launch counters advance as
-    the eager loop's do."""
+    the eager loop's do, gamma_ll's as the spans' ll_kernel says (on the
+    staged front, with apply/eta, once a sweep but for a frozen gamma)."""
     from desman_tpu_torch import profiling
 
     sweep_graph._CACHE.clear()
@@ -314,6 +318,9 @@ def test_graphed_segments_are_the_eager_sweep(cuda, kernel, chains, own, changes
     assert sum(s.attrs["graphed"] for s in spans) == cfg.total_sweeps
     assert 1 <= sum(s.attrs["captures"] for s in spans) <= 3
     assert [(w.launches, w.chain_launches) for w in ops.CHAIN_AXIS] == eager_launches
+    assert sum(s.attrs["ll_kernel"] for s in spans) == ops.gamma_ll.launches
+    if kernel != "cuda_resident" and not cfg.fix_gamma:   # the staged front's kernels
+        assert ops.gamma_ll.launches == ops.gamma_apply_eta.launches == cfg.total_sweeps
 
     for name, a, b in zip(state._fields + accum._fields, (*state, *accum),
                           (*e_state, *e_accum)):

@@ -302,9 +302,11 @@ SNAPSHOTS = {"plain": CFG,
 def test_a_snapshot_from_before_the_chain_axis_resumes_bitwise(name, tmp_path):
     """tests/data/pt_snapshot_<name>.npz: run_chain_pt_checkpointed of
     synth V=60 S=6 G=2 (seed 1), seed 5, R=3, max_temp 4, a snapshot every
-    7 sweeps, stopped after sweep 14 by the code before the chain axis.
-    Resumed here, the run is run_chain_pt's result, and its last snapshot
-    holds the arrays of an uninterrupted checkpointed run's."""
+    7 sweeps, stopped after sweep 14 (in the file format of the code before
+    the chain axis, unchanged since; rewritten when the sweep's bits last
+    changed, by its gamma and eta passes on the gamma_ll and apply/eta
+    wrappers). Resumed here, the run is run_chain_pt's result, and its last
+    snapshot holds the arrays of an uninterrupted checkpointed run's."""
     cfg = SNAPSHOTS[name]
     counts = torch.as_tensor(synth.generate(V=60, S=6, G=2, coverage=40.0,
                                             seed=1).data.counts)
